@@ -13,7 +13,9 @@ setup(
     version="0.1.0",
     description=("TPU-native ViT-UNet framework: hierarchical vision-"
                  "transformer autoencoders on JAX/XLA/Pallas"),
-    packages=find_packages(include=["vit_unet_tpu", "vit_unet_tpu.*"]),
+    packages=find_packages(include=["vit_unet_tpu", "vit_unet_tpu.*",
+                                    "vit_unet_tpu_torch", "vit_unet_tpu_torch.*"]),
+    package_data={"vit_unet_tpu_torch.kernels": ["csrc/*.cu"]},
     python_requires=">=3.10",
     ext_modules=[
         Extension(

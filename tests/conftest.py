@@ -39,6 +39,12 @@ except ImportError:
         cwd=_repo, capture_output=True, timeout=300, check=False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skips "
+        "without one")
+
+
 def cpu_devices(n: int = 8):
     return jax.devices("cpu")[:n]
 

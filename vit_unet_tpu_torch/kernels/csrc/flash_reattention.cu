@@ -1,0 +1,364 @@
+// Eval flash re-attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention.py
+// ::flash_reattention (body _kernel).  Computes, without writing the N x N
+// attention map to device memory,
+//
+//   A_h2  = softmax(q_h2 . k_h2^T)            (q pre-scaled, keys >= Nk masked)
+//   A'_h  = sum_h2 M[h, h2] * A_h2 + c[h]     (1x1 head-mix conv + eval BN,
+//                                             folded; only on valid keys)
+//   out[:, :, h*dh:(h+1)*dh] = A'_h @ V_h
+//
+// M and c are read from the expanded epilogue form the public function
+// takes: M[h, h2] = w[h2, h*dh], c[h] = b[h*dh].
+//
+// Design.  The TPU kernel keeps an (H, bq, H*dh) f32 accumulator per q tile.
+// At base's coarse level (H*dh = 3072) that is far beyond a Hopper block's
+// 227 KB of shared memory, so the work is split in two passes:
+//
+//   pass 1 (lse_kernel):  grid (q tiles, H, B).  Online max / sum over the
+//     key tiles of one head; writes the per-row log-sum-exp (B, H, Nq) f32.
+//   pass 2 (out_kernel):  grid (q tiles, H / G, B).  One block per group
+//     of G output heads.  For each key tile it computes the H score tiles
+//     once, keeps the normalised probabilities exp(s_h2 - lse_h2) of all
+//     heads in shared memory (each thread reads back only the entries it
+//     wrote), then for each output head h of its group forms the mixed
+//     probabilities P' = sum_h2 M[h,h2] P_h2 + c[h], stages P' and
+//     accumulates P' @ V_h into a (32 x dh) f32 register accumulator.
+//     G is the largest power of two dividing H with G * NJ <= 16 (dh rounded
+//     up to 16 * NJ), so the G accumulators fit the registers: G = H at
+//     base's finest level (no score recomputation), G = 1 at its coarse
+//     level (H recomputations).
+//
+// What bounds it.  Scores are recomputed H / G times, the head mix costs
+// H * G multiply-adds per map entry, and all of it runs as f32 FMAs on the
+// CUDA cores (no tensor cores, hence no TF32 either).  Its ideal bound is
+// the f32 operation count; measured on the H100 it runs well below that,
+// limited by shared-memory load instructions (8 loads per 16 FMAs in the
+// score tile) and by the global-load / barrier round trips of each chunk
+// at 8 warps per SM.  Tensor cores (mma.sync / wgmma on the bf16 path),
+// vectorised shared-memory reads and prefetching belong to a later change.
+//
+// Shapes: f32 or bf16 q/k/v (f32 accumulation), any Nq, Nk >= 0 with the
+// ragged edges masked in the kernel (no padding copies), Nq != Nk, H <= 16,
+// dh <= 384.  All tensors are contiguous; the caller allocates every output
+// and scratch buffer and passes the stream.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 32;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 128;  // threads per block: 8 row groups x 16 column lanes
+constexpr int VC = 16;   // value rows staged per shared-memory chunk
+constexpr int MAX_HEADS = 16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Thread (ty, tx) = (tid / 16, tid % 16) owns score rows ty + 8*i and key
+// columns tx + 16*j, i, j < 4, of a BQ x BK tile.
+template <typename T, int DK>
+__device__ __forceinline__ void score_tile(
+    const T* __restrict__ qh, const T* __restrict__ kh, int q0, int k0,
+    int nq, int nk, int dh, float (*qs)[DK + 1], float (*ks)[DK + 1],
+    float s[4][4], int tid, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  for (int d0 = 0; d0 < dh; d0 += DK) {
+    __syncthreads();
+    for (int e = tid; e < BQ * DK; e += NT) {
+      const int r = e / DK, d = e % DK;
+      float x = 0.f;
+      if (q0 + r < nq && d0 + d < dh) x = to_f32(qh[(int64_t)(q0 + r) * dh + d0 + d]);
+      qs[r][d] = x;
+    }
+    for (int e = tid; e < BK * DK; e += NT) {
+      const int r = e / DK, d = e % DK;
+      float x = 0.f;
+      if (k0 + r < nk && d0 + d < dh) x = to_f32(kh[(int64_t)(k0 + r) * dh + d0 + d]);
+      ks[r][d] = x;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int d = 0; d < DK; ++d) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[ty + 8 * i][d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ks[tx + 16 * j][d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+  }
+}
+
+// The 16 lanes that share a row sit in one half-warp: xor offsets < 16.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int DK>
+__global__ void __launch_bounds__(NT) lse_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, float* __restrict__ lse,
+    int heads, int nq, int nk, int dh) {
+  __shared__ float qs[BQ][DK + 1];
+  __shared__ float ks[BK][DK + 1];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int64_t bh = (int64_t)b * heads + h;
+  const T* qh = q + bh * nq * dh;
+  const T* kh = k + bh * nk * dh;
+
+  float m[4], l[4], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  for (int k0 = 0; k0 < nk; k0 += BK) {
+    score_tile<T, DK>(qh, kh, q0, k0, nq, nk, dh, qs, ks, s, tid, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + tx + 16 * j < nk) mt = fmaxf(mt, s[i][j]);
+      mt = row_max(mt);               // finite: key k0 is valid
+      const float mn = fmaxf(m[i], mt);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + tx + 16 * j < nk) sum += expf(s[i][j] - mn);
+      sum = row_sum(sum);
+      l[i] = l[i] * expf(m[i] - mn) + sum;
+      m[i] = mn;
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 8 * i;
+      // l == 0 only without keys: exp(s - inf) = 0 then drops every term,
+      // as the TPU epilogue's l_inv = 1 on an all-zero accumulator does
+      if (row < nq) lse[bh * nq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    }
+  }
+}
+
+// Dynamic shared memory of out_kernel: the H normalised probability tiles.
+__host__ __device__ constexpr int prob_tile_floats() { return BQ * (BK + 1); }
+
+template <typename T, int NJ, int G>
+__global__ void __launch_bounds__(NT) out_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ bvec,
+    const float* __restrict__ lse, T* __restrict__ out,
+    int heads, int nq, int nk, int dh) {
+  constexpr int DK = NJ == 1 ? 16 : 32;
+  constexpr int DV = 16 * NJ;
+  extern __shared__ float pt[];   // [heads][BQ][BK + 1]
+  __shared__ float qs[BQ][DK + 1];
+  __shared__ float ks[BK][DK + 1];
+  __shared__ float ps[BQ][BK + 1];
+  __shared__ float vs[VC][DV];
+  __shared__ float mix[G][MAX_HEADS];
+  __shared__ float cvec[G];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * BQ, h0 = blockIdx.y * G, b = blockIdx.z;
+  const int proj = heads * dh;
+
+  for (int e = tid; e < G * heads; e += NT) {      // mix[g][h2] = M[h0+g, h2]
+    const int g = e / heads, h2 = e % heads;
+    mix[g][h2] = w[(int64_t)h2 * proj + (h0 + g) * dh];
+  }
+  if (tid < G) cvec[tid] = bvec[(h0 + tid) * dh];  // c[h0+g]
+
+  float acc[G][4][NJ];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[g][i][j] = 0.f;
+
+  float s[4][4];
+  for (int k0 = 0; k0 < nk; k0 += BK) {
+    for (int h2 = 0; h2 < heads; ++h2) {
+      const int64_t bh2 = (int64_t)b * heads + h2;
+      score_tile<T, DK>(q + bh2 * nq * dh, k + bh2 * nk * dh, q0, k0, nq, nk,
+                        dh, qs, ks, s, tid, ty, tx);
+      float* tile = pt + h2 * prob_tile_floats();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 8 * i;
+        const float L = row < nq ? lse[bh2 * nq + row] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool valid = k0 + tx + 16 * j < nk;
+          tile[(ty + 8 * i) * (BK + 1) + tx + 16 * j] = valid ? expf(s[i][j] - L) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = (k0 + tx + 16 * j < nk) ? cvec[g] : 0.f;
+      for (int h2 = 0; h2 < heads; ++h2) {
+        const float mm = mix[g][h2];
+        const float* tile = pt + h2 * prob_tile_floats();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            p[i][j] = fmaf(mm, tile[(ty + 8 * i) * (BK + 1) + tx + 16 * j], p[i][j]);
+      }
+      __syncthreads();   // the previous head's P' @ V is done with ps
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[ty + 8 * i][tx + 16 * j] = p[i][j];
+      const int hv = (h0 + g) * dh;
+      for (int c0 = 0; c0 < BK; c0 += VC) {
+        __syncthreads();   // ps written / previous vs chunk consumed
+        for (int e = tid; e < VC * DV; e += NT) {
+          const int r = e / DV, d = e % DV;
+          const int key = k0 + c0 + r;
+          float x = 0.f;
+          if (key < nk && d < dh) x = to_f32(v[((int64_t)b * nk + key) * proj + hv + d]);
+          vs[r][d] = x;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int cc = 0; cc < VC; ++cc) {
+          float a[4], vv[NJ];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = ps[ty + 8 * i][c0 + cc];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) vv[j] = vs[cc][tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) acc[g][i][j] = fmaf(a[i], vv[j], acc[g][i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 8 * i;
+      if (row >= nq) continue;
+      T* orow = out + ((int64_t)b * nq + row) * proj + (h0 + g) * dh;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = tx + 16 * j;
+        if (col < dh) orow[col] = from_f32<T>(acc[g][i][j]);
+      }
+    }
+}
+
+template <typename T, int NJ, int G>
+int launch(const void* q, const void* k, const void* v, const float* w,
+           const float* b, float* lse, void* out, int batch, int heads,
+           int nq, int nk, int dh, cudaStream_t stream) {
+  constexpr int DK = NJ == 1 ? 16 : 32;
+  const int q_tiles = (nq + BQ - 1) / BQ;
+  lse_kernel<T, DK><<<dim3(q_tiles, heads, batch), NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), lse, heads, nq, nk, dh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t dyn = sizeof(float) * heads * prob_tile_floats();
+  err = cudaFuncSetAttribute(out_kernel<T, NJ, G>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out_kernel<T, NJ, G><<<dim3(q_tiles, heads / G, batch), NT, dyn, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), w, b, lse, static_cast<T*>(out), heads, nq,
+      nk, dh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// G: the largest power of two dividing H with G * NJ <= 16.
+template <typename T, int NJ>
+int launch_grouped(const void* q, const void* k, const void* v, const float* w,
+                   const float* b, float* lse, void* out, int batch, int heads,
+                   int nq, int nk, int dh, cudaStream_t stream) {
+  if constexpr (NJ <= 1) {
+    if (heads % 16 == 0) return launch<T, NJ, 16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  }
+  if constexpr (NJ <= 2) {
+    if (heads % 8 == 0) return launch<T, NJ, 8>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  }
+  if constexpr (NJ <= 4) {
+    if (heads % 4 == 0) return launch<T, NJ, 4>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  }
+  if constexpr (NJ <= 8) {
+    if (heads % 2 == 0) return launch<T, NJ, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  }
+  return launch<T, NJ, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const float* w,
+             const float* b, float* lse, void* out, int batch, int heads,
+             int nq, int nk, int dh, cudaStream_t stream) {
+  // accumulator width: the smallest 16 * NJ >= dh (every preset's dh fits
+  // one of these exactly, apart from dh 4, 8 and 12)
+  if (dh <= 16) return launch_grouped<T, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  if (dh <= 32) return launch_grouped<T, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  if (dh <= 48) return launch_grouped<T, 3>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  if (dh <= 96) return launch_grouped<T, 6>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  if (dh <= 192) return launch_grouped<T, 12>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  return launch_grouped<T, 24>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launches (0 on success), or cudaErrorInvalidValue for unsupported shapes.
+int vit_flash_reattention(const void* q, const void* k, const void* v,
+                          const float* w, const float* b, float* lse, void* out,
+                          int batch, int heads, int nq, int nk, int dh,
+                          int dtype, void* stream) {
+  if (batch <= 0 || nq <= 0 || nk < 0 || heads <= 0 || heads > MAX_HEADS ||
+      dh <= 0 || dh > 384 || batch > 65535 || heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* vit_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
