@@ -15,7 +15,7 @@ setup(
                  "transformer autoencoders on JAX/XLA/Pallas"),
     packages=find_packages(include=["vit_unet_tpu", "vit_unet_tpu.*",
                                     "vit_unet_tpu_torch", "vit_unet_tpu_torch.*"]),
-    package_data={"vit_unet_tpu_torch.kernels": ["csrc/*.cu"]},
+    package_data={"vit_unet_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     ext_modules=[
         Extension(

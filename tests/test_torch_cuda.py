@@ -54,3 +54,98 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         TK.flash_reattention(q, q, torch.zeros(1, 8, 16, device=cuda,
                                                dtype=torch.float16),
                              w.to(cuda), b.to(cuda), num_heads=2)
+
+
+# --- the training kernels ------------------------------------------------------
+
+TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
+F32_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}   # f32 outputs (lse, S, C, grads)
+
+
+def _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k):
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(batch, heads, n_q, dh, generator=g) * 3 * dh ** -0.5
+    k = torch.randn(batch, heads, n_k, dh, generator=g)
+    v = torch.randn(batch, n_k, heads * dh, generator=g)
+    m = torch.randn(heads, heads, generator=g) * heads ** -0.5
+    c = torch.randn(heads, generator=g) * 0.1
+    gout = torch.randn(batch, n_q, heads * dh, generator=g)
+    seed = torch.tensor([99], device=cuda)
+    return ([t.to(cuda, dtype) for t in (q, k, v)] + [m.to(cuda), c.to(cuda)]
+            + [gout.to(cuda, dtype), seed])
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [
+    (2, 8, 384, 49, 49), (2, 8, 96, 196, 196), (2, 8, 24, 784, 784),
+    (2, 4, 12, 96, 200),
+])
+def test_train_kernels_match_plain(cuda, dtype, rate, batch, heads, dh, n_q, n_k):
+    q, k, v, m, c, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    vsum = v.float().sum(1)
+    before = (TT.train_fwd.launches, TT.bn_fwd.launches, TT.train_bwd.launches)
+    got = TT.train_fwd(q, k, v, vsum, m, c, seed, rate)
+    want = TT.train_fwd_plain(q, k, v, vsum, m, c, seed, rate)
+    for a, b, tol in zip(got, want, (TOL, F32_TOL, TOL)):
+        assert _rel(a, b) <= tol[dtype]
+    got = TT.bn_fwd(q, k, v, seed, rate)
+    want = TT.bn_fwd_plain(q, k, v, seed, rate)
+    for a, b, tol in zip(got, want, (F32_TOL, F32_TOL, F32_TOL, TOL)):
+        assert _rel(a, b) <= tol[dtype]
+    lse = want[2]
+    d = torch.randn(batch, heads, n_q, device=cuda)
+    extra = (torch.randn(heads, heads, device=cuda) * 0.1,
+             torch.randn(heads, device=cuda) * 0.1)
+    for bn_extra in (None, extra):
+        got = TT.train_bwd(q, k, v, lse, gout, m, d, seed, rate, bn_extra)
+        want = TT.train_bwd_plain(q, k, v, lse, gout, m, d, seed, rate, bn_extra)
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= F32_TOL[dtype]
+    torch.cuda.synchronize()
+    after = (TT.train_fwd.launches, TT.bn_fwd.launches, TT.train_bwd.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.parametrize("mode", ["frozen", "bn"])
+def test_train_functions_grads_match_nxn_autograd(cuda, mode):
+    """The autograd Functions on the card (f32) against torch autograd of
+    the N x N forward (``reattention_nxn``) in float64 with the same
+    dropout mask; the loss takes the BN moments too."""
+    batch, heads, dh, n, rate = 2, 8, 24, 196, 0.2
+    q, k, v, m, c, gout, seed = _train_inputs(cuda, torch.float32, batch, heads, dh, n, n)
+    mask = TT.dropout_mask(99, rate, batch, heads, n, n, cuda)
+    ga, be = torch.rand(heads, device=cuda) + 0.5, torch.randn(heads, device=cuda) * 0.2
+    leaves = [t.clone().requires_grad_() for t in
+              ((q, k, v, m, c) if mode == "frozen" else (q, k, v, m, c, ga, be))]
+    ref = [t.detach().double().requires_grad_() for t in leaves]
+
+    if mode == "frozen":
+        got = (TT.flash_reattention_train(*leaves, seed, num_heads=heads, rate=rate),)
+        want = (TT.reattention_nxn(*ref, mask)[0],)
+    else:
+        got = TT.flash_reattention_train_bn(*leaves, seed, num_heads=heads, rate=rate)
+        out, moments = TT.reattention_nxn(*ref[:5], mask, norm=ref[5:])
+        want = (out, *moments)
+    assert _rel(got[0], want[0]) <= 1e-4
+    loss = lambda outs: ((outs[0] * gout.to(outs[0].dtype)).sum()
+                         + sum(o.sum() for o in outs[1:]))
+    g_got = torch.autograd.grad(loss(got), leaves)
+    g_want = torch.autograd.grad(loss(want), ref)
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert _rel(a, b) <= 1e-3, i
+
+
+def test_train_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 8, device=cuda, dtype=torch.float16)
+    v = torch.zeros(1, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        TT.bn_fwd(q, q, v, None)
+    q32 = torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="seed"):
+        TT.bn_fwd(q32, q32, torch.zeros(1, 8, 16, device=cuda), 7, 0.2)

@@ -1,10 +1,13 @@
 """vit_unet_tpu_torch — the PyTorch / CUDA port of vit_unet_tpu for NVIDIA
 Hopper (H100).
 
-So far it covers the eval (serving) path of the torch-flavour ViT-UNet, with
-the re-attention contraction in a hand-written CUDA kernel
-(``kernels/csrc/flash_reattention.cu``).  It imports torch and never jax or
-the JAX package.  Entry points run on the card unless given ``device=``.
+So far it covers the torch-flavour ViT-UNet's eval (serving) path and its
+single-device train step (``parallel/train_step.py``), with every
+re-attention contraction in hand-written CUDA kernels
+(``kernels/csrc/flash_reattention.cu`` for eval,
+``kernels/csrc/flash_reattention_train.cu`` for training).  It imports torch
+and never jax or the JAX package.  Entry points run on the card unless given
+``device=``.
 """
 __version__ = "0.1.0"
 

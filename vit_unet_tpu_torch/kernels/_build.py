@@ -39,8 +39,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library's path; its hash covers the source, every shared header
+    under ``csrc/`` and the flags."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

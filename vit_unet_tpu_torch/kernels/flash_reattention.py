@@ -38,13 +38,14 @@ def fold_reattention_compact(conv_weight, conv_bias, bn_weight, bn_bias,
     ``m_eff`` and (H,) ``c_eff``: attn'_h = sum_h2 m_eff[h, h2] attn_h2 + c_eff[h].
 
     ``conv_weight`` is torch's (H_out, H_in, 1, 1) layout or an (H, H) [h, h2]
-    matrix.  Computed in float32.
+    matrix.  Computed in float32 (float64 inputs stay float64).
     """
-    m = conv_weight.float()
+    f = lambda t: t if t.dtype == torch.float64 else t.float()
+    m = f(conv_weight)
     if m.ndim == 4:
         m = m[:, :, 0, 0]
-    a = bn_weight.float() / torch.sqrt(bn_var.float() + eps)
-    c = (bn_bias.float() - a * bn_mean.float()) + a * conv_bias.float()
+    a = f(bn_weight) / torch.sqrt(f(bn_var) + eps)
+    c = (f(bn_bias) - a * f(bn_mean)) + a * f(conv_bias)
     return (a[:, None] * m) * reatten_scale, c * reatten_scale
 
 

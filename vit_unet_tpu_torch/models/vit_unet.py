@@ -1,4 +1,4 @@
-"""ViT-UNet, eval path, in PyTorch: the counterpart of
+"""ViT-UNet in PyTorch, eval and training: the counterpart of
 ``vit_unet_tpu/models/vit_unet.py``.
 
 Patch-encode, ``depth`` levels of ``depth_te`` re-attention blocks with patch
@@ -20,9 +20,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_unet_tpu_torch.nn.blocks import ReAttentionEncoderBlock
-from vit_unet_tpu_torch.nn.eval_only import (
-    TRAINING_SLICE, EvalOnlyModule, check_eval,
-)
 from vit_unet_tpu_torch.nn.patch_encoder import PatchEncoder
 from vit_unet_tpu_torch.nn.reattention import SkipConnection
 from vit_unet_tpu_torch.ops.patches import merge_patches, split_patches, unpatchify
@@ -31,12 +28,13 @@ from vit_unet_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ViTUNetConfig:
-    """The JAX package's config, field for field.  The port runs eval only:
-    ``remat``, ``block_type='fourier'``, the training flags and sequence
-    parallelism raise ``NotImplementedError`` when the model is built.
-    ``use_flash`` defaults to True here: every eval re-attention runs the
-    fused ``flash_reattention`` (the kernel on the card); False runs its
-    plain version, which materialises the N x N map."""
+    """The JAX package's config, field for field.  ``remat``,
+    ``block_type='fourier'`` and sequence parallelism raise
+    ``NotImplementedError`` when the model is built.  ``use_flash`` and
+    ``flash_train`` default to True here: every re-attention, eval and
+    training, runs the port's kernels on the card; ``use_flash=False`` (or
+    ``flash_train=False`` for training) runs their plain versions, which
+    materialise the N x N map."""
 
     depth: int = 2
     depth_te: int = 2
@@ -61,7 +59,7 @@ class ViTUNetConfig:
     head_blocks: int = 0             # (Conv 3x3 head_dim, GELU) blocks
     head_dim: int = 32
     use_flash: bool = True
-    flash_train: bool = False
+    flash_train: bool = True
     flash_frozen_bn: bool = False
     bn_track: bool = False
     attn_bn_eps: float = 1e-5
@@ -117,14 +115,13 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-class ViTUNet(EvalOnlyModule):
-    """(B, C, H, W) -> (B, C_out, im_size, im_size), eval mode."""
+class ViTUNet(nn.Module):
+    """(B, C, H, W) -> (B, C_out, im_size, im_size).  Starts in eval mode;
+    ``train()`` makes ``forward`` default to the training semantics."""
 
     def __init__(self, config: ViTUNetConfig):
         super().__init__()
         cfg = config
-        if cfg.flash_train or cfg.flash_frozen_bn or cfg.bn_track:
-            raise NotImplementedError(TRAINING_SLICE)
         if cfg.sequence_parallel:
             raise NotImplementedError(
                 "sequence parallelism belongs to the port's multi-GPU slice "
@@ -134,21 +131,23 @@ class ViTUNet(EvalOnlyModule):
                 "block_type='fourier' (FourierEncoderBlock) is not ported yet")
         if cfg.remat:
             raise NotImplementedError(
-                "remat only matters for training, which the port does not "
-                "run yet")
+                "remat (activation checkpointing) is not ported yet")
         self.config = cfg
         self.dtype = dt = _torch_dtype(cfg.dtype)
         self.PE = PatchEncoder(cfg.depth, cfg.num_patches, cfg.patch_size,
                                cfg.num_channels, cfg.preprocessing, dtype=dt)
         common = dict(num_channels=cfg.num_channels, num_heads=cfg.num_heads,
-                      qkv_kernel=cfg.qkv_kernel, use_flash=cfg.use_flash,
-                      bn_eps=cfg.attn_bn_eps, dtype=dt)
+                      qkv_kernel=cfg.qkv_kernel, attn_drop=cfg.attn_drop,
+                      proj_drop=cfg.proj_drop, use_flash=cfg.use_flash,
+                      flash_train=cfg.flash_train,
+                      flash_frozen_bn=cfg.flash_frozen_bn,
+                      bn_track=cfg.bn_track, bn_eps=cfg.attn_bn_eps, dtype=dt)
 
         def block(level: int):
             g = cfg.level_geometry(level)
             return ReAttentionEncoderBlock(
                 g["num_patches"], g["projection_dim"], g["hidden_dim"],
-                ln_mode=cfg.ln_mode, **common)
+                linear_drop=cfg.linear_drop, ln_mode=cfg.ln_mode, **common)
 
         self.Encoders = nn.ModuleList(
             block(lvl) for lvl in range(cfg.depth) for _ in range(cfg.depth_te))
@@ -173,6 +172,7 @@ class ViTUNet(EvalOnlyModule):
             self.conv2d = nn.Conv2d(conv_in, out_ch, 3, padding="same")
         if cfg.residual_gain:
             self.residual_gain = nn.Parameter(torch.zeros(out_ch))
+        self.eval()
 
     @property
     def _has_out_conv(self) -> bool:
@@ -202,9 +202,20 @@ class ViTUNet(EvalOnlyModule):
             self.residual_gain.zero_()
         return self
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                use_running_average: bool = True) -> torch.Tensor:
-        check_eval(deterministic, use_running_average)
+    def forward(self, x: torch.Tensor, *, deterministic: Optional[bool] = None,
+                use_running_average: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``deterministic=False`` turns dropout on, drawn from
+        ``generator`` (a ``torch.Generator`` on the input's device, needed
+        when a dropout rate is above 0); ``use_running_average=False``
+        normalises the head-mix BatchNorm with batch statistics and updates
+        its running ones.  Both default to ``not self.training``."""
+        if deterministic is None:
+            deterministic = not self.training
+        if use_running_average is None:
+            use_running_average = not self.training
+        kw = dict(deterministic=deterministic,
+                  use_running_average=use_running_average, generator=generator)
         cfg = self.config
         dt = self.dtype
         if x.shape[-1] != cfg.im_size or x.shape[-2] != cfg.im_size:
@@ -217,18 +228,19 @@ class ViTUNet(EvalOnlyModule):
         h = self.PE(x)
         skips = []
         for i, enc in enumerate(self.Encoders):
-            h = enc(h)
+            h = enc(h, **kw)
             if (i + 1) % cfg.depth_te == 0:
                 skips.append(h)
                 h = split_patches(h, cfg.num_channels)
         for bott in self.BottleNeck:
-            h = bott(h)
+            h = bott(h, **kw)
         for i, dec in enumerate(self.Decoders):
-            h = dec(h)
+            h = dec(h, **kw)
             if (i + 1) % cfg.depth_te == 0:
                 lvl = (i + 1) // cfg.depth_te
                 h = merge_patches(h, cfg.num_channels)
-                h = self.SkipConnections[lvl - 1](skips[cfg.depth - lvl], h, h)
+                h = self.SkipConnections[lvl - 1](skips[cfg.depth - lvl], h, h,
+                                                  **kw)
 
         out = unpatchify(h, cfg.num_channels)
         if cfg.input_skip:
@@ -281,7 +293,8 @@ def get_config(name: str, **overrides) -> ViTUNetConfig:
 
 def get_vit_unet(name: str, *, device: str | torch.device | None = None,
                  seed: int = 0, **overrides) -> ViTUNet:
-    """Preset name -> eval-mode model on ``device`` (default: the card).
+    """Preset name -> model on ``device`` (default: the card), in eval
+    mode.
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     (so one seed gives one model on every device), then cast to

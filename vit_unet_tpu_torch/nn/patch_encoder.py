@@ -9,13 +9,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit_unet_tpu_torch.nn.eval_only import EvalOnlyModule
 from vit_unet_tpu_torch.ops.patches import (
     change_patch_size, flatten_patches, patchify,
 )
 
 
-class PatchEncoder(EvalOnlyModule):
+class PatchEncoder(nn.Module):
     def __init__(self, depth: int, num_patches: int, patch_size: int,
                  num_channels: int = 3, preprocessing: str = "conv",
                  dtype: torch.dtype = torch.float32):
