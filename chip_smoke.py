@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything, with the result lines
+    python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
+                                           # (2a, 2b, 3, 4; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -11,14 +13,19 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. every kernel against its plain PyTorch version on the card, at the
    level shapes of the lite and base presets, in float32 (TF32 off) and
    bfloat16, with times and the least time the card could take (``bound``):
-   the eval kernel (also one rectangular and two 16-head cases), and the
-   three training kernels at dropout rate 0 and 0.2, plus the autograd
-   Functions' gradients against torch autograd of the N x N forward with
-   the same dropout mask;
+   the eval kernel (2a: also one rectangular and two 16-head cases, a
+   peaked map, a handful of keys and a single query; each on the route
+   ``kernel_route`` names, float32 on the CUDA cores, bfloat16 on the tensor
+   cores; at the main path's shapes both routes in turns, each pass alone,
+   and ``scaled_dot_product_attention`` as a reading of the two products'
+   cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
+   plus the autograd Functions' gradients against torch autograd of the
+   N x N forward with the same dropout mask;
 3. serving: the base preset at full width (224², bf16) served through
-   ``Predictor(batch_size=64)`` with the eval kernel's launch counts, the
-   kernel path held against the plain path in float32, and the serving
-   rate;
+   ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
+   route, the kernel path held against the plain path in float32 and in
+   bfloat16, and the serving rate, with the eval kernel held on the
+   CUDA-core route before and after for comparison;
 4. training: the base preset at full width (224², bf16, batch 64, AdamW
    1e-4 with weight decay 1e-4, x ~ N(0, 1), y = 0.9 x): 2 + 10 exact-BN
    steps and 5 frozen-BN steps through ``build_step_functions`` with the
@@ -34,12 +41,14 @@ the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -51,6 +60,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # max|err| / max|plain|
 # f32 model path vs plain path: same weights, same f32 math, but other
 # summation orders through 12 re-attention calls and 20 LayerNorms
 MODEL_TOL = 1e-3
+# bf16 model, kernel path vs plain path, same weights: the plain path keeps
+# the mixed map in f32 and rounds each call's output to bf16, the tensor-core
+# route also rounds the mixed map to bf16 before the product with V (as the
+# TPU kernel does); 12 calls and 20 LayerNorms carry those roundings on
+MODEL_TOL_BF16 = 2e-2
 BASE_LEVELS = [  # (heads, dh, n, calls per base forward)
     (8, 384, 49, 3),    # encoder level 0 x2, skip connection 1
     (8, 96, 196, 5),    # encoder level 1 x2, decoder level 1 x2, skip 0
@@ -62,9 +76,16 @@ CHECK_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 96, 96, 200),                                                 # rectangular
     (4, 16, 12, 256, 256), (8, 16, 48, 64, 64),                          # 16 heads
 ]
+EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
+    ("peaked", 4, 8, 96, 196, 196, 8.0),      # large lse, far from uniform maps
+    ("few keys", 4, 8, 24, 100, 9, 1.0),      # Nk < 16
+    ("one query", 4, 8, 384, 1, 49, 1.0),     # Nq = 1
+]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-SOURCES = ("flash_reattention.cu", "flash_reattention_train.cu")
+PHASES = ("2a", "2b", "3", "4")
+EVAL_SOURCE = "flash_reattention.cu"
+TRAIN_SOURCE = "flash_reattention_train.cu"
 
 
 def card_line() -> str:
@@ -88,11 +109,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed):
+def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0):
     """Random kernel inputs on the card: q pre-scaled, a random head mix."""
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g)
-    q = rnd(batch, heads, n_q, dh) * dh ** -0.5
+    q = rnd(batch, heads, n_q, dh) * (q_scale * dh ** -0.5)
     k = rnd(batch, heads, n_k, dh)
     v = rnd(batch, n_k, heads * dh)
     m_eff = rnd(heads, heads) * heads ** -0.5
@@ -121,11 +142,30 @@ def bound_of(t_bytes: float, t_ops: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10):
+def pass_bounds(batch, heads, dh, n_q, n_k, dtype) -> dict:
+    """{pass: (t_bytes, t_ops)} in ms for the two passes alone: the
+    log-sum-exp pass reads q and k and writes lse (scores: 2 dh operations a
+    map entry); the output pass reads everything and lse and writes out."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    qk = item * batch * heads * (n_q + n_k) * dh
+    lse = 4 * batch * heads * n_q
+    area = batch * heads * n_q * n_k
+    t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype)
+    return {"lse": ((qk + lse) / PEAK_BYTES * 1e3,
+                    2.0 * area * dh / PEAK_FLOPS[dtype] * 1e3),
+            "out": (t_bytes + lse / PEAK_BYTES * 1e3, t_ops)}
+
+
+def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
+                 q_scale=1.0, label=""):
     from vit_unet_tpu_torch.kernels.flash_reattention import (
-        flash_reattention, flash_reattention_plain)
-    args = reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
+        flash_reattention, flash_reattention_plain, kernel_route)
+    args = reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale)
+    route = kernel_route(dtype, heads, dh)
+    before = flash_reattention.route_launches[route]
     got = flash_reattention(*args, num_heads=heads)
+    if flash_reattention.route_launches[route] != before + 1:
+        raise AssertionError(f"the call did not take the {route} route")
     want = flash_reattention_plain(*args, num_heads=heads)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -136,16 +176,61 @@ def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10):
     t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype)
     bound, by = bound_of(t_bytes, t_ops)
     name = str(dtype).replace("torch.", "")
-    print(f"  B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} {name}: max_abs_err "
+    print(f"  B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} {name}"
+          f"{' ' + label if label else ''} [{route}]: max_abs_err "
           f"{err:.3e} rel {rel:.3e} (tol {TOL[dtype]:.0e}) | kernel {ms:.4f} ms"
           f" plain {plain:.4f} ms bound {bound:.4f} ms ({by})")
     if not (math.isfinite(rel) and rel <= TOL[dtype]):
         raise AssertionError(f"flash_reattention disagrees with its plain "
                              f"version: rel {rel:.3e} > {TOL[dtype]:.0e}")
-    return dict(err=err, ms=ms, plain_ms=plain, t_bytes=t_bytes, t_ops=t_ops)
+    return dict(err=err, ms=ms, plain_ms=plain, t_bytes=t_bytes, t_ops=t_ops,
+                route=route, shape_class=f"H{heads} dh{dh} {name}")
 
 
-def phase_environment():
+def time_passes(batch, heads, dh, n, reps=10):
+    """At one main-path shape in bf16: the whole call on the CUDA-core route
+    and on the tensor-core route in turns (old, new, new, old), the route
+    against route difference, each pass of the main path's route alone, and
+    scaled_dot_product_attention on the same q, k, v."""
+    from vit_unet_tpu_torch.kernels.flash_reattention import (
+        ROUTES, kernel_route, launch_passes)
+    dtype = torch.bfloat16
+    q, k, v, w, b = reattention_inputs(batch, heads, dh, n, n, dtype, 0)
+    outs = {r: torch.empty(batch, n, heads * dh, dtype=dtype, device="cuda")
+            for r in ROUTES}
+    lses = {r: torch.empty(batch, heads, n, device="cuda") for r in ROUTES}
+    run = lambda r, passes=3: launch_passes(q, k, v, w, b, lses[r], outs[r],
+                                            route=r, passes=passes)
+    turns = [(r, time_ms(lambda: run(r), reps))
+             for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
+    d_out = (outs["tensor_core"].float() - outs["cuda_core"].float()).abs().max().item()
+    d_out /= outs["cuda_core"].float().abs().max().item()
+    d_lse = (lses["tensor_core"] - lses["cuda_core"]).abs().max().item()
+    print(f"    N{n} dh{dh} whole call in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; tensor_core vs cuda_core out rel {d_out:.3e}, lse abs {d_lse:.3e}")
+    if not (d_out <= TOL[dtype] and d_lse <= 1e-3):
+        raise AssertionError("the two routes disagree on the same bf16 inputs")
+    route = kernel_route(dtype, heads, dh)
+    bounds = pass_bounds(batch, heads, dh, n, n, dtype)
+    res = {}
+    for name, passes in (("lse", 1), ("out", 2)):
+        res[name] = time_ms(lambda: run(route, passes), reps)
+        bound, by = bound_of(*bounds[name])
+        print(f"    N{n} dh{dh} {name} pass [{route}]: {res[name]:.4f} ms, "
+              f"bound {bound:.4f} ms ({by})")
+    vh = v.view(batch, n, heads, dh).transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, vh, scale=1.0)
+    res["sdpa"] = time_ms(sdpa, reps)
+    print(f"    N{n} dh{dh} sdpa_ms {res['sdpa']:.4f} (NOT the same function: no "
+          f"head mix, M = I, c = 0; what the two products alone cost here; the "
+          f"port never calls it)")
+    res["old"] = min(t for r, t in turns if r == "cuda_core")
+    return res
+
+
+def phase_environment(sources):
     print("== phase 1: environment")
     print("card:", card_line())
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -155,38 +240,57 @@ def phase_environment():
                           capture_output=True, text=True, check=True)
     print(nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda src: _build.build(src, extra_flags=("-Xptxas=-v",)),
-                      SOURCES))
-    print(f"kernel build ({len(SOURCES)} sources in parallel): "
+                      sources))
+    print(f"kernel build ({len(sources)} sources in parallel): "
           f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernels():
     print("== phase 2a: flash_reattention kernel vs plain on the card")
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in CHECK_SHAPES:
-            check_kernel(*shape, dtype)
+    t_phase = time.perf_counter()
+    checks = [check_kernel(*shape, dtype)
+              for dtype in (torch.float32, torch.bfloat16) for shape in CHECK_SHAPES]
+    checks += [check_kernel(batch, heads, dh, n_q, n_k, torch.bfloat16,
+                            q_scale=q_scale, label=label)
+               for label, batch, heads, dh, n_q, n_k, q_scale in EDGE_CASES]
     print(f"  main-path shapes (base, B{BATCH}, bf16), calls per forward:")
-    total = dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    total = dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0,
+                 lse_ms=0.0, out_ms=0.0, old_ms=0.0)
     for heads, dh, n, calls in BASE_LEVELS:
         r = check_kernel(BATCH, heads, dh, n, n, torch.bfloat16, reps=10)
+        checks.append(r)
         total["err"] = max(total["err"], r["err"])
         for key in ("ms", "plain_ms", "t_bytes", "t_ops"):
             total[key] += calls * r[key]
+        passes = time_passes(BATCH, heads, dh, n)
+        for key in ("lse", "out", "old"):
+            total[f"{key}_ms"] += calls * passes[key]
     total["bound_ms"], total["bound_by"] = bound_of(total["t_bytes"],
                                                     total["t_ops"])
-    print(f"  per base forward (12 calls): kernel {total['ms']:.4f} ms, plain "
+    print(f"  per base forward (12 calls): kernel {total['ms']:.4f} ms (lse passes "
+          f"{total['lse_ms']:.4f}, output passes {total['out_ms']:.4f}), on the "
+          f"CUDA-core route {total['old_ms']:.4f} ms, plain "
           f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
           f"({total['bound_by']})")
+    # route -> the (heads, dh, dtype) classes that ran on it
+    total["routes"] = {route: sorted({r["shape_class"] for r in checks
+                                      if r["route"] == route})
+                       for route in sorted({r["route"] for r in checks})}
+    print(f"  routes: {total['routes']}")
+    print(f"  phase 2a: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
 def phase_slice():
     print("== phase 3: base ViT-UNet served through Predictor")
     t_phase = time.perf_counter()
+    import importlib
     from vit_unet_tpu_torch import Predictor, get_vit_unet
-    from vit_unet_tpu_torch.kernels.flash_reattention import flash_reattention
+    # the package exports the function under its module's name
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    flash_reattention = TK.flash_reattention
 
     model = get_vit_unet("base", dtype="bfloat16", param_dtype="bfloat16",
                          seed=0)
@@ -197,47 +301,67 @@ def phase_slice():
     forwards = sum(-(-n // BATCH) for n in SERVE_SIZES)
 
     flash_reattention.launches = 0
+    flash_reattention.route_launches = dict.fromkeys(TK.ROUTES, 0)
     outs = [pred(x) for x in requests]
     torch.cuda.synchronize()
     launches = flash_reattention.launches
+    by_route = dict(flash_reattention.route_launches)
     print(f"  requests {SERVE_SIZES}: {forwards} forwards, "
-          f"flash_reattention launches {launches}")
+          f"flash_reattention launches {launches}, by route {by_route}")
     if launches != 12 * forwards:
         raise AssertionError(f"expected 12 launches per forward "
                              f"({12 * forwards}), counted {launches}")
+    if by_route != {"cuda_core": 0, "tensor_core": 12 * forwards}:
+        raise AssertionError(f"a bf16 base forward takes the tensor-core route "
+                             f"12 times, counted {by_route}")
     for x, y in zip(requests, outs):
         if y.shape != x.shape or not np.isfinite(y).all():
             raise AssertionError(f"bad output for a request of {len(x)}: "
                                  f"shape {y.shape}, finite {np.isfinite(y).all()}")
 
-    # the kernel path against the plain path, f32, same weights
-    f32 = get_vit_unet("base", seed=0)
-    plain = get_vit_unet("base", seed=0, use_flash=False)
-    x = torch.from_numpy(requests[2][:8]).cuda()
-    with torch.inference_mode():
-        got, want = f32(x), plain(x)
-    err = (got - want).abs().max().item()
-    rel = err / want.abs().max().item()
-    print(f"  f32 kernel path vs plain path, batch 8: max_abs_err {err:.3e} "
-          f"rel {rel:.3e} (tol {MODEL_TOL:.0e})")
-    if not rel <= MODEL_TOL:
-        raise AssertionError("kernel path disagrees with the plain path")
-    del f32, plain, got, want
+    # the kernel path against the plain path, same weights, batch 8
+    for dt, tol in (("float32", MODEL_TOL), ("bfloat16", MODEL_TOL_BF16)):
+        kern = get_vit_unet("base", seed=0, dtype=dt, param_dtype=dt)
+        plain = get_vit_unet("base", seed=0, dtype=dt, param_dtype=dt,
+                             use_flash=False)
+        x = torch.from_numpy(requests[2][:8]).cuda()
+        with torch.inference_mode():
+            got, want = kern(x).float(), plain(x).float()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        print(f"  {dt} kernel path vs plain path, batch 8: max_abs_err "
+              f"{err:.3e} rel {rel:.3e} (tol {tol:.0e})")
+        if not rel <= tol:
+            raise AssertionError(f"{dt} kernel path disagrees with the plain path")
+        del kern, plain, got, want
 
+    # the forward and the served rate, with kernel 1 held on the CUDA-core
+    # route (the earlier kernels) before and after: old, new, new, old
     xb = torch.from_numpy(requests[2]).cuda()
-    with torch.inference_mode():
-        ms = time_ms(lambda: model(xb), reps=20)
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        pred(requests[2])
-    serve_s = (time.perf_counter() - t0) / reps
     card = card_line()
-    print(f"  base b{BATCH} bf16 forward: {ms:.3f} ms/batch, "
-          f"{BATCH / ms * 1e3:.1f} img/s (device-resident input) [{card}]")
-    print(f"  base b{BATCH} bf16 Predictor (numpy in/out): "
-          f"{serve_s * 1e3:.3f} ms/batch, {BATCH / serve_s:.1f} img/s [{card}]")
-    device_breakdown(lambda: model(xb), ms, "forward", inference=True)
+
+    def rates(label):
+        with torch.inference_mode():
+            ms = time_ms(lambda: model(xb), reps=20)
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            pred(requests[2])
+        serve_s = (time.perf_counter() - t0) / reps
+        print(f"  base b{BATCH} bf16 forward [{label}]: {ms:.3f} ms/batch, "
+              f"{BATCH / ms * 1e3:.1f} img/s (device-resident input); Predictor "
+              f"(numpy in/out): {serve_s * 1e3:.3f} ms/batch, "
+              f"{BATCH / serve_s:.1f} img/s [{card}]")
+        return ms
+
+    held = mock.patch.object(TK, "kernel_route", lambda *a: "cuda_core")
+    with held:
+        rates("kernel 1 held on cuda_core")
+    rates("tensor_core")
+    ms = rates("tensor_core")
+    with held:
+        rates("kernel 1 held on cuda_core")
+    device_breakdown(lambda: model(xb), ms, "forward", inference=True, top=12)
     print(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -640,21 +764,40 @@ TRAIN_KERNELS = [  # (key, name, replaces)
 ]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after phase 1 "
+                             f"(default: all of {','.join(PHASES)}); the result "
+                             "lines are printed only when all ran")
+    phases = parser.parse_args(argv).phases.split(",")
+    if not phases or any(ph not in PHASES for ph in phases):
+        parser.error(f"--phases takes a comma-separated subset of {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_environment()
-    k = phase_kernels()
-    tk = phase_train_kernels()
-    launches = phase_slice()
-    train_launches_, _ = phase_train()
+    needs_train = any(ph in phases for ph in ("2b", "4"))
+    phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
+    if "2a" in phases:
+        k = phase_kernels()
+    if "2b" in phases:
+        tk = phase_train_kernels()
+    if "3" in phases:
+        launches = phase_slice()
+    if "4" in phases:
+        train_launches_, _ = phase_train()
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: phases {','.join(phases)} only, "
+              f"{time.perf_counter() - t_start:.1f} s; no result lines")
+        return 0
     kernels = [{
         "name": "flash_reattention",
         "route": "cuda",
+        # the interface and the CUDA-core route; the tensor-core route it
+        # includes is csrc/reattention_tc.cuh
         "source": "vit_unet_tpu_torch/kernels/csrc/flash_reattention.cu",
         "replaces": "vit_unet_tpu/kernels/flash_reattention.py:111",
         "launches": launches,
@@ -666,6 +809,8 @@ def main() -> int:
         # no single PyTorch call mixes attention maps across heads
         # (scaled_dot_product_attention has no head-mix)
         "library_ms": None,
+        # which (heads, dh, dtype) classes phase 2a ran on which route
+        "routes": k["routes"],
     }]
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]

@@ -25,6 +25,11 @@ def cuda():
     return torch.device("cuda")
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [
     (2, 8, 384, 49, 49), (2, 8, 96, 196, 196), (2, 8, 24, 784, 784),
@@ -45,6 +50,87 @@ def test_kernel_matches_plain(cuda, dtype, batch, heads, dh, n_q, n_k):
     want = TK.flash_reattention_plain(*args, num_heads=heads)
     rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert rel.item() <= TOL[dtype]
+
+
+def _eval_inputs(cuda, dtype, batch, heads, dh, n_q, n_k, q_scale=1.0):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(batch, heads, n_q, dh, generator=g) * (q_scale * dh ** -0.5)
+    k = torch.randn(batch, heads, n_k, dh, generator=g)
+    v = torch.randn(batch, n_k, heads * dh, generator=g)
+    w, b = TK.expand_reattention_affine(
+        torch.randn(heads, heads, generator=g) * heads ** -0.5,
+        torch.randn(heads, generator=g) * 0.1, dh=dh)
+    return [t.to(cuda, dtype) for t in (q, k, v)] + [w.to(cuda), b.to(cuda)]
+
+
+# every (heads, dh) class of the tensor-core route, ragged and rectangular
+# sizes, a peaked map (q x 8), fewer keys than one MMA tile, a single query
+TC_CASES = [
+    (2, 8, 384, 49, 49, 1.0), (2, 8, 96, 196, 196, 1.0), (2, 8, 24, 784, 784, 1.0),
+    (2, 4, 12, 3136, 3136, 1.0), (2, 4, 48, 784, 784, 1.0), (2, 4, 192, 196, 196, 1.0),
+    (2, 8, 96, 96, 200, 1.0), (2, 16, 12, 256, 256, 1.0), (2, 16, 48, 64, 64, 1.0),
+    (2, 8, 96, 196, 196, 8.0), (2, 8, 24, 100, 9, 1.0), (2, 8, 384, 1, 49, 1.0),
+]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k,q_scale", TC_CASES)
+def test_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, q_scale):
+    dtype = torch.bfloat16
+    assert TK.kernel_route(dtype, heads, dh) == "tensor_core"
+    args = _eval_inputs(cuda, dtype, batch, heads, dh, n_q, n_k, q_scale)
+    before = dict(TK.flash_reattention.route_launches)
+    got = TK.flash_reattention(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.route_launches == {
+        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+    want = TK.flash_reattention_plain(*args, num_heads=heads)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k,q_scale", TC_CASES)
+def test_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k, q_scale):
+    """The CUDA-core kernels and the tensor-core kernels on the same bf16
+    inputs: the log-sum-exp to f32 rounding, the output to bf16's."""
+    q, k, v, w, b = _eval_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, q_scale)
+    res = {}
+    for route in TK.ROUTES:
+        out = torch.empty(batch, n_q, heads * dh, dtype=q.dtype, device=cuda)
+        lse = torch.empty(batch, heads, n_q, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        res[route] = (lse, out)
+    torch.cuda.synchronize()
+    ref = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), dim=-1)
+    for lse, _ in res.values():
+        assert (lse - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert _rel(res["tensor_core"][1], res["cuda_core"][1]) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384)])
+def test_no_keys_gives_zeros_and_infinite_lse(cuda, heads, dh):
+    """N_k = 0: the log-sum-exp is +inf and the output all zeros, on both
+    routes, as in the plain version."""
+    q, k, v, w, b = _eval_inputs(cuda, torch.bfloat16, 2, heads, dh, 40, 0)
+    for route in TK.ROUTES:
+        out = torch.full((2, 40, heads * dh), 7.0, dtype=q.dtype, device=cuda)
+        lse = torch.zeros(2, heads, 40, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        torch.cuda.synchronize()
+        assert torch.isinf(lse).all() and (lse > 0).all()
+        assert (out == 0).all()
+    assert (TK.flash_reattention_plain(q, k, v, w, b, num_heads=heads) == 0).all()
+
+
+def test_float32_takes_the_cuda_core_route(cuda):
+    args = _eval_inputs(cuda, torch.float32, 2, 8, 24, 100, 100)
+    before = dict(TK.flash_reattention.route_launches)
+    TK.flash_reattention(*args, num_heads=8)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.route_launches == {
+        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    out = torch.empty(2, 100, 192, device=cuda)
+    with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
+        TK.launch_passes(*args, torch.empty(2, 8, 100, device=cuda), out,
+                         route="tensor_core")
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -73,11 +159,6 @@ def _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k):
     seed = torch.tensor([99], device=cuda)
     return ([t.to(cuda, dtype) for t in (q, k, v)] + [m.to(cuda), c.to(cuda)]
             + [gout.to(cuda, dtype), seed])
-
-
-def _rel(got, want):
-    return ((got.float() - want.float()).abs().max()
-            / want.float().abs().max()).item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -84,3 +84,80 @@ def test_wrapper_rejects_bad_shapes(bad):
         w = w[:, :16]
     with pytest.raises(ValueError):
         TK.flash_reattention(q, k, v, w, b, num_heads=heads)
+
+
+# --- the kernel's two routes ---------------------------------------------------
+
+def _level_shapes():
+    """(preset, heads, dh) of every re-attention level of the presets, and
+    the 16-head cases the card run holds."""
+    from vit_unet_tpu_torch.models import get_config
+    cases = []
+    for name in ("lite", "base", "large"):
+        cfg = get_config(name)
+        for level in range(cfg.depth + 1):
+            dim = cfg.level_geometry(level)["projection_dim"]
+            cases.append((name, cfg.num_heads, dim // cfg.num_heads))
+    return cases + [("16 heads", 16, 12), ("16 heads", 16, 48)]
+
+
+@pytest.mark.parametrize("preset,heads,dh", _level_shapes())
+def test_kernel_route_by_dtype_and_shape(preset, heads, dh):
+    assert TK.kernel_route(torch.float32, heads, dh) == "cuda_core"
+    route = TK.kernel_route(torch.bfloat16, heads, dh)
+    assert route in TK.ROUTES
+    # every level shape of the presets has a tensor-core kernel
+    assert route == "tensor_core"
+    assert (heads, dh) in TK.TENSOR_CORE_SHAPES
+    if preset == "base":
+        assert (heads, dh) in {(8, 384), (8, 96), (8, 24)}
+    # the route depends on nothing but dtype and (heads, dh)
+    assert TK.kernel_route(torch.bfloat16, heads, dh + 4) == "cuda_core"
+    assert TK.kernel_route(torch.bfloat16, heads + 1, dh) == "cuda_core"
+
+
+@pytest.mark.parametrize("n_q,n_k,heads,dh", [(49, 49, 8, 24), (20, 9, 4, 12)])
+def test_cpu_bf16_takes_the_plain_version(n_q, n_k, heads, dh):
+    args = [torch.from_numpy(a) for a in inputs(3, 2, heads, n_q, n_k, dh)]
+    args = [t.bfloat16() for t in args[:3]] + args[3:]
+    before = (TK.flash_reattention.launches,
+              dict(TK.flash_reattention.route_launches))
+    got = TK.flash_reattention(*args, num_heads=heads)
+    want = TK.flash_reattention_plain(*args, num_heads=heads)
+    assert (TK.flash_reattention.launches,
+            TK.flash_reattention.route_launches) == before
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+# --- the build: a library's hash follows its own includes only -----------------
+
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
+    from vit_unet_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n#include <cuda.h>\nint a;\n')
+    (tmp_path / "b.cu").write_text('  #  include "other.cuh"\nint b;\n')
+    (tmp_path / "common.cuh").write_text('#pragma once\n#include "deep.cuh"\n')
+    (tmp_path / "deep.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    assert [p.name for p in _build.source_closure("a.cu")] == [
+        "a.cu", "common.cuh", "deep.cuh"]
+    a0, b0 = _build.library_path("a.cu"), _build.library_path("b.cu")
+    assert a0.name.startswith("a-") and a0 != b0
+
+    (tmp_path / "deep.cuh").write_text("// v2\n")     # included through common.cuh
+    a1 = _build.library_path("a.cu")
+    assert a1 != a0 and _build.library_path("b.cu") == b0
+    (tmp_path / "other.cuh").write_text("// v2\n")    # not included by a.cu
+    assert _build.library_path("a.cu") == a1 and _build.library_path("b.cu") != b0
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\nint a2;\n')
+    assert _build.library_path("a.cu") != a1
+
+
+def test_each_library_hashes_its_own_headers():
+    from vit_unet_tpu_torch.kernels import _build
+    names = lambda src: [p.name for p in _build.source_closure(src)]
+    assert names("flash_reattention.cu") == [
+        "flash_reattention.cu", "reattention_common.cuh", "reattention_mma.cuh",
+        "reattention_tc.cuh", "reattention_tiles.cuh"]
+    assert names("flash_reattention_train.cu") == [
+        "flash_reattention_train.cu", "reattention_common.cuh"]

@@ -3,7 +3,9 @@
 Each source under ``kernels/csrc/`` is compiled on first use for ``sm_90a``
 into a shared library with a plain C interface, under ``build/torch_kernels/``
 at the root of the checkout.  The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the headers it includes, so an edited source or header is
+rebuilt, a stale library is never loaded, and work on one kernel's header
+leaves the other libraries alone.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,14 +41,37 @@ def nvcc_path() -> str:
                        "machine with the card, from the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(source: str) -> list[Path]:
+    """``csrc/<source>`` and every file under ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in sorted order
+    after the source itself."""
+    seen: dict[Path, None] = {}
+    todo = [CSRC / source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen[path] = None
+        for name in _INCLUDE.findall(path.read_text()):
+            for base in (path.parent, CSRC):
+                if (base / name).is_file():
+                    todo.append((base / name).resolve())
+                    break
+    first = CSRC / source
+    return [first] + sorted(p for p in seen if p != first)
+
+
 def library_path(source: str) -> Path:
-    """The library's path; its hash covers the source, every shared header
-    under ``csrc/`` and the flags."""
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
+    """The library's path; its hash covers the flags, the source and the
+    headers under ``csrc/`` the source includes, so an edit of a header
+    rebuilds only the libraries that use it."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_closure(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(source: str, extra_flags: tuple[str, ...] = ()) -> Path:

@@ -12,9 +12,19 @@
 // M and c are read from the expanded epilogue form the public function
 // takes: M[h, h2] = w[h2, h*dh], c[h] = b[h*dh].
 //
-// Design.  The TPU kernel keeps an (H, bq, H*dh) f32 accumulator per q tile.
-// At base's coarse level (H*dh = 3072) that is far beyond a Hopper block's
-// 227 KB of shared memory, so the work is split in two passes:
+// Two routes, named by the caller (the Python wrapper's kernel_route picks
+// one from dtype and shape alone; nothing here falls back):
+//
+//   route 1, tensor cores: bfloat16 inputs at the shape classes listed in
+//     reattention_tc.cuh, which holds the kernels, what bounds them on this
+//     card and the shared-memory budget per class.
+//   route 0, CUDA cores: this file; float32 and bfloat16, any H <= 16,
+//     dh <= 384.  Every product is an f32 FMA (no tensor cores, hence no
+//     TF32 either), so float32 inputs are computed in full float32.
+//
+// Design of route 0.  The TPU kernel keeps an (H, bq, H*dh) f32 accumulator
+// per q tile.  At base's coarse level (H*dh = 3072) that is far beyond a
+// Hopper block's 227 KB of shared memory, so the work is split in two passes:
 //
 //   pass 1 (lse_kernel):  grid (q tiles, H, B).  Online max / sum over the
 //     key tiles of one head; writes the per-row log-sum-exp (B, H, Nq) f32.
@@ -30,21 +40,19 @@
 //     base's finest level (no score recomputation), G = 1 at its coarse
 //     level (H recomputations).
 //
-// What bounds it.  Scores are recomputed H / G times, the head mix costs
-// H * G multiply-adds per map entry, and all of it runs as f32 FMAs on the
-// CUDA cores (no tensor cores, hence no TF32 either).  Its ideal bound is
-// the f32 operation count; measured on the H100 it runs well below that,
-// limited by shared-memory load instructions (8 loads per 16 FMAs in the
-// score tile) and by the global-load / barrier round trips of each chunk
-// at 8 warps per SM.  Tensor cores (mma.sync / wgmma on the bf16 path),
-// vectorised shared-memory reads and prefetching belong to a later change.
+// What bounds route 0.  Scores are recomputed H / G times, the head mix
+// costs H * G multiply-adds per map entry, and the passes are limited by
+// shared-memory loads (8 scalar loads per 16 FMAs in the score
+// tile) and by the synchronous global load and two barriers of each 32-deep
+// chunk at 8 warps per SM, far above the f32 operation count.  Route 1 is
+// the answer to that for bfloat16; route 0 stays as the float32 path.
 //
-// Shapes: f32 or bf16 q/k/v (f32 accumulation), any Nq, Nk >= 0 with the
-// ragged edges masked in the kernel (no padding copies), Nq != Nk, H <= 16,
-// dh <= 384.  All tensors are contiguous; the caller allocates every output
-// and scratch buffer and passes the stream.
+// Shapes: any Nq, Nk >= 0 with the ragged edges masked in the kernel (no
+// padding copies), Nq != Nk.  All tensors are contiguous; the caller
+// allocates every output and scratch buffer and passes the stream.
 
 #include "reattention_common.cuh"
+#include "reattention_tc.cuh"
 
 using namespace vit;
 
@@ -169,77 +177,90 @@ __global__ void __launch_bounds__(NT) out_kernel(
 template <typename T, int NJ, int G>
 int launch(const void* q, const void* k, const void* v, const float* w,
            const float* b, float* lse, void* out, int batch, int heads,
-           int nq, int nk, int dh, cudaStream_t stream) {
+           int nq, int nk, int dh, int passes, cudaStream_t stream) {
   constexpr int DK = NJ == 1 ? 16 : 32;
   const int q_tiles = (nq + BQ - 1) / BQ;
-  lse_kernel<T, DK><<<dim3(q_tiles, heads, batch), NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), lse, heads, nq, nk, dh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t dyn = sizeof(float) * heads * prob_tile_floats();
-  err = cudaFuncSetAttribute(out_kernel<T, NJ, G>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dyn));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out_kernel<T, NJ, G><<<dim3(q_tiles, heads / G, batch), NT, dyn, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, b, lse, static_cast<T*>(out), heads, nq,
-      nk, dh);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (passes & 1) {
+    lse_kernel<T, DK><<<dim3(q_tiles, heads, batch), NT, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), lse, heads, nq, nk, dh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & 2) {
+    const size_t dyn = sizeof(float) * heads * prob_tile_floats();
+    err = cudaFuncSetAttribute(out_kernel<T, NJ, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out_kernel<T, NJ, G><<<dim3(q_tiles, heads / G, batch), NT, dyn, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), w, b, lse, static_cast<T*>(out), heads, nq,
+        nk, dh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // G: the largest power of two dividing H with G * NJ <= 16.
 template <typename T, int NJ>
 int launch_grouped(const void* q, const void* k, const void* v, const float* w,
                    const float* b, float* lse, void* out, int batch, int heads,
-                   int nq, int nk, int dh, cudaStream_t stream) {
+                   int nq, int nk, int dh, int passes, cudaStream_t stream) {
   if constexpr (NJ <= 1) {
-    if (heads % 16 == 0) return launch<T, NJ, 16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+    if (heads % 16 == 0) return launch<T, NJ, 16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
   }
   if constexpr (NJ <= 2) {
-    if (heads % 8 == 0) return launch<T, NJ, 8>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+    if (heads % 8 == 0) return launch<T, NJ, 8>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
   }
   if constexpr (NJ <= 4) {
-    if (heads % 4 == 0) return launch<T, NJ, 4>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+    if (heads % 4 == 0) return launch<T, NJ, 4>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
   }
   if constexpr (NJ <= 8) {
-    if (heads % 2 == 0) return launch<T, NJ, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+    if (heads % 2 == 0) return launch<T, NJ, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
   }
-  return launch<T, NJ, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  return launch<T, NJ, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const float* w,
              const float* b, float* lse, void* out, int batch, int heads,
-             int nq, int nk, int dh, cudaStream_t stream) {
+             int nq, int nk, int dh, int passes, cudaStream_t stream) {
   // accumulator width: the smallest 16 * NJ >= dh (every preset's dh fits
   // one of these exactly, apart from dh 4, 8 and 12)
-  if (dh <= 16) return launch_grouped<T, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
-  if (dh <= 32) return launch_grouped<T, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
-  if (dh <= 48) return launch_grouped<T, 3>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
-  if (dh <= 96) return launch_grouped<T, 6>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
-  if (dh <= 192) return launch_grouped<T, 12>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
-  return launch_grouped<T, 24>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, stream);
+  if (dh <= 16) return launch_grouped<T, 1>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
+  if (dh <= 32) return launch_grouped<T, 2>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
+  if (dh <= 48) return launch_grouped<T, 3>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
+  if (dh <= 96) return launch_grouped<T, 6>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
+  if (dh <= 192) return launch_grouped<T, 12>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
+  return launch_grouped<T, 24>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launches (0 on success), or cudaErrorInvalidValue for unsupported shapes.
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor cores
+// (bfloat16 at the shape classes of reattention_tc.cuh).  passes: bit 0 the
+// log-sum-exp pass (writes lse), bit 1 the output pass (reads lse); 3 is the
+// function.  Returns the first CUDA error of the launches (0 on success), or
+// cudaErrorInvalidValue for what the route does not take.
 int vit_flash_reattention(const void* q, const void* k, const void* v,
                           const float* w, const float* b, float* lse, void* out,
                           int batch, int heads, int nq, int nk, int dh,
-                          int dtype, void* stream) {
+                          int dtype, int route, int passes, void* stream) {
   if (batch <= 0 || nq <= 0 || nk < 0 || heads <= 0 || heads > MAX_HEADS ||
-      dh <= 0 || dh > 384 || batch > 65535 || heads > 65535)
+      dh <= 0 || dh > 384 || batch > 65535 || heads > 65535 || passes < 1 ||
+      passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, s);
+  if (route == 1 && dtype == 1)
+    return vit_tc::dispatch(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, s);
+  if (route == 0 && dtype == 0)
+    return dispatch<float>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, s);
+  if (route == 0 && dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,11 +11,23 @@ is ReAttention's eval contraction without the (N, N) map in device memory:
 
 The kernel (``csrc/flash_reattention.cu``) replaces the Pallas TPU kernel
 ``flash_reattention`` (body ``_kernel``).  It runs in two passes (per-row
-log-sum-exp, then the head-mixed probabilities @ V for a group of output
-heads), which keeps a block's state to a few (32 x dh) accumulators instead
-of the TPU form's (H, bq, H*dh) one.  All its arithmetic is f32 FMAs on the
-CUDA cores; on the H100 shared-memory loads and load latency bound it,
-well above its operation bound.  The source's header gives the design.
+log-sum-exp, then the head-mixed probabilities @ V), which keeps a block's
+state to (rows x dh) accumulators instead of the TPU form's (H, bq, H*dh)
+one.  It has two routes, and ``kernel_route`` names the one a call takes
+from the input dtype and (heads, dh), nothing else:
+
+* ``tensor_core`` (``csrc/reattention_tc.cuh``): bfloat16 inputs at the
+  shape classes of ``TENSOR_CORE_SHAPES``.  Both products are bf16 MMAs with
+  f32 accumulators, tiles are staged over the whole head dim by asynchronous
+  copies into two buffers, every score tile is computed once, and the mixed
+  probabilities are rounded to bf16 once before the product with V, as the
+  TPU kernel rounds them.  What bounds it on the H100 is the per-entry work
+  between the products (exp, the H x H mix, shared-memory trips), not the
+  MMAs or the bytes; the header of the source has the budget per class.
+* ``cuda_core`` (``csrc/flash_reattention.cu``): float32 inputs, and
+  bfloat16 at any other shape.  Every product is an f32 FMA, so float32 is
+  computed in full float32; shared-memory loads and barrier
+  round trips bound it, far above its operation count.
 
 On a CPU tensor ``flash_reattention`` runs ``flash_reattention_plain``; on a
 CUDA tensor it launches the kernel or raises.
@@ -29,6 +41,19 @@ import torch
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 16
 MAX_HEAD_DIM = 384
+ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
+#: (heads, dh) classes the tensor-core kernels are built for: the level
+#: shapes of the lite, base, large and notebook512 presets and two 16-head ones
+TENSOR_CORE_SHAPES = frozenset({
+    (8, 384), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48), (16, 12)})
+
+
+def kernel_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+    """The route a CUDA call with these inputs takes: the only place it is
+    chosen, and by dtype and shape alone."""
+    if dtype == torch.bfloat16 and (heads, dh) in TENSOR_CORE_SHAPES:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def fold_reattention_compact(conv_weight, conv_bias, bn_weight, bn_bias,
@@ -115,12 +140,35 @@ def _library():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vit_flash_reattention.argtypes = [p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, p]
+                                              i, i, i, i, i, i, i, i, p]
         lib.vit_flash_reattention.restype = i
         lib.vit_cuda_error_string.argtypes = [i]
         lib.vit_cuda_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
+    """Launch the kernels of ``route`` on checked CUDA inputs, into the
+    caller's ``lse`` (B, H, N_q) f32 and ``out``.  ``passes``: bit 0 the
+    log-sum-exp pass, bit 1 the output pass, which reads ``lse``.  Only the
+    measurements and the route-against-route tests name a route or a pass
+    themselves; it counts no launch."""
+    batch, heads, n_q, dh = q.shape
+    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, out)):
+        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
+                         "k, v_cat and out must start at 16-byte aligned addresses")
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vit_flash_reattention(
+            q.data_ptr(), k.data_ptr(), v_cat.data_ptr(), w.data_ptr(),
+            b.data_ptr(), lse.data_ptr(), out.data_ptr(), batch, heads, n_q,
+            k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], ROUTES.index(route),
+            passes, stream)
+    if rc:
+        raise RuntimeError(f"flash_reattention kernel launch failed ({route}): "
+                           + lib.vit_cuda_error_string(rc).decode())
 
 
 def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
@@ -129,7 +177,8 @@ def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
     q: (B, H, N_q, dh), pre-scaled; k: (B, H, N_k, dh); v_cat: (B, N_k, H*dh)
     with the heads concatenated; w: (H, H*dh) and b: (H*dh,) the expanded
     head-mix affine (``expand_reattention_affine``).  N_q may differ from
-    N_k.  CPU tensors take the plain version; CUDA tensors the kernel.
+    N_k.  CPU tensors take the plain version; CUDA tensors the kernel, on
+    the route ``kernel_route`` names.
     """
     _check(q, k, v_cat, w, b, num_heads)
     if q.device.type == "cpu":
@@ -141,19 +190,14 @@ def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
     if batch == 0 or n_q == 0:
         return out
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vit_flash_reattention(
-            q.data_ptr(), k.data_ptr(), v_cat.data_ptr(), w.data_ptr(),
-            b.data_ptr(), lse.data_ptr(), out.data_ptr(), batch, heads, n_q,
-            k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], stream)
-    if rc:
-        raise RuntimeError("flash_reattention kernel launch failed: "
-                           + lib.vit_cuda_error_string(rc).decode())
+    route = kernel_route(q.dtype, heads, dh)
+    launch_passes(q, k, v_cat, w, b, lse, out, route=route)
     flash_reattention.launches += 1
+    flash_reattention.route_launches[route] += 1
     return out
 
 
-#: kernel launches since the last reset (the plain version does not count)
+#: kernel launches since the last reset (the plain version does not count),
+#: in all and by route
 flash_reattention.launches = 0
+flash_reattention.route_launches = dict.fromkeys(ROUTES, 0)
