@@ -20,7 +20,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
-   N x N forward with the same dropout mask;
+   N x N forward with the same dropout mask; the backward on the route
+   ``train_bwd_route`` names (bfloat16 at base's level shapes on the
+   tensor cores), with ragged cases and the two routes held against each
+   other, and at the main path's shapes both routes timed in turns;
 3. serving: the base preset at full width (224², bf16) served through
    ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
    route, the kernel path held against the plain path in float32 and in
@@ -29,8 +32,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 4. training: the base preset at full width (224², bf16, batch 64, AdamW
    1e-4 with weight decay 1e-4, x ~ N(0, 1), y = 0.9 x): 2 + 10 exact-BN
    steps and 5 frozen-BN steps through ``build_step_functions`` with the
-   training kernels' launch counts, step time, img/s, peak memory and a
-   profiler breakdown; then one f32 step at batch 4 of the kernel path
+   training kernels' launch counts (the backward's by route), step time,
+   img/s, peak memory and a profiler breakdown; both steps timed again with
+   the backward held on the CUDA-core route before and after (old, new,
+   new, old); then one f32 step at batch 4 of the kernel path
    against the plain path (``flash_train=False``) with the same weights
    and dropout seed;
 5. a ``{"kernels": [...]}`` line, then the card's name and power limit,
@@ -42,6 +47,7 @@ the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -405,6 +411,13 @@ TRAIN_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 96, 96, 200),                                                  # rectangular
 ]
 RATE = 0.2
+# the backward's tensor-core route at ragged and rectangular sizes: (batch,
+# heads, dh, n_q, n_k); a key tile with fewer valid keys than one MMA tile,
+# a single query, more keys than queries and the other way round
+BWD_EDGE_CASES = [
+    (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
+    (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
+]
 
 
 def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0):
@@ -509,6 +522,60 @@ def check_train_kernels(batch, heads, dh, n_q, n_k, dtype, rate, reps=0):
     return res
 
 
+def bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate, bn):
+    """The backward's arguments on the card, lse from the plain forward."""
+    q, k, v, m_eff, _, g_out, seed = train_inputs(batch, heads, dh, n_q, n_k, dtype)
+    lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), -1)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d = torch.randn(batch, heads, n_q, generator=gen, device="cuda")
+    extra = ((torch.randn(heads, heads, generator=gen, device="cuda") * 0.1,
+              torch.randn(heads, generator=gen, device="cuda") * 0.1) if bn else None)
+    return q, k, v, lse, g_out, m_eff, d, seed, rate, extra
+
+
+def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
+    """bf16 backward on the route ``train_bwd_route`` names against its
+    plain version, and the two routes against each other, on the same
+    inputs; f32 gradients, so both at F32_OUT_TOL."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    args = bwd_inputs(batch, heads, dh, n_q, n_k, torch.bfloat16, rate, bn)
+    route = T.train_bwd_route(torch.bfloat16, heads, dh)
+    before = dict(T.train_bwd.route_launches)
+    got = T.train_bwd(*args)
+    if T.train_bwd.route_launches[route] != before[route] + 1:
+        raise AssertionError(f"the call did not take the {route} route")
+    want = T.train_bwd_plain(*args)
+    other = T.launch_bwd(*args, route="cuda_core") if route == "tensor_core" else None
+    torch.cuda.synchronize()
+    tol = F32_OUT_TOL[torch.bfloat16]
+    rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    for r in rels:
+        require(f"bwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k}", r, tol)
+    msg = (f"  bwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate} "
+           f"bn {bn}: dq dk dv rel " + " ".join(f"{r:.2e}" for r in rels))
+    if other is not None:
+        routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
+        for r in routes:
+            require("bwd tensor_core vs cuda_core", r, tol)
+        msg += " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes)
+    print(msg)
+    return max(rel_err(a, b)[0] for a, b in zip(got, want))
+
+
+def time_bwd_routes(batch, heads, dh, n, reps=10):
+    """At one main-path shape, bf16, rate 0.2, BN term on: the backward on
+    the CUDA-core and the tensor-core route in turns (old, new, new, old)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    args = bwd_inputs(batch, heads, dh, n, n, torch.bfloat16, RATE, True)
+    turns = [(r, time_ms(lambda: T.launch_bwd(*args, route=r), reps))
+             for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
+    old = min(t for r, t in turns if r == "cuda_core")
+    new = min(t for r, t in turns if r == "tensor_core")
+    print(f"    N{n} dh{dh} bwd in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; cuda_core / tensor_core {old / new:.2f}x")
+    return old, new
+
+
 def check_functions(batch, heads, dh, n, dtype):
     """Both autograd Functions at rate 0.2 against torch autograd of the
     N x N forward (``reattention_nxn``) with the same mask, in float64 on
@@ -560,13 +627,28 @@ def phase_train_kernels():
                 check_train_kernels(*shape, dtype, rate)
         for batch, heads, dh, n, _ in TRAIN_SHAPES[:3]:
             check_functions(batch, heads, dh, n, dtype)
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    print("  the backward in bf16 on the route train_bwd_route names:")
+    tc_err = 0.0
+    for shape in [s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES] + BWD_EDGE_CASES:
+        for rate in (0.0, RATE):
+            for bn in (False, True):
+                tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
     print(f"  main-path shapes (base, B{BATCH}, bf16, rate {RATE}), "
           f"calls per train step:")
     total = {kname: dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
              for kname in ("fwd", "bn_fwd", "bwd")}
+    total["bwd"].update(err=tc_err, old_ms=0.0, routes={})
     for heads, dh, n, calls in BASE_LEVELS:
         res = check_train_kernels(BATCH, heads, dh, n, n, torch.bfloat16, RATE,
                                   reps=10)
+        route = T.train_bwd_route(torch.bfloat16, heads, dh)
+        total["bwd"]["routes"].setdefault(route, []).append(f"H{heads} dh{dh} bfloat16")
+        if route == "tensor_core":
+            old, _ = time_bwd_routes(BATCH, heads, dh, n)
+        else:
+            old = res["bwd"]["ms"]
+        total["bwd"]["old_ms"] += calls * old
         bounds = train_bounds(BATCH, heads, dh, n, n, torch.bfloat16)
         for kname, tot in total.items():
             r = res[kname]
@@ -586,6 +668,8 @@ def phase_train_kernels():
         print(f"  {kname} per train step (12 calls): kernel {tot['ms']:.4f} ms, "
               f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
               f"({tot['bound_by']})")
+    print(f"  bwd per train step with every call on the CUDA-core route: "
+          f"{total['bwd']['old_ms']:.4f} ms; routes {total['bwd']['routes']}")
     print(f"  phase 2b: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -593,17 +677,30 @@ def phase_train_kernels():
 def train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     return {"fwd": T.train_fwd.launches, "bn_fwd": T.bn_fwd.launches,
-            "bwd": T.train_bwd.launches}
+            "bwd": T.train_bwd.launches,
+            **{f"bwd_{r}": n for r, n in T.train_bwd.route_launches.items()}}
 
 
 def reset_train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     T.train_fwd.launches = T.bn_fwd.launches = T.train_bwd.launches = 0
+    T.train_bwd.route_launches = dict.fromkeys(T.train_bwd.route_launches, 0)
+
+
+def bwd_routes_per_step() -> dict:
+    """{"bwd_<route>": calls per base train step}: each base level's calls
+    on the route ``train_bwd_route`` names for bf16."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    per = {f"bwd_{r}": 0 for r in T.ROUTES}
+    for heads, dh, _, calls in BASE_LEVELS:
+        per[f"bwd_{T.train_bwd_route(torch.bfloat16, heads, dh)}"] += calls
+    return per
 
 
 def run_steps(steps, state, batch, n, expect, label):
-    """n train steps with the launch counts checked; returns (state, losses,
-    per-step ms, launches)."""
+    """n train steps with the launch counts checked (``expect``: launches
+    per re-attention call, the backward's by route per step); returns
+    (state, losses, per-step ms, launches)."""
     reset_train_launches()
     losses, times = [], []
     for _ in range(n):
@@ -613,6 +710,7 @@ def run_steps(steps, state, batch, n, expect, label):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = train_launches()
     want = {kname: 12 * n * per for kname, per in expect.items()}
+    want.update({k: n * per for k, per in bwd_routes_per_step().items()})
     print(f"  {label}: {n} steps, launches {launches} (expected {want}), "
           f"losses {losses[0]:.5f} .. {losses[-1]:.5f}")
     if launches != want:
@@ -668,7 +766,29 @@ def phase_train():
     f_ms = sorted(f_times)[len(f_times) // 2]
     print(f"  base b{BATCH} bf16 frozen-BN train step: median {f_ms:.3f} ms, "
           f"{BATCH / f_ms * 1e3:.1f} img/s [{card}]")
+    device_breakdown(lambda: frozen.train_step(state, batch), f_ms,
+                     "frozen-BN train step", reps=1)
     launches = {kname: l_exact[kname] + l_frozen[kname] for kname in l_exact}
+
+    # both steps with the backward held on the CUDA-core route (the earlier
+    # kernels) before and after: old, new, new, old, each the median of 5
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    held = mock.patch.object(T, "train_bwd_route", lambda *a: "cuda_core")
+    for label, steps in (("exact-BN", exact), ("frozen-BN", frozen)):
+        turns = []
+        for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+            ctx = held if route == "cuda_core" else contextlib.nullcontext()
+            with ctx:
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    state, m = steps.train_step(state, batch)
+                    m["loss"].item()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            turns.append((route, sorted(times)[2]))
+        print(f"  base b{BATCH} bf16 {label} step, backward on each route in turns "
+              f"(median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+              + f" [{card}]")
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
     compare_train_paths()
@@ -823,6 +943,14 @@ def main(argv=None) -> int:
             # no single PyTorch call computes re-attention with a head mix,
             # dropout and its BatchNorm moments or their gradients
             "library_ms": None})
+        if key == "bwd":
+            # the bf16 tensor-core route it includes, which base classes ran
+            # on which route, and the main path's launches by route
+            kernels[-1].update(
+                tensor_core_source="vit_unet_tpu_torch/kernels/csrc/reattention_bwd_tc.cuh",
+                routes=t["routes"], cuda_core_ms=t["old_ms"],
+                route_launches={r: train_launches_[f"bwd_{r}"]
+                                for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -230,3 +230,60 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
     q32 = torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="seed"):
         TT.bn_fwd(q32, q32, torch.zeros(1, 8, 16, device=cuda), 7, 0.2)
+
+
+# --- the backward's tensor-core route --------------------------------------------
+
+# each redesigned (heads, dh) class at its base level size, and the ragged
+# cases: fewer keys than one MMA tile, a single query, rectangular both ways
+BWD_TC_CASES = [
+    (4, 8, 24, 784, 784), (4, 8, 96, 196, 196), (4, 8, 384, 49, 49),
+    (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
+    (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
+]
+
+
+def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
+    q, k, v, m, _, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), -1)
+    g = torch.Generator().manual_seed(2)
+    d = torch.randn(batch, heads, n_q, generator=g).to(cuda)
+    extra = ((torch.randn(heads, heads, generator=g) * 0.1).to(cuda),
+             (torch.randn(heads, generator=g) * 0.1).to(cuda)) if bn else None
+    return q, k, v, lse, gout, m, d, seed, rate, extra
+
+
+@pytest.mark.parametrize("bn", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
+    assert TT.train_bwd_route(torch.bfloat16, heads, dh) == "tensor_core"
+    args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate, bn)
+    before = dict(TT.train_bwd.route_launches)
+    got = TT.train_bwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_bwd.route_launches == {
+        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+    for a, b in zip(got, TT.train_bwd_plain(*args)):
+        assert _rel(a, b) <= F32_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
+    args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
+    tc = TT.launch_bwd(*args, route="tensor_core")
+    cc = TT.launch_bwd(*args, route="cuda_core")
+    torch.cuda.synchronize()
+    for a, b in zip(tc, cc):
+        assert _rel(a, b) <= F32_TOL[torch.bfloat16]
+
+
+def test_bwd_float32_takes_the_cuda_core_route(cuda):
+    args = _bwd_args(cuda, torch.float32, 2, 8, 24, 100, 100, 0.2, True)
+    before = dict(TT.train_bwd.route_launches)
+    TT.train_bwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_bwd.route_launches == {
+        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
+        TT.launch_bwd(*args, route="tensor_core")

@@ -160,4 +160,5 @@ def test_each_library_hashes_its_own_headers():
         "flash_reattention.cu", "reattention_common.cuh", "reattention_mma.cuh",
         "reattention_tc.cuh", "reattention_tiles.cuh"]
     assert names("flash_reattention_train.cu") == [
-        "flash_reattention_train.cu", "reattention_common.cuh"]
+        "flash_reattention_train.cu", "reattention_bwd_tc.cuh", "reattention_common.cuh",
+        "reattention_mma.cuh", "reattention_tiles.cuh"]

@@ -1,0 +1,145 @@
+"""The training backward's route choice, its CPU path, and the port's
+training backward at base's head count against the JAX package.
+
+``train_bwd_route`` picks the backward's kernels on the card by dtype and
+(heads, dh) alone; on the CPU ``train_bwd`` is the plain version and counts
+no launch.  At 8 heads the JAX package's backward kernel takes its fused
+form at dh 24 and its legacy form at dh 96 (``_fused_ghat``); the port's
+backward is held against both, run in interpret mode without dropout.
+(JAX traces an 8-head Pallas kernel in about 4 s, so the file holds the
+backward kernel alone; the autograd Functions are held against JAX at 4
+heads in ``tests/test_torch_train_kernels.py``.)  A CPU emulation shows
+why the tensor-core route keeps dS and the mixed map in bf16 pairs.  The
+kernels themselves are held against the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_unet_tpu_torch.models import get_config
+
+JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
+TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
+
+
+def _level_shapes():
+    """(preset, level, heads, dh) of every re-attention level of lite, base
+    and large."""
+    out = []
+    for preset in ("lite", "base", "large"):
+        cfg = get_config(preset)
+        for level in range(cfg.depth + 1):
+            dh = cfg.level_geometry(level)["projection_dim"] // cfg.num_heads
+            out.append((preset, level, cfg.num_heads, dh))
+    return out
+
+
+# base's and large's levels run on the tensor cores in bf16; lite's (4 heads)
+# stay on the CUDA cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 384)}
+
+
+@pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
+def test_train_bwd_route_by_dtype_and_shape(preset, level, heads, dh):
+    assert TT.train_bwd_route(torch.float32, heads, dh) == "cuda_core"
+    want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
+    assert TT.train_bwd_route(torch.bfloat16, heads, dh) == want
+
+
+def test_train_bwd_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(3)
+    batch, heads, n, dh = 1, 8, 40, 24
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32) * scale)
+    q = f(batch, heads, n, dh, scale=0.5).bfloat16()
+    k = f(batch, heads, n, dh).bfloat16()
+    v = f(batch, n, heads * dh).bfloat16()
+    g = f(batch, n, heads * dh).bfloat16()
+    lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), -1)
+    args = (q, k, v, lse, g, f(heads, heads), f(batch, heads, n),
+            torch.tensor([5]), 0.2, (f(heads, heads) * 0.1, f(heads) * 0.1))
+    before = TT.train_bwd.launches, dict(TT.train_bwd.route_launches)
+    got = TT.train_bwd(*args)
+    assert (TT.train_bwd.launches, TT.train_bwd.route_launches) == before
+    for a, b in zip(got, TT.train_bwd_plain(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dh", [24, 96])   # JAX: fused form, legacy form
+def test_train_bwd_matches_jax_bwd_at_base_heads(dh):
+    """The port's backward (its plain version here) against the TPU kernel
+    it replaces, ``_bwd``, in interpret mode, with the exact-BN term on (G,
+    kappa and the D addition), which covers every term of the frozen-BN
+    backward too.  The residuals lse and o_norm come from the port's plain
+    forward and go to both in the JAX kernel's blocked layout (one q
+    block).  Tolerance as ``test_frozen_function_matches_jax``'s gradients."""
+    n, heads = 32, 8
+    rng = np.random.default_rng(dh)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, k = f(1, heads, n, dh) * 0.5, f(1, heads, n, dh) * 0.5
+    v, g = f(1, n, heads * dh), f(1, n, heads * dh)
+    m, c = f(heads, heads) * 0.4, f(heads) * 0.2
+    g_mat, kappa, d_extra = f(heads, heads) * 0.1, f(heads) * 0.1, f(1, heads, n)
+    t = torch.from_numpy
+    _, lse, onorm = TT.train_fwd_plain(t(q), t(k), t(v), t(v).sum(1), t(m), t(c),
+                                       None, 0.0)
+    d = (torch.einsum("ph,bhnp->bhn", t(m), TT._r_rows(onorm, t(g), heads, dh))
+         + t(d_extra))
+    want = JT._bwd(*map(jnp.asarray, (q, k, v, m)), 0,
+                   jnp.asarray(lse.numpy()[:, None]),
+                   jnp.asarray(onorm.numpy()[:, None]), jnp.asarray(g),
+                   num_heads=heads, rate=0.0, block_q=n, block_k=n, interpret=True,
+                   d_extra=jnp.asarray(d_extra[:, None]),
+                   bn_extra=(jnp.asarray(g_mat), jnp.asarray(kappa)))[:3]
+    got = TT.train_bwd(t(q), t(k), t(v), lse, t(g), t(m), d, None, 0.0,
+                       (t(g_mat), t(kappa)))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-4,
+                                   err_msg=name)
+
+
+def _round(x, pairs):
+    """x through bf16 once, or as the pair hi + lo the kernels keep."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if pairs else hi
+
+
+@pytest.mark.parametrize("dh,n", [(24, 128), (96, 64)])
+def test_bf16_pairs_keep_the_backward_within_its_tolerance(dh, n):
+    """Why the tensor-core backward carries dS and the mixed map B as bf16
+    pairs: emulated on the CPU with bf16 inputs, rate 0.2 and the BN term,
+    rounding both once to bf16 (as the TPU kernel does) puts dq, dk or dv
+    more than 1e-3 (max|err| / max|plain|, the card's tolerance for these
+    f32 outputs) off the plain version; the pairs keep them under 1e-4."""
+    heads, rate = 8, 0.2
+    g = torch.Generator().manual_seed(dh)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = (rnd(1, heads, n, dh) * 3 * dh ** -0.5).bfloat16().float()
+    k = rnd(1, heads, n, dh).bfloat16().float()
+    v = rnd(1, n, heads * dh).bfloat16().float()
+    gout = rnd(1, n, heads * dh).bfloat16().float()
+    m, d = rnd(heads, heads) * heads ** -0.5, rnd(1, heads, n)
+    g_mat, kappa = rnd(heads, heads) * 0.1, rnd(heads) * 0.1
+    s = q @ k.transpose(-1, -2)
+    lse = torch.logsumexp(s, -1)
+    want = TT.train_bwd_plain(q, k, v, lse, gout, m, d, 7, rate, (g_mat, kappa))
+    p = torch.exp(s - lse[..., None])
+    mask = TT.dropout_mask(7, rate, 1, heads, n, n)
+    a = p * mask
+    gh, vh = gout.reshape(1, n, heads, dh), v.reshape(1, n, heads, dh)
+    da = (torch.einsum("ph,bpnm->bhnm", m, torch.einsum("bnpd,bmpd->bpnm", gh, vh))
+          + kappa[None, :, None, None] + torch.einsum("fh,bfnm->bhnm", g_mat, a))
+    ds = p * (da * mask - d[..., None])
+    bmix = torch.einsum("ph,bhnm->bpnm", m, a)
+    worst = {}
+    for pairs in (False, True):
+        dsr, br = _round(ds, pairs), _round(bmix, pairs)
+        got = (dsr @ k, dsr.transpose(-1, -2) @ q,
+               torch.einsum("bpnm,bnpd->bmpd", br, gh).reshape(1, n, heads * dh))
+        worst[pairs] = max(((x - y).abs().max() / y.abs().max()).item()
+                           for x, y in zip(got, want))
+    assert worst[False] > 1e-3 and worst[True] < 1e-4, worst

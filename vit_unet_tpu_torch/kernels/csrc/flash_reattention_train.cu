@@ -50,13 +50,19 @@
 // What bounds it.  All arithmetic is f32 FMAs on the CUDA cores (no tensor
 // cores, so no TF32 either); scores are recomputed in the dv pass and for the
 // BN term, and the kernels are limited by shared-memory loads and load
-// latency well above their operation bound.  Tensor cores and fewer
-// recomputations belong to a later change.
+// latency well above their operation bound.
 //
 // Shapes: f32 or bf16 storage, any Nq >= 1, Nk >= 1 with the ragged edges
 // masked in the kernel, Nq != Nk allowed, H <= 16, dh <= 384.  All tensors
 // are contiguous; the caller allocates every output (dq and dk zeroed).
+//
+// The backward has a second route, chosen by the caller (train_bwd_route in
+// kernels/flash_reattention_train.py): bf16 on the tensor cores at base's
+// and large's level shapes, each piece computed once (reattention_bwd_tc.cuh).
+// The kernels here are the CUDA-core route, for f32 and every other shape;
+// the forwards have only these.
 
+#include "reattention_bwd_tc.cuh"
 #include "reattention_common.cuh"
 
 using namespace vit;
@@ -724,20 +730,34 @@ int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
 }
 
 // gmat and kappa: both null (frozen BN) or both set (exact-BN correction).
+// route: 0 the CUDA cores (dq written), 1 the tensor cores (bf16 at the
+// classes of reattention_bwd_tc.cuh only; dq must be zeroed; work: a device
+// buffer of vit_train_bwd_workspace bytes, null where that is 0).
 int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* dvec, const float* m_eff,
                   const float* gmat, const float* kappa, const int64_t* seed,
                   int thr, float scale, float* dq, float* dk, float* dv,
                   int batch, int heads, int nq, int nk, int dh, int dtype,
-                  void* stream) {
+                  int route, void* work, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh) || (gmat == nullptr) != (kappa == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return dtype == 1 ? vit_bwd::train_bwd_tc(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed,
+                                              thr, scale, dq, dk, dv, work, batch, heads, nq,
+                                              nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return backward_dispatch<float>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv, batch, heads, nq, nk, dh, s);
   if (dtype == 1)
     return backward_dispatch<__nv_bfloat16>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv, batch, heads, nq, nk, dh, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of the workspace a vit_train_bwd call on the route needs.
+int64_t vit_train_bwd_workspace(int batch, int heads, int nq, int nk, int dh, int route) {
+  return route == 1 ? static_cast<int64_t>(vit_bwd::map_workspace(batch, heads, nq, nk, dh)) : 0;
 }
 
 const char* vit_train_error_string(int code) {

@@ -1,0 +1,766 @@
+// Training backward of flash re-attention on the tensor cores: the bfloat16
+// route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
+// classes train_bwd_tc instantiates: the levels of base and large.
+//
+// Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention_train.py
+// ::_bwd (pallas_call body _bwd_dkv_kernel) there.  With A_h = P_h * mask_h:
+//
+//   S_h   = Q_h K_h^T,  P_h = exp(S_h - lse_h) on valid keys,  T_h1 = g_h1 V_h1^T
+//   dA_h2 = sum_h1 M[h1,h2] T_h1  (+ kappa_h2 + sum_h3 G[h3,h2] A_h3, exact BN)
+//   dS_h  = P_h * (dA_h * mask_h - D_h),  B_h1 = sum_h2 M[h1,h2] A_h2
+//   dq_h += dS_h K_h,  dk_h += dS_h^T Q_h,  dv_h1 += B_h1^T g_h1
+//
+// Each piece is done once per map entry and head: one score product, one
+// depth-dh product g_h1 V_h1^T, one H x H mix for dA and one for B, the BN
+// term from the tiles in hand.  (The CUDA-core kernels take dA over all
+// H * dh columns once per head, and recompute the scores of every head for
+// dv and for the BN term.)
+//
+// Design.  A block of 8 warps owns BKEY keys of one image and all heads and
+// loops over the queries in tiles of BQ rows.  K and V of its keys stay in
+// shared memory; warp w keeps dk and dv of head w in f32 registers; dq goes
+// out through f32 atomicAdd into the zeroed dq, so its last bits vary from
+// run to run.  Per q tile:
+//   1. q and g rows of all heads by cp.async (zero-filled past Nq); lse, D,
+//      and the tile's dropout bits (below);
+//   2. per sub-tile of 16 queries x 8 keys, one warp for all heads: S and T
+//      by mma.sync m16n8k16 (bf16 in, f32 accumulate, fragments by
+//      ldmatrix), then P, the dA mix, dS and the B mix in f32 registers; dS
+//      and B go to shared memory as bf16 pairs hi + lo;
+//   3. warp w, head w: dk += dS^T q and dv += B^T g (the transposed A
+//      operands by ldmatrix.trans), dq = dS K, then the atomics; each of
+//      those products is taken on hi and on lo.
+//
+// Why hi + lo.  Rounding dS and B to bf16 once, as the TPU kernel does
+// (ds.astype, the fused form's A.astype), puts the gradients more than 1e-3
+// off the f32 plain version (max|err| / max|plain|), the tolerance the port
+// holds its f32 gradients to.  hi = bf16(x), lo = bf16(x - hi) carry 16
+// significant bits (under 1e-4), for twice the MMAs of those three
+// products; no operand goes through TF32.  tests/test_torch_train_route.py
+// emulates both on the CPU.
+//
+// Dropout bits.  A Philox call gives the bits of keys c + 16 j (j < 4) of a
+// 64-key window for one (b, h, row), c < 16 (reattention_common.cuh).  Step
+// 1 calls it once per (head, row, c) of the tile and keeps all four words'
+// keep bits in a byte, mb[h][row][c], so a 64-key tile uses every word and a
+// 16-key tile one in four.  The bits are those of keep_scales and of the
+// plain version's dropout_mask.
+//
+// What bounds it.  Per q tile a block passes three barriers; the products
+// are small (dh 24: KS 2 k-steps; dh 96: 6), so the exp, the two H x H
+// mixes, the shared-memory round trip of dS and B and the dq atomics
+// weigh as much as the MMAs.  Shared memory and registers per class are in
+// train_bwd_tc; one block an SM.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "reattention_common.cuh"
+#include "reattention_mma.cuh"
+#include "reattention_tiles.cuh"
+
+namespace vit_bwd {
+
+using vit_mma::ldsm_x2;
+using vit_mma::ldsm_x2_trans;
+using vit_mma::ldsm_x4;
+using vit_mma::ldsm_x4_trans;
+using vit_mma::mma_bf16;
+using vit_tile::bf16;
+using vit_tile::cp_async_commit;
+using vit_tile::cp_async_wait;
+using vit_tile::fast_exp2;
+using vit_tile::load_rows;
+using vit_tile::LOG2E;
+
+constexpr int NW = vit_tile::NW;   // warps per block
+constexpr int NT = vit_tile::NT;   // threads per block
+
+template <int H_, int DH_, int BKEY_, int BQ_>
+struct Cfg {
+  static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_;
+  static constexpr int DP = (DH + 15) / 16 * 16;  // depth padded for the MMA
+  static constexpr int KS = DP / 16;              // k16 steps over the head dim
+  static constexpr int NV = DH / 8;               // 8-column tiles of one head's dh
+  static constexpr int LD = DP + 8;               // bf16 pitch of the q, g, K, V tiles
+  static constexpr int LDS = BKEY + 8;            // bf16 pitch of the dS and B tiles
+  static constexpr int CH = 8;                    // bf16 per cp.async (16 bytes)
+  static constexpr int CPR = DH / CH;             // copies per row
+  static constexpr int MK = BKEY / 16;            // 16-key row tiles of dk, dv
+  static constexpr int NSUB = (BQ / 16) * (BKEY / 8);  // sub-tiles of step 2
+  static constexpr int KV_ELEMS = H * BKEY * LD;
+  static constexpr int QG_ELEMS = H * BQ * LD;
+  static constexpr int DS_ELEMS = H * BQ * LDS;
+  static constexpr size_t BF16_BYTES =
+      sizeof(bf16) * (2 * KV_ELEMS + 2 * QG_ELEMS + 4 * DS_ELEMS);
+  static constexpr size_t SMEM =
+      BF16_BYTES + sizeof(float) * (2 * H * BQ + 2 * H * H + H) + H * BQ * 16;
+  static_assert(H == NW, "warp w owns head w in step 3");
+  static_assert(4 * H <= 32, "a thread's keep bits of a sub-tile fit one word");
+  static_assert(DH % 8 == 0 && BKEY % 16 == 0 && BQ % 16 == 0 && 64 % BKEY == 0, "shape");
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+
+// s (16 x 8, f32) = rows r0.. of a [H][ROWS][LD] tile times rows c0.. of a
+// [H][BKEY][LD] tile, transposed, over the whole head dim, for head h.
+template <typename C, int ROWS>
+__device__ __forceinline__ void prod_16x8(const bf16* a, const bf16* bt, int h, int r0,
+                                          int c0, int lane, float (&s)[4]) {
+  const bf16* arow = a + (h * ROWS + r0 + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LD +
+                     8 * (lane / 16);
+  const bf16* brow = bt + (h * C::BKEY + c0 + (lane % 8)) * C::LD + 8 * ((lane / 8) % 2);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < C::KS; ++ks) {
+    uint32_t af[4], bf[2];
+    ldsm_x4(af, arow + 16 * ks);
+    ldsm_x2(bf, brow + 16 * ks);
+    mma_bf16(s, af, bf[0], bf[1]);
+  }
+}
+
+// B fragments of 16 rows (k) of a tile of pitch C::LD, all NV column tiles:
+// f[2 nv] holds rows 0..7, f[2 nv + 1] rows 8..15 of column tile nv.
+template <typename C>
+__device__ __forceinline__ void ldsm_b_trans(uint32_t* f, const bf16* rows, int lane) {
+  const bf16* p = rows + ((lane % 8) + 8 * ((lane / 8) % 2)) * C::LD;
+#pragma unroll
+  for (int j = 0; j + 4 <= 2 * C::NV; j += 4) ldsm_x4_trans(f + j, p + 8 * (j / 2) + 8 * (lane / 16));
+  if constexpr (C::NV % 2 == 1) ldsm_x2_trans(f + 2 * C::NV - 2, p + 8 * (C::NV - 1));
+}
+
+// x0, x1 as bf16 pairs hi = bf16(x), lo = bf16(x - hi) at hi + off, lo + off
+__device__ __forceinline__ void store_split(bf16* hi, bf16* lo, int off, float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi + off) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo + off) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+}
+
+// Grid (key tiles of BKEY, B).  dq must be zeroed; dk and dv are written.
+template <typename C>
+__global__ void __launch_bounds__(NT, 1) bwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dvec,
+    const float* __restrict__ m_eff, const float* __restrict__ gmat,
+    const float* __restrict__ kappa, const int64_t* __restrict__ seed, int thr, float scale,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
+  constexpr int H = C::H, DH = C::DH, BQ = C::BQ, BKEY = C::BKEY, LD = C::LD, LDS = C::LDS;
+  constexpr int NV = C::NV, MK = C::MK, PROJ = H * DH;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [H][BKEY][LD]
+  bf16* vs = ks + C::KV_ELEMS;                    // [H][BKEY][LD]
+  bf16* qs = vs + C::KV_ELEMS;                    // [H][BQ][LD]
+  bf16* gs = qs + C::QG_ELEMS;                    // [H][BQ][LD]
+  bf16* ds_hi = gs + C::QG_ELEMS;                 // [H][BQ][LDS], and the three below
+  bf16* ds_lo = ds_hi + C::DS_ELEMS;
+  bf16* b_hi = ds_lo + C::DS_ELEMS;
+  bf16* b_lo = b_hi + C::DS_ELEMS;
+  float* lse_s = reinterpret_cast<float*>(bwd_smem + C::BF16_BYTES);  // [H][BQ] * log2(e), inf past Nq
+  float* d_s = lse_s + H * BQ;                    // [H][BQ]
+  float* m_s = d_s + H * BQ;                      // [H][H]: M[h1, h2]
+  float* g_s = m_s + H * H;                       // [H][H]: G[h3, h2]
+  float* kap_s = g_s + H * H;                     // [H]
+  uint8_t* mb_s = reinterpret_cast<uint8_t*>(kap_s + H);  // [H][BQ][16] keep bits
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int k0 = blockIdx.x * BKEY, b = blockIdx.y;
+  const bool bn = gmat != nullptr;
+  const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
+
+  // the copies never write the padding columns [dh, DP), which the MMAs read
+  vit_tile::zero_bf16<2 * C::KV_ELEMS + 2 * C::QG_ELEMS>(ks, tid);
+  for (int e = tid; e < H * H; e += NT) {
+    m_s[e] = m_eff[e];
+    g_s[e] = bn ? gmat[e] : 0.f;
+  }
+  if (tid < H) kap_s[tid] = bn ? kappa[tid] : 0.f;
+  __syncthreads();
+  load_rows<C, BKEY, H>(ks, k + (int64_t)b * H * nk * DH, (int64_t)nk * DH, DH, k0, nk, tid);
+  load_rows<C, BKEY, H>(vs, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
+  cp_async_commit();
+
+  float dk_acc[MK][NV][4], dv_acc[MK][NV][4];
+#pragma unroll
+  for (int mt = 0; mt < MK; ++mt)
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[mt][nv][e] = dv_acc[mt][nv][e] = 0.f;
+
+  const uint32_t grp0 = static_cast<uint32_t>(k0 >> 6) * 16;
+  const uint32_t t = static_cast<uint32_t>(thr);
+  for (int q0 = 0; q0 < nq; q0 += BQ) {
+    // ---- 1. the q tile's rows, lse, D and dropout bits
+    __syncthreads();   // step 3 of the previous tile is done with q, g, dS, B
+    load_rows<C, BQ, H>(qs, q + (int64_t)b * H * nq * DH, (int64_t)nq * DH, DH, q0, nq, tid);
+    load_rows<C, BQ, H>(gs, g + (int64_t)b * nq * PROJ, DH, PROJ, q0, nq, tid);
+    cp_async_commit();
+    for (int e = tid; e < H * BQ; e += NT) {
+      const int h = e / BQ, row = q0 + e % BQ;
+      const int64_t i = ((int64_t)b * H + h) * nq + row;
+      lse_s[e] = row < nq ? lse[i] * LOG2E : INFINITY;
+      d_s[e] = row < nq ? dvec[i] : 0.f;
+    }
+    if (thr > 0) {
+      for (int e = tid; e < H * BQ * 16; e += NT) {
+        const int c = e % 16, r = (e / 16) % BQ, h = e / (16 * BQ);
+        uint32_t bits = 0;
+        if (q0 + r < nq) {
+          const uint4 w = vit::philox4(sd, b, h, q0 + r, grp0 + c);
+          bits = ((w.x >> 8) >= t ? 1u : 0u) | ((w.y >> 8) >= t ? 2u : 0u) |
+                 ((w.z >> 8) >= t ? 4u : 0u) | ((w.w >> 8) >= t ? 8u : 0u);
+        }
+        mb_s[e] = static_cast<uint8_t>(bits);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- 2. dS and B of all heads, 16 queries x 8 keys a warp
+    for (int st = warp; st < C::NSUB; st += NW) {
+      const int r0 = (st % (BQ / 16)) * 16, c0 = (st / (BQ / 16)) * 8;
+      float p[H][4], tt[H][4];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        prod_16x8<C, BQ>(qs, ks, h, r0, c0, lane, p[h]);
+        prod_16x8<C, BQ>(gs, vs, h, r0, c0, lane, tt[h]);
+      }
+      // this thread's entries: rows ra (e < 2), ra + 8; keys kk + (e & 1)
+      const int ra = r0 + gq, kk = c0 + 2 * t4;
+      const bool ok0 = k0 + kk < nk, ok1 = k0 + kk + 1 < nk;
+      uint32_t keep = 0xFFFFFFFFu;   // bit 4 h + e: entry e of head h is kept
+      if (thr > 0) {
+        keep = 0;
+        const int ca = (k0 + kk) & 15, ja = ((k0 + kk) >> 4) & 3;
+        const int cb = (k0 + kk + 1) & 15, jb = ((k0 + kk + 1) >> 4) & 3;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint8_t* row = mb_s + (h * BQ + ra + 8 * r) * 16;
+            keep |= ((row[ca] >> ja) & 1u) << (4 * h + 2 * r);
+            keep |= ((row[cb] >> jb) & 1u) << (4 * h + 2 * r + 1);
+          }
+      }
+      auto msc = [&](int h, int e) { return (keep >> (4 * h + e)) & 1u ? scale : 0.f; };
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float la = lse_s[h * BQ + ra], lb = lse_s[h * BQ + ra + 8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fast_exp2(fmaf(p[h][e], LOG2E, -(e < 2 ? la : lb)));
+          p[h][e] = ((e & 1) ? ok1 : ok0) ? x : 0.f;
+        }
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < H; ++h2) {
+        float da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int h1 = 0; h1 < H; ++h1) {
+          const float m = m_s[h1 * H + h2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[e] = fmaf(m, tt[h1][e], da[e]);
+        }
+        if (bn) {
+          const float kp = kap_s[h2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[e] += kp;
+#pragma unroll
+          for (int h3 = 0; h3 < H; ++h3) {
+            const float gw = g_s[h3 * H + h2];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) da[e] = fmaf(gw, p[h3][e] * msc(h3, e), da[e]);
+          }
+        }
+        const float da_ = d_s[h2 * BQ + ra], db_ = d_s[h2 * BQ + ra + 8];
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = p[h2][e] * (da[e] * msc(h2, e) - (e < 2 ? da_ : db_));
+        const int off = (h2 * BQ + ra) * LDS + kk;
+        store_split(ds_hi, ds_lo, off, x[0], x[1]);
+        store_split(ds_hi, ds_lo, off + 8 * LDS, x[2], x[3]);
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[h][e] *= msc(h, e);   // A = P * mask
+#pragma unroll
+      for (int h1 = 0; h1 < H; ++h1) {
+        float bm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int h2 = 0; h2 < H; ++h2) {
+          const float m = m_s[h1 * H + h2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bm[e] = fmaf(m, p[h2][e], bm[e]);
+        }
+        const int off = (h1 * BQ + ra) * LDS + kk;
+        store_split(b_hi, b_lo, off, bm[0], bm[1]);
+        store_split(b_hi, b_lo, off + 8 * LDS, bm[2], bm[3]);
+      }
+    }
+    __syncthreads();
+
+    // ---- 3. warp w, head w: dk, dv, dq
+    const int h = warp;
+    // A operands dS^T, B^T (keys 16 mt.., queries kq..) of the [query][key]
+    // tiles, by ldmatrix.trans
+    const int a_t = (lane % 8) + 8 * (lane / 16), a_c = 8 * ((lane / 8) % 2);
+#pragma unroll
+    for (int kq = 0; kq < BQ; kq += 16) {
+      uint32_t qb[2 * NV];
+      ldsm_b_trans<C>(qb, qs + (h * BQ + kq) * LD, lane);
+#pragma unroll
+      for (int mt = 0; mt < MK; ++mt) {
+        const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+        uint32_t ah[4], al[4];
+        ldsm_x4_trans(ah, ds_hi + off);
+        ldsm_x4_trans(al, ds_lo + off);
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          mma_bf16(dk_acc[mt][nv], ah, qb[2 * nv], qb[2 * nv + 1]);
+          mma_bf16(dk_acc[mt][nv], al, qb[2 * nv], qb[2 * nv + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kq = 0; kq < BQ; kq += 16) {
+      uint32_t gb[2 * NV];
+      ldsm_b_trans<C>(gb, gs + (h * BQ + kq) * LD, lane);
+#pragma unroll
+      for (int mt = 0; mt < MK; ++mt) {
+        const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+        uint32_t ah[4], al[4];
+        ldsm_x4_trans(ah, b_hi + off);
+        ldsm_x4_trans(al, b_lo + off);
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          mma_bf16(dv_acc[mt][nv], ah, gb[2 * nv], gb[2 * nv + 1]);
+          mma_bf16(dv_acc[mt][nv], al, gb[2 * nv], gb[2 * nv + 1]);
+        }
+      }
+    }
+    // dq_h (queries mq.., all dh) = dS_h K_h over the block's keys
+    for (int mq = 0; mq < BQ && q0 + mq < nq; mq += 16) {
+      float acc[NV][4];
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nv][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < BKEY; kc += 16) {
+        uint32_t kb[2 * NV], ah[4], al[4];
+        ldsm_b_trans<C>(kb, ks + (h * BKEY + kc) * LD, lane);
+        const int off = (h * BQ + mq + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + kc +
+                        8 * (lane / 16);
+        ldsm_x4(ah, ds_hi + off);
+        ldsm_x4(al, ds_lo + off);
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          mma_bf16(acc[nv], ah, kb[2 * nv], kb[2 * nv + 1]);
+          mma_bf16(acc[nv], al, kb[2 * nv], kb[2 * nv + 1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + mq + gq + 8 * r;
+        if (row >= nq) continue;
+        float* dst = dq + (((int64_t)b * H + h) * nq + row) * DH + 2 * t4;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          atomicAdd(dst + 8 * nv, acc[nv][2 * r]);
+          atomicAdd(dst + 8 * nv + 1, acc[nv][2 * r + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();   // no q tile: the K / V copies are still in flight
+
+  const int h = warp;
+#pragma unroll
+  for (int mt = 0; mt < MK; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + 16 * mt + gq + 8 * r;
+      if (key >= nk) continue;
+      float* dkr = dk + (((int64_t)b * H + h) * nk + key) * DH + 2 * t4;
+      float* dvr = dv + ((int64_t)b * nk + key) * PROJ + h * DH + 2 * t4;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        *reinterpret_cast<float2*>(dkr + 8 * nv) =
+            make_float2(dk_acc[mt][nv][2 * r], dk_acc[mt][nv][2 * r + 1]);
+        *reinterpret_cast<float2*>(dvr + 8 * nv) =
+            make_float2(dv_acc[mt][nv][2 * r], dv_acc[mt][nv][2 * r + 1]);
+      }
+    }
+}
+
+template <typename C>
+int launch(const void* q, const void* k, const void* v, const void* g, const float* lse,
+           const float* dvec, const float* m_eff, const float* gmat, const float* kappa,
+           const int64_t* seed, int thr, float scale, float* dq, float* dk, float* dv,
+           int batch, int nq, int nk, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_kernel<C><<<dim3((nk + C::BKEY - 1) / C::BKEY, batch), NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv,
+      nq, nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// dh 384 (base's N = 49 level): maps, then products
+// ---------------------------------------------------------------------------
+//
+// At dh 384 one head's K and V rows of 16 keys take 25 KB, and dk, dv of a
+// 16-key tile 384 registers a thread, so the kernel above does not fit.  The
+// maps are small there instead (49 x 49 a head), so the function runs in
+// two kernels through a bf16 workspace of four planes (dS hi, dS lo, B hi,
+// B lo), each (B, H, Nq padded to 16, Nk padded to 64):
+//   maps_kernel, grid (q tiles of 16, B), warp w = head w: S_w and T_w of
+//     16 queries x 64 keys by mma.sync over depth chunks of 32 staged per
+//     warp (cp.async, __syncwarp only), through shared memory in f32 to one
+//     thread per (row, c) of the Philox groups, which draws the four keys
+//     c + 16 j of all heads, mixes dA and B as above and writes the planes;
+//   prods_kernel, grid (dh / 64 column chunks, H, B), 4 warps: dq = dS K,
+//     dk = dS^T q, dv = B^T g for 64 columns, each on hi and lo, every
+//     output written once (no atomics).
+template <int H_, int DH_>
+struct MapCfg {
+  static constexpr int H = H_, DH = DH_;
+  static constexpr int BQ = 16, KT = 64;          // queries a block, keys a tile
+  static constexpr int DC = 32, LDC = DC + 8;     // depth chunk, its bf16 pitch
+  static constexpr int ST_LD = KT + 4;            // f32 pitch of the S and T tiles
+  static constexpr int WARP_ELEMS = 2 * (BQ + KT) * LDC;  // q, K rows; g, V rows
+  static constexpr size_t TILE_BYTES = sizeof(bf16) * NW * WARP_ELEMS;
+  static constexpr size_t MAP_SMEM =
+      TILE_BYTES + sizeof(float) * (2 * H * BQ * ST_LD + 2 * H * BQ + 2 * H * H + H);
+  static constexpr int PC = 64, PT = 64, LDP = PT + 8;   // products: columns, rows, pitch
+  static constexpr int PNT = 128;                         // products: threads
+  static constexpr size_t PROD_SMEM = sizeof(bf16) * 3 * PT * LDP;
+  static_assert(H == NW && DH % DC == 0 && DH % PC == 0, "shape");
+  static_assert(MAP_SMEM <= 232448, "shared memory of a block");
+};
+
+// bytes of the workspace (0 where the class needs none)
+inline size_t map_workspace(int batch, int heads, int nq, int nk, int dh) {
+  if (heads != 8 || dh != 384) return 0;
+  return sizeof(bf16) * 4 * (size_t)batch * heads * ((nq + 15) / 16 * 16) * ((nk + 63) / 64 * 64);
+}
+
+template <typename C>
+__global__ void __launch_bounds__(NT, 1) maps_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dvec,
+    const float* __restrict__ m_eff, const float* __restrict__ gmat,
+    const float* __restrict__ kappa, const int64_t* __restrict__ seed, int thr, float scale,
+    bf16* __restrict__ maps, int batch, int nq, int nk) {
+  constexpr int H = C::H, DH = C::DH, BQ = C::BQ, KT = C::KT, DC = C::DC, LDC = C::LDC;
+  constexpr int ST_LD = C::ST_LD, PROJ = H * DH;
+  extern __shared__ __align__(128) unsigned char map_smem[];
+  float* s_s = reinterpret_cast<float*>(map_smem + C::TILE_BYTES);  // [H][BQ][ST_LD]
+  float* t_s = s_s + H * BQ * ST_LD;              // [H][BQ][ST_LD]
+  float* lse_s = t_s + H * BQ * ST_LD;            // [H][BQ] * log2(e), inf past Nq
+  float* d_s = lse_s + H * BQ;                    // [H][BQ]
+  float* m_s = d_s + H * BQ;                      // [H][H]: M[h1, h2]
+  float* g_s = m_s + H * H;                       // [H][H]: G[h3, h2]
+  float* kap_s = g_s + H * H;                     // [H]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4, h = warp;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.y;
+  const int nqp = (nq + 15) / 16 * 16, nkp = (nk + KT - 1) / KT * KT;
+  const bool bn = gmat != nullptr;
+  const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
+  const int64_t plane = (int64_t)batch * H * nqp * nkp;
+
+  for (int e = tid; e < H * H; e += NT) {
+    m_s[e] = m_eff[e];
+    g_s[e] = bn ? gmat[e] : 0.f;
+  }
+  if (tid < H) kap_s[tid] = bn ? kappa[tid] : 0.f;
+  for (int e = tid; e < H * BQ; e += NT) {
+    const int hh = e / BQ, row = q0 + e % BQ;
+    const int64_t i = ((int64_t)b * H + hh) * nq + row;
+    lse_s[e] = row < nq ? lse[i] * LOG2E : INFINITY;
+    d_s[e] = row < nq ? dvec[i] : 0.f;
+  }
+  bf16* wt = reinterpret_cast<bf16*>(map_smem) + warp * C::WARP_ELEMS;  // this warp's tiles
+  const bf16* qh = q + ((int64_t)b * H + h) * nq * DH;
+  const bf16* kh = k + ((int64_t)b * H + h) * nk * DH;
+  const bf16* gh = g + (int64_t)b * nq * PROJ + h * DH;
+  const bf16* vh = v + (int64_t)b * nk * PROJ + h * DH;
+
+  for (int k0 = 0; k0 < nk; k0 += KT) {
+    float s[KT / 8][4], t[KT / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = t[nt][e] = 0.f;
+    for (int d0 = 0; d0 < DH; d0 += DC) {
+      // rows r < BQ + KT: q then K; rows BQ + KT + r: g then V; zero past Nq / Nk
+      for (int c = lane; c < 2 * (BQ + KT) * (DC / 8); c += 32) {
+        const int j = c % (DC / 8), r = c / (DC / 8);
+        const int rr = r % (BQ + KT);
+        const bool second = r >= BQ + KT, isq = rr < BQ;
+        const int row = isq ? q0 + rr : k0 + rr - BQ;
+        const bool valid = row < (isq ? nq : nk);
+        const bf16* src = second ? (isq ? gh + (int64_t)row * PROJ : vh + (int64_t)row * PROJ)
+                                 : (isq ? qh + (int64_t)row * DH : kh + (int64_t)row * DH);
+        vit_tile::cp_async<16>(wt + r * LDC + 8 * j, valid ? src + d0 + 8 * j : q, valid);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+#pragma unroll
+      for (int ks = 0; ks < DC / 16; ++ks) {
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          const bf16* base = wt + part * (BQ + KT) * LDC;
+          uint32_t af[4];
+          ldsm_x4(af, base + ((lane % 8) + 8 * ((lane / 8) % 2)) * LDC + 8 * (lane / 16) + 16 * ks);
+#pragma unroll
+          for (int nt = 0; nt < KT / 8; ++nt) {
+            uint32_t bf[2];
+            ldsm_x2(bf, base + (BQ + 8 * nt + (lane % 8)) * LDC + 8 * ((lane / 8) % 2) + 16 * ks);
+            mma_bf16(part == 0 ? s[nt] : t[nt], af, bf[0], bf[1]);
+          }
+        }
+      }
+      __syncwarp();   // the next chunk overwrites this warp's tiles
+    }
+    __syncthreads();  // the previous key tile's entries are done with s_s, t_s
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (h * BQ + gq + 8 * (e / 2)) * ST_LD + 8 * nt + 2 * t4 + (e & 1);
+        s_s[i] = s[nt][e];
+        t_s[i] = t[nt][e];
+      }
+    __syncthreads();
+
+    // thread (r, c): keys k0 + c + 16 j (j < 4) of row q0 + r, all heads
+    const int r = tid / 16, c = tid % 16, row = q0 + r;
+    uint32_t keep = 0xFFFFFFFFu;   // bit 4 h + j
+    if (thr > 0) {
+      keep = 0;
+      const uint32_t tt = static_cast<uint32_t>(thr);
+#pragma unroll
+      for (int hh = 0; hh < H; ++hh) {
+        const uint4 w = vit::philox4(sd, b, hh, row, (k0 >> 2) + c);
+        keep |= (((w.x >> 8) >= tt ? 1u : 0u) | ((w.y >> 8) >= tt ? 2u : 0u) |
+                 ((w.z >> 8) >= tt ? 4u : 0u) | ((w.w >> 8) >= tt ? 8u : 0u)) << (4 * hh);
+      }
+    }
+    auto msc = [&](int hh, int j) { return (keep >> (4 * hh + j)) & 1u ? scale : 0.f; };
+    float p[H][4];
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) {
+      const float l = lse_s[hh * BQ + r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = fast_exp2(fmaf(s_s[(hh * BQ + r) * ST_LD + c + 16 * j], LOG2E, -l));
+        p[hh][j] = k0 + c + 16 * j < nk ? x : 0.f;
+      }
+    }
+    bf16* out = maps + (((int64_t)b * H) * nqp + row) * nkp + k0 + c;   // head 0, plane 0
+    const int64_t hstride = (int64_t)nqp * nkp;
+#pragma unroll
+    for (int h2 = 0; h2 < H; ++h2) {
+      float da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h1 = 0; h1 < H; ++h1) {
+        const float m = m_s[h1 * H + h2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) da[j] = fmaf(m, t_s[(h1 * BQ + r) * ST_LD + c + 16 * j], da[j]);
+      }
+      if (bn) {
+#pragma unroll
+        for (int h3 = 0; h3 < H; ++h3) {
+          const float gw = g_s[h3 * H + h2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) da[j] = fmaf(gw, p[h3][j] * msc(h3, j), da[j]);
+        }
+      }
+      const float dr = d_s[h2 * BQ + r], kp = kap_s[h2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = p[h2][j] * ((da[j] + kp) * msc(h2, j) - dr);
+        const bf16 hi = __float2bfloat16_rn(x);
+        out[h2 * hstride + 16 * j] = hi;
+        out[plane + h2 * hstride + 16 * j] = __float2bfloat16_rn(x - __bfloat162float(hi));
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[hh][j] *= msc(hh, j);   // A = P * mask
+#pragma unroll
+    for (int h1 = 0; h1 < H; ++h1) {
+      float bm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h2 = 0; h2 < H; ++h2) {
+        const float m = m_s[h1 * H + h2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bm[j] = fmaf(m, p[h2][j], bm[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bf16 hi = __float2bfloat16_rn(bm[j]);
+        out[2 * plane + h1 * hstride + 16 * j] = hi;
+        out[3 * plane + h1 * hstride + 16 * j] = __float2bfloat16_rn(bm[j] - __bfloat162float(hi));
+      }
+    }
+  }
+}
+
+// One 64-column chunk of dq, dk and dv of head h, image b.
+template <typename C>
+__global__ void __launch_bounds__(C::PNT) prods_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ g,
+    const bf16* __restrict__ maps, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv, int batch, int nq, int nk) {
+  constexpr int H = C::H, DH = C::DH, PT = C::PT, LDP = C::LDP, PROJ = H * DH;
+  constexpr int NV = C::PC / 8;
+  extern __shared__ __align__(128) unsigned char prod_smem[];
+  bf16* a_hi = reinterpret_cast<bf16*>(prod_smem);   // [PT][LDP] map tile [query][key]
+  bf16* a_lo = a_hi + PT * LDP;
+  bf16* bo = a_lo + PT * LDP;                        // [PT][LDP] rows of K, q or g
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int cc = blockIdx.x * C::PC, h = blockIdx.y, b = blockIdx.z;
+  const int nqp = (nq + 15) / 16 * 16, nkp = (nk + PT - 1) / PT * PT;
+  const int64_t plane = (int64_t)batch * H * nqp * nkp;
+  const bf16* mhead = maps + ((int64_t)b * H + h) * nqp * nkp;
+
+  // which 0: dq (rows queries, summed over keys); 1: dk, 2: dv (rows keys,
+  // summed over queries)
+  for (int which = 0; which < 3; ++which) {
+    const int nrows = which == 0 ? nq : nk, nsum = which == 0 ? nk : nq;
+    const bf16* mh = mhead + (which == 2 ? 2 : 0) * plane;
+    for (int r0 = 0; r0 < nrows; r0 += PT) {
+      float acc[NV][4];
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nv][e] = 0.f;
+      for (int s0 = 0; s0 < nsum; s0 += PT) {
+        __syncthreads();   // the previous tile's readers are done
+        const int mq0 = which == 0 ? r0 : s0, mk0 = which == 0 ? s0 : r0;  // map rows, cols
+        for (int e = tid; e < 3 * PT * (PT / 8); e += C::PNT) {
+          const int j = e % (PT / 8), rr = (e / (PT / 8)) % PT, part = e / (PT * (PT / 8));
+          bool valid;
+          const bf16* src;
+          if (part < 2) {
+            valid = mq0 + rr < nqp;
+            src = mh + part * plane + (int64_t)(mq0 + rr) * nkp + mk0 + 8 * j;
+          } else {
+            const int row = s0 + rr;
+            valid = row < nsum;
+            src = which == 0 ? k + (((int64_t)b * H + h) * nk + row) * DH + cc + 8 * j
+                  : which == 1 ? q + (((int64_t)b * H + h) * nq + row) * DH + cc + 8 * j
+                               : g + ((int64_t)b * nq + row) * PROJ + h * DH + cc + 8 * j;
+          }
+          vit_tile::cp_async<16>(a_hi + (part * PT + rr) * LDP + 8 * j, valid ? src : maps, valid);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < PT / 16; ++ks) {
+          uint32_t ah[4], al[4], bf[2 * NV];
+          int off;
+          if (which == 0) {   // A = dS [query][key], rows 16 warp.., k = keys
+            off = (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * LDP + 16 * ks + 8 * (lane / 16);
+            ldsm_x4(ah, a_hi + off);
+            ldsm_x4(al, a_lo + off);
+          } else {            // A = map^T, rows keys 16 warp.., k = queries
+            off = (16 * ks + (lane % 8) + 8 * (lane / 16)) * LDP + 16 * warp + 8 * ((lane / 8) % 2);
+            ldsm_x4_trans(ah, a_hi + off);
+            ldsm_x4_trans(al, a_lo + off);
+          }
+          const bf16* p = bo + (16 * ks + (lane % 8) + 8 * ((lane / 8) % 2)) * LDP;
+#pragma unroll
+          for (int jj = 0; jj < 2 * NV; jj += 4) ldsm_x4_trans(bf + jj, p + 8 * (jj / 2) + 8 * (lane / 16));
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(acc[nv], ah, bf[2 * nv], bf[2 * nv + 1]);
+            mma_bf16(acc[nv], al, bf[2 * nv], bf[2 * nv + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 16 * warp + gq + 8 * r;
+        if (row >= nrows) continue;
+        float* dst = which == 0 ? dq + (((int64_t)b * H + h) * nq + row) * DH + cc
+                     : which == 1 ? dk + (((int64_t)b * H + h) * nk + row) * DH + cc
+                                  : dv + ((int64_t)b * nk + row) * PROJ + h * DH + cc;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+          *reinterpret_cast<float2*>(dst + 8 * nv + 2 * t4) = make_float2(acc[nv][2 * r], acc[nv][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <typename C>
+int launch_maps(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                const float* dvec, const float* m_eff, const float* gmat, const float* kappa,
+                const int64_t* seed, int thr, float scale, float* dq, float* dk, float* dv,
+                void* work, int batch, int nq, int nk, cudaStream_t stream) {
+  if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      maps_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::MAP_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bf16* maps = static_cast<bf16*>(work);
+  maps_kernel<C><<<dim3((nq + C::BQ - 1) / C::BQ, batch), NT, C::MAP_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, dvec, m_eff, gmat, kappa, seed, thr, scale, maps, batch,
+      nq, nk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prods_kernel<C><<<dim3(C::DH / C::PC, C::H, batch), C::PNT, C::PROD_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(g), maps,
+      dq, dk, dv, batch, nq, nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route's classes.  Shared memory a block (one block an SM):
+//   (8, 24): BKEY 64, BQ 16: K, V 81,920 + q, g 20,480 + dS, B (hi, lo)
+//            73,728 + lse, D, M, G, kappa 1,568 + keep bits 2,048 = 179,744 B;
+//            832 blocks at base b64 (13 key tiles x 64 images), 49 q tiles each;
+//   (8, 96): BKEY 16, BQ 32: K, V 53,248 + q, g 106,496 + dS, B 24,576 +
+//            2,592 + 4,096 = 191,008 B; 832 blocks at base b64, 7 q tiles each;
+//            dk and dv keep 2 * (BKEY / 16) * (dh / 8) * 4 = 96 f32 registers
+//            a thread in both;
+//   (8, 384): maps_kernel 8 warp tiles 102,400 + S, T 69,632 + 1,568 =
+//            173,600 B, 256 blocks at base b64; prods_kernel 27,648 B, 4 warps,
+//            3,072 blocks; the workspace (map_workspace) 4 x B x H x 64 x 64
+//            bf16 = 16.8 MB at base b64.
+// cudaErrorInvalidValue for any other shape.
+inline int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
+                        const float* lse, const float* dvec, const float* m_eff,
+                        const float* gmat, const float* kappa, const int64_t* seed, int thr,
+                        float scale, float* dq, float* dk, float* dv, void* work, int batch,
+                        int heads, int nq, int nk, int dh, cudaStream_t stream) {
+#define VIT_BWD_TC(DH, BKEY, BQ)                                                       \
+  launch<Cfg<8, DH, BKEY, BQ>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, \
+                               dq, dk, dv, batch, nq, nk, stream)
+  if (heads == 8 && dh == 24) return VIT_BWD_TC(24, 64, 16);
+  if (heads == 8 && dh == 96) return VIT_BWD_TC(96, 16, 32);
+#undef VIT_BWD_TC
+  if (heads == 8 && dh == 384)
+    return launch_maps<MapCfg<8, 384>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr,
+                                       scale, dq, dk, dv, work, batch, nq, nk, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace vit_bwd

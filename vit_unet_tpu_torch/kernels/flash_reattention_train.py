@@ -16,6 +16,12 @@ beside it and a launch counter:
   sum_m A_h2 A_h3, f32, with no head mix;
 * ``train_bwd``  <- ``_bwd`` (:451): dq, dk, dv (f32) from the residuals,
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
+  It has two routes, and ``train_bwd_route`` names the one a call takes from
+  the input dtype and (heads, dh), nothing else: ``tensor_core``
+  (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``,
+  every product a bf16 MMA with dS and the head-mixed map B carried as
+  bf16 pairs hi + lo; ``cuda_core`` (f32 FMAs) for float32 and every other
+  shape.
 
 A_h = softmax(q_h k_h^T) * mask, where the dropout mask keeps an entry iff
 the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
@@ -41,8 +47,21 @@ import struct
 import torch
 
 from vit_unet_tpu_torch.kernels.flash_reattention import (
-    MAX_HEAD_DIM, MAX_HEADS, SUPPORTED_DTYPES, fold_reattention_compact,
+    MAX_HEAD_DIM, MAX_HEADS, ROUTES, SUPPORTED_DTYPES, fold_reattention_compact,
 )
+
+#: (heads, dh) classes of the backward's tensor-core route: the level shapes
+#: of base and large
+TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+
+
+def train_bwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+    """The route a CUDA ``train_bwd`` call with these inputs takes: the only
+    place it is chosen, and by dtype and shape alone."""
+    if dtype == torch.bfloat16 and (heads, dh) in TRAIN_BWD_TC_SHAPES:
+        return "tensor_core"
+    return "cuda_core"
+
 
 # --- the dropout mask ---------------------------------------------------------
 
@@ -274,7 +293,9 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 6 + [p]
         lib.vit_bn_fwd.argtypes = [p] * 4 + [i, f] + [p] * 4 + [i] * 6 + [p]
-        lib.vit_train_bwd.argtypes = [p] * 10 + [i, f] + [p] * 3 + [i] * 6 + [p]
+        lib.vit_train_bwd.argtypes = [p] * 10 + [i, f] + [p] * 3 + [i] * 7 + [p, p]
+        lib.vit_train_bwd_workspace.argtypes = [i] * 6
+        lib.vit_train_bwd_workspace.restype = ctypes.c_int64
         for fn in (lib.vit_train_fwd, lib.vit_bn_fwd, lib.vit_train_bwd):
             fn.restype = i
         lib.vit_train_error_string.argtypes = [i]
@@ -353,45 +374,69 @@ def bn_fwd(q, k, v_cat, seed, rate: float = 0.0):
     return s_rows, c_rows, lse, onorm
 
 
-def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
-              bn_extra=None):
-    """Backward: (dq (B, H, Nq, dh), dk (B, H, Nk, dh), dv (B, Nk, H*dh)),
-    f32.  ``g`` is the cotangent of ``out``, ``d`` (B, H, Nq) the softmax-
-    dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
-    dk is summed with f32 atomics, so its last bits vary from run to run."""
-    _check(q, k, v_cat)
-    if q.device.type == "cpu":
-        return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra)
+def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
+               bn_extra=None, *, route: str):
+    """The backward's kernels on ``route``, on CUDA inputs that ``_check``
+    took: (dq, dk, dv), f32.  Only the measurements and the route-against-
+    route tests name a route themselves; it counts no launch."""
     batch, heads, n_q, dh = q.shape
     n_k = k.shape[2]
     dev = q.device
     g = g.to(q.dtype).contiguous()
     if g.shape != (batch, n_q, heads * dh):
         raise ValueError(f"g shape {tuple(g.shape)}, expected {(batch, n_q, heads * dh)}")
+    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, g)):
+        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
+                         "k, v_cat and g must start at 16-byte aligned addresses")
     lse, d, m32 = _f32(lse, dev), _f32(d, dev), _f32(m_eff, dev)
     g_mat = kappa = None
     if bn_extra is not None:
         g_mat, kappa = (_f32(t, dev) for t in bn_extra)
-    dq = torch.empty((batch, heads, n_q, dh), dtype=torch.float32, device=dev)
+    # the tensor-core route adds each key tile's dq into a zeroed dq
+    dq = (torch.zeros if route == "tensor_core" else torch.empty)(
+        (batch, heads, n_q, dh), dtype=torch.float32, device=dev)
     dk = torch.zeros((batch, heads, n_k, dh), dtype=torch.float32, device=dev)
     dv = torch.empty((batch, n_k, heads * dh), dtype=torch.float32, device=dev)
     seed_ptr, thr, scale = _dropout_args(seed, rate, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _library()
+    r = ROUTES.index(route)
+    nbytes = lib.vit_train_bwd_workspace(batch, heads, n_q, n_k, dh, r)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     with torch.cuda.device(dev):
-        _launch("train_bwd", lib.vit_train_bwd, q.data_ptr(), k.data_ptr(),
-                v_cat.data_ptr(), g.data_ptr(), lse.data_ptr(), d.data_ptr(),
-                m32.data_ptr(), ptr(g_mat), ptr(kappa), seed_ptr, thr, scale,
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch, heads, n_q,
-                n_k, dh, SUPPORTED_DTYPES[q.dtype], _stream(dev))
-    train_bwd.launches += 1
+        _launch(f"train_bwd ({route})", lib.vit_train_bwd, q.data_ptr(),
+                k.data_ptr(), v_cat.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                d.data_ptr(), m32.data_ptr(), ptr(g_mat), ptr(kappa), seed_ptr,
+                thr, scale, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch,
+                heads, n_q, n_k, dh, SUPPORTED_DTYPES[q.dtype], r, ptr(work),
+                _stream(dev))
     return dq, dk, dv
 
 
-#: kernel launches since the last reset (the plain versions do not count)
+def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
+              bn_extra=None):
+    """Backward: (dq (B, H, Nq, dh), dk (B, H, Nk, dh), dv (B, Nk, H*dh)),
+    f32.  ``g`` is the cotangent of ``out``, ``d`` (B, H, Nq) the softmax-
+    dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
+    CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
+    summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
+    core route), so its last bits vary from run to run."""
+    _check(q, k, v_cat)
+    if q.device.type == "cpu":
+        return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra)
+    route = train_bwd_route(q.dtype, q.shape[1], q.shape[3])
+    out = launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra, route=route)
+    train_bwd.launches += 1
+    train_bwd.route_launches[route] += 1
+    return out
+
+
+#: kernel launches since the last reset (the plain versions do not count);
+#: the backward's also by route
 train_fwd.launches = 0
 bn_fwd.launches = 0
 train_bwd.launches = 0
+train_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 # --- plain torch around the kernels -------------------------------------------
