@@ -20,10 +20,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
-   N x N forward with the same dropout mask; the backward on the route
-   ``train_bwd_route`` names (bfloat16 at base's level shapes on the
-   tensor cores), with ragged cases and the two routes held against each
-   other, and at the main path's shapes both routes timed in turns;
+   N x N forward with the same dropout mask; the backward and the exact-BN
+   forward on the routes ``train_bwd_route`` and ``bn_fwd_route`` name
+   (bfloat16 at base's level shapes on the tensor cores), with ragged cases
+   and the two routes held against each other (the exact-BN forward also at
+   batch 64, and its dropout bits read back exactly), and at the main
+   path's shapes both routes timed in turns;
 3. serving: the base preset at full width (224², bf16) served through
    ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
    route, the kernel path held against the plain path in float32 and in
@@ -35,9 +37,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    training kernels' launch counts (the backward's by route), step time,
    img/s, peak memory and a profiler breakdown; both steps timed again with
    the backward held on the CUDA-core route before and after (old, new,
-   new, old); then one f32 step at batch 4 of the kernel path
+   new, old), and the exact-BN step with the exact-BN forward held there;
+   then one f32 step at batch 4 of the kernel path
    against the plain path (``flash_train=False``) with the same weights
-   and dropout seed;
+   and dropout seed; then a model whose level 0 (head dim 1536) is wider
+   than the kernels take (``GATE_MODEL``), served and trained against its
+   plain path, level 0 on the plain path and the others on the kernels;
 5. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -405,6 +410,7 @@ F32_OUT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # softmax-dot term from o_norm, and in bf16 store o_norm in bf16, so bf16
 # is held to its rounding
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+BN_FWD_TOLS = (F32_OUT_TOL, F32_OUT_TOL, F32_OUT_TOL, TRAIN_TOL)   # S, C, lse, o_norm
 TRAIN_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 384, 49, 49), (4, 8, 96, 196, 196), (4, 8, 24, 784, 784),      # base
     (2, 4, 12, 3136, 3136), (4, 4, 48, 784, 784), (4, 4, 192, 196, 196),   # lite
@@ -489,7 +495,7 @@ def check_train_kernels(batch, heads, dh, n_q, n_k, dtype, rate, reps=0):
                 (TRAIN_TOL, F32_OUT_TOL, TRAIN_TOL)),
         "bn_fwd": (lambda: T.bn_fwd(q, k, v, seed, rate),
                    lambda: T.bn_fwd_plain(q, k, v, seed, rate),
-                   (F32_OUT_TOL, F32_OUT_TOL, F32_OUT_TOL, TRAIN_TOL)),
+                   BN_FWD_TOLS),
     }
     res = {}
     for name, (kern, plain, tols) in calls.items():
@@ -576,6 +582,74 @@ def time_bwd_routes(batch, heads, dh, n, reps=10):
     return old, new
 
 
+def bn_fwd_turns(batch, heads, dh, n_q, n_k, rate, seed=0):
+    """bf16 exact-BN forward on the route ``bn_fwd_route`` names against its
+    plain version and against the CUDA-core route, on the same inputs:
+    S, C, lse at F32_OUT_TOL, o_norm at TRAIN_TOL.  Returns the worst
+    max_abs_err against the plain version."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    dtype = torch.bfloat16
+    q, k, v, _, _, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
+    route = T.bn_fwd_route(dtype, heads, dh)
+    before = dict(T.bn_fwd.route_launches)
+    got = T.bn_fwd(q, k, v, sd, rate)
+    if T.bn_fwd.route_launches[route] != before[route] + 1:
+        raise AssertionError(f"the call did not take the {route} route")
+    want = T.bn_fwd_plain(q, k, v, sd, rate)
+    other = T.launch_bn_fwd(q, k, v, sd, rate, route="cuda_core")
+    torch.cuda.synchronize()
+    label = f"bn_fwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
+    for (_, rel), r, tol in zip(errs, routes, BN_FWD_TOLS):
+        require(label, rel, tol[dtype])
+        require(f"{label} against the cuda_core route", r, tol[dtype])
+    print(f"  {label}: S C lse o_norm rel " + " ".join(f"{r:.2e}" for _, r in errs)
+          + " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes))
+    return max(e for e, _ in errs)
+
+
+def check_bn_fwd_bits(batch, heads, dh, n):
+    """The dropout bits of the exact-BN forward's route, read back exactly:
+    with q = 0 every probability is 1/Nk, and with V_cat[m, j] = 1 where
+    m = j mod P, o_norm[b, h, n, j] Nk / scale counts the kept keys m = j mod
+    P of row n, which must equal the count from ``dropout_mask`` (every bit
+    itself where P >= Nk)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    proj = heads * dh
+    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(batch, heads, n, dh, device="cuda").bfloat16()
+    v = (torch.arange(n, device="cuda")[:, None] % proj
+         == torch.arange(proj, device="cuda")[None, :]).to(torch.bfloat16)
+    v = v.expand(batch, n, proj).contiguous()
+    sd = torch.tensor([77], dtype=torch.int64, device="cuda")
+    _, _, _, onorm = T.bn_fwd(q, k, v, sd, RATE)
+    mask = T.dropout_mask(77, RATE, batch, heads, n, n, "cuda") > 0
+    want = torch.einsum("bhnm,mj->bhnj", mask.float(), v[0].float())
+    got = torch.round(onorm.float() * n * (1 - RATE))
+    if not torch.equal(got, want):
+        raise AssertionError(f"bn_fwd's dropout bits differ from dropout_mask "
+                             f"(H{heads} dh{dh} N{n}): {int((got != want).sum())} counts")
+    print(f"  bn_fwd dropout bits H{heads} dh{dh} N{n} B{batch}: all "
+          f"{mask.numel()} identical to dropout_mask "
+          f"({'each bit' if proj >= n else 'counts of keys m = j mod P'})")
+
+
+def time_bn_fwd_routes(batch, heads, dh, n, reps=10):
+    """At one main-path shape, bf16, rate 0.2: the exact-BN forward on the
+    CUDA-core and the tensor-core route in turns (old, new, new, old)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, _, _, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16)
+    turns = [(r, time_ms(lambda: T.launch_bn_fwd(q, k, v, sd, RATE, route=r), reps))
+             for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
+    old = min(t for r, t in turns if r == "cuda_core")
+    new = min(t for r, t in turns if r == "tensor_core")
+    bound, by = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)["bn_fwd"])
+    print(f"    N{n} dh{dh} bn_fwd in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; cuda_core / tensor_core {old / new:.2f}x; bound {bound:.4f} ms ({by})")
+    return old, new
+
+
 def check_functions(batch, heads, dh, n, dtype):
     """Both autograd Functions at rate 0.2 against torch autograd of the
     N x N forward (``reattention_nxn``) with the same mask, in float64 on
@@ -634,11 +708,21 @@ def phase_train_kernels():
         for rate in (0.0, RATE):
             for bn in (False, True):
                 tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
+    print("  the exact-BN forward in bf16 on the route bn_fwd_route names:")
+    bn_err = 0.0
+    bn_shapes = [s for s in TRAIN_SHAPES[:3] if s[1:3] in T.BN_FWD_TC_SHAPES]
+    for shape in ([s for s in bn_shapes] + [(BATCH,) + s[1:] for s in bn_shapes]
+                  + BWD_EDGE_CASES):
+        for rate in (0.0, RATE):
+            bn_err = max(bn_err, bn_fwd_turns(*shape, rate))
+    for batch, heads, dh, n, _ in bn_shapes:
+        check_bn_fwd_bits(batch, heads, dh, n)
     print(f"  main-path shapes (base, B{BATCH}, bf16, rate {RATE}), "
           f"calls per train step:")
     total = {kname: dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
              for kname in ("fwd", "bn_fwd", "bwd")}
     total["bwd"].update(err=tc_err, old_ms=0.0, routes={})
+    total["bn_fwd"].update(err=bn_err, old_ms=0.0, routes={})
     for heads, dh, n, calls in BASE_LEVELS:
         res = check_train_kernels(BATCH, heads, dh, n, n, torch.bfloat16, RATE,
                                   reps=10)
@@ -649,6 +733,13 @@ def phase_train_kernels():
         else:
             old = res["bwd"]["ms"]
         total["bwd"]["old_ms"] += calls * old
+        route = T.bn_fwd_route(torch.bfloat16, heads, dh)
+        total["bn_fwd"]["routes"].setdefault(route, []).append(f"H{heads} dh{dh} bfloat16")
+        if route == "tensor_core":
+            old, _ = time_bn_fwd_routes(BATCH, heads, dh, n)
+        else:
+            old = res["bn_fwd"]["ms"]
+        total["bn_fwd"]["old_ms"] += calls * old
         bounds = train_bounds(BATCH, heads, dh, n, n, torch.bfloat16)
         for kname, tot in total.items():
             r = res[kname]
@@ -668,8 +759,9 @@ def phase_train_kernels():
         print(f"  {kname} per train step (12 calls): kernel {tot['ms']:.4f} ms, "
               f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
               f"({tot['bound_by']})")
-    print(f"  bwd per train step with every call on the CUDA-core route: "
-          f"{total['bwd']['old_ms']:.4f} ms; routes {total['bwd']['routes']}")
+    for kname in ("bn_fwd", "bwd"):
+        print(f"  {kname} per train step with every call on the CUDA-core route: "
+              f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
     print(f"  phase 2b: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -678,22 +770,28 @@ def train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     return {"fwd": T.train_fwd.launches, "bn_fwd": T.bn_fwd.launches,
             "bwd": T.train_bwd.launches,
+            **{f"bn_fwd_{r}": n for r, n in T.bn_fwd.route_launches.items()},
             **{f"bwd_{r}": n for r, n in T.train_bwd.route_launches.items()}}
 
 
 def reset_train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     T.train_fwd.launches = T.bn_fwd.launches = T.train_bwd.launches = 0
+    T.bn_fwd.route_launches = dict.fromkeys(T.bn_fwd.route_launches, 0)
     T.train_bwd.route_launches = dict.fromkeys(T.train_bwd.route_launches, 0)
 
 
-def bwd_routes_per_step() -> dict:
-    """{"bwd_<route>": calls per base train step}: each base level's calls
-    on the route ``train_bwd_route`` names for bf16."""
+def routes_per_step(expect) -> dict:
+    """{"<kernel>_<route>": calls per base train step} for the kernels with
+    routes (``expect``: launches per re-attention call): each base level's
+    calls on the route ``bn_fwd_route`` / ``train_bwd_route`` names for
+    bf16."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    per = {f"bwd_{r}": 0 for r in T.ROUTES}
-    for heads, dh, _, calls in BASE_LEVELS:
-        per[f"bwd_{T.train_bwd_route(torch.bfloat16, heads, dh)}"] += calls
+    per = {}
+    for kname, pick in (("bn_fwd", T.bn_fwd_route), ("bwd", T.train_bwd_route)):
+        per.update({f"{kname}_{r}": 0 for r in T.ROUTES})
+        for heads, dh, _, calls in BASE_LEVELS:
+            per[f"{kname}_{pick(torch.bfloat16, heads, dh)}"] += calls * expect[kname]
     return per
 
 
@@ -710,7 +808,7 @@ def run_steps(steps, state, batch, n, expect, label):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = train_launches()
     want = {kname: 12 * n * per for kname, per in expect.items()}
-    want.update({k: n * per for k, per in bwd_routes_per_step().items()})
+    want.update({k: n * per for k, per in routes_per_step(expect).items()})
     print(f"  {label}: {n} steps, launches {launches} (expected {want}), "
           f"losses {losses[0]:.5f} .. {losses[-1]:.5f}")
     if launches != want:
@@ -747,6 +845,9 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     state, losses, times, l_exact = run_steps(
         exact, state, batch, 10, {"fwd": 0, "bn_fwd": 1, "bwd": 1}, "exact-BN")
+    if l_exact["bn_fwd_tensor_core"] != 12 * 10:
+        raise AssertionError("a bf16 base exact-BN step takes the exact-BN forward's "
+                             "tensor-core route 12 times")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved_stats = (torch.cat([bn.running_mean, bn.running_var]) - stats0).abs().max().item()
     moved_params = max((p.detach().float() - p0.float()).abs().max().item()
@@ -789,9 +890,30 @@ def phase_train():
         print(f"  base b{BATCH} bf16 {label} step, backward on each route in turns "
               f"(median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
               + f" [{card}]")
+    # the exact-BN step with the exact-BN forward held on the CUDA-core route
+    # (the earlier kernels) before and after: old, new, new, old
+    held = mock.patch.object(T, "bn_fwd_route", lambda *a: "cuda_core")
+    turns = []
+    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+        with held if route == "cuda_core" else contextlib.nullcontext():
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                state, m = exact.train_step(state, batch)
+                m["loss"].item()
+                times.append((time.perf_counter() - t0) * 1e3)
+        turns.append((route, sorted(times)[2]))
+    print(f"  base b{BATCH} bf16 exact-BN step, exact-BN forward on each route in "
+          f"turns (median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+          + f" [{card}]")
+    if not min(t for r, t in turns if r == "tensor_core") < min(
+            t for r, t in turns if r == "cuda_core"):
+        raise AssertionError("the exact-BN step is not faster with the exact-BN "
+                             "forward on the tensor cores")
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
     compare_train_paths()
+    check_shape_gate()
     print(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
     return launches, step_ms
 
@@ -874,6 +996,105 @@ def compare_train_paths():
                                  "float64 plain path")
 
 
+# A configuration whose level 0 is wider than the kernels take: at
+# im_size 256, patch 64 the head dims are 1536, 384 and 96 (levels 0-2), so
+# ``kernel_takes`` sends the dh-1536 calls to the plain path and the others to
+# the kernels.  Cut to one block a level and one bottleneck block.
+GATE_MODEL = dict(im_size=256, patch_size=64, depth_te=1, size_bottleneck=1)
+
+
+def check_shape_gate():
+    """The gate model on the card, kernel path against the plain path with
+    the same weights (one model a dtype, its re-attention layers switched
+    to ``use_flash=False`` or ``flash_train=False``): eval forward in float32
+    (rel 1e-3) and bfloat16 (2e-2), one frozen-BN float32 train step (loss,
+    gradients, running statistics at 1e-3) and one exact-BN bfloat16 step
+    (loss and running statistics at 2e-2); launch counts per forward and
+    step against the calls ``kernel_takes`` admits."""
+    import copy
+    import importlib
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+
+    def layers(model, **flags):
+        out = [m for m in model.modules() if isinstance(m, ReAttention)]
+        for m in out:
+            for name, value in flags.items():
+                setattr(m, name, value)
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    size = GATE_MODEL["im_size"]
+    x = torch.randn(2, 3, size, size, generator=gen, device="cuda")
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()
+    for dt in ("float32", "bfloat16"):
+        model = get_vit_unet("base", seed=0, dtype=dt, param_dtype=dt, device="cuda",
+                             **GATE_MODEL)
+        by_dh = {}
+        for m in layers(model):
+            by_dh[m.dim // m.num_heads] = by_dh.get(m.dim // m.num_heads, 0) + 1
+        taken = sum(m._kernels for m in layers(model))
+        if not 0 < taken == sum(by_dh.values()) - by_dh[1536]:
+            raise AssertionError(f"gate model: {taken} calls the kernels take, calls "
+                                 f"by head dim {by_dh}")
+
+        tol = MODEL_TOL if dt == "float32" else MODEL_TOL_BF16
+        TK.flash_reattention.launches = 0
+        TK.flash_reattention.route_launches = dict.fromkeys(TK.ROUTES, 0)
+        with torch.inference_mode():
+            got = model(x).float()
+            torch.cuda.synchronize()
+            launches = TK.flash_reattention.launches
+            by_route = dict(TK.flash_reattention.route_launches)
+            layers(model, use_flash=False)
+            want = model(x).float()
+            layers(model, use_flash=True)
+        r = rel(got, want)
+        print(f"  gate model {GATE_MODEL} {dt} eval: calls by head dim {by_dh}, "
+              f"kernel launches {launches} by route {by_route} (dh 1536 on the plain "
+              f"path); kernel vs plain path rel {r:.3e} (tol {tol:.0e})")
+        if launches != taken or got.shape != x.shape or not r <= tol:
+            raise AssertionError(f"gate model {dt} eval: {launches} launches for {taken} "
+                                 f"calls, or the kernel path disagrees with the plain path")
+
+        bn_frozen = dt == "float32"
+        tol = TRAIN_PATH_TOL if bn_frozen else MODEL_TOL_BF16
+        results = []
+        for flash in (True, False):
+            m = copy.deepcopy(model).train()
+            layers(m, flash_train=flash)
+            opt = adamw(m, 1e-4)
+            steps = build_step_functions(m, opt, mse, bn_frozen=bn_frozen)
+            reset_train_launches()
+            _, met = steps.train_step(TrainState.create(model=m, optimizer=opt, seed=7),
+                                      {"x": x, "y": 0.9 * x})
+            results.append((met["loss"].item(),
+                            torch.cat([p.grad.double().flatten() for p in m.parameters()]),
+                            torch.cat([b.double() for name, b in m.named_buffers()
+                                       if "running" in name]),
+                            train_launches()))
+            del m, opt, steps
+        (kl, kg, ks, launches), (pl, pg, ps, _) = results
+        diffs = (abs(kl - pl) / abs(pl), rel(kg, pg), rel(ks, ps))
+        held = diffs if bn_frozen else (diffs[0], diffs[2])
+        fwd = "fwd" if bn_frozen else "bn_fwd"
+        print(f"  gate model {dt} {'frozen' if bn_frozen else 'exact'}-BN train step: "
+              f"launches {launches} ({taken} calls the kernels take); kernel vs plain "
+              f"path loss rel {diffs[0]:.2e}, grads rel {diffs[1]:.2e} of the largest, "
+              f"running stats rel {diffs[2]:.2e} (tol {tol:.0e} on "
+              f"{'all three' if bn_frozen else 'loss and running stats'})")
+        if not (launches[fwd] == launches["bwd"] == taken and max(held) <= tol
+                and math.isfinite(kl)):
+            raise AssertionError(f"gate model {dt} train step disagrees with the plain "
+                                 f"path or launched {launches} for {taken} calls")
+        del model, results
+        torch.cuda.empty_cache()
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -882,6 +1103,11 @@ TRAIN_KERNELS = [  # (key, name, replaces)
     ("bn_fwd", "flash_reattention_bn_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
 ]
+
+TC_SOURCES = {  # training kernels with a tensor-core route: its source
+    "bwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bwd_tc.cuh",
+    "bn_fwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd_tc.cuh",
+}
 
 
 def main(argv=None) -> int:
@@ -943,13 +1169,13 @@ def main(argv=None) -> int:
             # no single PyTorch call computes re-attention with a head mix,
             # dropout and its BatchNorm moments or their gradients
             "library_ms": None})
-        if key == "bwd":
+        if key in TC_SOURCES:
             # the bf16 tensor-core route it includes, which base classes ran
             # on which route, and the main path's launches by route
             kernels[-1].update(
-                tensor_core_source="vit_unet_tpu_torch/kernels/csrc/reattention_bwd_tc.cuh",
+                tensor_core_source=TC_SOURCES[key],
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
-                route_launches={r: train_launches_[f"bwd_{r}"]
+                route_launches={r: train_launches_[f"{key}_{r}"]
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -287,3 +287,113 @@ def test_bwd_float32_takes_the_cuda_core_route(cuda):
         "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TT.launch_bwd(*args, route="tensor_core")
+
+
+# --- the exact-BN forward's tensor-core route ------------------------------------
+
+BN_FWD_TOLS = (F32_TOL, F32_TOL, F32_TOL, TOL)   # S, C, lse, o_norm
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+def test_bn_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate):
+    assert TT.bn_fwd_route(torch.bfloat16, heads, dh) == "tensor_core"
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
+    before = dict(TT.bn_fwd.route_launches)
+    got = TT.bn_fwd(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    assert TT.bn_fwd.route_launches == {
+        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+    for a, b, tol in zip(got, TT.bn_fwd_plain(q, k, v, seed, rate), BN_FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+def test_bn_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
+    tc = TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
+    cc = TT.launch_bn_fwd(q, k, v, seed, 0.2, route="cuda_core")
+    torch.cuda.synchronize()
+    for a, b, tol in zip(tc, cc, BN_FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+
+
+@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196)])
+def test_bn_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
+    """q = 0 makes every probability 1/Nk, and V_cat[m, j] = 1 where m = j
+    (P >= Nk here) makes o_norm[..., m] Nk (1 - rate) the keep bit of key m."""
+    rate, proj = 0.2, heads * dh
+    q = torch.zeros(2, heads, n, dh, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(2, heads, n, dh, device=cuda).bfloat16()
+    v = torch.eye(n, proj, device=cuda, dtype=torch.bfloat16).expand(2, n, proj).contiguous()
+    seed = torch.tensor([31], device=cuda)
+    onorm = TT.bn_fwd(q, k, v, seed, rate)[3]
+    mask = TT.dropout_mask(31, rate, 2, heads, n, n, cuda) > 0
+    assert torch.equal(torch.round(onorm[..., :n].float() * n * (1 - rate)), mask.float())
+
+
+def test_bn_fwd_float32_takes_the_cuda_core_route(cuda):
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.float32, 2, 8, 24, 100, 100)
+    before = dict(TT.bn_fwd.route_launches)
+    TT.bn_fwd(q, k, v, seed, 0.2)
+    torch.cuda.synchronize()
+    assert TT.bn_fwd.route_launches == {
+        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
+        TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
+
+
+# --- the shape gate: a model whose level 0 is wider than the kernels take ----------
+
+GATE_MODEL = dict(im_size=256, patch_size=64, depth_te=1, size_bottleneck=1)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 2e-2)])
+def test_wide_head_model_serves_and_trains_against_its_plain_path(cuda, dtype, tol):
+    """Head dims 1536, 384, 96: level 0 takes the plain path, the others the
+    kernels.  Eval output, and one frozen-BN train step's loss and running
+    statistics (and in float32 its gradients), against the same model with
+    every layer on the plain path."""
+    import copy
+
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+
+    model = get_vit_unet("base", seed=0, dtype=dtype, param_dtype=dtype, device=cuda,
+                         **GATE_MODEL)
+    layers = lambda m: [x for x in m.modules() if isinstance(x, ReAttention)]
+    taken = sum(x._kernels for x in layers(model))
+    assert 0 < taken < len(layers(model))
+    x = torch.randn(2, 3, 256, 256, generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    before = TK.flash_reattention.launches
+    with torch.inference_mode():
+        got = model(x).float()
+        torch.cuda.synchronize()
+        assert TK.flash_reattention.launches == before + taken
+        for layer in layers(model):
+            layer.use_flash = False
+        want = model(x).float()
+        for layer in layers(model):
+            layer.use_flash = True
+    assert _rel(got, want) <= tol
+
+    results = []
+    for flash in (True, False):
+        m = copy.deepcopy(model).train()
+        for layer in layers(m):
+            layer.flash_train = flash
+        opt = adamw(m, 1e-4)
+        steps = build_step_functions(m, opt, mse, bn_frozen=True)
+        _, met = steps.train_step(TrainState.create(model=m, optimizer=opt, seed=7),
+                                  {"x": x, "y": 0.9 * x})
+        results.append((met["loss"].float(),
+                        torch.cat([p.grad.float().flatten() for p in m.parameters()]),
+                        torch.cat([b.float() for n, b in m.named_buffers() if "running" in n])))
+    (kl, kg, ks), (pl, pg, ps) = results
+    assert _rel(kl, pl) <= tol and _rel(ks, ps) <= tol
+    if dtype == "float32":
+        assert _rel(kg, pg) <= tol

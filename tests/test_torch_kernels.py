@@ -160,5 +160,6 @@ def test_each_library_hashes_its_own_headers():
         "flash_reattention.cu", "reattention_common.cuh", "reattention_mma.cuh",
         "reattention_tc.cuh", "reattention_tiles.cuh"]
     assert names("flash_reattention_train.cu") == [
-        "flash_reattention_train.cu", "reattention_bwd_tc.cuh", "reattention_common.cuh",
-        "reattention_mma.cuh", "reattention_tiles.cuh"]
+        "flash_reattention_train.cu", "reattention_bnfwd_tc.cuh", "reattention_bwd_tc.cuh",
+        "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
+        "reattention_tiles.cuh"]

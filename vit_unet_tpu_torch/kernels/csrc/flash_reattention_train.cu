@@ -56,12 +56,14 @@
 // masked in the kernel, Nq != Nk allowed, H <= 16, dh <= 384.  All tensors
 // are contiguous; the caller allocates every output (dq and dk zeroed).
 //
-// The backward has a second route, chosen by the caller (train_bwd_route in
+// The backward and the exact-BN forward have a second route each, chosen by
+// the caller (train_bwd_route, bn_fwd_route in
 // kernels/flash_reattention_train.py): bf16 on the tensor cores at base's
-// and large's level shapes, each piece computed once (reattention_bwd_tc.cuh).
-// The kernels here are the CUDA-core route, for f32 and every other shape;
-// the forwards have only these.
+// and large's level shapes, each piece computed once (reattention_bwd_tc.cuh,
+// reattention_bnfwd_tc.cuh).  The kernels here are the CUDA-core route, for
+// f32 and every other shape; the frozen-BN forward has only these.
 
+#include "reattention_bnfwd_tc.cuh"
 #include "reattention_bwd_tc.cuh"
 #include "reattention_common.cuh"
 
@@ -713,12 +715,19 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
+// reattention_bnfwd_tc.cuh only).
 int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
                int thr, float scale, float* lse, void* onorm, float* srow,
                float* crow, int batch, int heads, int nq, int nk, int dh,
-               int dtype, void* stream) {
+               int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return dtype == 1 ? vit_bnfwd::bn_fwd_tc(q, k, v, seed, thr, scale, lse, onorm, srow, crow,
+                                             batch, heads, nq, nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool thin = dh <= 16;
   if (dtype == 0)
     return thin ? bn_fwd<float, 16>(q, k, v, seed, thr, scale, lse, onorm, srow, crow, batch, heads, nq, nk, dh, s)

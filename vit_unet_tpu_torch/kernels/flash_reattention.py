@@ -48,6 +48,17 @@ TENSOR_CORE_SHAPES = frozenset({
     (8, 384), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48), (16, 12)})
 
 
+def kernel_takes(heads: int, dh: int) -> bool:
+    """Whether a re-attention call of (heads, dh) runs the kernels (eval
+    and training) or the plain path: the one place the choice is made, by
+    shape alone, against the kernels' own limits.  Every level of the
+    presets is inside them; a wider shape (say dh 1536 at ``im_size=256,
+    patch_size=64``) takes the plain path, as the JAX module's
+    ``_flash_ok`` sends its wide shapes to XLA.  There is no token floor:
+    the kernels run at any N."""
+    return 1 <= heads <= MAX_HEADS and 1 <= dh <= MAX_HEAD_DIM
+
+
 def kernel_route(dtype: torch.dtype, heads: int, dh: int) -> str:
     """The route a CUDA call with these inputs takes: the only place it is
     chosen, and by dtype and shape alone."""

@@ -13,7 +13,12 @@ beside it and a launch counter:
   (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type;
 * ``bn_fwd``     <- ``_bn_fwd`` (:741): exact-BN sweep, writes ``lse``,
   ``o_norm`` and the rows S (B, H, Nq) = sum_m A_h, C (B, H, H, Nq) =
-  sum_m A_h2 A_h3, f32, with no head mix;
+  sum_m A_h2 A_h3, f32, with no head mix.  Two routes, named by
+  ``bn_fwd_route`` from the input dtype and (heads, dh): ``tensor_core``
+  (``csrc/reattention_bnfwd_tc.cuh``) for bfloat16 at ``BN_FWD_TC_SHAPES``,
+  the scores and A @ V_cat as bf16 MMAs, S and C from the f32
+  probabilities, A rounded to bf16 once for the product; ``cuda_core``
+  (f32 FMAs) for float32 and every other shape;
 * ``train_bwd``  <- ``_bwd`` (:451): dq, dk, dv (f32) from the residuals,
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
   It has two routes, and ``train_bwd_route`` names the one a call takes from
@@ -55,10 +60,23 @@ from vit_unet_tpu_torch.kernels.flash_reattention import (
 TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 
 
+#: (heads, dh) classes of the exact-BN forward's tensor-core route: the
+#: level shapes of base and large
+BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+
+
 def train_bwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
     """The route a CUDA ``train_bwd`` call with these inputs takes: the only
     place it is chosen, and by dtype and shape alone."""
     if dtype == torch.bfloat16 and (heads, dh) in TRAIN_BWD_TC_SHAPES:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def bn_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+    """The route a CUDA ``bn_fwd`` call with these inputs takes: the only
+    place it is chosen, and by dtype and shape alone."""
+    if dtype == torch.bfloat16 and (heads, dh) in BN_FWD_TC_SHAPES:
         return "tensor_core"
     return "cuda_core"
 
@@ -292,7 +310,7 @@ def _library():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 6 + [p]
-        lib.vit_bn_fwd.argtypes = [p] * 4 + [i, f] + [p] * 4 + [i] * 6 + [p]
+        lib.vit_bn_fwd.argtypes = [p] * 4 + [i, f] + [p] * 4 + [i] * 7 + [p]
         lib.vit_train_bwd.argtypes = [p] * 10 + [i, f] + [p] * 3 + [i] * 7 + [p, p]
         lib.vit_train_bwd_workspace.argtypes = [i] * 6
         lib.vit_train_bwd_workspace.restype = ctypes.c_int64
@@ -350,14 +368,16 @@ def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0):
     return out, lse, onorm
 
 
-def bn_fwd(q, k, v_cat, seed, rate: float = 0.0):
-    """Exact-BN forward sweep: (S (B, H, Nq), C (B, H, H, Nq), lse
-    (B, H, Nq), all f32, o_norm (B, H, Nq, H*dh))."""
-    _check(q, k, v_cat)
-    if q.device.type == "cpu":
-        return bn_fwd_plain(q, k, v_cat, seed, rate)
+def launch_bn_fwd(q, k, v_cat, seed, rate: float = 0.0, *, route: str):
+    """The exact-BN forward's kernels on ``route``, on CUDA inputs that
+    ``_check`` took: (S, C, lse, o_norm).  Only the measurements and the
+    route-against-route tests name a route themselves; it counts no
+    launch."""
     batch, heads, n_q, dh = q.shape
     dev = q.device
+    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat)):
+        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
+                         "k and v_cat must start at 16-byte aligned addresses")
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     s_rows = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     c_rows = torch.empty((batch, heads, heads, n_q), dtype=torch.float32, device=dev)
@@ -365,13 +385,26 @@ def bn_fwd(q, k, v_cat, seed, rate: float = 0.0):
     seed_ptr, thr, scale = _dropout_args(seed, rate, dev)
     lib = _library()
     with torch.cuda.device(dev):
-        _launch("bn_fwd", lib.vit_bn_fwd, q.data_ptr(), k.data_ptr(),
+        _launch(f"bn_fwd ({route})", lib.vit_bn_fwd, q.data_ptr(), k.data_ptr(),
                 v_cat.data_ptr(), seed_ptr, thr, scale, lse.data_ptr(),
                 onorm.data_ptr(), s_rows.data_ptr(), c_rows.data_ptr(), batch,
                 heads, n_q, k.shape[2], dh, SUPPORTED_DTYPES[q.dtype],
-                _stream(dev))
-    bn_fwd.launches += 1
+                ROUTES.index(route), _stream(dev))
     return s_rows, c_rows, lse, onorm
+
+
+def bn_fwd(q, k, v_cat, seed, rate: float = 0.0):
+    """Exact-BN forward sweep: (S (B, H, Nq), C (B, H, H, Nq), lse
+    (B, H, Nq), all f32, o_norm (B, H, Nq, H*dh)).  CUDA tensors take the
+    route ``bn_fwd_route`` names."""
+    _check(q, k, v_cat)
+    if q.device.type == "cpu":
+        return bn_fwd_plain(q, k, v_cat, seed, rate)
+    route = bn_fwd_route(q.dtype, q.shape[1], q.shape[3])
+    out = launch_bn_fwd(q, k, v_cat, seed, rate, route=route)
+    bn_fwd.launches += 1
+    bn_fwd.route_launches[route] += 1
+    return out
 
 
 def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
@@ -432,9 +465,10 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
 
 
 #: kernel launches since the last reset (the plain versions do not count);
-#: the backward's also by route
+#: the exact-BN forward's and the backward's also by route
 train_fwd.launches = 0
 bn_fwd.launches = 0
+bn_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 train_bwd.launches = 0
 train_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 

@@ -30,7 +30,7 @@ from torch import nn
 
 from vit_unet_tpu_torch.kernels.flash_reattention import (
     expand_reattention_affine, flash_reattention, flash_reattention_plain,
-    fold_reattention_compact,
+    fold_reattention_compact, kernel_takes,
 )
 from vit_unet_tpu_torch.kernels.flash_reattention_train import (
     dropout_mask, flash_bn_batch_moments, flash_reattention_train,
@@ -79,6 +79,8 @@ class ReAttention(nn.Module):
     plain version of the attention contraction on every device (it
     materialises the N x N map); ``True`` runs the kernels, and in training
     only with ``flash_train`` (the default here; JAX defaults it to False).
+    A (heads, dh) beyond the kernels' limits (``kernel_takes``) takes the
+    plain path whatever the flags say.
     """
 
     def __init__(self, dim: int, num_channels: int = 3, num_heads: int = 8,
@@ -112,6 +114,13 @@ class ReAttention(nn.Module):
     @property
     def scale(self) -> float:
         return (self.dim // self.num_heads) ** -0.5
+
+    @property
+    def _kernels(self) -> bool:
+        """Whether this layer's calls run the kernels: ``use_flash`` and a
+        shape the kernels take."""
+        return self.use_flash and kernel_takes(self.num_heads,
+                                               self.dim // self.num_heads)
 
     def _qkv(self, q_in, k_in, v_in):
         """(B, N, E) inputs -> q, k, v as (B, H, N, dh); one C->3C conv
@@ -154,13 +163,13 @@ class ReAttention(nn.Module):
             m_eff, c_eff = self._folded()
             w, b = expand_reattention_affine(m_eff, c_eff,
                                              dh=self.dim // self.num_heads)
-            fn = flash_reattention if self.use_flash else flash_reattention_plain
+            fn = flash_reattention if self._kernels else flash_reattention_plain
             return fn(qs, k, v_cat, w, b, num_heads=self.num_heads)
         rate = 0.0 if deterministic else float(self.attn_drop)
         seed = None
         if rate > 0.0:
             seed = new_seed(require_generator(generator, rate, "attention dropout"))
-        if self.use_flash and self.flash_train:
+        if self._kernels and self.flash_train:
             return self._attend_flash_train(qs, k, v_cat, seed, rate,
                                             use_running_average)
         return self._attend_plain_train(qs, k, v_cat, seed, rate,
