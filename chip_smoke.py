@@ -20,12 +20,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
-   N x N forward with the same dropout mask; the backward and the exact-BN
-   forward on the routes ``train_bwd_route`` and ``bn_fwd_route`` name
-   (bfloat16 at base's level shapes on the tensor cores), with ragged cases
-   and the two routes held against each other (the exact-BN forward also at
-   batch 64, and its dropout bits read back exactly), and at the main
-   path's shapes both routes timed in turns;
+   N x N forward with the same dropout mask; the backward and both forwards
+   on the routes ``train_bwd_route``, ``train_fwd_route`` and
+   ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
+   cores), with ragged cases and the two routes held against each other
+   (the forwards also at batch 64, and their dropout bits read back
+   exactly), and at the main path's shapes both routes timed in turns;
 3. serving: the base preset at full width (224², bf16) served through
    ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
    route, the kernel path held against the plain path in float32 and in
@@ -34,10 +34,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 4. training: the base preset at full width (224², bf16, batch 64, AdamW
    1e-4 with weight decay 1e-4, x ~ N(0, 1), y = 0.9 x): 2 + 10 exact-BN
    steps and 5 frozen-BN steps through ``build_step_functions`` with the
-   training kernels' launch counts (the backward's by route), step time,
-   img/s, peak memory and a profiler breakdown; both steps timed again with
-   the backward held on the CUDA-core route before and after (old, new,
-   new, old), and the exact-BN step with the exact-BN forward held there;
+   training kernels' launch counts by route, step time, img/s, peak
+   memory and a profiler breakdown; both steps timed again with the
+   backward held on the CUDA-core route before and after (old, new, new,
+   old), and each step with its forward held there;
    then one f32 step at batch 4 of the kernel path
    against the plain path (``flash_train=False``) with the same weights
    and dropout seed; then a model whose level 0 (head dim 1536) is wider
@@ -52,6 +52,7 @@ the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -424,6 +425,9 @@ BWD_EDGE_CASES = [
     (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
     (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
 ]
+# the forwards also with more keys than the chunked form keeps A of (256),
+# so A is recomputed for every column chunk
+FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
 
 
 def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0):
@@ -582,40 +586,65 @@ def time_bwd_routes(batch, heads, dh, n, reps=10):
     return old, new
 
 
-def bn_fwd_turns(batch, heads, dh, n_q, n_k, rate, seed=0):
-    """bf16 exact-BN forward on the route ``bn_fwd_route`` names against its
-    plain version and against the CUDA-core route, on the same inputs:
-    S, C, lse at F32_OUT_TOL, o_norm at TRAIN_TOL.  Returns the worst
-    max_abs_err against the plain version."""
+FWD_TOLS = (TRAIN_TOL, F32_OUT_TOL, TRAIN_TOL)   # out, lse, o_norm
+FWD_OUTPUTS = {"fwd": "out lse o_norm", "bn_fwd": "S C lse o_norm"}
+
+
+Forward = collections.namedtuple("Forward", "kernel plain launch route tols args")
+
+
+def forward(key) -> Forward:
+    """The forward ``key`` ("fwd": frozen BN, "bn_fwd": exact BN): its
+    wrapper, plain version, launch on a named route, route choice,
+    tolerances of its outputs, and its arguments from (q, k, v, m_eff,
+    c_eff, seed, rate).  Both return o_norm last."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    if key == "fwd":
+        return Forward(T.train_fwd, T.train_fwd_plain, T.launch_train_fwd,
+                       T.train_fwd_route, FWD_TOLS,
+                       lambda q, k, v, m, c, sd, rate: (q, k, v, v.float().sum(1), m, c,
+                                                        sd, rate))
+    return Forward(T.bn_fwd, T.bn_fwd_plain, T.launch_bn_fwd, T.bn_fwd_route,
+                   BN_FWD_TOLS, lambda q, k, v, m, c, sd, rate: (q, k, v, sd, rate))
+
+
+def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
+    """bf16 forward ``key`` on the route its route choice names against its
+    plain version and against the CUDA-core route, on the same inputs, each
+    output at its tolerance.  Returns the worst max_abs_err against the
+    plain version."""
+    f = forward(key)
     dtype = torch.bfloat16
-    q, k, v, _, _, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
-    route = T.bn_fwd_route(dtype, heads, dh)
-    before = dict(T.bn_fwd.route_launches)
-    got = T.bn_fwd(q, k, v, sd, rate)
-    if T.bn_fwd.route_launches[route] != before[route] + 1:
+    q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
+    args = f.args(q, k, v, m_eff, c_eff, sd, rate)
+    route = f.route(dtype, heads, dh)
+    before = dict(f.kernel.route_launches)
+    got = f.kernel(*args)
+    if f.kernel.route_launches[route] != before[route] + 1:
         raise AssertionError(f"the call did not take the {route} route")
-    want = T.bn_fwd_plain(q, k, v, sd, rate)
-    other = T.launch_bn_fwd(q, k, v, sd, rate, route="cuda_core")
+    want = f.plain(*args)
+    other = f.launch(*args, route="cuda_core")
     torch.cuda.synchronize()
-    label = f"bn_fwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
+    label = f"{key} [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
-    for (_, rel), r, tol in zip(errs, routes, BN_FWD_TOLS):
+    for (_, rel), r, tol in zip(errs, routes, f.tols):
         require(label, rel, tol[dtype])
         require(f"{label} against the cuda_core route", r, tol[dtype])
-    print(f"  {label}: S C lse o_norm rel " + " ".join(f"{r:.2e}" for _, r in errs)
+    print(f"  {label}: {FWD_OUTPUTS[key]} rel " + " ".join(f"{r:.2e}" for _, r in errs)
           + " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes))
     return max(e for e, _ in errs)
 
 
-def check_bn_fwd_bits(batch, heads, dh, n):
-    """The dropout bits of the exact-BN forward's route, read back exactly:
-    with q = 0 every probability is 1/Nk, and with V_cat[m, j] = 1 where
-    m = j mod P, o_norm[b, h, n, j] Nk / scale counts the kept keys m = j mod
-    P of row n, which must equal the count from ``dropout_mask`` (every bit
-    itself where P >= Nk)."""
+def check_fwd_bits(key, batch, heads, dh, n):
+    """The dropout bits of forward ``key``'s route, read back exactly: with
+    q = 0 every probability is 1/Nk, and with V_cat[m, j] = 1 where m = j mod
+    P, o_norm[b, h, n, j] Nk / scale counts the kept keys m = j mod P of row
+    n, which must equal the count from ``dropout_mask`` (every bit itself
+    where P >= Nk).  The frozen forward mixes with M = identity and c = 0,
+    so its out[b, n, j] must equal o_norm[b, head(j), n, j] bit for bit."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    f = forward(key)
     proj = heads * dh
     q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=torch.bfloat16)
     k = torch.randn(batch, heads, n, dh, device="cuda").bfloat16()
@@ -623,29 +652,38 @@ def check_bn_fwd_bits(batch, heads, dh, n):
          == torch.arange(proj, device="cuda")[None, :]).to(torch.bfloat16)
     v = v.expand(batch, n, proj).contiguous()
     sd = torch.tensor([77], dtype=torch.int64, device="cuda")
-    _, _, _, onorm = T.bn_fwd(q, k, v, sd, RATE)
+    eye = torch.eye(heads, device="cuda")
+    got_all = f.kernel(*f.args(q, k, v, eye, torch.zeros(heads, device="cuda"), sd, RATE))
+    onorm = got_all[-1]
     mask = T.dropout_mask(77, RATE, batch, heads, n, n, "cuda") > 0
     want = torch.einsum("bhnm,mj->bhnj", mask.float(), v[0].float())
     got = torch.round(onorm.float() * n * (1 - RATE))
     if not torch.equal(got, want):
-        raise AssertionError(f"bn_fwd's dropout bits differ from dropout_mask "
+        raise AssertionError(f"{key}'s dropout bits differ from dropout_mask "
                              f"(H{heads} dh{dh} N{n}): {int((got != want).sum())} counts")
-    print(f"  bn_fwd dropout bits H{heads} dh{dh} N{n} B{batch}: all "
+    if key == "fwd":
+        own = onorm.unflatten(-1, (heads, dh)).diagonal(dim1=1, dim2=3)   # (B, N, dh, H)
+        if not torch.equal(got_all[0], own.permute(0, 1, 3, 2).flatten(-2)):
+            raise AssertionError(f"fwd's out with M = I, c = 0 is not its own head's "
+                                 f"o_norm (H{heads} dh{dh} N{n})")
+    print(f"  {key} dropout bits H{heads} dh{dh} N{n} B{batch}: all "
           f"{mask.numel()} identical to dropout_mask "
-          f"({'each bit' if proj >= n else 'counts of keys m = j mod P'})")
+          f"({'each bit' if proj >= n else 'counts of keys m = j mod P'})"
+          + ("; out with M = I, c = 0 is each column's own head" if key == "fwd" else ""))
 
 
-def time_bn_fwd_routes(batch, heads, dh, n, reps=10):
-    """At one main-path shape, bf16, rate 0.2: the exact-BN forward on the
+def time_fwd_routes(key, batch, heads, dh, n, reps=10):
+    """At one main-path shape, bf16, rate 0.2: forward ``key`` on the
     CUDA-core and the tensor-core route in turns (old, new, new, old)."""
-    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    q, k, v, _, _, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16)
-    turns = [(r, time_ms(lambda: T.launch_bn_fwd(q, k, v, sd, RATE, route=r), reps))
+    f = forward(key)
+    q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16)
+    args = f.args(q, k, v, m_eff, c_eff, sd, RATE)
+    turns = [(r, time_ms(lambda: f.launch(*args, route=r), reps))
              for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
     old = min(t for r, t in turns if r == "cuda_core")
     new = min(t for r, t in turns if r == "tensor_core")
-    bound, by = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)["bn_fwd"])
-    print(f"    N{n} dh{dh} bn_fwd in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+    bound, by = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)[key])
+    print(f"    N{n} dh{dh} {key} in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
           + f"; cuda_core / tensor_core {old / new:.2f}x; bound {bound:.4f} ms ({by})")
     return old, new
 
@@ -708,21 +746,24 @@ def phase_train_kernels():
         for rate in (0.0, RATE):
             for bn in (False, True):
                 tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
-    print("  the exact-BN forward in bf16 on the route bn_fwd_route names:")
-    bn_err = 0.0
-    bn_shapes = [s for s in TRAIN_SHAPES[:3] if s[1:3] in T.BN_FWD_TC_SHAPES]
-    for shape in ([s for s in bn_shapes] + [(BATCH,) + s[1:] for s in bn_shapes]
-                  + BWD_EDGE_CASES):
-        for rate in (0.0, RATE):
-            bn_err = max(bn_err, bn_fwd_turns(*shape, rate))
-    for batch, heads, dh, n, _ in bn_shapes:
-        check_bn_fwd_bits(batch, heads, dh, n)
+    fwd_err = {}
+    for key, classes in (("fwd", T.TRAIN_FWD_TC_SHAPES), ("bn_fwd", T.BN_FWD_TC_SHAPES)):
+        print(f"  the {'frozen' if key == 'fwd' else 'exact'}-BN forward in bf16 on the "
+              f"route its route choice names:")
+        fwd_err[key] = 0.0
+        shapes = [s for s in TRAIN_SHAPES[:3] if s[1:3] in classes]
+        for shape in shapes + [(BATCH,) + s[1:] for s in shapes] + FWD_EDGE_CASES:
+            for rate in (0.0, RATE):
+                fwd_err[key] = max(fwd_err[key], fwd_turns(key, *shape, rate))
+        for batch, heads, dh, n, _ in shapes:
+            check_fwd_bits(key, batch, heads, dh, n)
     print(f"  main-path shapes (base, B{BATCH}, bf16, rate {RATE}), "
           f"calls per train step:")
     total = {kname: dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
              for kname in ("fwd", "bn_fwd", "bwd")}
     total["bwd"].update(err=tc_err, old_ms=0.0, routes={})
-    total["bn_fwd"].update(err=bn_err, old_ms=0.0, routes={})
+    for key, err in fwd_err.items():
+        total[key].update(err=err, old_ms=0.0, routes={})
     for heads, dh, n, calls in BASE_LEVELS:
         res = check_train_kernels(BATCH, heads, dh, n, n, torch.bfloat16, RATE,
                                   reps=10)
@@ -733,13 +774,14 @@ def phase_train_kernels():
         else:
             old = res["bwd"]["ms"]
         total["bwd"]["old_ms"] += calls * old
-        route = T.bn_fwd_route(torch.bfloat16, heads, dh)
-        total["bn_fwd"]["routes"].setdefault(route, []).append(f"H{heads} dh{dh} bfloat16")
-        if route == "tensor_core":
-            old, _ = time_bn_fwd_routes(BATCH, heads, dh, n)
-        else:
-            old = res["bn_fwd"]["ms"]
-        total["bn_fwd"]["old_ms"] += calls * old
+        for key in ("fwd", "bn_fwd"):
+            route = forward(key).route(torch.bfloat16, heads, dh)
+            total[key]["routes"].setdefault(route, []).append(f"H{heads} dh{dh} bfloat16")
+            if route == "tensor_core":
+                old, _ = time_fwd_routes(key, BATCH, heads, dh, n)
+            else:
+                old = res[key]["ms"]
+            total[key]["old_ms"] += calls * old
         bounds = train_bounds(BATCH, heads, dh, n, n, torch.bfloat16)
         for kname, tot in total.items():
             r = res[kname]
@@ -759,7 +801,7 @@ def phase_train_kernels():
         print(f"  {kname} per train step (12 calls): kernel {tot['ms']:.4f} ms, "
               f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
               f"({tot['bound_by']})")
-    for kname in ("bn_fwd", "bwd"):
+    for kname in ("fwd", "bn_fwd", "bwd"):
         print(f"  {kname} per train step with every call on the CUDA-core route: "
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
     print(f"  phase 2b: {time.perf_counter() - t_phase:.1f} s")
@@ -770,6 +812,7 @@ def train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     return {"fwd": T.train_fwd.launches, "bn_fwd": T.bn_fwd.launches,
             "bwd": T.train_bwd.launches,
+            **{f"fwd_{r}": n for r, n in T.train_fwd.route_launches.items()},
             **{f"bn_fwd_{r}": n for r, n in T.bn_fwd.route_launches.items()},
             **{f"bwd_{r}": n for r, n in T.train_bwd.route_launches.items()}}
 
@@ -777,18 +820,20 @@ def train_launches():
 def reset_train_launches():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     T.train_fwd.launches = T.bn_fwd.launches = T.train_bwd.launches = 0
+    T.train_fwd.route_launches = dict.fromkeys(T.train_fwd.route_launches, 0)
     T.bn_fwd.route_launches = dict.fromkeys(T.bn_fwd.route_launches, 0)
     T.train_bwd.route_launches = dict.fromkeys(T.train_bwd.route_launches, 0)
 
 
 def routes_per_step(expect) -> dict:
-    """{"<kernel>_<route>": calls per base train step} for the kernels with
-    routes (``expect``: launches per re-attention call): each base level's
-    calls on the route ``bn_fwd_route`` / ``train_bwd_route`` names for
-    bf16."""
+    """{"<kernel>_<route>": calls per base train step} for the training
+    kernels (``expect``: launches per re-attention call): each base level's
+    calls on the route ``train_fwd_route`` / ``bn_fwd_route`` /
+    ``train_bwd_route`` names for bf16."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     per = {}
-    for kname, pick in (("bn_fwd", T.bn_fwd_route), ("bwd", T.train_bwd_route)):
+    for kname, pick in (("fwd", T.train_fwd_route), ("bn_fwd", T.bn_fwd_route),
+                        ("bwd", T.train_bwd_route)):
         per.update({f"{kname}_{r}": 0 for r in T.ROUTES})
         for heads, dh, _, calls in BASE_LEVELS:
             per[f"{kname}_{pick(torch.bfloat16, heads, dh)}"] += calls * expect[kname]
@@ -864,6 +909,9 @@ def phase_train():
 
     state, f_losses, f_times, l_frozen = run_steps(
         frozen, state, batch, 5, {"fwd": 1, "bn_fwd": 0, "bwd": 1}, "frozen-BN")
+    if l_frozen["fwd_tensor_core"] != 12 * 5:
+        raise AssertionError("a bf16 base frozen-BN step takes the frozen-BN forward's "
+                             "tensor-core route 12 times")
     f_ms = sorted(f_times)[len(f_times) // 2]
     print(f"  base b{BATCH} bf16 frozen-BN train step: median {f_ms:.3f} ms, "
           f"{BATCH / f_ms * 1e3:.1f} img/s [{card}]")
@@ -890,26 +938,28 @@ def phase_train():
         print(f"  base b{BATCH} bf16 {label} step, backward on each route in turns "
               f"(median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
               + f" [{card}]")
-    # the exact-BN step with the exact-BN forward held on the CUDA-core route
-    # (the earlier kernels) before and after: old, new, new, old
-    held = mock.patch.object(T, "bn_fwd_route", lambda *a: "cuda_core")
-    turns = []
-    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
-        with held if route == "cuda_core" else contextlib.nullcontext():
-            times = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                state, m = exact.train_step(state, batch)
-                m["loss"].item()
-                times.append((time.perf_counter() - t0) * 1e3)
-        turns.append((route, sorted(times)[2]))
-    print(f"  base b{BATCH} bf16 exact-BN step, exact-BN forward on each route in "
-          f"turns (median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
-          + f" [{card}]")
-    if not min(t for r, t in turns if r == "tensor_core") < min(
-            t for r, t in turns if r == "cuda_core"):
-        raise AssertionError("the exact-BN step is not faster with the exact-BN "
-                             "forward on the tensor cores")
+    # each step with its forward held on the CUDA-core route (the earlier
+    # kernels) before and after: old, new, new, old
+    for pick, label, steps in (("bn_fwd_route", "exact-BN", exact),
+                               ("train_fwd_route", "frozen-BN", frozen)):
+        held = mock.patch.object(T, pick, lambda *a: "cuda_core")
+        turns = []
+        for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+            with held if route == "cuda_core" else contextlib.nullcontext():
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    state, m = steps.train_step(state, batch)
+                    m["loss"].item()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            turns.append((route, sorted(times)[2]))
+        print(f"  base b{BATCH} bf16 {label} step, {label} forward on each route in "
+              f"turns (median of 5): " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+              + f" [{card}]")
+        if not min(t for r, t in turns if r == "tensor_core") < min(
+                t for r, t in turns if r == "cuda_core"):
+            raise AssertionError(f"the {label} step is not faster with the {label} "
+                                 f"forward on the tensor cores")
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
     compare_train_paths()
@@ -1105,6 +1155,7 @@ TRAIN_KERNELS = [  # (key, name, replaces)
 ]
 
 TC_SOURCES = {  # training kernels with a tensor-core route: its source
+    "fwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd_tc.cuh",
     "bwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bwd_tc.cuh",
     "bn_fwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd_tc.cuh",
 }

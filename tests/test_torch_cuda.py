@@ -343,6 +343,73 @@ def test_bn_fwd_float32_takes_the_cuda_core_route(cuda):
         TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
 
 
+# --- the frozen-BN forward's tensor-core route ----------------------------------
+
+FWD_TOLS = (TOL, F32_TOL, TOL)   # out, lse, o_norm
+# and with more keys than the chunked form keeps A of (256): A recomputed
+# for every column chunk
+FWD_TC_CASES = BWD_TC_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
+
+
+def _fwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate):
+    q, k, v, m, c, _, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    return q, k, v, v.float().sum(1), m, c, seed, rate
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", FWD_TC_CASES)
+def test_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate):
+    assert TT.train_fwd_route(torch.bfloat16, heads, dh) == "tensor_core"
+    args = _fwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate)
+    before = TT.train_fwd.launches, dict(TT.train_fwd.route_launches)
+    got = TT.train_fwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_fwd.launches == before[0] + 1
+    assert TT.train_fwd.route_launches == {
+        "cuda_core": before[1]["cuda_core"], "tensor_core": before[1]["tensor_core"] + 1}
+    for a, b, tol in zip(got, TT.train_fwd_plain(*args), FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", FWD_TC_CASES)
+def test_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
+    args = _fwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2)
+    tc = TT.launch_train_fwd(*args, route="tensor_core")
+    cc = TT.launch_train_fwd(*args, route="cuda_core")
+    torch.cuda.synchronize()
+    for a, b, tol in zip(tc, cc, FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+
+
+@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196)])
+def test_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
+    """As for the exact-BN forward, with the head mix M = identity and c = 0:
+    o_norm[..., m] Nk (1 - rate) is the keep bit of key m, and out[b, n, j]
+    is o_norm[b, head(j), n, j] bit for bit."""
+    rate, proj = 0.2, heads * dh
+    q = torch.zeros(2, heads, n, dh, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(2, heads, n, dh, device=cuda).bfloat16()
+    v = torch.eye(n, proj, device=cuda, dtype=torch.bfloat16).expand(2, n, proj).contiguous()
+    seed = torch.tensor([31], device=cuda)
+    out, _, onorm = TT.train_fwd(q, k, v, v.float().sum(1), torch.eye(heads, device=cuda),
+                                 torch.zeros(heads, device=cuda), seed, rate)
+    mask = TT.dropout_mask(31, rate, 2, heads, n, n, cuda) > 0
+    assert torch.equal(torch.round(onorm[..., :n].float() * n * (1 - rate)), mask.float())
+    own = onorm.unflatten(-1, (heads, dh)).diagonal(dim1=1, dim2=3)   # (B, N, dh, H)
+    assert torch.equal(out, own.permute(0, 1, 3, 2).flatten(-2))
+
+
+def test_fwd_float32_takes_the_cuda_core_route(cuda):
+    args = _fwd_args(cuda, torch.float32, 2, 8, 24, 100, 100, 0.2)
+    before = dict(TT.train_fwd.route_launches)
+    TT.train_fwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_fwd.route_launches == {
+        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
+        TT.launch_train_fwd(*args, route="tensor_core")
+
+
 # --- the shape gate: a model whose level 0 is wider than the kernels take ----------
 
 GATE_MODEL = dict(im_size=256, patch_size=64, depth_te=1, size_bottleneck=1)

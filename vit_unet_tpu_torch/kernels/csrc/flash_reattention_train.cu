@@ -56,12 +56,12 @@
 // masked in the kernel, Nq != Nk allowed, H <= 16, dh <= 384.  All tensors
 // are contiguous; the caller allocates every output (dq and dk zeroed).
 //
-// The backward and the exact-BN forward have a second route each, chosen by
-// the caller (train_bwd_route, bn_fwd_route in
-// kernels/flash_reattention_train.py): bf16 on the tensor cores at base's
-// and large's level shapes, each piece computed once (reattention_bwd_tc.cuh,
-// reattention_bnfwd_tc.cuh).  The kernels here are the CUDA-core route, for
-// f32 and every other shape; the frozen-BN forward has only these.
+// Each function has a second route, chosen by the caller (train_fwd_route,
+// bn_fwd_route, train_bwd_route in kernels/flash_reattention_train.py): bf16
+// on the tensor cores at base's and large's level shapes, each piece
+// computed once (reattention_bnfwd_tc.cuh for both forwards,
+// reattention_bwd_tc.cuh).  The kernels here are the CUDA-core route, for
+// f32 and every other shape.
 
 #include "reattention_bnfwd_tc.cuh"
 #include "reattention_bwd_tc.cuh"
@@ -698,13 +698,20 @@ extern "C" {
 // thr == 0 (no dropout).  Each returns cudaGetLastError() after its launches
 // (0 on success), or cudaErrorInvalidValue for shapes it does not take.
 
+// route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
+// reattention_bnfwd_tc.cuh only).
 int vit_train_fwd(const void* q, const void* k, const void* v,
                   const float* vsum, const float* m_eff, const float* c_eff,
                   const int64_t* seed, int thr, float scale, float* lse,
                   void* onorm, void* out, int batch, int heads, int nq, int nk,
-                  int dh, int dtype, void* stream) {
+                  int dh, int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return dtype == 1 ? vit_bnfwd::train_fwd_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale,
+                                                lse, onorm, out, batch, heads, nq, nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool thin = dh <= 16;
   if (dtype == 0)
     return thin ? train_fwd<float, 16>(q, k, v, vsum, m_eff, c_eff, seed, thr, scale, lse, onorm, out, batch, heads, nq, nk, dh, s)

@@ -514,24 +514,4 @@ int launch(const void* q, const void* k, const void* v, const float* w, const fl
     return launch_out<C>(q, k, v, w, b, lse, out, batch, nq, nk, stream);
 }
 
-// The shape classes of the table above; any other is refused.
-inline int dispatch(const void* q, const void* k, const void* v, const float* w,
-                    const float* b, float* lse, void* out, int batch, int heads, int nq,
-                    int nk, int dh, int passes, cudaStream_t stream) {
-#define VIT_TC_CASE(H, DH, BQ, BK, HG, NSTAGE, MINB, MMA_OUT)                             \
-  if (heads == H && dh == DH)                                                             \
-    return launch<Cfg<H, DH, BQ, BK, HG, NSTAGE, MINB>, MMA_OUT>(q, k, v, w, b, lse, out, \
-                                                                 batch, nq, nk, passes, stream);
-  VIT_TC_CASE(8, 384, 16, 32, 1, 3, 1, false)
-  VIT_TC_CASE(8, 96, 32, 32, 8, 2, 1, false)
-  VIT_TC_CASE(8, 24, 32, 32, 8, 2, 2, true)
-  VIT_TC_CASE(4, 192, 16, 32, 2, 2, 2, false)
-  VIT_TC_CASE(4, 48, 32, 64, 4, 2, 2, false)
-  VIT_TC_CASE(4, 12, 32, 64, 4, 2, 2, false)
-  VIT_TC_CASE(16, 48, 16, 64, 8, 2, 1, false)
-  VIT_TC_CASE(16, 12, 32, 32, 8, 2, 1, false)
-#undef VIT_TC_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace vit_tc

@@ -10,7 +10,13 @@ beside it and a launch counter:
 
 * ``train_fwd``  <- ``_fwd`` (:363): frozen-BN forward, writes the mixed
   ``out``, the pre-dropout ``lse`` (B, H, Nq) f32 and ``o_norm``
-  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type;
+  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Two
+  routes, named by ``train_fwd_route``: ``tensor_core``
+  (``csrc/reattention_bnfwd_tc.cuh``, the exact-BN sweep below without S
+  and C, with the head mix as its epilogue, taken from the f32 o_norm as
+  the TPU epilogue takes it) for bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
+  ``cuda_core`` (f32 FMAs, the mix from the stored o_norm) for float32 and
+  every other shape;
 * ``bn_fwd``     <- ``_bn_fwd`` (:741): exact-BN sweep, writes ``lse``,
   ``o_norm`` and the rows S (B, H, Nq) = sum_m A_h, C (B, H, H, Nq) =
   sum_m A_h2 A_h3, f32, with no head mix.  Two routes, named by
@@ -55,30 +61,34 @@ from vit_unet_tpu_torch.kernels.flash_reattention import (
     MAX_HEAD_DIM, MAX_HEADS, ROUTES, SUPPORTED_DTYPES, fold_reattention_compact,
 )
 
-#: (heads, dh) classes of the backward's tensor-core route: the level shapes
-#: of base and large
+#: (heads, dh) classes of each training kernel's tensor-core route: the
+#: level shapes of base and large
+TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 
 
-#: (heads, dh) classes of the exact-BN forward's tensor-core route: the
-#: level shapes of base and large
-BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
+    return ("tensor_core" if dtype == torch.bfloat16 and (heads, dh) in shapes
+            else "cuda_core")
 
 
-def train_bwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
-    """The route a CUDA ``train_bwd`` call with these inputs takes: the only
+def train_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+    """The route a CUDA ``train_fwd`` call with these inputs takes: the only
     place it is chosen, and by dtype and shape alone."""
-    if dtype == torch.bfloat16 and (heads, dh) in TRAIN_BWD_TC_SHAPES:
-        return "tensor_core"
-    return "cuda_core"
+    return _route(TRAIN_FWD_TC_SHAPES, dtype, heads, dh)
 
 
 def bn_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
     """The route a CUDA ``bn_fwd`` call with these inputs takes: the only
     place it is chosen, and by dtype and shape alone."""
-    if dtype == torch.bfloat16 and (heads, dh) in BN_FWD_TC_SHAPES:
-        return "tensor_core"
-    return "cuda_core"
+    return _route(BN_FWD_TC_SHAPES, dtype, heads, dh)
+
+
+def train_bwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+    """The route a CUDA ``train_bwd`` call with these inputs takes: the only
+    place it is chosen, and by dtype and shape alone."""
+    return _route(TRAIN_BWD_TC_SHAPES, dtype, heads, dh)
 
 
 # --- the dropout mask ---------------------------------------------------------
@@ -309,7 +319,7 @@ def _library():
     lib = _build.load("flash_reattention_train.cu")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 6 + [p]
+        lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 7 + [p]
         lib.vit_bn_fwd.argtypes = [p] * 4 + [i, f] + [p] * 4 + [i] * 7 + [p]
         lib.vit_train_bwd.argtypes = [p] * 10 + [i, f] + [p] * 3 + [i] * 7 + [p, p]
         lib.vit_train_bwd_workspace.argtypes = [i] * 6
@@ -344,14 +354,23 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0):
-    """Frozen-BN training forward: (out (B, Nq, H*dh), lse (B, H, Nq) f32,
-    o_norm (B, H, Nq, H*dh)).  ``vsum`` (B, H*dh) f32 is sum_m v_cat[:, m]."""
-    _check(q, k, v_cat)
-    if q.device.type == "cpu":
-        return train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate)
+def _require_aligned(route: str, **tensors) -> None:
+    """The tensor-core routes copy 16 bytes at a time."""
+    if route == "tensor_core" and any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError("the tensor-core route copies 16 bytes at a time: "
+                         + ", ".join(tensors) + " must start at 16-byte aligned "
+                         "addresses")
+
+
+def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
+                     *, route: str):
+    """The frozen-BN forward's kernels on ``route``, on CUDA inputs that
+    ``_check`` took: (out, lse, o_norm).  Only the measurements and the
+    route-against-route tests name a route themselves; it counts no
+    launch."""
     batch, heads, n_q, dh = q.shape
     dev = q.device
+    _require_aligned(route, q=q, k=k, v_cat=v_cat)
     out = torch.empty((batch, n_q, heads * dh), dtype=q.dtype, device=dev)
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     onorm = torch.empty((batch, heads, n_q, heads * dh), dtype=q.dtype, device=dev)
@@ -359,13 +378,27 @@ def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0):
     seed_ptr, thr, scale = _dropout_args(seed, rate, dev)
     lib = _library()
     with torch.cuda.device(dev):
-        _launch("train_fwd", lib.vit_train_fwd, q.data_ptr(), k.data_ptr(),
-                v_cat.data_ptr(), vsum.data_ptr(), m32.data_ptr(),
+        _launch(f"train_fwd ({route})", lib.vit_train_fwd, q.data_ptr(),
+                k.data_ptr(), v_cat.data_ptr(), vsum.data_ptr(), m32.data_ptr(),
                 c32.data_ptr(), seed_ptr, thr, scale, lse.data_ptr(),
                 onorm.data_ptr(), out.data_ptr(), batch, heads, n_q,
-                k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], _stream(dev))
-    train_fwd.launches += 1
+                k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], ROUTES.index(route),
+                _stream(dev))
     return out, lse, onorm
+
+
+def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0):
+    """Frozen-BN training forward: (out (B, Nq, H*dh), lse (B, H, Nq) f32,
+    o_norm (B, H, Nq, H*dh)).  ``vsum`` (B, H*dh) f32 is sum_m v_cat[:, m].
+    CUDA tensors take the route ``train_fwd_route`` names."""
+    _check(q, k, v_cat)
+    if q.device.type == "cpu":
+        return train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate)
+    route = train_fwd_route(q.dtype, q.shape[1], q.shape[3])
+    out = launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate, route=route)
+    train_fwd.launches += 1
+    train_fwd.route_launches[route] += 1
+    return out
 
 
 def launch_bn_fwd(q, k, v_cat, seed, rate: float = 0.0, *, route: str):
@@ -375,9 +408,7 @@ def launch_bn_fwd(q, k, v_cat, seed, rate: float = 0.0, *, route: str):
     launch."""
     batch, heads, n_q, dh = q.shape
     dev = q.device
-    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat)):
-        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
-                         "k and v_cat must start at 16-byte aligned addresses")
+    _require_aligned(route, q=q, k=k, v_cat=v_cat)
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     s_rows = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     c_rows = torch.empty((batch, heads, heads, n_q), dtype=torch.float32, device=dev)
@@ -418,9 +449,7 @@ def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     g = g.to(q.dtype).contiguous()
     if g.shape != (batch, n_q, heads * dh):
         raise ValueError(f"g shape {tuple(g.shape)}, expected {(batch, n_q, heads * dh)}")
-    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, g)):
-        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
-                         "k, v_cat and g must start at 16-byte aligned addresses")
+    _require_aligned(route, q=q, k=k, v_cat=v_cat, g=g)
     lse, d, m32 = _f32(lse, dev), _f32(d, dev), _f32(m_eff, dev)
     g_mat = kappa = None
     if bn_extra is not None:
@@ -464,9 +493,10 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     return out
 
 
-#: kernel launches since the last reset (the plain versions do not count);
-#: the exact-BN forward's and the backward's also by route
+#: kernel launches since the last reset (the plain versions do not count),
+#: also by route
 train_fwd.launches = 0
+train_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 bn_fwd.launches = 0
 bn_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 train_bwd.launches = 0
