@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # everything, with the result lines
     python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
-                                           # (2a, 2b, 3, 4; no result lines)
+                                           # (2a, 2b, 3, 4, 5; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -30,7 +30,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
    route, the kernel path held against the plain path in float32 and in
    bfloat16, and the serving rate, with the eval kernel held on the
-   CUDA-core route before and after for comparison;
+   CUDA-core route before and after for comparison; then the two forms of
+   the QKV projection (the conv, and the dense (E, E) operator of
+   ``conv_token_matrix``) held against each other and timed per call in
+   turns at base's three level widths in bf16 and f32, with the gate
+   ``qkv_form`` chose, and the whole forward with each form held in turns;
 4. training: the base preset at full width (224², bf16, batch 64, AdamW
    1e-4 with weight decay 1e-4, x ~ N(0, 1), y = 0.9 x): 2 + 10 exact-BN
    steps and 5 frozen-BN steps through ``build_step_functions`` with the
@@ -43,7 +47,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    and dropout seed; then a model whose level 0 (head dim 1536) is wider
    than the kernels take (``GATE_MODEL``), served and trained against its
    plain path, level 0 on the plain path and the others on the kernels;
-5. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+   and the exact-BN step with each QKV form held in turns;
+5. the trainer: synthetic uint8 pairs written as TFRecord shards, the base
+   preset (224², bf16, batch 64, dropout 0.2) trained through ``Fitter``
+   for 2 epochs of 24 steps fed by ``TFRecordStream`` ->
+   ``prefetch_to_device`` -> ``device_normalize`` (native codec only),
+   with the frozen -> exact BN refold at epoch 1 (after epoch 0, a copy
+   refolded as the flip does, its exact-BN forward held against the frozen
+   forward before it), the launches of each epoch by route, validation,
+   callbacks and checkpoints; a fresh ``Fitter`` resumes from the last
+   checkpoint bit for bit and trains one epoch fed by
+   ``DeviceResidentData``, between two windows of bare steps; then one
+   profiled epoch on each feed.  img/s of each feed and the card's idle
+   share over steps 2-24 of an epoch, and the codec's MB/s;
+6. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
@@ -54,8 +71,10 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -95,7 +114,7 @@ EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
 ]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-PHASES = ("2a", "2b", "3", "4")
+PHASES = ("2a", "2b", "3", "4", "5")
 EVAL_SOURCE = "flash_reattention.cu"
 TRAIN_SOURCE = "flash_reattention_train.cu"
 
@@ -295,6 +314,73 @@ def phase_kernels():
     return total
 
 
+# --- the QKV forms ------------------------------------------------------------
+
+QKV_LEVELS = [(192, 784), (768, 196), (3072, 49)]   # base's level (E, N)
+# the two forms of the same Q/K/V in bf16: each rounds its product's output
+# to bf16 once, from f32 sums in another order
+QKV_TOL = 2e-2
+
+
+def check_qkv_forms(e, n, dtype, reps=10):
+    """Both forms of one layer's Q/K/V at (B64, N, E): agreement for self-
+    and cross-attention, and the forward and forward+backward per call in
+    turns (conv, matmul, matmul, conv)."""
+    from vit_unet_tpu_torch.nn.reattention import ReAttention, qkv_form
+    layer = ReAttention(e, num_heads=8, dtype=dtype).to("cuda", dtype)
+    g = torch.Generator(device="cuda").manual_seed(e)
+    x, x2 = (torch.randn(BATCH, n, e, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    forms = {"conv": layer._qkv_conv, "matmul": layer._qkv_matmul}
+    with torch.no_grad():
+        for args in ((x, x, x), (x2, x, x)):
+            a, b = (forms[f](*args) for f in ("conv", "matmul"))
+            rel = max(rel_err(u, v)[1] for u, v in zip(b, a))
+            if not rel <= QKV_TOL:
+                raise AssertionError(f"QKV forms disagree at E={e} {dtype}: "
+                                     f"rel {rel:.3e} > {QKV_TOL:.0e}")
+    xg = x.detach().requires_grad_()
+    grads = [torch.randn(BATCH, 8, n, e // 8, generator=g, device="cuda").to(dtype)
+             for _ in range(3)]
+
+    def fwd_bwd(form):
+        torch.autograd.backward(forms[form](xg, xg, xg), grads)
+
+    def fwd(form):
+        with torch.no_grad():
+            forms[form](x, x, x)
+
+    turns = {label: [(f, time_ms(lambda: run(f), reps))
+                     for f in ("conv", "matmul", "matmul", "conv")]
+             for label, run in (("fwd", fwd), ("fwd+bwd", fwd_bwd))}
+    name = str(dtype).replace("torch.", "")
+    print(f"  QKV E{e} N{n} B{BATCH} {name} (forms agree, rel {rel:.2e}; gate: "
+          f"{qkv_form(e, dtype)}): " + "; ".join(
+              f"{label} " + ", ".join(f"{f} {t:.4f}" for f, t in pairs) + " ms"
+              for label, pairs in turns.items()))
+
+
+def qkv_forms_in_turns(time_one, label):
+    """``time_one()`` (ms) with the QKV form held on each form in turns
+    (conv, matmul, matmul, conv)."""
+    import importlib
+    RA = importlib.import_module("vit_unet_tpu_torch.nn.reattention")
+    turns = []
+    for form in ("conv", "matmul", "matmul", "conv"):
+        with mock.patch.object(RA, "qkv_form", lambda e, dt, f=form: f):
+            turns.append((form, time_one()))
+    print(f"  {label}, QKV form held in turns: "
+          + ", ".join(f"{f} {t:.3f} ms" for f, t in turns) + f" [{card_line()}]")
+
+
+def phase_qkv():
+    """Per call, both forms at base's three level widths in bf16 and f32."""
+    print("  QKV forms per call (ms, both forms in turns):")
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, n in QKV_LEVELS:
+            check_qkv_forms(e, n, dtype)
+
+
 def phase_slice():
     print("== phase 3: base ViT-UNet served through Predictor")
     t_phase = time.perf_counter()
@@ -374,13 +460,16 @@ def phase_slice():
     with held:
         rates("kernel 1 held on cuda_core")
     device_breakdown(lambda: model(xb), ms, "forward", inference=True, top=12)
+    phase_qkv()
+    with torch.inference_mode():
+        qkv_forms_in_turns(lambda: time_ms(lambda: model(xb), 20),
+                           f"base b{BATCH} bf16 forward")
     print(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
-def device_breakdown(run, total_ms, what, reps=3, top=8, inference=False):
-    """Device time per ``run()`` by kernel (torch.profiler), and the share
-    of its time the device is busy."""
+def device_rows(run, reps=3, inference=False) -> dict:
+    """Device time per ``run()`` by kernel name (torch.profiler), ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ctx = torch.inference_mode() if inference else torch.enable_grad()
@@ -389,14 +478,45 @@ def device_breakdown(run, total_ms, what, reps=3, top=8, inference=False):
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    rows = sorted(((e.device_time_total / reps / 1e3, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_breakdown(run, total_ms, what, reps=3, top=8, inference=False):
+    """Device time per ``run()`` by kernel (torch.profiler), and the share
+    of its time the device is busy."""
+    rows = sorted(((t, k) for k, t in device_rows(run, reps, inference).items()),
+                  reverse=True)
     busy = sum(t for t, _ in rows)
     print(f"  device time per {what} {busy:.3f} ms of {total_ms:.3f} ms "
           f"(busy {busy / total_ms:.1%}); top kernels:")
     for t, name in rows[:top]:
         print(f"    {t:8.3f} ms {t / busy:6.1%}  {name[:90]}")
+
+
+def qkv_breakdown(run, what, top=12):
+    """Device time per ``run()`` by kernel with the QKV form held on the
+    conv and then on the matmul form, side by side, the kernels whose time
+    moved most first; the rest summed on one line."""
+    import importlib
+    RA = importlib.import_module("vit_unet_tpu_torch.nn.reattention")
+    rows = {}
+    for form in ("conv", "matmul"):
+        with mock.patch.object(RA, "qkv_form", lambda e, dt, f=form: f):
+            run()
+            rows[form] = device_rows(run, reps=2)
+    names = sorted(set(rows["conv"]) | set(rows["matmul"]),
+                   key=lambda k: -abs(rows["conv"].get(k, 0) - rows["matmul"].get(k, 0)))
+    tot = {f: sum(r.values()) for f, r in rows.items()}
+    print(f"  device time per {what} by QKV form: conv {tot['conv']:.3f} ms, matmul "
+          f"{tot['matmul']:.3f} ms, conv - matmul {tot['conv'] - tot['matmul']:.3f} ms; "
+          f"by kernel (conv ms, matmul ms, difference):")
+    for name in names[:top]:
+        a, b = rows["conv"].get(name, 0.0), rows["matmul"].get(name, 0.0)
+        print(f"    {a:8.3f} {b:8.3f} {a - b:+8.3f}  {name[:80]}")
+    rest = [(rows["conv"].get(k, 0.0), rows["matmul"].get(k, 0.0)) for k in names[top:]]
+    a, b = sum(x for x, _ in rest), sum(y for _, y in rest)
+    print(f"    {a:8.3f} {b:8.3f} {a - b:+8.3f}  the other {len(rest)} kernels")
 
 
 # --- the training kernels ----------------------------------------------------
@@ -960,6 +1080,17 @@ def phase_train():
                 t for r, t in turns if r == "cuda_core"):
             raise AssertionError(f"the {label} step is not faster with the {label} "
                                  f"forward on the tensor cores")
+    def exact_step_ms():
+        nonlocal state
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, m = exact.train_step(state, batch)
+            m["loss"].item()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[2]
+    qkv_forms_in_turns(exact_step_ms, f"base b{BATCH} bf16 exact-BN step (median of 5)")
+    qkv_breakdown(lambda: exact.train_step(state, batch), "exact-BN train step")
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
     compare_train_paths()
@@ -1145,6 +1276,386 @@ def check_shape_gate():
         torch.cuda.empty_cache()
 
 
+# --- phase 5: the trainer entry point -----------------------------------------
+
+FIT_BATCHES = 8          # synthetic pairs stored: FIT_BATCHES x BATCH
+IMAGE = (224, 224, 3)    # base's input, one stored uint8 image
+FIT_STEPS = 24           # train steps per epoch; timed over steps 2..FIT_STEPS
+FEED_PASSES = 4          # passes over the stored pairs a feed gives per epoch
+FIT_VAL_STEPS = 2        # validation batches per epoch
+# the refolded model's exact-BN forward against the frozen forward before
+# the refold on the calibration batch, dropout off, in float32 copies of the
+# bf16 model (kernel 4 against kernel 1, each within 1e-6 of its plain
+# version in f32): what is left is the refolded BatchNorm affine rounded to
+# the model's bf16 parameters, 2^-9 relative, carried through 12 layers.
+# The same comparison in bf16 adds the two kernels' own bf16 roundings and
+# is printed only.
+REFOLD_TOL = 1e-2
+
+
+def eval_launches():
+    import importlib
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    return {"eval": TK.flash_reattention.launches,
+            **{f"eval_{r}": n for r, n in TK.flash_reattention.route_launches.items()}}
+
+
+def all_launches():
+    return {**train_launches(), **eval_launches()}
+
+
+def zero_launches():
+    """Every kernel's counts to 0, before a path runs."""
+    import importlib
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    reset_train_launches()
+    TK.flash_reattention.launches = 0
+    TK.flash_reattention.route_launches = dict.fromkeys(
+        TK.flash_reattention.route_launches, 0)
+
+
+def expected_epoch(frozen: bool, val_steps: int) -> dict:
+    """Launches of one Fitter epoch: FIT_STEPS train steps (kernel 2 or 4,
+    and 3, 12 each a step) and ``val_steps`` validation forwards (kernel 1,
+    12 each), every one on its tensor-core route."""
+    want = dict.fromkeys(all_launches(), 0)
+    for key in ("fwd" if frozen else "bn_fwd", "bwd"):
+        want[key] = want[f"{key}_tensor_core"] = 12 * FIT_STEPS
+    want["eval"] = want["eval_tensor_core"] = 12 * val_steps
+    return want
+
+
+def repeated(data, passes=FEED_PASSES):
+    """A feed of ``passes`` passes over the re-iterable ``data``."""
+    return lambda: itertools.chain.from_iterable(itertools.repeat(data, passes))
+
+
+def busy_ms(prof) -> float:
+    """The union of the card's kernel and copy intervals in a profile, ms."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+class EpochProbe:
+    """A Fitter callback with a hook on the train steps: the launches of
+    each epoch by route (counts set to 0 as the epoch begins, read as it
+    ends) and, over the steady window from the end of step 1 to the end of
+    step FIT_STEPS (the card synchronised at both), the img/s and, for the
+    epochs named in ``profiled``, the card's busy time under the profiler.
+    The window leaves out the feed's start-up before step 1 and the batch
+    the loop fetches after the last step."""
+
+    def __init__(self, profiled=()):
+        self.profiled = set(profiled)
+        self.launches, self.rates, self.busy = {}, {}, {}
+        self._epoch, self._n, self._t0, self._prof = None, 0, None, None
+
+    def wrap(self, fitter):
+        for steps in (fitter.steps, fitter._frozen_steps):
+            if steps is not None:
+                steps.train_step = self._timed(steps.train_step)
+
+    def _timed(self, step):
+        def run(state, batch):
+            out = step(state, batch)
+            self._n += 1
+            if self._n in (1, FIT_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if self._n == 1:
+                    self._t0 = t
+                    if self._epoch in self.profiled:
+                        from torch.profiler import ProfilerActivity, profile
+                        self._prof = profile(activities=[ProfilerActivity.CUDA])
+                        self._prof.start()
+                else:
+                    wall = t - self._t0
+                    self.rates[self._epoch] = (FIT_STEPS - 1) * BATCH / wall
+                    if self._prof is not None:
+                        self._prof.stop()
+                        self.busy[self._epoch] = (wall * 1e3, busy_ms(self._prof))
+                        self._prof = None
+            return out
+        return run
+
+    def on_train_begin(self, fitter): ...
+    def on_train_end(self, fitter): ...
+
+    def on_epoch_begin(self, fitter, epoch):
+        self._epoch, self._n = epoch, 0
+        zero_launches()
+
+    def on_epoch_end(self, fitter, epoch, logs):
+        self.launches[epoch] = all_launches()
+        if self._n != FIT_STEPS:
+            raise AssertionError(f"epoch {epoch} took {self._n} steps, not {FIT_STEPS}")
+
+
+class RefoldCheck:
+    """A Fitter callback that, at the end of the last frozen-BN epoch (after
+    the probe before it has read the epoch's launches), refolds a copy of
+    the model as the flip does (``estimate_bn_moments`` on ``batch``, then
+    ``bn_refold``) and holds its exact-BN forward against the frozen
+    forward before the refold, both on ``batch``, dropout off.  The model
+    being trained is left as it is."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.result = {}
+
+    def on_train_begin(self, fitter): ...
+    def on_train_end(self, fitter): ...
+    def on_epoch_begin(self, fitter, epoch): ...
+
+    def on_epoch_end(self, fitter, epoch, logs):
+        if epoch != fitter.bn_freeze_epochs - 1:
+            return
+        import copy
+        from vit_unet_tpu_torch.train.bn_refold import bn_refold, estimate_bn_moments
+        xb = fitter._device_batch(self.batch)["x"]
+        model = copy.deepcopy(fitter.model)
+        with torch.no_grad():
+            before = [m(xb, deterministic=True, use_running_average=True).float()
+                      for m in (model, f32_copy(model))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bn_refold(model, estimate_bn_moments(model, [xb]))
+            torch.cuda.synchronize()
+            self.result["s"] = time.perf_counter() - t0
+            after = [m(xb, deterministic=True, use_running_average=False).float()
+                     for m in (model, f32_copy(model))]
+        self.result["bf16"], self.result["rel"] = (
+            rel_err(a, b)[1] for a, b in zip(after, before))
+
+
+def f32_copy(model):
+    """The bf16 model's weights (as rounded) in a float32 model."""
+    import dataclasses
+    from vit_unet_tpu_torch.models.vit_unet import ViTUNet
+    cfg = dataclasses.replace(model.config, dtype="float32", param_dtype="float32")
+    with torch.device("cuda"):
+        copy = ViTUNet(cfg)
+    copy.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    return copy
+
+
+def synthetic_pairs(n):
+    """``n`` uint8 ``IMAGE`` pairs from a numpy seed: y a smooth clean
+    image, x = y + Gaussian noise (sigma 20), clipped."""
+    rng = np.random.default_rng(0)
+    h, w, _ = IMAGE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / np.float32(h)
+    base = np.stack([yy, xx, yy * xx], -1) * 200
+    phase = rng.uniform(0, 55, (n, 1, 1, 3)).astype(np.float32)
+    clean = (base[None] + phase).astype(np.uint8)
+    noisy = np.clip(clean + rng.normal(0, 20, clean.shape).astype(np.float32),
+                    0, 255).astype(np.uint8)
+    return noisy, clean
+
+
+def codec_rates(paths):
+    """MB/s of the native codec: CRC32C over one 64 MB buffer, the whole-
+    shard scan with CRCs, and the streaming reader (CRCs per record)."""
+    from vit_unet_tpu_torch.data import tfrecord as tfr
+    buf = np.random.default_rng(1).integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    out = {}
+    t0 = time.perf_counter()
+    tfr.crc32c(buf)
+    out["crc32c"] = len(buf) / (time.perf_counter() - t0) / 1e6
+    for label, reader in (("scan", tfr.read_records),
+                          ("streaming", tfr.read_records_streaming)):
+        t0 = time.perf_counter()
+        nbytes = sum(len(r) + 16 for p in paths for r in reader(p))
+        out[label] = nbytes / (time.perf_counter() - t0) / 1e6
+    return out
+
+
+def bare_window(train_step, state, batch, profiled=False):
+    """FIT_STEPS - 1 bare train steps on one batch, after one untimed step:
+    the Fitter's steady window without its loop or feed.  Returns the img/s
+    and, under the profiler, (wall ms, device-busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    state, m = train_step(state, batch)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else None
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS - 1):
+        state, m = train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is None:
+        return (FIT_STEPS - 1) * BATCH / wall, None
+    prof.stop()
+    return (FIT_STEPS - 1) * BATCH / wall, (wall * 1e3, busy_ms(prof))
+
+
+def phase_trainer():
+    print("== phase 5: base ViT-UNet trained through Fitter, fed from TFRecord "
+          "shards and from the card")
+    t_phase = time.perf_counter()
+    import tempfile
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.data import _native
+    from vit_unet_tpu_torch.data import tfrecord as tfr
+    from vit_unet_tpu_torch.data.loader import (
+        DeviceResidentData, TFRecordStream, device_normalize, prefetch_to_device)
+    from vit_unet_tpu_torch.train.callbacks import JSONLLogger, ReduceLROnPlateau
+    from vit_unet_tpu_torch.train.fitter import Fitter
+
+    card = card_line()
+    noisy, clean = synthetic_pairs(FIT_BATCHES * BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        codec = _native.codec()
+        calls0 = dict(codec.calls)
+        t0 = time.perf_counter()
+        paths = tfr.convert(({"x": a.tobytes(), "y": b.tobytes()}
+                             for a, b in zip(noisy, clean)),
+                            f"{tmp}/shards", "synthetic_", lambda it: it, max_mb=64)
+        write_s = time.perf_counter() - t0
+        shard_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        print(f"  wrote {tfr.count_data_items(paths)} pairs into {len(paths)} shards, "
+              f"{shard_mb:.1f} MB in {write_s:.2f} s; each epoch takes {FIT_STEPS} "
+              f"steps from {FEED_PASSES} passes over them")
+        stream = TFRecordStream(paths, IMAGE, BATCH, host_convert=False,
+                                shuffle_buffer=BATCH, seed=0)
+        passes = repeated(stream)
+        feed = lambda: prefetch_to_device(passes(), transform=device_normalize())
+        resident = DeviceResidentData(noisy, clean, BATCH, seed=0)
+        val = DeviceResidentData(noisy[:FIT_VAL_STEPS * BATCH],
+                                 clean[:FIT_VAL_STEPS * BATCH], BATCH, shuffle=False)
+
+        def fitter_for(seed):
+            model = get_vit_unet("base", dtype="bfloat16", param_dtype="bfloat16",
+                                 seed=seed)
+            return Fitter(model, learning_rate=1e-4, bn_freeze_epochs=1,
+                          bn_warmup="refold", checkpoint_dir=f"{tmp}/ckpt")
+
+        probe = EpochProbe()
+        refold = RefoldCheck(next(iter(val)))
+        log_path = f"{tmp}/log.jsonl"
+        fitter = fitter_for(0)
+        fitter.init_state()
+        probe.wrap(fitter)
+        python_crc = mock.patch.object(
+            tfr, "_crc32c_py", side_effect=AssertionError("the Python CRC ran"))
+        with python_crc:
+            hist = fitter.fit(feed, val, n_epochs=2, steps_per_epoch=FIT_STEPS,
+                              validation_steps=FIT_VAL_STEPS,
+                              callbacks=[probe, refold, ReduceLROnPlateau(),
+                                         JSONLLogger(log_path)],
+                              save_best=True, save_last=True, verbose=False)
+        calls = {k: codec.calls[k] - calls0[k] for k in calls0}
+        print(f"  native codec: {calls} (the Python CRC ran on no record)")
+        if not (calls["crc"] > 0 and calls["crc_bytes"] >= noisy.nbytes + clean.nbytes):
+            raise AssertionError("the TFRecord stream did not check its records "
+                                 "with the native codec")
+        for epoch, frozen in ((0, True), (1, False)):
+            got, want = probe.launches[epoch], expected_epoch(frozen, FIT_VAL_STEPS)
+            print(f"  epoch {epoch} ({'frozen' if frozen else 'exact'} BN, TFRecord "
+                  f"stream): launches {got}")
+            if got != want:
+                raise AssertionError(f"epoch {epoch}: launches {got}, expected {want}")
+        losses = hist["loss"] + hist["val_loss"]
+        r = refold.result
+        print(f"  history: loss {hist['loss']}, val_loss {hist['val_loss']}, "
+              f"lr {hist['lr']}; after epoch 0, a copy refolded on one batch in "
+              f"{r['s']:.2f} s: exact-BN forward after it vs frozen forward before "
+              f"it, f32 copies: rel {r['rel']:.3e} (tol {REFOLD_TOL:.0e}); bf16: rel "
+              f"{r['bf16']:.3e}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"loss not finite: {losses}")
+        if not r.get("rel", math.inf) <= REFOLD_TOL:
+            raise AssertionError("the refold did not preserve the forward")
+        with open(log_path) as f:
+            if len(f.readlines()) != 2:
+                raise AssertionError("JSONLLogger did not write one line an epoch")
+
+        # resume into a fresh Fitter (other weights), bit for bit
+        saved = torch.load(fitter._ckpt_path("last-checkpoint"), map_location="cpu",
+                           weights_only=True)
+        fitter2 = fitter_for(1)
+        fitter2.init_state()
+        start = fitter2.resume()
+        st1, st2 = fitter.state, fitter2.state
+        same = [start == 2, st2.step == st1.step == saved["step"] == 2 * FIT_STEPS,
+                torch.equal(st2.generator.get_state(), saved["generator"])]
+        sd2 = fitter2.model.state_dict()
+        same += [torch.equal(sd2[k].cpu(), v) for k, v in saved["model"].items()]
+        same += [torch.equal(sd2[k], v) for k, v in fitter.model.state_dict().items()]
+        opt2 = fitter2.optimizer.state_dict()["state"]
+        same += [torch.equal(torch.as_tensor(opt2[i][k]).cpu(), torch.as_tensor(v))
+                 for i, entry in saved["optimizer"]["state"].items()
+                 for k, v in entry.items()]
+        print(f"  resume: epoch {start}, step {st2.step}, {len(same)} checks, "
+              f"all bit for bit: {all(same)}")
+        if not all(same):
+            raise AssertionError("resume did not restore the saved state bit for bit")
+        del fitter
+
+        # epoch 2 on the resident set, between two bare-step windows; then one
+        # profiled epoch on each feed (3: TFRecord stream, 4: resident) and
+        # one profiled bare window
+        probe2 = EpochProbe(profiled=(3, 4))
+        bare_step = fitter2.steps.train_step
+        probe2.wrap(fitter2)
+        one = next(iter(resident))
+        bare = [bare_window(bare_step, fitter2.state, one)[0]]
+        hist2 = fitter2.fit(repeated(resident), val, n_epochs=3,
+                            steps_per_epoch=FIT_STEPS, validation_steps=FIT_VAL_STEPS,
+                            callbacks=[probe2], initial_epoch=start, save_best=False,
+                            verbose=False)
+        bare.append(bare_window(bare_step, fitter2.state, one)[0])
+        for label, data, epoch in (("TFRecord stream", feed, 3),
+                                   ("resident", repeated(resident), 4)):
+            hist2 = fitter2.fit(data, n_epochs=epoch + 1, steps_per_epoch=FIT_STEPS,
+                                initial_epoch=epoch, callbacks=[probe2],
+                                save_best=False, verbose=False)
+        bare_rate, (bare_wall, bare_busy) = bare_window(bare_step, fitter2.state, one,
+                                                        profiled=True)
+        for epoch, label, val_steps in ((2, "resident", FIT_VAL_STEPS),
+                                        (3, "TFRecord stream", 0), (4, "resident", 0)):
+            got, want = probe2.launches[epoch], expected_epoch(False, val_steps)
+            print(f"  epoch {epoch} (exact BN, {label}): launches {got}")
+            if got != want:
+                raise AssertionError(f"epoch {epoch}: launches {got}, expected {want}")
+        if not all(math.isfinite(v) for v in hist2["loss"]):
+            raise AssertionError(f"loss not finite: {hist2['loss']}")
+        steps = f"steps 2-{FIT_STEPS}"
+        print(f"  Fitter img/s over {steps} of each epoch: TFRecord stream "
+              f"{probe.rates[0]:.1f} (epoch 0, frozen BN), {probe.rates[1]:.1f} "
+              f"(epoch 1, exact BN); resident {probe2.rates[2]:.1f} (epoch 2, exact "
+              f"BN); bare exact-BN steps on one resident batch, before and after "
+              f"epoch 2: {bare[0]:.1f}, {bare[1]:.1f} [{card}]")
+        for epoch, label in ((3, "TFRecord stream"), (4, "resident")):
+            wall, busy = probe2.busy[epoch]
+            print(f"  exact-BN epoch {epoch}, {label}, {steps} profiled: wall "
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle "
+                  f"{1 - busy / wall:.1%}, {probe2.rates[epoch]:.1f} img/s under "
+                  f"the profiler [{card}]")
+        print(f"  bare exact-BN steps on one resident batch, {steps} profiled: wall "
+              f"{bare_wall:.1f} ms, device busy {bare_busy:.1f} ms, idle "
+              f"{1 - bare_busy / bare_wall:.1%}, {bare_rate:.1f} img/s under the "
+              f"profiler [{card}]")
+        rates = codec_rates(paths)
+        print("  native codec MB/s: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+              + f" [{card}]")
+    del fitter2
+    torch.cuda.empty_cache()
+    print(f"  phase 5: {time.perf_counter() - t_phase:.1f} s")
+    return probe.launches, probe2.launches
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -1176,7 +1687,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    needs_train = any(ph in phases for ph in ("2b", "4"))
+    needs_train = any(ph in phases for ph in ("2b", "4", "5"))
     phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
     if "2a" in phases:
         k = phase_kernels()
@@ -1186,10 +1697,22 @@ def main(argv=None) -> int:
         launches = phase_slice()
     if "4" in phases:
         train_launches_, _ = phase_train()
+    if "5" in phases:
+        fit_launches = phase_trainer()
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {','.join(phases)} only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines")
         return 0
+    # each path's launches, counted from 0 just before it ran: serving
+    # (phase 3), the bare train step (phase 4) and the Fitter's epochs
+    # (phase 5: TFRecord stream epochs 0, 1 and 3, resident epochs 2 and 4)
+    fit_total = collections.Counter()
+    for per_epoch in fit_launches:
+        for counts in per_epoch.values():
+            fit_total.update(counts)
+    by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"]}}
+    for key, _, _ in TRAIN_KERNELS:
+        by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key]}
     kernels = [{
         "name": "flash_reattention",
         "route": "cuda",
@@ -1197,7 +1720,8 @@ def main(argv=None) -> int:
         # includes is csrc/reattention_tc.cuh
         "source": "vit_unet_tpu_torch/kernels/csrc/flash_reattention.cu",
         "replaces": "vit_unet_tpu/kernels/flash_reattention.py:111",
-        "launches": launches,
+        "launches": sum(by_path["flash_reattention"].values()),
+        "launches_by_path": by_path["flash_reattention"],
         "max_abs_err": k["err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1214,7 +1738,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vit_unet_tpu_torch/kernels/csrc/flash_reattention_train.cu",
-            "replaces": replaces, "launches": train_launches_[key],
+            "replaces": replaces, "launches": sum(by_path[key].values()),
+            "launches_by_path": by_path[key],
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # no single PyTorch call computes re-attention with a head mix,
@@ -1226,7 +1751,7 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 tensor_core_source=TC_SOURCES[key],
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
-                route_launches={r: train_launches_[f"{key}_{r}"]
+                route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,8 @@ setup(
                  "transformer autoencoders on JAX/XLA/Pallas"),
     packages=find_packages(include=["vit_unet_tpu", "vit_unet_tpu.*",
                                     "vit_unet_tpu_torch", "vit_unet_tpu_torch.*"]),
-    package_data={"vit_unet_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"vit_unet_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"],
+                  "vit_unet_tpu_torch.data": ["_native.cc"]},
     python_requires=">=3.10",
     ext_modules=[
         Extension(

@@ -464,3 +464,139 @@ def test_wide_head_model_serves_and_trains_against_its_plain_path(cuda, dtype, t
     assert _rel(kl, pl) <= tol and _rel(ks, ps) <= tol
     if dtype == "float32":
         assert _rel(kg, pg) <= tol
+
+
+# --- the QKV forms and the trainer on the card ----------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("e,n", [(192, 784), (768, 196), (3072, 49)])
+def test_qkv_forms_agree_on_the_card(cuda, dtype, tol, e, n):
+    """The conv form and the dense (E, E) operator's form of one layer's
+    Q/K/V, self- and cross-attention, and the conv weights' gradients, at
+    base's level widths (bf16: each form rounds its output once, from f32
+    sums in another order)."""
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    layer = ReAttention(e, num_heads=8, dtype=dtype).to(cuda, dtype)
+    g = torch.Generator(cuda).manual_seed(e)
+    x, x2 = (torch.randn(4, n, e, generator=g, device=cuda).to(dtype) for _ in range(2))
+    for args in ((x, x, x), (x2, x, x)):
+        grads = []
+        for form in (layer._qkv_conv, layer._qkv_matmul):
+            layer.zero_grad(set_to_none=True)
+            outs = form(*args)
+            sum((o.float() * (i + 1)).sum() for i, o in enumerate(outs)).backward()
+            grads.append((outs, [layer.qconv2d.weight.grad, layer.kconv2d.weight.grad,
+                                 layer.vconv2d.weight.grad]))
+        (a, ga), (b, gb) = grads
+        assert max(_rel(u, v) for u, v in zip(b, a)) <= tol
+        assert max(_rel(u, v) for u, v in zip(gb, ga)) <= tol
+
+
+# base's level shapes (heads 8; dh 384, 96, 24 at N 4, 16, 64) at 64²
+FIT_MODEL = dict(im_size=64, patch_size=32, depth=2, depth_te=1, size_bottleneck=1,
+                 hidden_dim=32, dtype="bfloat16", param_dtype="bfloat16")
+FIT_CALLS = 7          # re-attention calls a forward: 2 + 1 + 2 blocks, 2 skips
+
+
+def _launches():
+    import importlib
+    T = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
+    out = {"eval": dict(TK.flash_reattention.route_launches)}
+    for key, fn in (("fwd", T.train_fwd), ("bn_fwd", T.bn_fwd), ("bwd", T.train_bwd)):
+        out[key] = dict(fn.route_launches)
+    return out
+
+
+class _EpochLaunches:
+    """Launches by kernel and route in each epoch (validation included)."""
+
+    def __init__(self):
+        self.per_epoch = {}
+
+    def on_train_begin(self, fitter): ...
+    def on_train_end(self, fitter): ...
+
+    def on_epoch_begin(self, fitter, epoch):
+        self._start = _launches()
+
+    def on_epoch_end(self, fitter, epoch, logs):
+        end = _launches()
+        self.per_epoch[epoch] = {k: {r: end[k][r] - self._start[k][r] for r in end[k]}
+                                 for k in end}
+
+
+def _fit_data(cuda, tmp_path):
+    import numpy as np
+
+    from vit_unet_tpu_torch.data import tfrecord as tfr
+    from vit_unet_tpu_torch.data.loader import (
+        DeviceResidentData, TFRecordStream, device_normalize, prefetch_to_device)
+    rng = np.random.default_rng(0)
+    clean = rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8)
+    noisy = np.clip(clean + rng.normal(0, 20, clean.shape), 0, 255).astype(np.uint8)
+    paths = tfr.convert(({"x": a.tobytes(), "y": b.tobytes()} for a, b in zip(noisy, clean)),
+                        str(tmp_path / "shards"), "pairs_", lambda it: it)
+    stream = TFRecordStream(paths, (64, 64, 3), 4, host_convert=False, shuffle_buffer=4)
+    feed = lambda: prefetch_to_device(iter(stream), device=cuda, transform=device_normalize())
+    resident = DeviceResidentData(noisy, clean, 4, device=cuda)
+    val = DeviceResidentData(noisy[:8], clean[:8], 4, shuffle=False, device=cuda)
+    return feed, resident, val
+
+
+def _fitter(cuda, tmp_path, seed):
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.train.fitter import Fitter
+    model = get_vit_unet("base", seed=seed, device=cuda, **FIT_MODEL)
+    return Fitter(model, bn_freeze_epochs=1, bn_warmup="refold", bn_calib_batches=2,
+                  checkpoint_dir=str(tmp_path / "ckpt"), device=cuda)
+
+
+def _want(frozen: bool, steps: int, val_steps: int) -> dict:
+    want = {k: {"cuda_core": 0, "tensor_core": 0} for k in ("eval", "fwd", "bn_fwd", "bwd")}
+    want["fwd" if frozen else "bn_fwd"]["tensor_core"] = FIT_CALLS * steps
+    want["bwd"]["tensor_core"] = FIT_CALLS * steps
+    want["eval"]["tensor_core"] = FIT_CALLS * val_steps
+    return want
+
+
+def test_fitter_trains_on_the_card_through_every_kernel(cuda, tmp_path):
+    """Two epochs fed from TFRecord shards through prefetch_to_device (frozen
+    BN, then the refold flip and exact BN), then one fed by
+    DeviceResidentData: kernel 2 then 4 in the forward, 3 in every step, 1
+    in validation, all on the tensor-core routes; finite losses."""
+    import math
+
+    feed, resident, val = _fit_data(cuda, tmp_path)
+    fitter = _fitter(cuda, tmp_path, 0)
+    probe = _EpochLaunches()
+    hist = fitter.fit(feed, val, n_epochs=2, steps_per_epoch=3, callbacks=[probe],
+                      save_last=True, verbose=False)
+    hist = fitter.fit(resident, val, n_epochs=3, initial_epoch=2, callbacks=[probe],
+                      verbose=False)
+    assert probe.per_epoch[0] == _want(True, 3, 2)
+    assert probe.per_epoch[1] == _want(False, 3, 2)
+    assert probe.per_epoch[2] == _want(False, 4, 2)
+    assert all(math.isfinite(v) for v in hist["loss"] + hist["val_loss"])
+
+
+def test_fitter_resume_round_trip_on_the_card(cuda, tmp_path):
+    """A fresh Fitter (other weights) resumes bit for bit and trains on.
+    (The two do not go on bit for bit: the backward sums dq by f32
+    atomics.)"""
+    feed, resident, val = _fit_data(cuda, tmp_path)
+    first = _fitter(cuda, tmp_path, 0)
+    first.fit(resident, n_epochs=1, save_last=True, save_best=False, verbose=False)
+    second = _fitter(cuda, tmp_path, 1)
+    second.init_state()
+    assert second.resume() == 1
+
+    def state(f):
+        opt = f.optimizer.state_dict()["state"]
+        return ([t for t in f.model.state_dict().values()]
+                + [torch.as_tensor(v).cpu() for i in sorted(opt) for v in opt[i].values()]
+                + [f.state.generator.get_state()])
+
+    assert all(torch.equal(a, b) for a, b in zip(state(first), state(second)))
+    assert first.state.step == second.state.step == 4
+    hist = second.fit(val, n_epochs=2, initial_epoch=1, save_best=False, verbose=False)
+    assert second.state.step == 6 and all(v == v for v in hist["loss"])

@@ -55,12 +55,16 @@ def test_same_seed_same_weights():
 
 def test_port_never_imports_jax():
     """Every module of the port imports in a fresh interpreter without
-    pulling in jax, flax or the JAX package."""
+    pulling in jax, flax, optax, orbax or the JAX package, and without
+    building anything."""
     code = (
         "import pkgutil, sys, importlib, vit_unet_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[importlib.import_module(n) for n in names]\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vit_unet_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'optax', 'orbax', 'vit_unet_tpu')]\n"
+        "from vit_unet_tpu_torch.data import _native\n"
+        "assert _native._codec is None\n"
         "assert len(names) >= 15, names\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -68,7 +72,7 @@ def test_port_never_imports_jax():
 
 
 def test_port_sources_do_not_name_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|vit_unet_tpu)\b"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|vit_unet_tpu)\b"
                          r"|vit_unet_tpu\.(?!\w*torch)", re.M)
     sources = [*(REPO / "vit_unet_tpu_torch").rglob("*.py"),
                REPO / "chip_smoke.py"]

@@ -26,6 +26,7 @@ from vit_unet_tpu.nn.reattention import SkipConnection as JSkip
 from vit_unet_tpu.parallel import train_step as JS
 from vit_unet_tpu.train import losses as JL
 from vit_unet_tpu.train import metrics as JMet
+from vit_unet_tpu.utils.torch_import import import_torch_state_dict
 from vit_unet_tpu_torch.models import vit_unet as TM
 from vit_unet_tpu_torch.nn.blocks import ReAttentionEncoderBlock
 from vit_unet_tpu_torch.nn.feedforward import FeedForward
@@ -226,10 +227,16 @@ def test_train_step_matches_jax(bn_frozen):
             np.testing.assert_allclose(sd[key].numpy(), val.numpy(), rtol=tol,
                                        atol=tol, err_msg=f"flash={flash} {key}")
         assert tstate.step == 3
+        # the eval step on the state the port trained, against JAX's eval
+        # step on that state mapped back: the two trained states differ by
+        # f32 rounding that AdamW turns into weight moves of up to ~5e-4
+        # (held above), which the running-average forward amplifies into
+        # ~1e-3 of the eval loss even between JAX's own two QKV forms
+        back = import_torch_state_dict(sd)
         ev = tsteps.eval_step(tstate, tb)
-        np.testing.assert_allclose(ev["loss"].item(),
-                                   float(steps.eval_step(state, jb)["loss"]),
-                                   rtol=1e-3)
+        np.testing.assert_allclose(
+            ev["loss"].item(),
+            float(steps.eval_step(state.replace(**back), jb)["loss"]), rtol=1e-5)
 
 
 def test_train_step_options():

@@ -1,8 +1,9 @@
 """vit_unet_tpu_torch — the PyTorch / CUDA port of vit_unet_tpu for NVIDIA
 Hopper (H100).
 
-So far it covers the torch-flavour ViT-UNet's eval (serving) path and its
-single-device train step (``parallel/train_step.py``), with every
+So far it covers the torch-flavour ViT-UNet's eval (serving) path, its
+single-device train step (``parallel/train_step.py``) and trainer
+(``train/fitter.py::Fitter``) with its data feed (``data/``), with every
 re-attention contraction of a shape the kernels take (``kernel_takes``: at
 most 16 heads, head dim 384; every level of the presets) in hand-written
 CUDA kernels (``kernels/csrc/flash_reattention.cu`` for eval,

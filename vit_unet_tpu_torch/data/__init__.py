@@ -1,0 +1,5 @@
+from vit_unet_tpu_torch.data.loader import (
+    DataLoader, DeviceResidentData, TFRecordStream, device_normalize,
+    prefetch_to_device, tfrecord_dataset,
+)
+from vit_unet_tpu_torch.data import tfrecord

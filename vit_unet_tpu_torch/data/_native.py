@@ -1,0 +1,120 @@
+"""Build and load the TFRecord codec's native half (``_native.cc``).
+
+The source is compiled at first use with the host's C++ compiler into a
+shared library with a plain C interface, under ``build/torch_native/`` at
+the root of the checkout, and loaded with ``ctypes``.  The library's file
+name carries a hash of the flags and the source.  A build that fails
+raises: nothing falls back to the Python codec.  Nothing here runs at
+import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().with_name("_native.cc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
+FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+SPANS_PER_CALL = 4096
+_SCAN_FAULTS = {-1: "truncated record header", -2: "truncated record",
+                -3: "corrupt record header", -4: "corrupt record payload"}
+
+_lock = threading.Lock()
+_codec: "NativeCodec | None" = None
+
+
+def compiler() -> str:
+    for name in ("c++", "g++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++, g++ or clang++) on the PATH: "
+                       "the native TFRecord codec is built from "
+                       f"{SOURCE.name} at first use")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(FLAGS).encode() + b"\0" + SOURCE.read_bytes())
+    return BUILD_DIR / f"tfrecord-{digest.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile ``_native.cc`` unless its library exists; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([compiler(), *FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _bytes(data) -> bytes:
+    return data if isinstance(data, bytes) else bytes(data)
+
+
+class NativeCodec:
+    """The loaded library.  ``calls`` counts the bytes and calls that went
+    through it, so a run can show that the native codec is the one that
+    ran."""
+
+    def __init__(self, path: Path):
+        lib = ctypes.CDLL(str(path))
+        lib.vit_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+        lib.vit_crc32c.restype = ctypes.c_uint32
+        lib.vit_scan_records.argtypes = [
+            ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_uint64)]
+        lib.vit_scan_records.restype = ctypes.c_int
+        self._lib = lib
+        self.calls = {"crc": 0, "crc_bytes": 0, "scan": 0, "scan_bytes": 0}
+
+    def crc32c(self, data) -> int:
+        data = _bytes(data)
+        self.calls["crc"] += 1
+        self.calls["crc_bytes"] += len(data)
+        return int(self._lib.vit_crc32c(data, len(data)))
+
+    def scan(self, data: bytes, verify_crc: bool = True
+             ) -> Iterator[tuple[int, int]]:
+        """(payload offset, length) of each record of ``data``, in order;
+        raises ``IOError`` at the first faulty record."""
+        self.calls["scan"] += 1
+        self.calls["scan_bytes"] += len(data)
+        spans = np.empty(2 * SPANS_PER_CALL, np.uint64)
+        count, pos = ctypes.c_int64(0), ctypes.c_uint64(0)
+        while True:
+            rc = self._lib.vit_scan_records(
+                data, len(data), int(verify_crc), spans.ctypes.data,
+                SPANS_PER_CALL, ctypes.byref(count), ctypes.byref(pos))
+            for i in range(count.value):
+                yield int(spans[2 * i]), int(spans[2 * i + 1])
+            if rc == 0:
+                return
+            if rc < 0:
+                raise IOError(f"{_SCAN_FAULTS[rc]} at offset {pos.value}")
+
+
+def codec() -> NativeCodec:
+    """Build (if needed) and load the codec once per process."""
+    global _codec
+    with _lock:
+        if _codec is None:
+            _codec = NativeCodec(build())
+        return _codec

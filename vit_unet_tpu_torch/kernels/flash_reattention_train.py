@@ -243,39 +243,54 @@ def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
     return dq, dk, dv
 
 
+def mixed_map(q, k, conv_m, conv_c, mask=None):
+    """The plain N x N head-mixed map c = conv_m (softmax(q k^T) * mask) +
+    conv_c, (B, H, Nq, Nk) in float32 (float64 for float64 inputs), with
+    conv_m (H, H) [h_out, h_in]: the input of the head-mix BatchNorm."""
+    wide = _wide(q).dtype
+    attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q.to(wide), k.to(wide)), -1)
+    if mask is not None:
+        attn = attn * mask.to(wide)
+    return (torch.einsum("gh,bhnm->bgnm", conv_m.to(wide), attn)
+            + conv_c.to(wide)[None, :, None, None])
+
+
+def apply_mixed_map(c, v_cat, norm=None, stats=None, eps: float = 1e-5):
+    """out (B, Nq, H*dh) = per head (BatchNorm of c) @ V, in c's dtype:
+    with ``norm`` = (gamma, beta), c normalised by ``stats`` = (mean, var)
+    per head; without, c as it is."""
+    batch, heads, n_q, n_k = c.shape
+    col = lambda t: t.to(c.dtype)[None, :, None, None]
+    if norm is not None:
+        mu, sig2 = stats
+        c = (c - col(mu)) * col(norm[0].to(c.dtype) * torch.rsqrt(sig2.to(c.dtype) + eps)) \
+            + col(norm[1])
+    vh = v_cat.to(c.dtype).reshape(batch, n_k, heads, -1)
+    out = torch.einsum("bhnm,bmhd->bnhd", c, vh)
+    return out.reshape(batch, n_q, -1)
+
+
 def reattention_nxn(q, k, v_cat, conv_m, conv_c, mask=None, *, norm=None,
                     stats=None, eps: float = 1e-5):
     """Plain N x N re-attention, differentiable in every input, in float32
-    (float64 for float64 inputs).  A = softmax(q k^T) * mask; the head mix
-    c = conv_m A + conv_c with conv_m (H, H) [h_out, h_in]; with ``norm`` =
-    (gamma, beta), BatchNorm of c by ``stats`` = (mean, var), or by c's
-    batch moments over (B, Nq, Nk) when ``stats`` is None; then per head
-    out = c @ V.  Returns (out (B, Nq, H*dh), moments): with ``norm``,
-    moments are c's batch (mean, var) as flax takes them (E[c^2] - E[c]^2,
-    clamped at 0), else None.
+    (float64 for float64 inputs): ``apply_mixed_map`` of ``mixed_map``.
+    With ``norm`` = (gamma, beta), BatchNorm of c by ``stats`` = (mean,
+    var), or by c's batch moments over (B, Nq, Nk) when ``stats`` is None.
+    Returns (out (B, Nq, H*dh), moments): with ``norm``, moments are c's
+    batch (mean, var) as flax takes them (E[c^2] - E[c]^2, clamped at 0),
+    else None.
 
     With (conv_m, conv_c) = (m_eff, c_eff) and no ``norm`` this is the
     function of ``flash_reattention_train``; with ``norm`` and no
     ``stats``, that of ``flash_reattention_train_bn``."""
-    batch, heads, n_q, dh = q.shape
-    n_k = k.shape[2]
-    wide = _wide(q).dtype
-    col = lambda t: t.to(wide)[None, :, None, None]
-    attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q.to(wide), k.to(wide)), -1)
-    if mask is not None:
-        attn = attn * mask.to(wide)
-    c = torch.einsum("gh,bhnm->bgnm", conv_m.to(wide), attn) + col(conv_c)
+    c = mixed_map(q, k, conv_m, conv_c, mask)
     moments = None
     if norm is not None:
         mean = c.mean((0, 2, 3))
         var = ((c * c).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
         moments = (mean, var)
-        mu, sig2 = moments if stats is None else stats
-        c = ((c - col(mu)) * col(norm[0].to(wide) * torch.rsqrt(sig2.to(wide) + eps))
-             + col(norm[1]))
-    vh = v_cat.to(wide).reshape(batch, n_k, heads, dh)
-    out = torch.einsum("bhnm,bmhd->bnhd", c, vh)
-    return out.reshape(batch, n_q, heads * dh), moments
+    out = apply_mixed_map(c, v_cat, norm, moments if stats is None else stats, eps)
+    return out, moments
 
 
 # --- kernel wrappers ----------------------------------------------------------

@@ -1,9 +1,12 @@
 """Re-attention (DeepViT-style) with conv-QKV in patch space.
 
 Counterpart of ``vit_unet_tpu/nn/reattention.py``.  Q/K/V come from per-patch
-CxC convolutions on the image form of each token (one conv over the fused
-(B*N) batch); attention is scaled-dot softmax, re-mixed across heads by a
-1x1 conv followed by BatchNorm, then multiplied with V.
+CxC convolutions on the image form of each token, in one of two forms that
+compute the same function: one conv over the fused (B*N) batch, or one
+product of the tokens with the conv written as a dense (E, E) operator
+(``conv_token_matrix``); ``qkv_form`` picks the form by width and dtype.
+Attention is scaled-dot softmax, re-mixed across heads by a 1x1 conv
+followed by BatchNorm, then multiplied with V.
 
 Eval folds both head-mix layers into one (H, H) affine and runs
 ``flash_reattention``.  Training runs the training kernels
@@ -22,6 +25,7 @@ parameters and buffers and its own forward never runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -56,6 +60,61 @@ def conv_tokens(x: torch.Tensor, weight: torch.Tensor,
     out = F.conv2d(pats.reshape(b * n, num_channels, p, p), weight,
                    padding="same")
     return out.reshape(b, n, -1)
+
+
+@functools.lru_cache(maxsize=16)
+def _window_basis(k: int, p: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """(k·k, p⁴): entry [(a, b), (i, j, I, J)] is 1 where input pixel (i, j)
+    sits at window offset (a, b) of output pixel (I, J) of a SAME-padded
+    k x k conv on a p x p image (i - I = a - k//2, j - J = b - k//2); zero
+    padding falls out of the clipped offsets.  A constant per (k, p), made
+    as an ordinary tensor even under ``inference_mode`` so that a later
+    training step can use it."""
+    with torch.inference_mode(False):
+        ar = torch.arange(p, device=device)
+        offsets = torch.arange(-(k // 2), k // 2 + 1, device=device)
+        s = ar[None, :, None] - ar[None, None, :] == offsets[:, None, None]  # [a, i, I]
+        t = s[:, None, :, None, :, None] & s[None, :, None, :, None, :]     # [a, b, i, j, I, J]
+        return t.reshape(k * k, p ** 4).to(dtype)
+
+
+def _token_operator(weight: torch.Tensor, p: int) -> torch.Tensor:
+    """The conv with weight (O, C, k, k) as a right operand on channel-major
+    token vectors: (C·p², O·p²), ``conv_tokens(x, weight, C) == x @ op``.
+    Built in the weight's dtype by one product with the window basis, exact
+    in any dtype (each entry is one weight or zero)."""
+    o, c, k, _ = weight.shape
+    r = weight.reshape(o * c, k * k) @ _window_basis(k, p, weight.device, weight.dtype)
+    return (r.reshape(o, c, p, p, p, p).permute(1, 2, 3, 0, 4, 5)
+            .reshape(c * p * p, o * p * p))
+
+
+def conv_token_matrix(weight: torch.Tensor, num_channels: int,
+                      p: int) -> torch.Tensor:
+    """The SAME-padding CxC conv as a dense (E, E) operator M on the
+    channel-major token vector (E = C·p²), built differentiably from the
+    conv weight (C, C, k, k): ``conv_tokens(x, weight, C) == x @ M.T``."""
+    if weight.shape[1] != num_channels:
+        raise ValueError(f"weight {tuple(weight.shape)} does not take "
+                         f"{num_channels} channels")
+    return _token_operator(weight, p).T
+
+
+#: the widest token vector (E = C·p²), by dtype, whose Q/K/V run as one
+#: dense product with ``conv_token_matrix``; wider ones, and other dtypes,
+#: run the conv.  Set where the H100 measured the matmul form faster
+#: (PERF.md, "QKV forms"): bfloat16 at all of base's level widths E = 192,
+#: 768 and 3072, float32 at E = 192 only (the dense operator is E/(9·C)
+#: times the conv's work, which f32 pays on the CUDA cores).  The TPU's
+#: gate (E <= 256) does not carry over.
+QKV_MATMUL_MAX_E = {torch.bfloat16: 3072, torch.float32: 192}
+
+
+def qkv_form(e: int, dtype: torch.dtype) -> str:
+    """``"matmul"`` or ``"conv"``: the form of a layer's Q/K/V at token
+    width ``e`` in ``dtype``.  The one place the form is chosen."""
+    return "matmul" if e <= QKV_MATMUL_MAX_E.get(dtype, 0) else "conv"
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -123,8 +182,15 @@ class ReAttention(nn.Module):
                                                self.dim // self.num_heads)
 
     def _qkv(self, q_in, k_in, v_in):
-        """(B, N, E) inputs -> q, k, v as (B, H, N, dh); one C->3C conv
-        when the three inputs are one tensor."""
+        """(B, N, E) inputs -> q, k, v as (B, H, N, dh), in the form
+        ``qkv_form`` names for this width and dtype."""
+        if qkv_form(q_in.shape[-1], self.dtype) == "matmul":
+            return self._qkv_matmul(q_in, k_in, v_in)
+        return self._qkv_conv(q_in, k_in, v_in)
+
+    def _qkv_conv(self, q_in, k_in, v_in):
+        """The conv form: one C->3C conv when the three inputs are one
+        tensor, else one conv each."""
         dt = self.dtype
         convs = (self.qconv2d, self.kconv2d, self.vconv2d)
         if q_in is k_in and k_in is v_in:
@@ -133,6 +199,25 @@ class ReAttention(nn.Module):
         else:
             ys = (conv_tokens(t.to(dt), cv.weight.to(dt), self.num_channels)
                   for t, cv in zip((q_in, k_in, v_in), convs))
+        return tuple(split_heads(y, self.num_heads) for y in ys)
+
+    def _qkv_matmul(self, q_in, k_in, v_in):
+        """The matmul form: the three convs as one (E, 3E) operator
+        (``conv_token_matrix`` of each, side by side), one (B·N, E) @
+        (E, 3E) product when the three inputs are one tensor, else three
+        (B·N, E) @ (E, E).  Same parameters; their gradients flow through
+        the operator."""
+        dt = self.dtype
+        e = q_in.shape[-1]
+        p = round((e // self.num_channels) ** 0.5)
+        w = torch.cat([cv.weight for cv in (self.qconv2d, self.kconv2d,
+                                            self.vconv2d)]).to(dt)
+        op = _token_operator(w, p)
+        if q_in is k_in and k_in is v_in:
+            ys = torch.matmul(q_in.to(dt), op).chunk(3, dim=-1)
+        else:
+            ys = (torch.matmul(t.to(dt), op[:, i * e:(i + 1) * e])
+                  for i, t in enumerate((q_in, k_in, v_in)))
         return tuple(split_heads(y, self.num_heads) for y in ys)
 
     def _folded(self):

@@ -8,6 +8,11 @@ update.  Dropout comes from the state's own generator, re-seeded from
 (seed, step) before every step, so a step is reproducible on its own.  The
 step returns its metrics as tensors on the device and never synchronises.
 
+Gradient clipping and accumulation compute what the JAX ``Fitter``'s optax
+chain ``MultiSteps(chain(clip_by_global_norm(c), tx), k)`` computes: the
+mean of k micro-batch gradients, clipped by its global norm, then one
+optimizer update.
+
 Meshes, data parallelism and ZeRO sharding belong to the port's multi-GPU
 slice: ``mesh`` and ``zero_sharding`` raise ``NotImplementedError``.
 """
@@ -38,13 +43,16 @@ def step_seed(seed: int, step: int) -> int:
 @dataclasses.dataclass
 class TrainState:
     """Carried training state: the model (parameters and BatchNorm running
-    statistics), its optimizer, the step count and the dropout generator."""
+    statistics), its optimizer, the step count (micro-batches), the dropout
+    generator, and how many micro-batch gradients the parameters' ``grad``
+    holds toward the next update (``accum``)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     seed: int
     generator: torch.Generator
+    accum: int = 0
 
     @classmethod
     def create(cls, *, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -68,6 +76,8 @@ def build_step_functions(
     metrics: Optional[dict[str, Callable]] = None,
     zero_sharding: bool = False,
     bn_frozen: bool = False,
+    clip_norm: Optional[float] = None,
+    accum_steps: int = 1,
 ) -> StepFunctions:
     """Train and eval steps for ``model`` and ``optimizer`` (which the
     ``TrainState`` passed to the steps must hold).
@@ -77,7 +87,16 @@ def build_step_functions(
     the unweighted loss.  ``bn_frozen`` runs the train step with the
     head-mix BatchNorm at its running statistics (no updates) while dropout
     stays on.
+
+    ``accum_steps`` = k > 1: a step adds its gradient to the parameters'
+    ``grad``; every k-th step averages them and updates, and the steps
+    between leave the parameters and the optimizer alone.  ``clip_norm`` =
+    c: before an update the (averaged) gradient g becomes
+    g · c / max(|g|, c), |g| the global norm over every parameter (optax's
+    ``clip_by_global_norm``).  The optimizer counts only updates.
     """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     if mesh is not None or zero_sharding:
         raise NotImplementedError(
             "meshes and ZeRO sharding belong to the port's multi-GPU slice "
@@ -102,16 +121,37 @@ def build_step_functions(
             raise ValueError("the state holds another model or optimizer than "
                              "the steps were built for")
 
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    @torch.no_grad()
+    def _clip():
+        norm = torch.sqrt(sum(p.grad.float().square().sum()
+                              for p in params if p.grad is not None))
+        scale = clip_norm / torch.clamp(norm, min=clip_norm)
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(scale)
+
     def train_step(state: TrainState, batch: dict):
         _check(state)
         x, y, w = batch["x"], batch["y"], batch.get("w")
         state.generator.manual_seed(step_seed(state.seed, state.step))
-        optimizer.zero_grad(set_to_none=True)
+        if state.accum == 0:
+            optimizer.zero_grad(set_to_none=True)
         pred = model(x, deterministic=False, use_running_average=bn_frozen,
                      generator=state.generator)
         loss = _loss(pred, y, w)
         loss.backward()
-        optimizer.step()
+        state.accum += 1
+        if state.accum == accum_steps:
+            if accum_steps > 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            if clip_norm is not None:
+                _clip()
+            optimizer.step()
+            state.accum = 0
         state.step += 1
         return state, {"loss": loss.detach(), **_metrics(pred, y)}
 
