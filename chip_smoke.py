@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # everything, with the result lines
     python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
-                                           # (2a, 2b, 3, 4, 5; no result lines)
+                                           # (2a, 2b, 3, 4, 5, 6; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -60,7 +60,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``DeviceResidentData``, between two windows of bare steps; then one
    profiled epoch on each feed.  img/s of each feed and the card's idle
    share over steps 2-24 of an epoch, and the codec's MB/s;
-6. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+6. the entry point: PNG folders of 96 pairs at 256² for the four tasks
+   (every colour type and row filter the reader takes, each file read back
+   exactly), ``run_denoising.main`` in this process for denoise (base,
+   224², bf16, ``--flash``, batch 16, 2 epochs, the first frozen BN),
+   deblur, derain and segment (1 epoch each) and the default lite model
+   (1 epoch), with each epoch's launches by route, img/s and idle share;
+   then ``export_predictor`` / ``load_predictor`` of the trained model at
+   b64 against ``Predictor`` (bit for bit, launches through the program),
+   an f32 program exported on the CPU run on the card, and the b64 forward
+   with kernel 1 behind its operator or called straight, in turns;
+7. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
@@ -114,7 +124,7 @@ EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
 ]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-PHASES = ("2a", "2b", "3", "4", "5")
+PHASES = ("2a", "2b", "3", "4", "5", "6")
 EVAL_SOURCE = "flash_reattention.cu"
 TRAIN_SOURCE = "flash_reattention_train.cu"
 
@@ -1656,6 +1666,441 @@ def phase_trainer():
     return probe.launches, probe2.launches
 
 
+# --- phase 6: the entry point ---------------------------------------------------
+
+CLI_PAIRS = 96           # PNG pairs written per task
+CLI_SIDE = 256           # stored image side; the CLI resizes to 224
+CLI_BATCH = 16
+CLI_LAYOUTS = {"denoise": ("clean", "noisy"), "deblur": ("sharp", "blur"),
+               "derain": ("norain", "rain"), "segment": ("images", "masks")}
+# (colour type, bit depth) of the stored images, in turn over the files:
+# RGB, RGBA, gray, gray + alpha and palette, at 8 and 16 bits
+IMAGE_KINDS = [(2, 8), (6, 8), (0, 8), (4, 8), (3, 8), (2, 16), (6, 16),
+               (0, 16), (4, 16)]
+# masks: gray at 1 and 8 bits, a two-entry palette at 2 bits
+MASK_KINDS = [(0, 1), (0, 8), (3, 2)]
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# an f32 program exported on the CPU, run on the card against the CPU's
+# result (TF32 off): the same f32 math in other summation orders through
+# 12 re-attention calls and 20 LayerNorms, as MODEL_TOL
+EXPORT_TOL = MODEL_TOL
+EXPORT_BATCH_CPU = 2
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def png_bytes(samples, ctype, depth, palette=None) -> bytes:
+    """A PNG of (H, W, C) samples (palette indices for colour type 3), its
+    rows filtered with None, Sub, Up, Average and Paeth in turn."""
+    import struct
+    import zlib
+    h, w = samples.shape[:2]
+    flat = samples.reshape(h, -1)
+    if depth == 16:
+        raw = flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    elif depth == 8:
+        raw = flat.astype(np.uint8)
+    else:
+        per = 8 // depth
+        v = np.pad(flat.astype(np.uint8), ((0, 0), (0, (-flat.shape[1]) % per)))
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        raw = np.bitwise_or.reduce(v.reshape(h, -1, per) << shifts, axis=-1)
+    bpp = max(1, PNG_CHANNELS[ctype] * depth // 8)
+    x = raw.astype(np.int16)
+    left, up, ul = (np.zeros_like(x) for _ in range(3))
+    left[:, bpp:], up[1:], ul[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    types = np.arange(h) % 5
+    rows = np.concatenate([types[:, None], (x - preds[types, np.arange(h)]) & 0xFF],
+                          axis=1).astype(np.uint8)
+    data = b"\x89PNG\r\n\x1a\n" + _png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+    if palette is not None:
+        data += _png_chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    data += _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+    return data + _png_chunk(b"IEND", b"")
+
+
+def _gray(rgb):
+    """libpng's (and so the reader's) gray of 8-bit RGB."""
+    return ((rgb.astype(np.int64) @ np.array([9797, 19234, 3737])) >> 15).astype(np.uint8)
+
+
+def encode_image(img, kind, rng):
+    """(PNG bytes, the RGB the reader must return) for the uint8 RGB
+    ``img`` stored as ``kind``: 16-bit samples carry ``img`` in their high
+    byte and noise in the low one, alpha is noise, gray is ``img``'s gray,
+    a palette holds ``img`` quantised to 6 levels a channel."""
+    ctype, depth = kind
+    h, w, _ = img.shape
+    if ctype == 3:
+        q = (img.astype(np.int64) * 6) // 256
+        levels = np.arange(6) * 51
+        palette = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"),
+                           -1).reshape(-1, 3)
+        idx = (q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2])[..., None]
+        return png_bytes(idx, 3, 8, palette), palette[idx[..., 0]].astype(np.uint8)
+    base = img if ctype in (2, 6) else _gray(img)[..., None]
+    want = base if ctype in (2, 6) else np.repeat(base, 3, -1)
+    samples = base.astype(np.int64)
+    if depth == 16:
+        samples = samples * 256 + rng.integers(0, 256, samples.shape)
+    if ctype in (4, 6):
+        samples = np.concatenate(
+            [samples, rng.integers(0, 1 << depth, (h, w, 1))], -1)
+    return png_bytes(samples, ctype, depth), want
+
+
+def encode_mask(mask, kind):
+    """(PNG bytes, the gray the reader must return) for a 0/1 mask."""
+    ctype, depth = kind
+    if ctype == 3:
+        palette = np.array([[0, 0, 0], [255, 255, 255], [9, 9, 9], [200, 0, 0]])
+        return png_bytes(mask[..., None], 3, depth, palette), mask * np.uint8(255)
+    top = (1 << depth) - 1
+    return png_bytes(mask[..., None] * top, 0, depth), mask * np.uint8(255)
+
+
+def write_cli_folders(root):
+    """PNG folders of CLI_PAIRS pairs at CLI_SIDE² for every task, from
+    numpy seeds; returns [(path, kind, expected array)] of every file."""
+    rng = np.random.default_rng(6)
+    s = CLI_SIDE
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / np.float32(s)
+    smooth = np.stack([yy, xx, yy * xx], -1) * 200
+    files = []
+    for t, (task, (first, second)) in enumerate(CLI_LAYOUTS.items()):
+        for d in (first, second):
+            os.makedirs(os.path.join(root, task, d))
+        for i in range(CLI_PAIRS):
+            clean = (smooth + rng.uniform(0, 55, 3)).astype(np.uint8)
+            pair = [(first, clean)]
+            if task == "segment":
+                cy, cx = rng.uniform(0.3, 0.7, 2) * s
+                r = rng.uniform(0.1, 0.3) * s
+                mask = (((yy * s - cy) ** 2 + (xx * s - cx) ** 2) < r * r).astype(np.uint8)
+                kind = MASK_KINDS[i % len(MASK_KINDS)]
+                data, want = encode_mask(mask, kind)
+                path = os.path.join(root, task, second, f"{i:03d}.png")
+                with open(path, "wb") as f:
+                    f.write(data)
+                files.append((path, kind, want, "gray"))
+            else:
+                noisy = np.clip(clean + rng.normal(0, 20, clean.shape), 0, 255)
+                pair.append((second, noisy.astype(np.uint8)))
+            for j, (d, img) in enumerate(pair):
+                kind = IMAGE_KINDS[(i + j + t) % len(IMAGE_KINDS)]
+                data, want = encode_image(img, kind, rng)
+                path = os.path.join(root, task, d, f"{i:03d}.png")
+                with open(path, "wb") as f:
+                    f.write(data)
+                files.append((path, kind, want, "rgb"))
+    return files
+
+
+def check_reader(files, card):
+    """Every written file read back as the reader must return it, and the
+    reader's ms per image and MB/s of decoded pixels."""
+    from vit_unet_tpu_torch.data import image_io
+    t0 = time.perf_counter()
+    decoded = 0
+    for path, kind, want, mode in files:
+        got = (image_io.imread_rgb if mode == "rgb" else image_io.imread_gray)(path)
+        decoded += got.nbytes
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{path} (colour type {kind[0]}, {kind[1]} bits) "
+                                 f"did not read back as written")
+    wall = time.perf_counter() - t0
+    kinds = sorted({k for _, k, _, _ in files})
+    print(f"  PNG reader: {len(files)} files of {CLI_SIDE}x{CLI_SIDE} (colour "
+          f"type, bits) {kinds}, every row filter type, all read back exactly: "
+          f"{wall / len(files) * 1e3:.3f} ms per image, {decoded / wall / 1e6:.1f} "
+          f"MB/s of decoded pixels, one thread [{card}]")
+
+
+class CliProbe:
+    """A Fitter callback with a hook on the train steps, for a CLI run: the
+    launches of each epoch by route (counts set to 0 as the epoch begins,
+    read as it ends, validation included) and of the final evaluation
+    (set to 0 as training ends, read after the CLI returns); over the
+    window from the end of step 1 to the end of the epoch's last step (the
+    card synchronised at both), the img/s and, under the profiler, the
+    card's busy time."""
+
+    def __init__(self, steps: int, profiled: bool):
+        self.steps, self.profiled = steps, profiled
+        self.launches, self.rates, self.busy = {}, {}, {}
+        self._epoch, self._n, self._t0, self._prof = None, 0, None, None
+
+    def wrap(self, fitter):
+        for steps in (fitter.steps, fitter._frozen_steps):
+            if steps is not None:
+                steps.train_step = self._timed(steps.train_step)
+
+    def _timed(self, step):
+        def run(state, batch):
+            out = step(state, batch)
+            self._n += 1
+            if self._n in (1, self.steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if self._n == 1:
+                    self._t0 = t
+                    if self.profiled:
+                        from torch.profiler import ProfilerActivity, profile
+                        self._prof = profile(activities=[ProfilerActivity.CUDA])
+                        self._prof.start()
+                else:
+                    wall = t - self._t0
+                    self.rates[self._epoch] = (self.steps - 1) * CLI_BATCH / wall
+                    if self._prof is not None:
+                        self._prof.stop()
+                        self.busy[self._epoch] = (wall * 1e3, busy_ms(self._prof))
+                        self._prof = None
+            return out
+        return run
+
+    def on_train_begin(self, fitter): ...
+
+    def on_epoch_begin(self, fitter, epoch):
+        self._epoch, self._n = epoch, 0
+        zero_launches()
+
+    def on_epoch_end(self, fitter, epoch, logs):
+        self.launches[epoch] = all_launches()
+        if self._n != self.steps:
+            raise AssertionError(f"epoch {epoch} took {self._n} steps, not {self.steps}")
+
+    def on_train_end(self, fitter):
+        zero_launches()
+
+
+def run_cli(task, root, extra, probe, name=None):
+    """``run_denoising.main`` in this process on ``root``'s PNG folder of
+    ``task``, its ``Fitter`` probed, its checkpoints and log under ``name``
+    (default: the task); returns (result, the trained model, seconds)."""
+    from vit_unet_tpu_torch.cli import run_denoising
+    from vit_unet_tpu_torch.train import fitter as fitter_mod
+    fitted = []
+
+    class Probed(fitter_mod.Fitter):
+        def fit(self, *a, callbacks=(), **kw):
+            self.init_state()
+            probe.wrap(self)
+            fitted.append(self)
+            return super().fit(*a, callbacks=[probe, *callbacks], **kw)
+
+    ck = os.path.join(root, f"models_{name or task}")
+    log = os.path.join(root, f"log_{name or task}.jsonl")
+    argv = ["--task", task, "--input_folder", os.path.join(root, task),
+            "--checkpoint_dir", ck, "--log_jsonl", log, *extra]
+    t0 = time.perf_counter()
+    with mock.patch.object(fitter_mod, "Fitter", Probed):
+        result = run_denoising.main(argv)
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"{task}: result not finite: {result}")
+    if not os.path.isfile(os.path.join(ck, "fold0", "best-checkpoint.pt")):
+        raise AssertionError(f"{task}: no best checkpoint written")
+    with open(log) as f:
+        lines = f.readlines()
+    n_epochs = int(extra[extra.index("--n_epochs") + 1])
+    if len(lines) != n_epochs:
+        raise AssertionError(f"{task}: {len(lines)} log lines for {n_epochs} epochs")
+    return result, fitted[-1].model, seconds
+
+
+def cli_expected(kernel_routes: dict, steps: int, val_batches: int) -> dict:
+    """Launches of one CLI epoch: ``steps`` train steps through the named
+    training kernels and ``val_batches`` validation forwards through kernel
+    1, each on the route given, 12 a forward (base's calls)."""
+    want = dict.fromkeys(all_launches(), 0)
+    for key, route in kernel_routes.items():
+        n = 12 * (val_batches if key == "eval" else steps)
+        want[key] = want[f"{key}_{route}"] = n
+    return want
+
+
+def phase_entry():
+    print("== phase 6: the entry point: run_denoising on PNG folders, export "
+          "and load_predictor")
+    t_phase = time.perf_counter()
+    import importlib
+    import tempfile
+    from vit_unet_tpu_torch import Predictor, get_vit_unet
+    from vit_unet_tpu_torch.data.datasets import kfold_split
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.serving import export_predictor, load_predictor
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+
+    card = card_line()
+    train_idx, val_idx = next(kfold_split(CLI_PAIRS, 5))
+    steps = len(train_idx) // CLI_BATCH
+    val_batches = -(-len(val_idx) // CLI_BATCH)
+    base = ["--model_string", "base", "--im_size", "224", "--dtype", "bfloat16",
+            "--flash", "--batch_size", str(CLI_BATCH)]
+    tc = "tensor_core"
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t0 = time.perf_counter()
+        files = write_cli_folders(root)
+        print(f"  wrote {len(files)} PNG files for {len(CLI_LAYOUTS)} tasks in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_reader(files, card)
+
+        # denoise: epoch 0 frozen BN (kernels 2 + 3), the refold, epoch 1
+        # exact BN (4 + 3); validation and the final evaluation kernel 1
+        probe = CliProbe(steps, profiled=True)
+        result, model, secs = run_cli(
+            "denoise", root, [*base, "--n_epochs", "2", "--bn_freeze_epochs", "1"],
+            probe)
+        final = all_launches()
+        for epoch, fwd in ((0, "fwd"), (1, "bn_fwd")):
+            want = cli_expected({fwd: tc, "bwd": tc, "eval": tc}, steps, val_batches)
+            got = probe.launches[epoch]
+            print(f"  denoise epoch {epoch} ({'frozen' if epoch == 0 else 'exact'} "
+                  f"BN): launches {got}")
+            if got != want:
+                raise AssertionError(f"denoise epoch {epoch}: launches {got}, "
+                                     f"expected {want}")
+            counts.update(got)
+        want = cli_expected({"eval": tc}, 0, val_batches)
+        if final != want:
+            raise AssertionError(f"final evaluation: launches {final}, expected {want}")
+        counts.update(final)
+        print(f"  denoise: {result} in {secs:.1f} s; final evaluation launches "
+              f"{final['eval_tensor_core']} on the tensor cores")
+        for epoch in (0, 1):
+            wall, busy = probe.busy[epoch]
+            print(f"  denoise epoch {epoch}, steps 2-{steps} of {CLI_BATCH} PNG pairs "
+                  f"(resize, ShiftScaleRotate, 2 loader threads), profiled: "
+                  f"{probe.rates[epoch]:.1f} img/s, wall {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms, idle {1 - busy / wall:.1%} [{card}]")
+
+        # the other tasks, one exact-BN epoch each
+        for task in ("deblur", "derain", "segment"):
+            p = CliProbe(steps, profiled=False)
+            result, _, secs = run_cli(task, root, [*base, "--n_epochs", "1"], p)
+            want = cli_expected({"bn_fwd": tc, "bwd": tc, "eval": tc}, steps,
+                                val_batches)
+            if p.launches[0] != want:
+                raise AssertionError(f"{task}: launches {p.launches[0]}, "
+                                     f"expected {want}")
+            counts.update(p.launches[0])
+            counts.update(all_launches())      # its final evaluation
+            print(f"  {task}: {result} in {secs:.1f} s, epoch {p.rates[0]:.1f} "
+                  f"img/s over steps 2-{steps}; launches as expected [{card}]")
+
+        # the CLI's default model, lite, bf16: its level shapes take the
+        # routes the route functions name for them
+        lite_levels = [(4, 192), (4, 48), (4, 12)]
+        routes = {"bn_fwd": {T.bn_fwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
+                  "bwd": {T.train_bwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
+                  "eval": {TK.kernel_route(torch.bfloat16, h, d) for h, d in lite_levels}}
+        if any(len(r) != 1 for r in routes.values()):
+            raise AssertionError(f"lite's levels take mixed routes: {routes}")
+        routes = {k: r.pop() for k, r in routes.items()}
+        p = CliProbe(steps, profiled=False)
+        result, _, secs = run_cli(
+            "denoise", root, ["--dtype", "bfloat16", "--flash", "--n_epochs", "1"],
+            p, name="lite")
+        got = p.launches[0]
+        print(f"  lite (the CLI's default model), bf16: {result} in {secs:.1f} s; "
+              f"launches {got}, routes named {routes}")
+        if got["fwd"] or not all(got[k] > 0 and got[f"{k}_{r}"] == got[k]
+                                 for k, r in routes.items()):
+            raise AssertionError(f"lite: launches {got} are not all on {routes}")
+        counts.update(got)
+        counts.update(all_launches())
+
+        # export: the trained base model (f32 parameters, bf16 compute) at b64
+        rng = np.random.default_rng(1)
+        x = rng.random((BATCH + 6, 3, 224, 224), dtype=np.float32)
+        path = os.path.join(root, "program_b64")
+        t0 = time.perf_counter()
+        export_predictor(model, path, batch_size=BATCH)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_predictor(path)
+        t_load = time.perf_counter() - t0
+        pred = Predictor(model, batch_size=BATCH)
+        want_y = pred(x)
+        zero_launches()
+        got_y = loaded(x)
+        torch.cuda.synchronize()
+        via = all_launches()
+        diff = float(np.abs(got_y - want_y).max())
+        print(f"  export of the trained base model at b{BATCH}: {t_export:.1f} s, "
+              f"load {t_load:.1f} s; loaded program vs Predictor on {len(x)} inputs: "
+              f"bit for bit {np.array_equal(got_y, want_y)}, max|diff| {diff:.3e}; "
+              f"kernel 1 launches through the program {via['eval']}, by route "
+              f"{ {r: via[f'eval_{r}'] for r in TK.ROUTES} }")
+        if via["eval"] != 24 or via["eval_tensor_core"] != 24:
+            raise AssertionError(f"the loaded program launched kernel 1 {via}, "
+                                 "expected 12 a forward on the tensor cores")
+        if not np.isfinite(got_y).all() or diff > 0:
+            raise AssertionError("the loaded program disagrees with Predictor")
+        counts.update(via)
+
+        def serve_rate(fn):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn(x[:BATCH])
+            return (time.perf_counter() - t0) / 3 * 1e3
+        turns = [(label, serve_rate(fn)) for label, fn in
+                 (("Predictor", pred), ("load_predictor", loaded),
+                  ("load_predictor", loaded), ("Predictor", pred))]
+        print("  b64 batch, numpy in and out, in turns: " + ", ".join(
+            f"{label} {ms:.3f} ms" for label, ms in turns) + f" [{card}]")
+
+        # an f32 program exported on the CPU, loaded onto the card
+        cpu_model = get_vit_unet("base", device="cpu", seed=0)
+        xs = x[:EXPORT_BATCH_CPU]
+        want_cpu = Predictor(cpu_model, batch_size=EXPORT_BATCH_CPU, device="cpu")(xs)
+        cpu_path = os.path.join(root, "program_cpu")
+        export_predictor(cpu_model, cpu_path, batch_size=EXPORT_BATCH_CPU)
+        zero_launches()
+        got_card = load_predictor(cpu_path)(xs)
+        torch.cuda.synchronize()
+        via = all_launches()
+        rel = float(np.abs(got_card - want_cpu).max() / np.abs(want_cpu).max())
+        print(f"  f32 program exported on the CPU, run on the card (TF32 off) vs "
+              f"the CPU: rel {rel:.3e} (tol {EXPORT_TOL:.0e}); kernel 1 launches "
+              f"{via['eval']}, by route {({r: via[f'eval_{r}'] for r in TK.ROUTES})}")
+        if not rel <= EXPORT_TOL or via["eval_cuda_core"] != 12:
+            raise AssertionError("the CPU-exported program disagrees on the card")
+        counts.update(via)
+        del cpu_model
+
+    # the b64 bf16 forward with kernel 1 behind the operator or called
+    # straight, in turns (op, direct, direct, op)
+    from vit_unet_tpu_torch.nn import reattention
+    fresh = get_vit_unet("base", dtype="bfloat16", param_dtype="bfloat16", seed=0)
+    xb = torch.from_numpy(x[:BATCH]).cuda()
+    via_op = mock.patch.object(
+        reattention, "flash_reattention",
+        lambda q, k, v, w, b, num_heads: TK.flash_reattention_op(q, k, v, w, b, num_heads))
+    turns = []
+    for through in (True, False, False, True):
+        with via_op if through else contextlib.nullcontext(), torch.inference_mode():
+            turns.append(("operator" if through else "direct", time_ms(lambda: fresh(xb), 20)))
+    print("  base b64 bf16 forward, kernel 1 through the operator or direct, in "
+          "turns: " + ", ".join(f"{label} {ms:.3f} ms" for label, ms in turns)
+          + f" [{card}]")
+    del fresh, model
+    torch.cuda.empty_cache()
+    print(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -1687,7 +2132,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    needs_train = any(ph in phases for ph in ("2b", "4", "5"))
+    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6"))
     phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
     if "2a" in phases:
         k = phase_kernels()
@@ -1699,6 +2144,8 @@ def main(argv=None) -> int:
         train_launches_, _ = phase_train()
     if "5" in phases:
         fit_launches = phase_trainer()
+    if "6" in phases:
+        cli_launches = phase_entry()
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {','.join(phases)} only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines")
@@ -1710,9 +2157,12 @@ def main(argv=None) -> int:
     for per_epoch in fit_launches:
         for counts in per_epoch.values():
             fit_total.update(counts)
-    by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"]}}
+    # and the entry point (phase 6: the CLI's runs, the loaded programs)
+    by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"],
+                                     "entry": cli_launches["eval"]}}
     for key, _, _ in TRAIN_KERNELS:
-        by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key]}
+        by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key],
+                        "entry": cli_launches[key]}
     kernels = [{
         "name": "flash_reattention",
         "route": "cuda",
@@ -1752,6 +2202,7 @@ def main(argv=None) -> int:
                 tensor_core_source=TC_SOURCES[key],
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
                 route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
+                                + cli_launches[f"{key}_{r}"]
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -600,3 +600,104 @@ def test_fitter_resume_round_trip_on_the_card(cuda, tmp_path):
     assert first.state.step == second.state.step == 4
     hist = second.fit(val, n_epochs=2, initial_epoch=1, save_best=False, verbose=False)
     assert second.state.step == 6 and all(v == v for v in hist["loss"])
+
+
+# --- the entry point: the CLI on PNG folders, export and the operator -------
+
+def _write_png(path, rgb):
+    """An 8-bit RGB PNG, rows unfiltered (the card's host has no cv2)."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    h, w, _ = rgb.shape
+    rows = b"".join(b"\0" + rgb[i].tobytes() for i in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def _named_routes(model):
+    """{kernel: the set of routes its route function names for the model's
+    re-attention layers} (bf16)."""
+    import importlib
+    T = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    shapes = {(m.num_heads, m.dim // m.num_heads) for m in model.modules()
+              if isinstance(m, ReAttention)}
+    assert shapes and all(TK.kernel_takes(h, d) for h, d in shapes)
+    bf = torch.bfloat16
+    return {"eval": {TK.kernel_route(bf, h, d) for h, d in shapes},
+            "bn_fwd": {T.bn_fwd_route(bf, h, d) for h, d in shapes},
+            "bwd": {T.train_bwd_route(bf, h, d) for h, d in shapes}}
+
+
+def test_cli_trains_lite_from_pngs_on_the_card(cuda, tmp_path):
+    """One exact-BN epoch of the CLI's default model with --flash on a PNG
+    folder: every launch on the route its route function names."""
+    import math
+
+    import numpy as np
+
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.cli import run_denoising
+
+    rng = np.random.default_rng(0)
+    for d in ("clean", "noisy"):
+        (tmp_path / d).mkdir()
+    for i in range(8):
+        clean = rng.integers(0, 256, (72, 72, 3), dtype=np.uint8)
+        _write_png(tmp_path / "clean" / f"{i}.png", clean)
+        _write_png(tmp_path / "noisy" / f"{i}.png", 255 - clean)
+    before = _launches()
+    result = run_denoising.main([
+        "--input_folder", str(tmp_path), "--im_size", "64", "--batch_size", "2",
+        "--n_epochs", "1", "--dtype", "bfloat16", "--flash",
+        "--checkpoint_dir", str(tmp_path / "models")])
+    after = _launches()
+    assert all(math.isfinite(v) for v in result.values())
+    assert (tmp_path / "models" / "fold0" / "best-checkpoint.pt").is_file()
+    named = _named_routes(get_vit_unet("lite", device="meta", im_size=64))
+    for key, routes in named.items():
+        delta = {r: after[key][r] - before[key][r] for r in after[key]}
+        assert sum(delta.values()) > 0
+        assert all(n == 0 for r, n in delta.items() if r not in routes), (key, delta)
+    assert after["fwd"] == before["fwd"]        # no frozen-BN epoch
+
+
+def test_exported_program_matches_predictor_on_the_card(cuda, tmp_path):
+    """export_predictor / load_predictor on the card: kernel 1 runs through
+    the registered operator, outputs bit for bit Predictor's."""
+    import numpy as np
+
+    from vit_unet_tpu_torch import Predictor, get_vit_unet
+    from vit_unet_tpu_torch.serving import export_predictor, load_predictor
+    model = get_vit_unet("base", seed=0, device=cuda, **FIT_MODEL)
+    x = np.random.default_rng(0).random((6, 3, 64, 64), dtype=np.float32)
+    want = Predictor(model, batch_size=4)(x)
+    export_predictor(model, str(tmp_path), batch_size=4)
+    loaded = load_predictor(str(tmp_path))
+    before = _launches()["eval"]
+    got = loaded(x)
+    torch.cuda.synchronize()
+    after = _launches()["eval"]
+    assert after["tensor_core"] - before["tensor_core"] == 2 * FIT_CALLS
+    assert after["cuda_core"] == before["cuda_core"]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_operator_launches_the_kernel_and_counts(cuda):
+    q, k, v, w, b = _eval_inputs(cuda, torch.bfloat16, 2, 8, 96, 196, 196)
+    launches = TK.flash_reattention.launches
+    tc = TK.flash_reattention.route_launches["tensor_core"]
+    got = torch.ops.vit_unet_tpu_torch.flash_reattention(q, k, v, w, b, 8)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.launches == launches + 1
+    assert TK.flash_reattention.route_launches["tensor_core"] == tc + 1
+    want = TK.flash_reattention_plain(q, k, v, w, b, num_heads=8)
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+    with pytest.raises(ValueError, match="heads"):
+        torch.ops.vit_unet_tpu_torch.flash_reattention(q, k, v, w, b, 4)

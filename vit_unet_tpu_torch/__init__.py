@@ -1,9 +1,12 @@
 """vit_unet_tpu_torch — the PyTorch / CUDA port of vit_unet_tpu for NVIDIA
 Hopper (H100).
 
-So far it covers the torch-flavour ViT-UNet's eval (serving) path, its
-single-device train step (``parallel/train_step.py``) and trainer
-(``train/fitter.py::Fitter``) with its data feed (``data/``), with every
+So far it covers the torch-flavour ViT-UNet's eval (serving) path with
+model export (``serving.py``), its single-device train step
+(``parallel/train_step.py``) and trainer (``train/fitter.py::Fitter``)
+with its data feed, image datasets and augmentations (``data/``), the
+training CLI (``python -m vit_unet_tpu_torch.cli.run_denoising``) and the
+utilities (``utils/``, ``ops/sparse.py``), with every
 re-attention contraction of a shape the kernels take (``kernel_takes``: at
 most 16 heads, head dim 384; every level of the presets) in hand-written
 CUDA kernels (``kernels/csrc/flash_reattention.cu`` for eval,

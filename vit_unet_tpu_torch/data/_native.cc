@@ -1,9 +1,9 @@
-// The TFRecord codec's native half for vit_unet_tpu_torch/data/tfrecord.py:
-// CRC32-Castagnoli (slicing-by-8) and a single-pass shard scan.  A copy of
-// vit_unet_tpu/data/_native.cc behind a plain C interface instead of
-// CPython entry points, so it needs no Python headers: data/_native.py
-// builds it at first use with the host's C++ compiler and loads it with
-// ctypes.
+// The native half of the port's data path: for data/tfrecord.py,
+// CRC32-Castagnoli (slicing-by-8) and a single-pass shard scan, a copy of
+// vit_unet_tpu/data/_native.cc; for data/image_io.py, the reversal of PNG's
+// row filters.  A plain C interface instead of CPython entry points, so it
+// needs no Python headers: data/_native.py builds it at first use with the
+// host's C++ compiler and loads it with ctypes.
 //
 // Record framing (little-endian):
 //     uint64 length | masked_crc32c(length) | payload | masked_crc32c(payload)
@@ -113,6 +113,59 @@ int vit_scan_records(const uint8_t* buf, uint64_t n, int verify,
   *count = k;
   *pos = p;
   return rc;
+}
+
+// Reverse PNG's per-row filters (ISO 15948, section 9): src holds height
+// rows of 1 + rowbytes bytes, each a filter type byte (0 None, 1 Sub, 2 Up,
+// 3 Average, 4 Paeth) and the filtered row; dst receives height rows of
+// rowbytes unfiltered bytes.  bpp is the bytes per complete pixel, at least
+// 1.  Sub, Average and Paeth read the row's own unfiltered bytes bpp to the
+// left, so each row is one sequential pass.  Returns 0, or -(r + 1) for the
+// first row r whose filter type is unknown.
+int64_t vit_png_unfilter(const uint8_t* src, uint8_t* dst, int64_t height,
+                         int64_t rowbytes, int64_t bpp) {
+  for (int64_t r = 0; r < height; ++r) {
+    const uint8_t* in = src + r * (rowbytes + 1);
+    const uint8_t type = *in++;
+    uint8_t* out = dst + r * rowbytes;
+    const uint8_t* up = r ? out - rowbytes : nullptr;
+    switch (type) {
+      case 0:
+        std::memcpy(out, in, static_cast<size_t>(rowbytes));
+        break;
+      case 1:
+        for (int64_t i = 0; i < rowbytes; ++i)
+          out[i] = static_cast<uint8_t>(in[i] + (i >= bpp ? out[i - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t i = 0; i < rowbytes; ++i)
+          out[i] = static_cast<uint8_t>(in[i] + (up ? up[i] : 0));
+        break;
+      case 3:
+        for (int64_t i = 0; i < rowbytes; ++i) {
+          const int a = i >= bpp ? out[i - bpp] : 0;
+          const int b = up ? up[i] : 0;
+          out[i] = static_cast<uint8_t>(in[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < rowbytes; ++i) {
+          const int a = i >= bpp ? out[i - bpp] : 0;
+          const int b = up ? up[i] : 0;
+          const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = p > a ? p - a : a - p;
+          const int pb = p > b ? p - b : b - p;
+          const int pc = p > c ? p - c : c - p;
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          out[i] = static_cast<uint8_t>(in[i] + pred);
+        }
+        break;
+      default:
+        return -(r + 1);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

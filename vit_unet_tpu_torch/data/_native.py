@@ -1,4 +1,5 @@
-"""Build and load the TFRecord codec's native half (``_native.cc``).
+"""Build and load the data path's native half (``_native.cc``): the
+TFRecord codec's CRC32C and record scan, and PNG's row unfiltering.
 
 The source is compiled at first use with the host's C++ compiler into a
 shared library with a plain C interface, under ``build/torch_native/`` at
@@ -38,13 +39,13 @@ def compiler() -> str:
         if found:
             return found
     raise RuntimeError("no C++ compiler (c++, g++ or clang++) on the PATH: "
-                       "the native TFRecord codec is built from "
+                       "the data path's native code is built from "
                        f"{SOURCE.name} at first use")
 
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(FLAGS).encode() + b"\0" + SOURCE.read_bytes())
-    return BUILD_DIR / f"tfrecord-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"native-{digest.hexdigest()[:12]}.so"
 
 
 def build() -> Path:
@@ -82,6 +83,10 @@ class NativeCodec:
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_uint64)]
         lib.vit_scan_records.restype = ctypes.c_int
+        lib.vit_png_unfilter.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64]
+        lib.vit_png_unfilter.restype = ctypes.c_int64
         self._lib = lib
         self.calls = {"crc": 0, "crc_bytes": 0, "scan": 0, "scan_bytes": 0}
 
@@ -109,6 +114,25 @@ class NativeCodec:
                 return
             if rc < 0:
                 raise IOError(f"{_SCAN_FAULTS[rc]} at offset {pos.value}")
+
+    def png_unfilter(self, data: bytes, height: int, rowbytes: int,
+                     bpp: int) -> np.ndarray:
+        """The (height, rowbytes) unfiltered bytes of a PNG image's inflated
+        data ``data``: ``height`` rows of a filter type byte and
+        ``rowbytes`` filtered bytes, ``bpp`` bytes a pixel.  Raises
+        ``ValueError`` on a short buffer or an unknown filter type.  Safe to
+        call from several threads (it counts nothing in ``calls``)."""
+        if len(data) != height * (rowbytes + 1):
+            raise ValueError(f"{len(data)} bytes of image data, expected "
+                             f"{height * (rowbytes + 1)}")
+        out = np.empty((height, rowbytes), np.uint8)
+        rc = self._lib.vit_png_unfilter(data, out.ctypes.data, height,
+                                        rowbytes, max(1, bpp))
+        if rc:
+            row = -rc - 1
+            raise ValueError(f"unknown filter type "
+                             f"{data[row * (rowbytes + 1)]} in row {row}")
+        return out
 
 
 def codec() -> NativeCodec:

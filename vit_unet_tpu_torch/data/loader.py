@@ -1,11 +1,13 @@
 """Input pipeline: dataset -> shuffled, batched batches on the card.  The
-counterpart of ``vit_unet_tpu/data/loader.py`` (less ``tfdata_pipeline``,
-which needs TensorFlow):
+counterpart of ``vit_unet_tpu/data/loader.py``:
 
 * ``DataLoader``: a thread pool decodes samples ahead of consumption,
   full batches by default, per-shard slices of equal length;
 * ``tfrecord_dataset`` and ``TFRecordStream``: TFRecord shards of {x, y}
   raw-pixel records, materialised or streamed;
+* ``tfdata_pipeline``: the ``tf.data`` recipe of the JAX package (cache,
+  repeat, shuffle buffer, parse, batch) on the port's own TFRecord reader,
+  without TensorFlow;
 * ``device_normalize``, ``DeviceResidentData`` and ``prefetch_to_device``:
   uint8 NHWC batches converted on the card, a data set staged on the card
   once, and host batches copied ahead of the consumer.
@@ -15,6 +17,7 @@ both draw them from numpy's generators.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional, Sequence
@@ -211,6 +214,122 @@ class TFRecordStream:
                 batch = []
         if batch and not self.drop_remainder:
             yield _collate(batch)
+
+
+def _interleave(iterators: list, cycle: int) -> Iterator:
+    """tf.data's deterministic interleave with block length 1: one element
+    from each of ``cycle`` open iterators in turn; an exhausted one is
+    replaced in its slot by the next unopened iterator, which is read at
+    once."""
+    pending = iter(iterators)
+    slots = [it for _, it in zip(range(cycle), pending)]
+    i = 0
+    while slots:
+        i %= len(slots)
+        try:
+            yield next(slots[i])
+            i += 1
+        except StopIteration:
+            nxt = next(pending, None)
+            if nxt is None:
+                del slots[i]
+            else:
+                slots[i] = nxt
+
+
+def tfdata_pipeline(
+    filenames: Sequence[str],
+    shape: tuple,
+    batch_size: int = 32,
+    shuffle: bool = False,
+    repeat: bool = False,
+    drop_remainder: bool = True,
+    replicas: int = 1,
+    dtype: str = "uint8",
+    normalize: bool = True,
+    channels_first: bool = True,
+    cache: bool = True,
+) -> Iterator[dict]:
+    """The JAX package's ``tf.data`` recipe without TensorFlow: records of
+    ``filenames`` read in parallel (interleaved one at a time across up to
+    one shard per CPU) -> cache -> repeat -> shuffle (a buffer of 1024 x
+    ``replicas``, unseeded, like tf.data's nondeterministic shuffle) ->
+    parse {x, y} raw bytes of ``dtype`` into ``shape`` (H, W, C) -> float32,
+    /255 when ``normalize``, (C, H, W) when ``channels_first`` -> batches of
+    ``batch_size`` (the short last one dropped when ``drop_remainder``).
+    Yields numpy {'x', 'y'} batches.  Local paths only: ``gs://`` raises."""
+    remote = [f for f in filenames if "://" in str(f)]
+    if remote:
+        raise ValueError(f"tfdata_pipeline reads local files only, got "
+                         f"{remote[0]!r}: copy the shards to local disk")
+    h, w, c = shape
+    dt = np.dtype(dtype).newbyteorder("<")
+    cycle = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+
+    def read_all() -> Iterator[bytes]:
+        return _interleave([tfr.read_records_streaming(f) for f in filenames],
+                           cycle)
+
+    cached: list[bytes] = []
+
+    def records() -> Iterator[bytes]:
+        if not cache:
+            yield from read_all()
+            return
+        if not cached:
+            for r in read_all():
+                cached.append(r)
+                yield r
+            return
+        yield from cached
+
+    def epochs() -> Iterator[bytes]:
+        while True:
+            yield from records()
+            if not repeat:
+                return
+
+    stream: Iterator[bytes] = epochs()
+    if shuffle:
+        stream = _shuffled(stream, 1024 * replicas, np.random.default_rng())
+
+    def parse(record: bytes) -> dict:
+        ex = tfr.decode_example(record)
+        out = {}
+        for k in ("x", "y"):
+            a = np.frombuffer(ex[k][0], dtype=dt).reshape(h, w, c)
+            a = a.astype(np.float32)
+            if normalize:
+                a = a / 255.0
+            if channels_first:
+                a = a.transpose(2, 0, 1)
+            out[k] = a
+        return out
+
+    batch: list[dict] = []
+    for record in stream:
+        batch.append(parse(record))
+        if len(batch) == batch_size:
+            yield _collate(batch)
+            batch = []
+    if batch and not drop_remainder:
+        yield _collate(batch)
+
+
+def _shuffled(items: Iterator, size: int, rng: np.random.Generator) -> Iterator:
+    """tf.data's shuffle: fill a buffer of ``size``, then emit a random
+    element and put the next input in its place; drain at the end."""
+    buf: list = []
+    for item in items:
+        if len(buf) < size:
+            buf.append(item)
+            continue
+        j = int(rng.integers(size))
+        yield buf[j]
+        buf[j] = item
+    rng.shuffle(buf)
+    yield from buf
 
 
 def _convert_images(a: torch.Tensor, dtype: torch.dtype, normalize: bool,

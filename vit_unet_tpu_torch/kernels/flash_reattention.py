@@ -30,7 +30,11 @@ from the input dtype and (heads, dh), nothing else:
   round trips bound it, far above its operation count.
 
 On a CPU tensor ``flash_reattention`` runs ``flash_reattention_plain``; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises.  An exported program
+records the call as the operator ``vit_unet_tpu_torch::flash_reattention``
+(``flash_reattention_op``), which decides by the tensors' device when it
+runs, so the program carries the kernel to the card and the plain version
+to the CPU.
 """
 from __future__ import annotations
 
@@ -182,20 +186,9 @@ def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
                            + lib.vit_cuda_error_string(rc).decode())
 
 
-def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
-    """Eval re-attention, (B, N_q, H*dh) in q's dtype.
-
-    q: (B, H, N_q, dh), pre-scaled; k: (B, H, N_k, dh); v_cat: (B, N_k, H*dh)
-    with the heads concatenated; w: (H, H*dh) and b: (H*dh,) the expanded
-    head-mix affine (``expand_reattention_affine``).  N_q may differ from
-    N_k.  CPU tensors take the plain version; CUDA tensors the kernel, on
-    the route ``kernel_route`` names.
-    """
-    _check(q, k, v_cat, w, b, num_heads)
-    if q.device.type == "cpu":
-        return flash_reattention_plain(q, k, v_cat, w, b, num_heads=num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_reattention for device {q.device}")
+def _launch(q, k, v_cat, w, b):
+    """The kernel on checked CUDA inputs, on the route ``kernel_route``
+    names, counted by route."""
     batch, heads, n_q, dh = q.shape
     out = torch.empty((batch, n_q, heads * dh), dtype=q.dtype, device=q.device)
     if batch == 0 or n_q == 0:
@@ -206,6 +199,54 @@ def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
     flash_reattention.launches += 1
     flash_reattention.route_launches[route] += 1
     return out
+
+
+@torch.library.custom_op("vit_unet_tpu_torch::flash_reattention",
+                         mutates_args=(), device_types="cpu")
+def flash_reattention_op(q: torch.Tensor, k: torch.Tensor,
+                         v_cat: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Kernel 1 as a registered operator, so that an exported program
+    (``serving.export_predictor``) records it and runs it where it is
+    loaded: the kernel on CUDA tensors, the plain version on CPU ones."""
+    return flash_reattention_plain(q, k, v_cat, w, b, num_heads=num_heads)
+
+
+@flash_reattention_op.register_kernel("cuda")
+def _(q, k, v_cat, w, b, num_heads):
+    _check(q, k, v_cat, w, b, num_heads)
+    return _launch(q, k, v_cat, w, b)
+
+
+@flash_reattention_op.register_fake
+def _(q, k, v_cat, w, b, num_heads):
+    batch, heads, n_q, dh = q.shape
+    return q.new_empty((batch, n_q, heads * dh))
+
+
+def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
+    """Eval re-attention, (B, N_q, H*dh) in q's dtype.
+
+    q: (B, H, N_q, dh), pre-scaled; k: (B, H, N_k, dh); v_cat: (B, N_k, H*dh)
+    with the heads concatenated; w: (H, H*dh) and b: (H*dh,) the expanded
+    head-mix affine (``expand_reattention_affine``).  N_q may differ from
+    N_k.  CPU tensors take the plain version; CUDA tensors the kernel, on
+    the route ``kernel_route`` names.
+
+    An export records the call as ``flash_reattention_op``.  An eager call
+    skips the operator's dispatch, which is host time (on the H100, 0.7-2.9
+    ms of a base b64 bf16 forward's 12 calls in one run of
+    ``chip_smoke.py`` phase 6, none measurable in another), and on CPU
+    tensors the plain version keeps its autograd.
+    """
+    _check(q, k, v_cat, w, b, num_heads)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash_reattention for device {q.device}")
+    if torch.compiler.is_exporting():
+        return flash_reattention_op(q, k, v_cat, w, b, num_heads)
+    if q.device.type == "cpu":
+        return flash_reattention_plain(q, k, v_cat, w, b, num_heads=num_heads)
+    return _launch(q, k, v_cat, w, b)
 
 
 #: kernel launches since the last reset (the plain version does not count),

@@ -62,9 +62,19 @@ def conv_tokens(x: torch.Tensor, weight: torch.Tensor,
     return out.reshape(b, n, -1)
 
 
-@functools.lru_cache(maxsize=16)
 def _window_basis(k: int, p: int, device: torch.device,
                   dtype: torch.dtype) -> torch.Tensor:
+    """``_window_basis_cached``, but built afresh while a program is being
+    exported: the export's tensors are placeholders, and one left in the
+    cache would poison every later eager call."""
+    if torch.compiler.is_exporting():
+        return _window_basis_cached.__wrapped__(k, p, device, dtype)
+    return _window_basis_cached(k, p, device, dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _window_basis_cached(k: int, p: int, device: torch.device,
+                         dtype: torch.dtype) -> torch.Tensor:
     """(k·k, p⁴): entry [(a, b), (i, j, I, J)] is 1 where input pixel (i, j)
     sits at window offset (a, b) of output pixel (I, J) of a SAME-padded
     k x k conv on a p x p image (i - I = a - k//2, j - J = b - k//2); zero

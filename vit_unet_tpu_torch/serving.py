@@ -1,12 +1,21 @@
-"""Serving: an eval-mode Predictor on one fixed batch shape.
+"""Serving: an eval-mode Predictor on one fixed batch shape, and model
+export.  The counterpart of ``vit_unet_tpu/serving.py``.
 
-Counterpart of ``vit_unet_tpu/serving.py::Predictor``: numpy in, numpy out;
-every request is cut into chunks of ``batch_size`` and the last chunk is
-padded, so the model always sees one batch shape.  Outputs come back as
-float32.  Model export (``torch.export``) is not ported yet.
+* ``Predictor``: numpy in, numpy out; every request is cut into chunks of
+  ``batch_size`` and the last chunk is padded, so the model always sees one
+  batch shape.  Outputs come back as float32.
+* ``export_predictor`` / ``load_predictor``: the eval forward at one fixed
+  batch as a ``torch.export`` program saved with its weights
+  (``{path}/program.pt2``), in place of the JAX package's StableHLO and
+  orbax parameters; the loaded program pads and micro-batches as
+  ``Predictor`` does.  The program records kernel 1 as the operator
+  ``vit_unet_tpu_torch::flash_reattention``, so loading it registers that
+  operator by importing the port's kernels module: unlike the JAX
+  artifact, it needs the package (not the model code) where it runs.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -83,3 +92,95 @@ class Predictor:
 
     def __call__(self, x) -> np.ndarray:
         return self._call(x)
+
+
+PROGRAM = "program.pt2"
+
+
+class _EvalForward(torch.nn.Module):
+    """The eval-mode forward as a module of one tensor argument, float32
+    out: what ``export_predictor`` records."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x, deterministic=True,
+                          use_running_average=True).float()
+
+
+def export_predictor(model: torch.nn.Module, path: str, batch_size: int = 8,
+                     input_shape: Optional[tuple] = None) -> str:
+    """Record the eval forward at batch ``batch_size`` (float32 input of
+    per-sample ``input_shape``, by default from the model's config) with
+    ``torch.export`` on the device the model lies on, and save it with its
+    weights as ``{path}/program.pt2``.  Returns ``path``."""
+    if input_shape is None:
+        input_shape = _infer_input_shape(model)
+    device = next(model.parameters()).device
+    example = torch.zeros((batch_size, *input_shape), device=device)
+    model.eval()
+    with torch.no_grad():
+        program = torch.export.export(_EvalForward(model), (example,),
+                                      strict=False)
+    os.makedirs(path, exist_ok=True)
+    torch.export.save(program, os.path.join(path, PROGRAM))
+    return path
+
+
+def _input_spec(program) -> torch.Tensor:
+    """The placeholder tensor (shape, dtype, device) of the program's one
+    input."""
+    for node in program.graph.nodes:
+        if node.op == "placeholder" and node.name in program.graph_signature.user_inputs:
+            return node.meta["val"]
+    raise ValueError("the exported program has no input")
+
+
+def _devices_named(program) -> set:
+    """Every device the program's tensors and device arguments name."""
+    found = {t.device for t in program.state_dict.values()}
+    found |= {t.device for t in program.constants.values()
+              if isinstance(t, torch.Tensor)}
+    for node in program.graph.nodes:
+        val = node.meta.get("val")
+        if isinstance(val, torch.Tensor):
+            found.add(val.device)
+        dev = node.kwargs.get("device")
+        if dev is not None:
+            found.add(torch.device(dev))
+    return found
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+def load_predictor(path: str, device=None) -> Callable[[np.ndarray], np.ndarray]:
+    """Load ``export_predictor``'s program onto ``device`` (default: the
+    card) and return f(x), numpy in and float32 numpy out, with
+    ``Predictor``'s any-batch padding and micro-batching.  A program
+    exported on another device is moved (``move_to_device_pass``); if a
+    device other than the target remains in it, this raises."""
+    from torch.export.passes import move_to_device_pass
+
+    # the program calls the operator this module registers
+    import vit_unet_tpu_torch.kernels.flash_reattention  # noqa: F401
+
+    dev = resolve_device(device)
+    program = torch.export.load(os.path.join(path, PROGRAM))
+    spec = _input_spec(program)
+    if not _same_device(spec.device, dev):
+        program = move_to_device_pass(program, dev)
+        stray = [d for d in _devices_named(program) if not _same_device(d, dev)]
+        if stray:
+            raise RuntimeError(f"moving the exported program to {dev} left "
+                               f"tensors or arguments on {stray}")
+    forward = program.module()
+
+    def fwd(x: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            return forward(torch.from_numpy(x).to(dev)).cpu().numpy()
+
+    return _micro_batched(fwd, spec.shape[0], sample_ndim=spec.ndim - 1)
