@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # everything, with the result lines
     python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
-                                           # (2a, 2b, 3, 4, 5, 6; no result lines)
+                                           # (2a, 2b, 3, 4, 5, 6, 7; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -70,7 +70,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    b64 against ``Predictor`` (bit for bit, launches through the program),
    an f32 program exported on the CPU run on the card, and the b64 forward
    with kernel 1 behind its operator or called straight, in turns;
-7. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+7. the TF-flavour model: (a) kernels 1-3 at the keras attention's level-0
+   shape (B64, 8 heads x dh 192, N 256) with the identity head mix against
+   their plain versions in f32 and bf16 (and ``scaled_dot_product_attention``,
+   the same function there), timed with their bounds; (b) ``HViTUNetTF`` at
+   its default width (128², 1,571,098,944 parameters, bf16, random weights
+   from a seed) served at b64 through ``Predictor`` from channels-last numpy,
+   kernel 1's launches by route, the kernel path against ``use_flash=False``;
+   (c) 10 AdamW steps at the config's dropout through
+   ``build_step_functions``, launches by route, step time, peak memory and a
+   profiler breakdown, then a dropout-free f32 batch-4 step of the kernel
+   path against the plain path; (d) 3 exact-BN steps of the re-attention
+   variant (``original_attn=False``), kernels 4 and 3 on the tensor cores;
+   (e) base b64 bf16 exact-BN steps with and without ``remat`` (the same
+   loss, running statistics and generator state; on the kernel path each
+   gradient within its run-to-run spread from the backward's atomics, on
+   the plain path every gradient equal bit for bit; peak memory) and the
+   Fourier block's forward and step;
+8. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
@@ -124,7 +141,7 @@ EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
 ]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-PHASES = ("2a", "2b", "3", "4", "5", "6")
+PHASES = ("2a", "2b", "3", "4", "5", "6", "7")
 EVAL_SOURCE = "flash_reattention.cu"
 TRAIN_SOURCE = "flash_reattention_train.cu"
 
@@ -150,8 +167,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0):
-    """Random kernel inputs on the card: q pre-scaled, a random head mix."""
+def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0,
+                       identity=False):
+    """Random kernel inputs on the card: q pre-scaled, a random head mix
+    (``identity``: KerasMHA's, m_eff = I and c_eff = 0)."""
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g)
     q = rnd(batch, heads, n_q, dh) * (q_scale * dh ** -0.5)
@@ -159,6 +178,8 @@ def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0):
     v = rnd(batch, n_k, heads * dh)
     m_eff = rnd(heads, heads) * heads ** -0.5
     c_eff = rnd(heads) * 0.1
+    if identity:
+        m_eff, c_eff = torch.eye(heads), torch.zeros(heads)
     from vit_unet_tpu_torch.kernels.flash_reattention import (
         expand_reattention_affine)
     w, b = expand_reattention_affine(m_eff, c_eff, dh=dh)
@@ -198,10 +219,11 @@ def pass_bounds(batch, heads, dh, n_q, n_k, dtype) -> dict:
 
 
 def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
-                 q_scale=1.0, label=""):
+                 q_scale=1.0, label="", identity=False):
     from vit_unet_tpu_torch.kernels.flash_reattention import (
         flash_reattention, flash_reattention_plain, kernel_route)
-    args = reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale)
+    args = reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale,
+                              identity)
     route = kernel_route(dtype, heads, dh)
     before = flash_reattention.route_launches[route]
     got = flash_reattention(*args, num_heads=heads)
@@ -560,10 +582,10 @@ BWD_EDGE_CASES = [
 FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
 
 
-def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0):
+def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0, identity=False):
     """Training-kernel inputs on the card.  Scores have std ~3, so the maps
     are peaked and the batch variance of the head mix stays far above the
-    BatchNorm epsilon."""
+    BatchNorm epsilon.  ``identity``: KerasMHA's head mix, I and 0."""
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g)
     dev = "cuda"
@@ -574,6 +596,9 @@ def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0):
     c_eff = (rnd(heads) * 0.1).to(dev)
     g_out = rnd(batch, n_q, heads * dh).to(dev, dtype)
     seed_t = torch.tensor([1234 + seed], dtype=torch.int64, device=dev)
+    if identity:
+        m_eff = torch.eye(heads, device=dev)
+        c_eff = torch.zeros(heads, device=dev)
     return q, k, v, m_eff, c_eff, g_out, seed_t
 
 
@@ -613,12 +638,13 @@ def require(name, rel, tol):
                              f"rel {rel:.3e} > {tol:.0e}")
 
 
-def check_train_kernels(batch, heads, dh, n_q, n_k, dtype, rate, reps=0):
+def check_train_kernels(batch, heads, dh, n_q, n_k, dtype, rate, reps=0,
+                        identity=False):
     """Each training kernel against its plain version on the same inputs;
     with ``reps``, their times.  Returns {kernel: dict(err, ms, plain_ms)}."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     q, k, v, m_eff, c_eff, g_out, seed = train_inputs(batch, heads, dh, n_q,
-                                                      n_k, dtype)
+                                                      n_k, dtype, identity=identity)
     vsum = v.float().sum(1)
     d = torch.randn(batch, heads, n_q, device="cuda")
     bn_extra = (torch.randn(heads, heads, device="cuda") * 0.1,
@@ -2101,6 +2127,385 @@ def phase_entry():
     return counts
 
 
+# --- phase 7: the TF-flavour model ---------------------------------------------
+
+# HViTUNetTF at its default full width (128², patches 8/16/32, keras
+# attention, 1,571,098,944 parameters), bf16, batch 64.  Its level-0 keras
+# attention (8 heads x dh 192 at N = 256) is the kernels' only caller there:
+# levels 1 and 2 (dh 768 and 3072) are wider than ``kernel_takes``.
+TF_CONFIG = dict(img_size=128)
+TF_BF16 = dict(TF_CONFIG, dtype="bfloat16", param_dtype="bfloat16")
+TF_SHAPE = (8, 192, 256)      # (heads, dh, N) of the level-0 keras attention
+TF_STEPS = 10
+# keras-attention calls at level 0 a forward: 4 encoder and 4 decoder
+# layers and the level-0 skip connection
+TF_CALLS = 9
+# original_attn=False: re-attention calls a forward (4 a level: encoder 0
+# and 1, bottleneck, decoder 1 and 0), and keras-attention skips the kernels
+# take (the level-0 one; level 1's key_dim 768 is wider than they take)
+TF_RS_CALLS = 20
+TF_RS_SKIPS = 1
+TF_VARIANT_STEPS = 3
+
+
+def tf_batch(n, seed=2):
+    s = TF_CONFIG.get("img_size", 128)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, s, s, 3, generator=gen, device="cuda")
+
+
+def path_launches(run):
+    """``run()`` with every kernel's counts set to 0 just before it; the
+    counts just after, and its result."""
+    zero_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return all_launches(), out
+
+
+def require_launches(label, got, want):
+    """``want``: {count: n}, every other count of ``got`` must be 0."""
+    full = {k: want.get(k, 0) for k in got}
+    print(f"  {label}: launches {dict((k, v) for k, v in got.items() if v)}")
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+
+
+def timed_steps(steps, state, batch, n):
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = steps.train_step(state, batch)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"loss not finite: {losses}")
+    return state, losses, sorted(times)[len(times) // 2]
+
+
+def sdpa_ms(batch, heads, dh, n, dtype):
+    """``scaled_dot_product_attention`` on kernel 1's identity-mix inputs:
+    the same function (softmax attention, q pre-scaled), held against the
+    plain version at kernel 1's tolerance, and its time."""
+    from vit_unet_tpu_torch.kernels.flash_reattention import flash_reattention_plain
+    q, k, v, w, b = reattention_inputs(batch, heads, dh, n, n, dtype, 0,
+                                       identity=True)
+    vh = v.view(batch, n, heads, dh).transpose(1, 2)
+    run = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, vh, scale=1.0)
+    got = run().transpose(1, 2).reshape(batch, n, heads * dh)
+    want = flash_reattention_plain(q, k, v, w, b, num_heads=heads)
+    rel = rel_err(got, want)[1]
+    require("scaled_dot_product_attention (identity mix)", rel, TOL[dtype])
+    return time_ms(run, 10)
+
+
+def tf_kernels():
+    """(a) kernels 1-3 at the level-0 keras shape with the identity mix."""
+    print(f"  (a) kernels 1-3 at B{BATCH} H{TF_SHAPE[0]} dh{TF_SHAPE[1]} "
+          f"N{TF_SHAPE[2]}, identity head mix:")
+    heads, dh, n = TF_SHAPE
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        k1 = check_kernel(BATCH, heads, dh, n, n, dtype, reps=10, identity=True,
+                          label="identity")
+        tk = check_train_kernels(BATCH, heads, dh, n, n, dtype, RATE, reps=5,
+                                 identity=True)
+        bounds = train_bounds(BATCH, heads, dh, n, n, dtype)
+        row = {"flash_reattention": dict(err=k1["err"], ms=k1["ms"],
+                                         plain_ms=k1["plain_ms"],
+                                         bound=bound_of(k1["t_bytes"], k1["t_ops"]),
+                                         library_ms=sdpa_ms(BATCH, heads, dh, n, dtype))}
+        # kernels 2 and 3 keep o_norm and lse for the backward and draw the
+        # Philox mask: no single library call computes that
+        for key, label in (("fwd", "train_fwd"), ("bwd", "train_bwd")):
+            row[label] = dict(err=tk[key]["err"], ms=tk[key]["ms"],
+                              plain_ms=tk[key]["plain_ms"], bound=bound_of(*bounds[key]),
+                              library_ms=None)
+        for label, r in row.items():
+            lib = "" if r["library_ms"] is None else f", sdpa {r['library_ms']:.4f} ms"
+            print(f"    {name} {label} [{k1['route'] if label == 'flash_reattention' else 'cuda_core'}]: "
+                  f"{r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{lib}, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err {r['err']:.3e}")
+        res[name] = row
+    return res
+
+
+def tf_serving():
+    """(b) the default model served through Predictor from channels-last
+    numpy; the kernel path against use_flash=False on the same weights."""
+    from vit_unet_tpu_torch import Predictor, get_hvit_unet_tf
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_BF16)
+    n_params = sum(p.numel() for p in model.parameters())
+    pred = Predictor(model, batch_size=BATCH, device="cuda")
+    x_np = tf_batch(BATCH).cpu().numpy()
+    pred(x_np)                                        # warm-up
+    launches, y = path_launches(lambda: pred(x_np))
+    require_launches("(b) serving b64", launches,
+                     {"eval": TF_CALLS, "eval_cuda_core": TF_CALLS})
+    if y.shape != x_np.shape or not np.isfinite(y).all():
+        raise AssertionError(f"bad served output: {y.shape}")
+    card = card_line()
+    xb = torch.from_numpy(x_np).to("cuda")
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(xb), reps=10)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pred(x_np)
+    serve_s = (time.perf_counter() - t0) / 3
+    print(f"  (b) HViTUNetTF ({n_params:,} parameters) b{BATCH} bf16 forward: "
+          f"{ms:.3f} ms/batch, {BATCH / ms * 1e3:.1f} img/s (input on the card); "
+          f"Predictor (numpy in/out) {serve_s * 1e3:.3f} ms/batch, "
+          f"{BATCH / serve_s:.1f} img/s [{card}]")
+    device_breakdown(lambda: model(xb), ms, "HViTUNetTF forward", reps=2,
+                     inference=True, top=8)
+    xs = xb[:8]
+    with torch.inference_mode():
+        got = (model(xs) - xs).float()
+        mhas = [m for m in model.modules() if isinstance(m, KerasMHA)]
+        for m in mhas:
+            m.use_flash = False
+        want = (model(xs) - xs).float()
+        for m in mhas:
+            m.use_flash = True
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    print(f"  (b) bf16 decoded output (y - x), kernel path vs use_flash=False, "
+          f"batch 8: max_abs_err {err:.3e} rel {rel:.3e} (tol {MODEL_TOL_BF16:.0e})")
+    if not rel <= MODEL_TOL_BF16:
+        raise AssertionError("HViTUNetTF's kernel path disagrees with its plain path")
+    del model, pred
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, serve_ms=serve_s * 1e3)
+
+
+def tf_training():
+    """(c) TF_STEPS AdamW steps with dropout at the config's rates, then
+    one dropout-free f32 step of the kernel path against the plain path."""
+    from vit_unet_tpu_torch import get_hvit_unet_tf
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_BF16).train()
+    opt = adamw(model, 1e-4)
+    state = TrainState.create(model=model, optimizer=opt, seed=1)
+    steps = build_step_functions(model, opt, mse)
+    x = tf_batch(BATCH)
+    batch = {"x": x, "y": 0.9 * x}
+    state, _, _ = timed_steps(steps, state, batch, 1)       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launches, (state, losses, step_ms) = path_launches(
+        lambda: timed_steps(steps, state, batch, TF_STEPS))
+    n = TF_STEPS * TF_CALLS
+    require_launches(f"(c) {TF_STEPS} keras-attention train steps", launches,
+                     {"fwd": n, "fwd_cuda_core": n, "bwd": n, "bwd_cuda_core": n})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    print(f"  (c) HViTUNetTF b{BATCH} bf16 train step (dropout 0.2/0.2/0.4): median "
+          f"{step_ms:.3f} ms, {BATCH / step_ms * 1e3:.1f} img/s, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f}, peak memory {peak:.2f} GiB [{card}]")
+    device_breakdown(lambda: steps.train_step(state, batch), step_ms,
+                     "HViTUNetTF train step", reps=1, top=12)
+    del model, opt, state, steps
+    torch.cuda.empty_cache()
+
+    # one dropout-free f32 step at batch 4: kernel path vs plain path
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_CONFIG, drop_attn=0.0,
+                             drop_proj=0.0, drop_linear=0.0).train()
+    xs = tf_batch(4, seed=5)
+    mhas = [m for m in model.modules() if isinstance(m, KerasMHA)]
+    res = []
+    for flash in (True, False):
+        for m in mhas:
+            m.use_flash = flash
+        model.zero_grad(set_to_none=True)
+        loss = mse(model(xs, deterministic=False).float(), 0.9 * xs)
+        loss.backward()
+        res.append((loss.item(), [p.grad.clone() for p in model.parameters()]
+                    if flash else [p.grad for p in model.parameters()]))
+    (lk, gk), (lp, gp) = res
+    gmax = max(g.abs().max().item() for g in gp)
+    grel = max((a - b).abs().max().item() for a, b in zip(gk, gp)) / gmax
+    lrel = abs(lk - lp) / abs(lp)
+    print(f"  (c) f32 batch-4 dropout-free step, kernel path vs plain path: loss rel "
+          f"{lrel:.2e}, grads rel {grel:.2e} of the largest (tol {TRAIN_PATH_TOL:.0e})")
+    if not max(lrel, grel) <= TRAIN_PATH_TOL:
+        raise AssertionError("HViTUNetTF's kernel train step disagrees with its plain path")
+    del model, res, gk, gp
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, peak_gib=peak)
+
+
+def tf_variant():
+    """(d) original_attn=False, flash_train=True, exact BN: kernels 4 and 3
+    on the tensor cores at (8, 24/96/384); the level-0 skip's keras
+    attention on kernels 2 and 3's CUDA-core route."""
+    from vit_unet_tpu_torch import get_hvit_unet_tf
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_BF16,
+                             original_attn=False).train()
+    opt = adamw(model, 1e-4)
+    state = TrainState.create(model=model, optimizer=opt, seed=1)
+    steps = build_step_functions(model, opt, mse)
+    x = tf_batch(BATCH)
+    batch = {"x": x, "y": 0.9 * x}
+    launches, (state, losses, step_ms) = path_launches(
+        lambda: timed_steps(steps, state, batch, TF_VARIANT_STEPS))
+    n, r = TF_VARIANT_STEPS * TF_RS_SKIPS, TF_VARIANT_STEPS * TF_RS_CALLS
+    require_launches(f"(d) re-attention variant, {TF_VARIANT_STEPS} exact-BN steps",
+                     launches,
+                     {"bn_fwd": r, "bn_fwd_tensor_core": r, "bwd": r + n,
+                      "bwd_tensor_core": r, "bwd_cuda_core": n, "fwd": n,
+                      "fwd_cuda_core": n})
+    print(f"  (d) HViTUNetTF(original_attn=False) b{BATCH} bf16 exact-BN step: "
+          f"median {step_ms:.3f} ms, {BATCH / step_ms * 1e3:.1f} img/s, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f} [{card_line()}]")
+    device_breakdown(lambda: steps.train_step(state, batch), step_ms,
+                     "re-attention variant train step", reps=1, top=10)
+    del model, opt, state, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def base_step(remat, block_type="reattention", flash_train=True, timed=True):
+    """One base b64 bf16 exact-BN step with dropout on, from seed 0's
+    weights: its loss, gradients (by name), running statistics, generator
+    state and peak GiB; with ``timed``, also the median ms of 3 steps after
+    it and the forward's ms."""
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model = get_vit_unet("base", dtype="bfloat16", param_dtype="bfloat16", seed=0,
+                         remat=remat, block_type=block_type,
+                         flash_train=flash_train, device="cuda").train()
+    opt = adamw(model, 1e-4)
+    state = TrainState.create(model=model, optimizer=opt, seed=3)
+    steps = build_step_functions(model, opt, mse)
+    s = model.config.im_size
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(BATCH, 3, s, s, generator=gen, device="cuda")
+    batch = {"x": x, "y": 0.9 * x}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = steps.train_step(state, batch)
+    out = dict(
+        loss=m["loss"].item(), peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+        grads={n: p.grad.float().clone() for n, p in model.named_parameters()},
+        stats=torch.cat([b.float().flatten() for n, b in model.named_buffers()
+                         if "running" in n] or [torch.zeros(1, device="cuda")]),
+        gen=state.generator.get_state())
+    if timed:
+        state, _, out["ms"] = timed_steps(steps, state, batch, 3)    # steady steps
+        with torch.inference_mode():
+            out["fwd_ms"] = time_ms(lambda: model(x, deterministic=True,
+                                                  use_running_average=True),
+                                    reps=5, warmup=1)
+    del model, opt, state, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+# remat against no remat, base b64 bf16 exact BN with dropout on.  The loss
+# and running statistics come from the forward, which is deterministic, and
+# must be equal bit for bit, as must the generator's state.  The kernel
+# path's backward sums dq by atomics whose order varies from run to run, so
+# each gradient tensor must lie within REMAT_SPREAD times its own spread:
+# the largest distance between any two of REMAT_RUNS no-remat runs, plus
+# one bf16 step at the tensor's scale.  The plain path's backward
+# (flash_train=False) is deterministic in bf16: there remat's gradients must
+# equal no remat's bit for bit, so a recompute that drew another mask or
+# seed anywhere fails there.
+REMAT_SPREAD = 2.0
+REMAT_RUNS = 3
+
+
+def same_step(a, b) -> bool:
+    """Loss, running statistics and generator state equal bit for bit."""
+    return (a["loss"] == b["loss"] and torch.equal(a["stats"], b["stats"])
+            and torch.equal(a["gen"], b["gen"]))
+
+
+def tf_remat_fourier():
+    """(e) remat against no remat on base, and the Fourier block."""
+    refs = [base_step(False, timed=i == 0) for i in range(REMAT_RUNS)]
+    remat = base_step(True)
+    ref = refs[0]
+    step = torch.finfo(torch.bfloat16).eps
+    worst = (0.0, "")
+    for name, want in ref["grads"].items():
+        scale = want.abs().max().item()
+        ulp = step * 2.0 ** math.floor(math.log2(scale)) if scale > 0 else 0.0
+        spread = max((a["grads"][name] - b["grads"][name]).abs().max().item()
+                     for a, b in itertools.combinations(refs, 2))
+        off = (remat["grads"][name] - want).abs().max().item()
+        if off > REMAT_SPREAD * spread + ulp:
+            raise AssertionError(f"remat's gradient of {name} is off by {off:.3e}, "
+                                 f"beyond {REMAT_SPREAD:g}x its run-to-run spread "
+                                 f"{spread:.3e} + {ulp:.3e}")
+        if off > 0:
+            worst = max(worst, (off / (spread + ulp), name))
+    gmax = max(g.abs().max().item() for g in ref["grads"].values())
+    spread_all = max((a["grads"][n] - b["grads"][n]).abs().max().item()
+                     for a, b in itertools.combinations(refs, 2)
+                     for n in ref["grads"]) / gmax
+    off_all = max((remat["grads"][n] - g).abs().max().item()
+                  for n, g in ref["grads"].items()) / gmax
+    steady = all(same_step(r, ref) for r in refs[1:])
+    card = card_line()
+    print(f"  (e) base b{BATCH} bf16 exact-BN step, dropout 0.2, kernel path: remat "
+          f"vs no remat: loss, running statistics and generator state equal bit "
+          f"for bit {same_step(remat, ref)} (across {REMAT_RUNS} no-remat runs "
+          f"{steady}); grads {off_all:.2e} of the largest (no-remat spread "
+          f"{spread_all:.2e}), worst tensor {worst[0]:.3f} of its own spread + 1 "
+          f"bf16 step ({worst[1]}, tol {REMAT_SPREAD:g}); peak memory remat "
+          f"{remat['peak']:.2f} GiB, no remat {ref['peak']:.2f} GiB; step (median "
+          f"of 3 after the first) {remat['ms']:.3f} / {ref['ms']:.3f} ms [{card}]")
+    if not (steady and same_step(remat, ref)):
+        raise AssertionError("remat changed the loss, the running statistics or "
+                             "the generator's state")
+    if not remat["peak"] < ref["peak"]:
+        raise AssertionError("remat did not lower the step's peak memory")
+    plain = [base_step(r, flash_train=False, timed=False) for r in (False, False, True)]
+    unequal = [n for n, g in plain[0]["grads"].items()
+               if not all(torch.equal(p["grads"][n], g) for p in plain[1:])]
+    print(f"  (e) the same on the plain path (flash_train=False): two no-remat "
+          f"runs and remat equal bit for bit: step {all(same_step(p, plain[0]) for p in plain[1:])}, "
+          f"gradients {len(plain[0]['grads']) - len(unequal)}/{len(plain[0]['grads'])}")
+    if unequal or not all(same_step(p, plain[0]) for p in plain[1:]):
+        raise AssertionError(f"the plain path's remat step is not no remat's: {unequal[:5]}")
+    del refs, plain
+    fourier = base_step(False, block_type="fourier")
+    finite = (math.isfinite(fourier["loss"])
+              and all(torch.isfinite(g).all() for g in fourier["grads"].values()))
+    print(f"  (e) base block_type='fourier' b{BATCH} bf16: forward {fourier['fwd_ms']:.3f} ms, "
+          f"train step {fourier['ms']:.3f} ms, loss {fourier['loss']:.5f}, finite "
+          f"{finite}, peak memory {fourier['peak']:.2f} GiB [{card}]")
+    if not finite:
+        raise AssertionError("the Fourier model's step is not finite")
+    return dict(spread=spread_all, remat=off_all, worst=worst,
+                peak=(remat["peak"], ref["peak"]), step_ms=(remat["ms"], ref["ms"]),
+                fourier=(fourier["fwd_ms"], fourier["ms"]))
+
+
+def phase_tf():
+    print("== phase 7: HViTUNetTF (keras attention on kernels 1-3), its "
+          "re-attention variant, remat and the Fourier block")
+    t_phase = time.perf_counter()
+    kernels = tf_kernels()
+    serve, serve_t = tf_serving()
+    train, train_t = tf_training()
+    variant = tf_variant()
+    remat = tf_remat_fourier()
+    print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels=kernels, serving=serve, train=train, variant=variant,
+                serve_t=serve_t, train_t=train_t, remat=remat)
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -2109,6 +2514,8 @@ TRAIN_KERNELS = [  # (key, name, replaces)
     ("bn_fwd", "flash_reattention_bn_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
 ]
+
+TF_KERNEL_ROWS = {"fwd": "train_fwd", "bwd": "train_bwd"}  # phase 7a's rows
 
 TC_SOURCES = {  # training kernels with a tensor-core route: its source
     "fwd": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd_tc.cuh",
@@ -2132,7 +2539,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6"))
+    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6", "7"))
     phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
     if "2a" in phases:
         k = phase_kernels()
@@ -2146,6 +2553,8 @@ def main(argv=None) -> int:
         fit_launches = phase_trainer()
     if "6" in phases:
         cli_launches = phase_entry()
+    if "7" in phases:
+        tf = phase_tf()
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {','.join(phases)} only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines")
@@ -2157,12 +2566,19 @@ def main(argv=None) -> int:
     for per_epoch in fit_launches:
         for counts in per_epoch.values():
             fit_total.update(counts)
-    # and the entry point (phase 6: the CLI's runs, the loaded programs)
+    # the entry point (phase 6: the CLI's runs, the loaded programs) and
+    # the TF-flavour model (phase 7: serving, the keras-attention steps and
+    # the re-attention variant's steps)
+    tf_paths = {"tf_serving": tf["serving"], "tf_train": tf["train"],
+                "tf_variant": tf["variant"]}
     by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"],
-                                     "entry": cli_launches["eval"]}}
+                                     "entry": cli_launches["eval"],
+                                     **{p: c["eval"] for p, c in tf_paths.items()}}}
     for key, _, _ in TRAIN_KERNELS:
         by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key],
-                        "entry": cli_launches[key]}
+                        "entry": cli_launches[key],
+                        **{p: c[key] for p, c in tf_paths.items()}}
+    tf_shape = "H{} dh{} N{}".format(*TF_SHAPE)
     kernels = [{
         "name": "flash_reattention",
         "route": "cuda",
@@ -2182,6 +2598,9 @@ def main(argv=None) -> int:
         "library_ms": None,
         # which (heads, dh, dtype) classes phase 2a ran on which route
         "routes": k["routes"],
+        # the keras attention's level-0 shape (phase 7a), bf16 and f32
+        "tf_level0": {tf_shape: {dt: r["flash_reattention"]
+                                 for dt, r in tf["kernels"].items()}},
     }]
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
@@ -2195,6 +2614,9 @@ def main(argv=None) -> int:
             # no single PyTorch call computes re-attention with a head mix,
             # dropout and its BatchNorm moments or their gradients
             "library_ms": None})
+        if key in TF_KERNEL_ROWS:      # the keras attention's shape (phase 7a)
+            kernels[-1]["tf_level0"] = {tf_shape: {
+                dt: r[TF_KERNEL_ROWS[key]] for dt, r in tf["kernels"].items()}}
         if key in TC_SOURCES:
             # the bf16 tensor-core route it includes, which base classes ran
             # on which route, and the main path's launches by route
@@ -2203,6 +2625,7 @@ def main(argv=None) -> int:
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
                 route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
                                 + cli_launches[f"{key}_{r}"]
+                                + sum(c[f"{key}_{r}"] for c in tf_paths.values())
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

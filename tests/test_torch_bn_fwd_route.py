@@ -21,6 +21,7 @@ import torch
 
 from vit_unet_tpu_torch.models import get_config
 from vit_unet_tpu_torch.nn import reattention as RA
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")

@@ -13,6 +13,7 @@ from vit_unet_tpu.cli import run_denoising as JC
 from vit_unet_tpu.data.datasets import kfold_split as jax_kfold
 from vit_unet_tpu_torch.cli import run_denoising as TC
 from vit_unet_tpu_torch.data import loader as TL
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 N_PAIRS = 8
 

@@ -701,3 +701,102 @@ def test_operator_launches_the_kernel_and_counts(cuda):
     assert _rel(got, want) <= TOL[torch.bfloat16]
     with pytest.raises(ValueError, match="heads"):
         torch.ops.vit_unet_tpu_torch.flash_reattention(q, k, v, w, b, 4)
+
+
+# --- the TF-flavour family ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_q,n_k", [(256, 256), (64, 256)])
+def test_keras_mha_kernels_match_plain_with_dropout(cuda, dtype, tol, n_q, n_k):
+    """KerasMHA at the default model's level-0 shape (8 heads x 192): the
+    kernel branch (kernels 2 and 3 in training, 1 in eval) against the
+    plain branch on the card, dropout 0.2 from the same generator seed."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    dim = 192
+    mods = {}
+    for flash in (True, False):
+        torch.manual_seed(0)
+        mods[flash] = KerasMHA(dim, 8, key_dim=192, dropout=0.2, use_flash=flash,
+                               dtype=dtype).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    q_in = torch.randn(2, n_q, dim, generator=g).to(cuda)
+    v_in = torch.randn(2, n_k, dim, generator=g).to(cuda)
+    outs, grads = {}, {}
+    for flash, mod in mods.items():
+        before = (TK.flash_reattention.launches, T.train_fwd.launches,
+                  T.train_bwd.launches)
+        with torch.no_grad():
+            ev = mod(q_in, v_in)
+        out = mod(q_in, v_in, deterministic=False,
+                  generator=torch.Generator(device=cuda).manual_seed(3))
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        after = (TK.flash_reattention.launches, T.train_fwd.launches,
+                 T.train_bwd.launches)
+        assert [a - b for a, b in zip(after, before)] == ([1, 1, 1] if flash else [0, 0, 0])
+        outs[flash] = (ev, out.detach())
+        grads[flash] = [p.grad for p in mod.parameters()]
+    for got, want in zip(outs[True], outs[False]):
+        assert _rel(got, want) <= tol
+    # against the largest gradient: the key bias's is zero up to rounding
+    # (a shift of every key moves each row's scores alike)
+    gmax = max(g.float().abs().max().item() for g in grads[False])
+    for got, want in zip(grads[True], grads[False]):
+        assert (got.float() - want.float()).abs().max().item() <= tol * gmax
+
+
+def test_hvit_unet_tf_serves_and_trains_on_the_card(cuda):
+    """A small HViTUNetTF (levels at key_dim 192 / 768, level 0 on the
+    kernels) in f32: eval and one train step against use_flash=False."""
+    from vit_unet_tpu_torch import Predictor, get_hvit_unet_tf
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    cfg = dict(img_size=64, patch_size=(8, 16), transformer_layers=(1,),
+               size_bottleneck=1, drop_attn=0.0, drop_proj=0.0, drop_linear=0.0)
+    model = get_hvit_unet_tf(device=cuda, seed=0, **cfg)
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    served = torch.from_numpy(Predictor(model, batch_size=2)(x.numpy()))
+    xc = x.to(cuda)
+    res = []
+    for flash in (True, False):
+        for m in model.modules():
+            if isinstance(m, KerasMHA):
+                m.use_flash = flash
+        with torch.no_grad():
+            ev = model(xc)
+        model.zero_grad(set_to_none=True)
+        model(xc, deterministic=False).square().sum().backward()
+        res.append((ev, [p.grad.clone() for p in model.parameters()]))
+    (ev1, g1), (ev0, g0) = res
+    assert _rel(ev1 - xc, ev0 - xc) <= 1e-4
+    assert _rel(served.to(cuda) - xc, ev1 - xc) <= 1e-5
+    gmax = max(g.abs().max().item() for g in g0)
+    assert max((a - b).abs().max().item() for a, b in zip(g1, g0)) <= 1e-4 * gmax
+
+
+def test_remat_step_matches_no_remat_on_the_card(cuda):
+    """A lite ViTUNet at 64² in f32 with dropout, one exact-BN step: remat
+    leaves the loss, running statistics and generator state as they were,
+    and the gradients within 1e-4 of the largest: the backward sums dq by
+    f32 atomics, whose order varies, and a fresh model's exact-BN step
+    amplifies that (2.2e-5 of the largest, measured on an H100); a
+    different mask or seed would move them by the order of the gradients."""
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0)).to(cuda)
+    res = []
+    for remat in (False, True):
+        model = get_vit_unet("lite", device=cuda, seed=0, im_size=64, remat=remat)
+        opt = adamw(model)
+        steps = build_step_functions(model, opt, mse)
+        state, m = steps.train_step(TrainState.create(model=model, optimizer=opt,
+                                                      seed=1), {"x": x, "y": 0.9 * x})
+        res.append((m["loss"].item(), [p.grad.clone() for p in model.parameters()],
+                    [b.clone() for b in model.buffers()], state.generator.get_state()))
+    (l0, g0, b0, s0), (l1, g1, b1, s1) = res
+    assert l1 == l0 and torch.equal(s1, s0)
+    assert all(torch.equal(a, b) for a, b in zip(b1, b0))
+    gmax = max(g.abs().max().item() for g in g0)
+    assert max((a - b).abs().max().item() for a, b in zip(g1, g0)) <= 1e-4 * gmax

@@ -13,6 +13,7 @@ from vit_unet_tpu.data import tfrecord as jtfr
 from vit_unet_tpu_torch.data import _native
 from vit_unet_tpu_torch.data import loader as TL
 from vit_unet_tpu_torch.data import tfrecord as tfr
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 FEATURES = [
     {"x": np.arange(12, dtype=np.uint8).tobytes(), "y": b"hi",

@@ -17,6 +17,7 @@ from vit_unet_tpu_torch.data import augment as TA
 from vit_unet_tpu_torch.data import datasets as TD
 from vit_unet_tpu_torch.data import loader as TL
 from vit_unet_tpu_torch.data import tfrecord as tfr
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 #: share of mask pixels allowed to differ from JAX after the warp and the
 #: 0.5 threshold: cv2's float warp rounds in another order (about 1e-5,

@@ -9,6 +9,7 @@ import torch
 from vit_unet_tpu_torch import Predictor, get_vit_unet
 from vit_unet_tpu_torch.nn import reattention as R
 from vit_unet_tpu_torch.serving import PROGRAM, export_predictor, load_predictor
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 FR = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
 TINY = dict(depth=2, depth_te=1, size_bottleneck=1, im_size=64, patch_size=16,

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_model import randomised
+from tests.test_torch_model import randomised, one_torch_thread  # noqa: F401
 from tests.test_torch_train import STEP_CFG
 from vit_unet_tpu.data.loader import DataLoader as JDataLoader
 from vit_unet_tpu.models import vit_unet as JM

@@ -10,6 +10,7 @@ import pytest
 
 from vit_unet_tpu_torch.data import _native
 from vit_unet_tpu_torch.data import image_io as io
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 #: the warp's tolerance against cv2 in uint8 levels (measured worst case
 #: 0 over the cases below), and for float32 images (measured 1.1e-5: cv2's

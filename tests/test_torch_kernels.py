@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 # the packages re-export the function under the module's name
 JK = importlib.import_module("vit_unet_tpu.kernels.flash_reattention")

@@ -8,6 +8,7 @@ import torch
 
 from vit_unet_tpu.ops import patches as JP
 from vit_unet_tpu_torch.ops import patches as TP
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 def both(fn_name, x, *args, **kw):

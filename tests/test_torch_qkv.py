@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_model import randomised
+from tests.test_torch_model import randomised, one_torch_thread  # noqa: F401
 from vit_unet_tpu.nn import reattention as JR
 from vit_unet_tpu_torch.nn.reattention import (
     ReAttention, SkipConnection, conv_token_matrix, conv_tokens, qkv_form,

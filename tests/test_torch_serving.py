@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from vit_unet_tpu_torch import Predictor, get_vit_unet
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = dict(depth=2, depth_te=1, size_bottleneck=1, im_size=64, patch_size=16,

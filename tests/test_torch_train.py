@@ -17,7 +17,7 @@ import optax
 import pytest
 import torch
 
-from tests.test_torch_model import TINY, randomised
+from tests.test_torch_model import TINY, randomised, one_torch_thread  # noqa: F401
 from vit_unet_tpu.models import vit_unet as JM
 from vit_unet_tpu.nn.blocks import ReAttentionEncoderBlock as JBlock
 from vit_unet_tpu.nn.feedforward import FeedForward as JFF

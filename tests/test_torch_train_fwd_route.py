@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from vit_unet_tpu_torch.models import get_config
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")

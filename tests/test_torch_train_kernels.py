@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")

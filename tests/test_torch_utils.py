@@ -14,6 +14,7 @@ from vit_unet_tpu.ops.sparse import softmax_top as jax_softmax_top
 from vit_unet_tpu_torch.ops.sparse import softmax_top
 from vit_unet_tpu_torch.utils import profiling, visualize
 from vit_unet_tpu_torch.utils.seeding import seed_everything
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape,top,axis", [((4, 10), 3, -1), ((2, 3, 7), 2, 1),

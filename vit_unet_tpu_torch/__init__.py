@@ -1,7 +1,10 @@
 """vit_unet_tpu_torch — the PyTorch / CUDA port of vit_unet_tpu for NVIDIA
 Hopper (H100).
 
-So far it covers the torch-flavour ViT-UNet's eval (serving) path with
+So far it covers the torch-flavour ViT-UNet (with the Fourier block and
+``remat``) and the TF-flavour ``HViTUNetTF`` (``models/hvit_unet_tf.py``,
+keras-style attention on the same kernels with an identity head mix); the
+ViT-UNet's eval (serving) path with
 model export (``serving.py``), its single-device train step
 (``parallel/train_step.py``) and trainer (``train/fitter.py::Fitter``)
 with its data feed, image datasets and augmentations (``data/``), the
@@ -17,10 +20,14 @@ and never jax or the JAX package.  Entry points run on the card unless given
 """
 __version__ = "0.1.0"
 
+from vit_unet_tpu_torch.models.hvit_unet_tf import (  # noqa: E402
+    HViTUNetTF, HViTUNetTFConfig, get_hvit_unet_tf,
+)
 from vit_unet_tpu_torch.models.vit_unet import (      # noqa: E402
     ViTUNet, ViTUNetConfig, get_config, get_vit_unet,
 )
 from vit_unet_tpu_torch.serving import Predictor      # noqa: E402
 
 __all__ = ["ViTUNet", "ViTUNetConfig", "get_config", "get_vit_unet",
+           "HViTUNetTF", "HViTUNetTFConfig", "get_hvit_unet_tf",
            "Predictor", "__version__"]

@@ -19,18 +19,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit_unet_tpu_torch.nn.blocks import ReAttentionEncoderBlock
+from vit_unet_tpu_torch.nn.blocks import (
+    FourierEncoderBlock, ReAttentionEncoderBlock,
+)
 from vit_unet_tpu_torch.nn.patch_encoder import PatchEncoder
 from vit_unet_tpu_torch.nn.reattention import SkipConnection
+from vit_unet_tpu_torch.nn.remat import checkpointed
 from vit_unet_tpu_torch.ops.patches import merge_patches, split_patches, unpatchify
 from vit_unet_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class ViTUNetConfig:
-    """The JAX package's config, field for field.  ``remat``,
-    ``block_type='fourier'`` and sequence parallelism raise
-    ``NotImplementedError`` when the model is built.  ``use_flash`` and
+    """The JAX package's config, field for field.  Sequence parallelism
+    raises ``NotImplementedError`` when the model is built.  ``remat``
+    recomputes each encoder, bottleneck and decoder block's activations in
+    the backward (``nn/remat.py``).  ``use_flash`` and
     ``flash_train`` default to True here: every re-attention, eval and
     training, runs the port's kernels on the card; ``use_flash=False`` (or
     ``flash_train=False`` for training) runs their plain versions, which
@@ -108,6 +112,33 @@ class ViTUNetConfig:
         )
 
 
+@torch.no_grad()
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisers on every layer of ``model``, drawn from
+    ``generator``: LeCun truncated normal for Linear/Conv/ConvTranspose
+    weights (fan-in: the input features times the kernel window), zero
+    biases, N(0, 1/d) embeddings, unit norms, zero residual gain."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = (mod.weight[:, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d)
+                      else mod.weight[0].numel())
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
+                               generator=generator)
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            mod.reset_parameters()
+    gain = getattr(model, "residual_gain", None)
+    if isinstance(gain, nn.Parameter):
+        gain.zero_()
+    return model
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):
@@ -126,12 +157,6 @@ class ViTUNet(nn.Module):
             raise NotImplementedError(
                 "sequence parallelism belongs to the port's multi-GPU slice "
                 "and is not implemented yet")
-        if cfg.block_type == "fourier":
-            raise NotImplementedError(
-                "block_type='fourier' (FourierEncoderBlock) is not ported yet")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat (activation checkpointing) is not ported yet")
         self.config = cfg
         self.dtype = dt = _torch_dtype(cfg.dtype)
         self.PE = PatchEncoder(cfg.depth, cfg.num_patches, cfg.patch_size,
@@ -145,6 +170,10 @@ class ViTUNet(nn.Module):
 
         def block(level: int):
             g = cfg.level_geometry(level)
+            if cfg.block_type == "fourier":
+                return FourierEncoderBlock(
+                    g["num_patches"], g["projection_dim"], g["hidden_dim"],
+                    linear_drop=cfg.linear_drop, dtype=dt)
             return ReAttentionEncoderBlock(
                 g["num_patches"], g["projection_dim"], g["hidden_dim"],
                 linear_drop=cfg.linear_drop, ln_mode=cfg.ln_mode, **common)
@@ -181,26 +210,15 @@ class ViTUNet(nn.Module):
                 or (cfg.out_channels or cfg.num_channels) != cfg.num_channels
                 or cfg.input_skip or bool(cfg.head_blocks))
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "ViTUNet":
-        """flax's default initialisers, drawn from ``generator``: LeCun
-        truncated normal for Linear/Conv weights, zero biases, N(0, 1/d)
-        embeddings, unit norms, zero residual gain."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                std = math.sqrt(1.0 / mod.weight[0].numel()) / .87962566103423978
-                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5,
-                                   generator=generator)
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
-                mod.reset_parameters()
-        if self.config.residual_gain:
-            self.residual_gain.zero_()
-        return self
+        """flax's default initialisers, drawn from ``generator``
+        (``flax_init_``)."""
+        return flax_init_(self, generator)
+
+    def _block(self, block: nn.Module, h: torch.Tensor, kw: dict):
+        if self.config.remat:
+            return checkpointed(block, h, **kw)
+        return block(h, **kw)
 
     def forward(self, x: torch.Tensor, *, deterministic: Optional[bool] = None,
                 use_running_average: Optional[bool] = None,
@@ -228,14 +246,14 @@ class ViTUNet(nn.Module):
         h = self.PE(x)
         skips = []
         for i, enc in enumerate(self.Encoders):
-            h = enc(h, **kw)
+            h = self._block(enc, h, kw)
             if (i + 1) % cfg.depth_te == 0:
                 skips.append(h)
                 h = split_patches(h, cfg.num_channels)
         for bott in self.BottleNeck:
-            h = bott(h, **kw)
+            h = self._block(bott, h, kw)
         for i, dec in enumerate(self.Decoders):
-            h = dec(h, **kw)
+            h = self._block(dec, h, kw)
             if (i + 1) % cfg.depth_te == 0:
                 lvl = (i + 1) // cfg.depth_te
                 h = merge_patches(h, cfg.num_channels)

@@ -1,8 +1,11 @@
-"""Patch encoder (torch flavour), the counterpart of
-``vit_unet_tpu/nn/patch_encoder.py::PatchEncoder``: optional conv/fourier
-preprocessing on the image, patchify at the finest hierarchy level, add a
-learned position embedding over the fine tokens, then regroup fine patches
-into the coarse entry-level patches with one relayout."""
+"""Patch encoders, the counterparts of ``vit_unet_tpu/nn/patch_encoder.py``.
+
+* ``PatchEncoder`` (torch flavour): optional conv/fourier preprocessing on
+  the image, patchify at the finest hierarchy level, add a learned position
+  embedding over the fine tokens, then regroup fine patches into the coarse
+  entry-level patches with one relayout.
+* ``PatchEncoderCL`` (TF flavour): patchify a channels-last image, then a
+  Dense projection and a learned position embedding."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_unet_tpu_torch.ops.patches import (
-    change_patch_size, flatten_patches, patchify,
+    change_patch_size, flatten_patches, patchify, patchify_cl,
 )
 
 
@@ -45,3 +48,26 @@ class PatchEncoder(nn.Module):
         encoded = flat + self.position_embedding.weight.to(dt)
         return change_patch_size(encoded, self.num_channels,
                                  up_factor=2 ** self.depth)
+
+
+class PatchEncoderCL(nn.Module):
+    """(B, H, W, C) -> (B, N, projection_dim), N = (img_size / p)²."""
+
+    def __init__(self, img_size: int, patch_size: int, num_channels: int = 3,
+                 projection_dim: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        num_patches = (img_size // patch_size) ** 2
+        proj_dim = projection_dim or num_channels * patch_size ** 2
+        self.projection = nn.Linear(num_channels * patch_size ** 2, proj_dim)
+        self.position_embedding = nn.Embedding(num_patches, proj_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        pats = patchify_cl(x.to(dt), self.patch_size)
+        flat = pats.reshape(pats.shape[0], pats.shape[1], -1)
+        proj = F.linear(flat, self.projection.weight.to(dt),
+                        self.projection.bias.to(dt))
+        return proj + self.position_embedding.weight.to(dt)

@@ -5,6 +5,9 @@ CxC convolutions on the image form of each token, in one of two forms that
 compute the same function: one conv over the fused (B*N) batch, or one
 product of the tokens with the conv written as a dense (E, E) operator
 (``conv_token_matrix``); ``qkv_form`` picks the form by width and dtype.
+A token is read channel-major (``token_layout="cm"``, the torch flavour) or
+channels-last (``"cl"``, the TF flavour, which also puts an exact GELU
+after each of Q, K and V: ``qkv_gelu``).
 Attention is scaled-dot softmax, re-mixed across heads by a 1x1 conv
 followed by BatchNorm, then multiplied with V.
 
@@ -41,24 +44,31 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import (
     flash_reattention_train_bn, new_seed, reattention_nxn,
 )
 from vit_unet_tpu_torch.nn.dropout import dropout, require_generator
-from vit_unet_tpu_torch.ops.patches import unflatten
+from vit_unet_tpu_torch.ops.patches import unflatten, unflatten_cl
 
 BN_MOMENTUM = 0.9
 
 
-def conv_tokens(x: torch.Tensor, weight: torch.Tensor,
-                num_channels: int) -> torch.Tensor:
+def conv_tokens(x: torch.Tensor, weight: torch.Tensor, num_channels: int,
+                layout: str = "cm") -> torch.Tensor:
     """Apply a bias-free conv to every token's (C, p, p) patch image.
 
-    x: (B, N, C*p*p) channel-major tokens; weight: (O, C, k, k) with O a
-    multiple of C.  Returns (B, N, O*p*p): with O = 3C (q/k/v weights
+    x: (B, N, C*p*p) tokens, channel-major (``layout="cm"``) or
+    channels-last (``"cl"``); weight: (O, C, k, k) with O a multiple of C.
+    Returns (B, N, O*p*p) in the same layout: with O = 3C (q/k/v weights
     concatenated) the last axis holds the q, k and v token vectors in turn.
     """
     b, n, _ = x.shape
-    pats = unflatten(x, num_channels)
+    if layout == "cm":
+        pats = unflatten(x, num_channels)                     # (B, N, C, p, p)
+    else:
+        pats = unflatten_cl(x, num_channels).permute(0, 1, 4, 2, 3)
     p = pats.shape[-1]
     out = F.conv2d(pats.reshape(b * n, num_channels, p, p), weight,
-                   padding="same")
+                   padding="same")                            # (B*N, O, p, p)
+    if layout == "cl":
+        out = (out.reshape(b * n, -1, num_channels, p, p)
+               .permute(0, 1, 3, 4, 2))                       # (.., O/C, p, p, C)
     return out.reshape(b, n, -1)
 
 
@@ -80,7 +90,8 @@ def _window_basis_cached(k: int, p: int, device: torch.device,
     k x k conv on a p x p image (i - I = a - k//2, j - J = b - k//2); zero
     padding falls out of the clipped offsets.  A constant per (k, p), made
     as an ordinary tensor even under ``inference_mode`` so that a later
-    training step can use it."""
+    training step can use it.  It holds no token layout: both layouts'
+    operators are permutations of the same product with it."""
     with torch.inference_mode(False):
         ar = torch.arange(p, device=device)
         offsets = torch.arange(-(k // 2), k // 2 + 1, device=device)
@@ -89,26 +100,32 @@ def _window_basis_cached(k: int, p: int, device: torch.device,
         return t.reshape(k * k, p ** 4).to(dtype)
 
 
-def _token_operator(weight: torch.Tensor, p: int) -> torch.Tensor:
-    """The conv with weight (O, C, k, k) as a right operand on channel-major
-    token vectors: (C·p², O·p²), ``conv_tokens(x, weight, C) == x @ op``.
-    Built in the weight's dtype by one product with the window basis, exact
-    in any dtype (each entry is one weight or zero)."""
+def _token_operator(weight: torch.Tensor, p: int,
+                    layout: str = "cm") -> torch.Tensor:
+    """The conv with weight (O, C, k, k) as a right operand on token
+    vectors of ``layout``: (C·p², O·p²), ``conv_tokens(x, weight, C,
+    layout) == x @ op``.  Built in the weight's dtype by one product with
+    the window basis, exact in any dtype (each entry is one weight or
+    zero)."""
     o, c, k, _ = weight.shape
     r = weight.reshape(o * c, k * k) @ _window_basis(k, p, weight.device, weight.dtype)
-    return (r.reshape(o, c, p, p, p, p).permute(1, 2, 3, 0, 4, 5)
+    if layout == "cm":   # rows (c, i, j), columns (o, I, J)
+        return (r.reshape(o, c, p, p, p, p).permute(1, 2, 3, 0, 4, 5)
+                .reshape(c * p * p, o * p * p))
+    # rows (i, j, c), columns (o // C, I, J, o % C)
+    return (r.reshape(o // c, c, c, p, p, p, p).permute(3, 4, 2, 0, 5, 6, 1)
             .reshape(c * p * p, o * p * p))
 
 
-def conv_token_matrix(weight: torch.Tensor, num_channels: int,
-                      p: int) -> torch.Tensor:
-    """The SAME-padding CxC conv as a dense (E, E) operator M on the
-    channel-major token vector (E = C·p²), built differentiably from the
-    conv weight (C, C, k, k): ``conv_tokens(x, weight, C) == x @ M.T``."""
+def conv_token_matrix(weight: torch.Tensor, num_channels: int, p: int,
+                      layout: str = "cm") -> torch.Tensor:
+    """The SAME-padding CxC conv as a dense (E, E) operator M on the token
+    vector of ``layout`` (E = C·p²), built differentiably from the conv
+    weight (C, C, k, k): ``conv_tokens(x, weight, C, layout) == x @ M.T``."""
     if weight.shape[1] != num_channels:
         raise ValueError(f"weight {tuple(weight.shape)} does not take "
                          f"{num_channels} channels")
-    return _token_operator(weight, p).T
+    return _token_operator(weight, p, layout).T
 
 
 #: the widest token vector (E = C·p²), by dtype, whose Q/K/V run as one
@@ -144,10 +161,13 @@ class ReAttention(nn.Module):
     """Self re-attention over patch tokens.
 
     ``qkv_kernel=3`` matches the packaged model and the README configs,
-    ``qkv_kernel=1`` the 512² notebook config.  ``use_flash=False`` runs the
-    plain version of the attention contraction on every device (it
-    materialises the N x N map); ``True`` runs the kernels, and in training
-    only with ``flash_train`` (the default here; JAX defaults it to False).
+    ``qkv_kernel=1`` the 512² notebook config.  The TF flavour sets
+    ``token_layout="cl"`` and ``qkv_gelu=True``.  The Q/K/V convs are
+    bias-free: no configuration sets JAX's ``qkv_bias``.
+    ``use_flash=False`` runs the plain version of the attention contraction
+    on every device (it materialises the N x N map); ``True`` runs the
+    kernels, and in training only with ``flash_train`` (the default here;
+    JAX defaults it to False).
     A (heads, dh) beyond the kernels' limits (``kernel_takes``) takes the
     plain path whatever the flags say.
     """
@@ -157,8 +177,13 @@ class ReAttention(nn.Module):
                  proj_drop: float = 0.0, use_flash: bool = True,
                  flash_train: bool = True, flash_frozen_bn: bool = False,
                  bn_track: bool = False, bn_eps: float = 1e-5,
+                 qkv_gelu: bool = False,
+                 token_layout: str = "cm",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if token_layout not in ("cm", "cl"):
+            raise ValueError(f"token_layout must be 'cm' or 'cl', got "
+                             f"{token_layout!r}")
         self.dim = dim
         self.num_channels = num_channels
         self.num_heads = num_heads
@@ -169,6 +194,8 @@ class ReAttention(nn.Module):
         self.flash_frozen_bn = flash_frozen_bn
         self.bn_track = bn_track
         self.bn_eps = bn_eps
+        self.qkv_gelu = qkv_gelu
+        self.token_layout = token_layout
         self.dtype = dtype
         c = num_channels
         conv = lambda: nn.Conv2d(c, c, qkv_kernel, padding="same", bias=False)
@@ -198,18 +225,28 @@ class ReAttention(nn.Module):
             return self._qkv_matmul(q_in, k_in, v_in)
         return self._qkv_conv(q_in, k_in, v_in)
 
+    def _convs(self):
+        return (self.qconv2d, self.kconv2d, self.vconv2d)
+
+    def _heads(self, ys):
+        """(B, N, E) q, k, v -> (B, H, N, dh), through the exact GELU
+        first when ``qkv_gelu``."""
+        if self.qkv_gelu:
+            ys = (F.gelu(y) for y in ys)
+        return tuple(split_heads(y, self.num_heads) for y in ys)
+
     def _qkv_conv(self, q_in, k_in, v_in):
         """The conv form: one C->3C conv when the three inputs are one
         tensor, else one conv each."""
-        dt = self.dtype
-        convs = (self.qconv2d, self.kconv2d, self.vconv2d)
+        dt, c, layout = self.dtype, self.num_channels, self.token_layout
+        convs = self._convs()
         if q_in is k_in and k_in is v_in:
             w = torch.cat([cv.weight for cv in convs]).to(dt)
-            ys = conv_tokens(q_in.to(dt), w, self.num_channels).chunk(3, dim=-1)
+            ys = conv_tokens(q_in.to(dt), w, c, layout).chunk(3, dim=-1)
         else:
-            ys = (conv_tokens(t.to(dt), cv.weight.to(dt), self.num_channels)
+            ys = (conv_tokens(t.to(dt), cv.weight.to(dt), c, layout)
                   for t, cv in zip((q_in, k_in, v_in), convs))
-        return tuple(split_heads(y, self.num_heads) for y in ys)
+        return self._heads(ys)
 
     def _qkv_matmul(self, q_in, k_in, v_in):
         """The matmul form: the three convs as one (E, 3E) operator
@@ -217,18 +254,18 @@ class ReAttention(nn.Module):
         (E, 3E) product when the three inputs are one tensor, else three
         (B·N, E) @ (E, E).  Same parameters; their gradients flow through
         the operator."""
-        dt = self.dtype
+        dt, layout = self.dtype, self.token_layout
         e = q_in.shape[-1]
         p = round((e // self.num_channels) ** 0.5)
-        w = torch.cat([cv.weight for cv in (self.qconv2d, self.kconv2d,
-                                            self.vconv2d)]).to(dt)
-        op = _token_operator(w, p)
+        convs = self._convs()
+        w = torch.cat([cv.weight for cv in convs]).to(dt)
+        op = _token_operator(w, p, layout)
         if q_in is k_in and k_in is v_in:
             ys = torch.matmul(q_in.to(dt), op).chunk(3, dim=-1)
         else:
             ys = (torch.matmul(t.to(dt), op[:, i * e:(i + 1) * e])
                   for i, t in enumerate((q_in, k_in, v_in)))
-        return tuple(split_heads(y, self.num_heads) for y in ys)
+        return self._heads(ys)
 
     def _folded(self):
         """(m_eff, c_eff) from the head-mix conv and the running statistics,

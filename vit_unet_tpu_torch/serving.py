@@ -35,12 +35,16 @@ def _eval_fn(model: torch.nn.Module, device: torch.device) -> Callable:
 
 
 def _infer_input_shape(model) -> tuple:
-    """Per-sample (C, H, W) input shape from the model's config."""
+    """Per-sample input shape from the model's config: channels-first
+    (C, H, W) for ViTUNet (``im_size``), channels-last (H, W, C) for the
+    TF-flavour family (``img_size``)."""
     cfg = getattr(model, "config", None)
-    if not hasattr(cfg, "im_size"):
-        raise ValueError("input_shape required: the model has no config "
-                         "with im_size")
-    return (cfg.num_channels, cfg.im_size, cfg.im_size)
+    if hasattr(cfg, "im_size"):
+        return (cfg.num_channels, cfg.im_size, cfg.im_size)
+    if hasattr(cfg, "img_size"):
+        return (cfg.img_size, cfg.img_size, cfg.num_channels)
+    raise ValueError("input_shape required: the model has no config with "
+                     "im_size or img_size")
 
 
 def _micro_batched(fn: Callable[[np.ndarray], np.ndarray], batch_size: int,
