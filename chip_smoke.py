@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # everything, with the result lines
     python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
-                                           # (2a, 2b, 3, 4, 5, 6, 7; no result lines)
+                                           # (2a, 2b, 3, 4, 5, 6, 7, 8; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -13,14 +13,17 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. every kernel against its plain PyTorch version on the card, at the
    level shapes of the lite and base presets, in float32 (TF32 off) and
    bfloat16, with times and the least time the card could take (``bound``):
-   the eval kernel (2a: also one rectangular and two 16-head cases, a
+   the eval kernel (2a: also one rectangular case and 16-head cases, a
    peaked map, a handful of keys and a single query; each on the route
    ``kernel_route`` names, float32 on the CUDA cores, bfloat16 on the tensor
    cores; at the main path's shapes both routes in turns, each pass alone,
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
-   N x N forward with the same dropout mask; the backward and both forwards
+   N x N forward with the same dropout mask; every kernel and Function also
+   at 16 heads (``HEAD16_SHAPES``: dh 48, 12, 192 and 384, the
+   classifier's N and a ragged case, on the CUDA-core routes but kernel
+   1's bf16 (16, 48) and (16, 12)); the backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
    cores), with ragged cases and the two routes held against each other
@@ -87,7 +90,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    gradient within its run-to-run spread from the backward's atomics, on
    the plain path every gradient equal bit for bit; peak memory) and the
    Fourier block's forward and step;
-8. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+8. the classifier: (a0) kernels 1-4 at its two 16-head level shapes
+   ((16, 48) at N 196, (16, 12) at N 784; b64, f32 and bf16, rate 0.2)
+   against their plain versions, timed with their bounds and SDPA beside
+   kernel 1; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
+   heads, 5,975,984 parameters, bf16, b64, random weights from a seed): the
+   forward, exact-BN and frozen-BN steps (Adam, label-smoothed CE) with
+   their launches asserted by route, times, peak memory and profiler
+   breakdowns, the kernel path against ``use_flash=False``, and one f32
+   batch-4 step of the kernel path against the plain path; (c)
+   ``run_classification.main`` in this process on 4 class folders of 24
+   images (PNG, 8/24/32-bit BMP bottom-up and top-down, and the committed
+   JPEG fixtures, every file read back exactly), bf16, ``--flash``, batch
+   16, 2 epochs, each epoch's launches by route, img/s over steps 2-4 and
+   the idle share, and the JPEG reader's MB/s;
+9. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
@@ -134,6 +151,15 @@ CHECK_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 96, 96, 200),                                                 # rectangular
     (4, 16, 12, 256, 256), (8, 16, 48, 64, 64),                          # 16 heads
 ]
+# 16 heads: the classifier's two levels at its N, a ragged case, and the two
+# wider head dims ``kernel_takes`` admits at 16 heads (JAX's ``_flash_ok``
+# takes 16 heads only up to dh 48); kernels 1-4 on the CUDA-core routes
+# except kernel 1 in bf16 at (16, 48) and (16, 12)
+HEAD16_SHAPES = [  # (batch, heads, dh, n_q, n_k)
+    (4, 16, 48, 196, 196), (4, 16, 12, 784, 784), (4, 16, 48, 100, 130),
+    (2, 16, 192, 196, 196), (2, 16, 384, 49, 49),
+]
+CHECK_SHAPES += HEAD16_SHAPES
 EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
     ("peaked", 4, 8, 96, 196, 196, 8.0),      # large lse, far from uniform maps
     ("few keys", 4, 8, 24, 100, 9, 1.0),      # Nk < 16
@@ -141,7 +167,7 @@ EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
 ]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-PHASES = ("2a", "2b", "3", "4", "5", "6", "7")
+PHASES = ("2a", "2b", "3", "4", "5", "6", "7", "8")
 EVAL_SOURCE = "flash_reattention.cu"
 TRAIN_SOURCE = "flash_reattention_train.cu"
 
@@ -568,7 +594,7 @@ TRAIN_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 384, 49, 49), (4, 8, 96, 196, 196), (4, 8, 24, 784, 784),      # base
     (2, 4, 12, 3136, 3136), (4, 4, 48, 784, 784), (4, 4, 192, 196, 196),   # lite
     (4, 8, 96, 96, 200),                                                  # rectangular
-]
+] + HEAD16_SHAPES
 RATE = 0.2
 # the backward's tensor-core route at ragged and rectangular sizes: (batch,
 # heads, dh, n_q, n_k); a key tile with fewer valid keys than one MMA tile,
@@ -844,15 +870,15 @@ def time_fwd_routes(key, batch, heads, dh, n, reps=10):
     return old, new
 
 
-def check_functions(batch, heads, dh, n, dtype):
-    """Both autograd Functions at rate 0.2 against torch autograd of the
+def check_functions(batch, heads, dh, n, dtype, rate=RATE):
+    """Both autograd Functions at ``rate`` against torch autograd of the
     N x N forward (``reattention_nxn``) with the same mask, in float64 on
     the same inputs.  The loss takes the BN moments too, so the conv bias's
     gradient is d(sum mu)/d cb = 1: BatchNorm removes a uniform shift of the
     map, and the reference's other terms cancel to its float64 rounding."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     q, k, v, m_eff, c_eff, g_out, seed = train_inputs(batch, heads, dh, n, n, dtype, 1)
-    mask = T.dropout_mask(int(seed.item()), RATE, batch, heads, n, n, "cuda")
+    mask = T.dropout_mask(int(seed.item()), rate, batch, heads, n, n, "cuda")
     gen = torch.Generator().manual_seed(3)
     cm = (torch.randn(heads, heads, generator=gen) * 0.4).cuda()
     cb = (torch.randn(heads, generator=gen) * 0.2).cuda()
@@ -866,10 +892,10 @@ def check_functions(batch, heads, dh, n, dtype):
         kl = [t.detach().clone().requires_grad_() for t in leaves]
         rl = [t.detach().double().requires_grad_() for t in leaves]
         if mode == "frozen":
-            got = (T.flash_reattention_train(*kl, seed, num_heads=heads, rate=RATE),)
+            got = (T.flash_reattention_train(*kl, seed, num_heads=heads, rate=rate),)
             want = (T.reattention_nxn(*rl, mask)[0],)
         else:
-            got = T.flash_reattention_train_bn(*kl, seed, num_heads=heads, rate=RATE)
+            got = T.flash_reattention_train_bn(*kl, seed, num_heads=heads, rate=rate)
             out, moments = T.reattention_nxn(*rl[:5], mask, norm=rl[5:])
             want = (out, *moments)
         loss = lambda outs: ((outs[0] * g_out.to(outs[0].dtype)).sum()
@@ -878,7 +904,7 @@ def check_functions(batch, heads, dh, n, dtype):
         gr = torch.autograd.grad(loss(want), rl)
         rels = [rel_err(a, b)[1] for a, b in zip((got[0],) + tuple(gk), (want[0],) + tuple(gr))]
         print(f"  {mode} Function B{batch} H{heads} dh{dh} N{n} "
-              f"{str(dtype).replace('torch.', '')} rate {RATE}: out and grads rel "
+              f"{str(dtype).replace('torch.', '')} rate {rate}: out and grads rel "
               + " ".join(f"{r:.1e}" for r in rels))
         for r in rels:
             require(f"{mode} Function gradients", r, GRAD_TOL[dtype])
@@ -895,6 +921,10 @@ def phase_train_kernels():
                 check_train_kernels(*shape, dtype, rate)
         for batch, heads, dh, n, _ in TRAIN_SHAPES[:3]:
             check_functions(batch, heads, dh, n, dtype)
+        for batch, heads, dh, n, n_k in HEAD16_SHAPES:
+            if n == n_k:
+                for rate in (0.0, RATE):
+                    check_functions(batch, heads, dh, n, dtype, rate)
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
@@ -2506,6 +2536,412 @@ def phase_tf():
                 serve_t=serve_t, train_t=train_t, remat=remat)
 
 
+# --- phase 8: the classifier ----------------------------------------------------
+
+# ViTClassifier at the CLI's default widths: 224², patch 16, 196 patches,
+# depth 2 x depth_te 4, hidden 128, 16 heads, head (64, 4); 5,975,984
+# parameters (the JAX model's eval_shape count).  Its levels are (16 heads,
+# dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernel 1 on its
+# tensor-core route in bf16, kernels 2-4 on their CUDA-core routes.
+CLS_CONFIG = dict(num_patches=196)
+CLS_BF16 = dict(CLS_CONFIG, dtype="bfloat16", param_dtype="bfloat16")
+CLS_PARAMS = 5_975_984
+CLS_LEVELS = [(16, 48, 196, 4), (16, 12, 784, 4)]   # (heads, dh, n, calls)
+CLS_CALLS = 8               # re-attention calls a forward or step
+CLS_STEPS = 5
+CLS_SMOOTHING = 0.05
+# the CLI: 4 classes of 24 images, PNG, BMP and the committed JPEG fixtures
+CLS_CLASSES = 4
+CLS_PER_CLASS = 24
+CLS_IMAGE = (150, 200)      # stored PNG and BMP images (height, width)
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+
+
+def cls_batch(n, seed=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, 3, 224, 224, generator=gen, device="cuda")
+    labels = torch.randint(0, 4, (n,), generator=gen, device="cuda")
+    return {"x": x, "y": torch.eye(4, device="cuda")[labels]}
+
+
+def cls_loss(logits, target):
+    from vit_unet_tpu_torch.train.losses import categorical_crossentropy
+    return categorical_crossentropy(logits, target, label_smoothing=CLS_SMOOTHING)
+
+
+def cls_expected(routes: dict, n: int) -> dict:
+    """{count: n * CLS_CALLS} for each kernel and its route in ``routes``."""
+    want = {}
+    for key, route in routes.items():
+        want[key] = want[f"{key}_{route}"] = n * CLS_CALLS
+    return want
+
+
+def cls_routes():
+    """The routes the route functions name for the classifier's levels in
+    bf16: one per kernel, or the phase fails."""
+    import importlib
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    routes = {"eval": TK.kernel_route, "fwd": T.train_fwd_route,
+              "bn_fwd": T.bn_fwd_route, "bwd": T.train_bwd_route}
+    named = {k: {pick(torch.bfloat16, h, d) for h, d, _, _ in CLS_LEVELS}
+             for k, pick in routes.items()}
+    if any(len(r) != 1 for r in named.values()):
+        raise AssertionError(f"the classifier's levels take mixed routes: {named}")
+    named = {k: r.pop() for k, r in named.items()}
+    if named != {"eval": "tensor_core", "fwd": "cuda_core", "bn_fwd": "cuda_core",
+                 "bwd": "cuda_core"}:
+        raise AssertionError(f"unexpected routes for the classifier: {named}")
+    return named
+
+
+def cls_kernels():
+    """(a0) kernels 1-4 at the classifier's two level shapes, b64, rate 0.2,
+    f32 and bf16: kernel / plain / bound ms per call; SDPA's time beside
+    kernel 1 as a reading (no head mix)."""
+    res = {}
+    for heads, dh, n, _ in CLS_LEVELS:
+        shape = f"H{heads} dh{dh} N{n}"
+        res[shape] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            k1 = check_kernel(BATCH, heads, dh, n, n, dtype, reps=10)
+            tk = check_train_kernels(BATCH, heads, dh, n, n, dtype, RATE, reps=5)
+            bounds = train_bounds(BATCH, heads, dh, n, n, dtype)
+            row = {"flash_reattention": dict(
+                err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                bound=bound_of(k1["t_bytes"], k1["t_ops"]), route=k1["route"],
+                sdpa_ms=sdpa_ms(BATCH, heads, dh, n, dtype))}
+            for key in ("fwd", "bn_fwd", "bwd"):
+                row[key] = dict(err=tk[key]["err"], ms=tk[key]["ms"],
+                                plain_ms=tk[key]["plain_ms"],
+                                bound=bound_of(*bounds[key]), route="cuda_core")
+            for label, r in row.items():
+                extra = f", sdpa {r['sdpa_ms']:.4f} ms" if "sdpa_ms" in r else ""
+                print(f"    {shape} {name} {label} [{r['route']}]: {r['ms']:.4f} ms a "
+                      f"call, plain {r['plain_ms']:.4f} ms{extra}, bound "
+                      f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err "
+                      f"{r['err']:.3e}")
+            res[shape][name] = row
+    return res
+
+
+def cls_model_runs(routes):
+    """(a) the bf16 b64 forward and train steps with their launches by
+    route; the kernel path against use_flash=False."""
+    from vit_unet_tpu_torch import get_vit_classifier
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import TrainState, build_step_functions
+    card = card_line()
+    model = get_vit_classifier(device="cuda", seed=0, **CLS_BF16)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != CLS_PARAMS:
+        raise AssertionError(f"the classifier has {n_params:,} parameters, "
+                             f"not {CLS_PARAMS:,}")
+    batch = cls_batch(BATCH)
+    x = batch["x"]
+    launches = collections.Counter()
+    with torch.inference_mode():
+        model(x)                                          # warm-up
+        got, logits = path_launches(lambda: model(x))
+        require_launches("(a) forward b64", got, cls_expected({"eval": routes["eval"]}, 1))
+        launches.update(got)
+        ms = time_ms(lambda: model(x), reps=10)
+    if logits.shape != (BATCH, 4) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits: {tuple(logits.shape)}")
+    print(f"  (a) ViTClassifier ({n_params:,} parameters) b{BATCH} bf16 forward: "
+          f"{ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s (input on the card) [{card}]")
+    device_breakdown(lambda: model(x), ms, "classifier forward", reps=3,
+                     inference=True, top=8)
+    layers = [m for m in model.modules() if isinstance(m, ReAttention)]
+    with torch.inference_mode():
+        for layer in layers:
+            layer.use_flash = False
+        want = model(x[:8]).float()
+        for layer in layers:
+            layer.use_flash = True
+        rel = rel_err(model(x[:8]).float(), want)[1]
+    print(f"  (a) bf16 logits, kernel path vs use_flash=False, batch 8: rel {rel:.3e} "
+          f"(tol {MODEL_TOL_BF16:.0e})")
+    require("the classifier's kernel path", rel, MODEL_TOL_BF16)
+
+    res = dict(fwd_ms=ms)
+    for frozen in (False, True):
+        label = "frozen" if frozen else "exact"
+        m = get_vit_classifier(device="cuda", seed=0, **CLS_BF16).train()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+        state = TrainState.create(model=m, optimizer=opt, seed=1)
+        steps = build_step_functions(m, opt, cls_loss, bn_frozen=frozen)
+        state, _, _ = timed_steps(steps, state, batch, 1)           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        got, (state, losses, step_ms) = path_launches(
+            lambda: timed_steps(steps, state, batch, CLS_STEPS))
+        fwd = "fwd" if frozen else "bn_fwd"
+        require_launches(f"(a) {CLS_STEPS} {label}-BN steps", got,
+                         cls_expected({fwd: routes[fwd], "bwd": routes["bwd"]}, CLS_STEPS))
+        launches.update(got)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  (a) {label}-BN b{BATCH} bf16 step (Adam 1e-4, CE with label "
+              f"smoothing {CLS_SMOOTHING}, dropout 0.2): median {step_ms:.3f} ms, "
+              f"{BATCH / step_ms * 1e3:.1f} img/s, losses {losses[0]:.5f} .. "
+              f"{losses[-1]:.5f}, peak memory {peak:.2f} GiB [{card}]")
+        device_breakdown(lambda: steps.train_step(state, batch), step_ms,
+                         f"classifier {label}-BN step", reps=1, top=10)
+        res[f"{label}_ms"], res[f"{label}_peak"] = step_ms, peak
+        del m, opt, state, steps
+    del model
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def cls_step_result(flash, bn_frozen, batch, dtype="float32", eps=None):
+    """(loss, grads, running statistics) of one classifier train step in
+    float64, dropout on, from seed 0's weights and dropout seed 7; ``eps``:
+    the head-mix BatchNorm's (the config keeps JAX's 1e-5)."""
+    from vit_unet_tpu_torch import get_vit_classifier
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import TrainState, build_step_functions
+    model = get_vit_classifier(device="cuda", seed=0, flash_train=flash, dtype=dtype,
+                               param_dtype=dtype, **CLS_CONFIG).train()
+    for layer in model.modules():
+        if isinstance(layer, ReAttention) and eps is not None:
+            layer.bn_eps = layer.var_norm.eps = eps
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    steps = build_step_functions(model, opt, cls_loss, bn_frozen=bn_frozen)
+    _, m = steps.train_step(TrainState.create(model=model, optimizer=opt, seed=7), batch)
+    grads = torch.cat([p.grad.double().flatten() for p in model.parameters()])
+    stats = torch.cat([b.double() for name, b in model.named_buffers()
+                       if "running" in name])
+    return m["loss"].item(), grads, stats
+
+
+def cls_compare_paths():
+    """(a) one f32 batch-4 step of the kernel path against the plain path
+    with the same weights and dropout seed.  Frozen BN: loss, running
+    statistics and gradients held at TRAIN_PATH_TOL.  Exact BN, against a
+    float64 plain run at the config's eps and at EXACT_EPS: loss and
+    running statistics held at EXACT_TOL; the gradients are printed, not
+    held.  The largest gradient of the fresh model, the first block's
+    head-mix BatchNorm bias, is a sum over B·N·N map entries, and the kernel
+    path's f32 error there is 3-7x the plain path's (PERF.md); every
+    other tensor, and each call's exact-BN gradients at 16 heads (phase 2b,
+    against float64), agree far more closely."""
+    batch = cls_batch(4, seed=5)
+    rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()
+    diffs = lambda a, b: (abs(a[0] - b[0]) / abs(b[0]), rel(a[1], b[1]), rel(a[2], b[2]))
+    kern, plain = (cls_step_result(f, True, batch) for f in (True, False))
+    l, g, st = diffs(kern, plain)
+    print(f"  (a) f32 batch-4 frozen-BN step, kernel path vs plain path: loss rel "
+          f"{l:.2e}, grads rel {g:.2e} of the largest, running stats rel {st:.2e} "
+          f"(tol {TRAIN_PATH_TOL:.0e})")
+    if not max(l, g, st) <= TRAIN_PATH_TOL:
+        raise AssertionError("the classifier's frozen-BN kernel step disagrees "
+                             "with the plain path")
+    exact = {}
+    for eps in (1e-5, EXACT_EPS):
+        ref = cls_step_result(False, False, batch, "float64", eps)
+        kern, plain = (cls_step_result(f, False, batch, eps=eps) for f in (True, False))
+        (kl, kg, ks), (pl, pg, ps) = diffs(kern, ref), diffs(plain, ref)
+        print(f"  (a) f32 batch-4 exact-BN (eps {eps:.0e}) step against the plain path "
+              f"in float64: kernel path loss {kl:.2e}, stats {ks:.2e}, grads {kg:.2e}; "
+              f"plain path loss {pl:.2e}, stats {ps:.2e}, grads {pg:.2e} (loss and "
+              f"stats tol {EXACT_TOL:.0e}; grads printed)")
+        if not max(kl, ks) <= EXACT_TOL:
+            raise AssertionError("the classifier's exact-BN kernel step's loss or "
+                                 "running statistics are off float64")
+        exact[eps] = (kl, kg, ks, pl, pg, ps)
+    return dict(frozen=(l, g, st), exact=exact)
+
+
+def bmp_bytes(rgb, bpp, top_down) -> bytes:
+    """A BMP of (H, W, 3) RGB: 24-bit, 32-bit (BI_RGB, alpha 255), or 8-bit
+    with a palette of the image's own colours (at most 256)."""
+    import struct
+    h, w = rgb.shape[:2]
+    table = b""
+    if bpp == 8:
+        colours, index = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True)
+        if len(colours) > 256:
+            raise ValueError("more than 256 colours for an 8-bit BMP")
+        pixels = index.reshape(h, w).astype(np.uint8)
+        table = np.concatenate([colours[:, ::-1], np.zeros((len(colours), 1), np.uint8)],
+                               axis=1).astype(np.uint8).tobytes()
+    else:
+        bgr = rgb[..., ::-1]
+        if bpp == 32:
+            bgr = np.concatenate([bgr, np.full((h, w, 1), 255, np.uint8)], axis=-1)
+        pixels = bgr.reshape(h, -1)
+    pitch = (w * bpp + 31) // 32 * 4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :pixels.shape[1]] = pixels
+    body = (rows if top_down else rows[::-1]).tobytes()
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp, 0,
+                       len(body), 2835, 2835, len(table) // 4, 0)
+    offset = 14 + len(info) + len(table)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info
+            + table + body)
+
+
+def jpeg_fixtures():
+    """[(path, rgb, gray)] of the committed JPEG fixtures: what cv2.imread
+    gives for each, recorded where cv2 is."""
+    import glob
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(here, JPEG_FIXTURES, "*.jpg")))
+    if len(paths) < 12:
+        raise AssertionError(f"{len(paths)} JPEG fixtures under {JPEG_FIXTURES}")
+    return [(p, np.load(p[:-4] + ".rgb.npy"), np.load(p[:-4] + ".gray.npy"))
+            for p in paths]
+
+
+def write_class_folders(root, fixtures):
+    """CLS_CLASSES class folders of CLS_PER_CLASS images: PNG of every
+    colour type, BMP at 8, 24 and 32 bits bottom-up and top-down, and the
+    JPEG fixtures in turn; returns [(path, what, expected RGB)]."""
+    import shutil
+    rng = np.random.default_rng(8)
+    h, w = CLS_IMAGE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    files = []
+    for c in range(CLS_CLASSES):
+        folder = os.path.join(root, f"class_{c}")
+        os.makedirs(folder)
+        for i in range(CLS_PER_CLASS):
+            stem = os.path.join(folder, f"{i:03d}")
+            k = i % 3
+            if k == 2:                          # a JPEG fixture, copied
+                src, want, _ = fixtures[(c * CLS_PER_CLASS + i) % len(fixtures)]
+                shutil.copyfile(src, stem + ".jpg")
+                files.append((stem + ".jpg", "jpeg", want))
+                continue
+            # a smooth pattern whose frequency depends on the class
+            base = np.stack([np.sin(xx * (c + 1) / 17), np.cos(yy * (c + 1) / 13),
+                             np.sin((xx + yy) / 23)], -1) * 90 + 128
+            img = np.clip(base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+            if k == 0:
+                kind = IMAGE_KINDS[i % len(IMAGE_KINDS)]
+                data, want = encode_image(img, kind, rng)
+                path, what = stem + ".png", f"png {kind}"
+            else:
+                bpp = (8, 24, 32)[(i // 3) % 3]
+                if bpp == 8:
+                    img = (img // 64 * 64 + 32).astype(np.uint8)   # 64 colours
+                top_down = bool((i // 9) % 2)
+                data, want = bmp_bytes(img, bpp, top_down), img
+                path, what = stem + ".bmp", f"bmp {bpp}-bit{' top-down' if top_down else ''}"
+            with open(path, "wb") as f:
+                f.write(data)
+            files.append((path, what, want))
+    return files
+
+
+def check_class_files(files, fixtures, card):
+    """Every written file and every fixture (colour and gray) read back as
+    it must; the JPEG reader's MB/s of decoded pixels over the fixtures."""
+    from vit_unet_tpu_torch.data import image_io
+    for path, what, want in files:
+        got = image_io.imread_rgb(path)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{path} ({what}) did not read back as expected")
+    for path, rgb, gray in fixtures:
+        for got, want in ((image_io.imread_rgb(path), rgb),
+                          (image_io.imread_gray(path), gray)):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{path} does not read back as cv2.imread reads it")
+    passes = 20
+    t0 = time.perf_counter()
+    decoded = 0
+    for _ in range(passes):
+        for path, _, _ in fixtures:
+            decoded += image_io.imread_rgb(path).nbytes
+    wall = time.perf_counter() - t0
+    kinds = collections.Counter(what.split()[0] for _, what, _ in files)
+    print(f"  (c) wrote {len(files)} images ({dict(kinds)}), all read back exactly; "
+          f"{len(fixtures)} JPEG fixtures read back as cv2.imread reads them (RGB and "
+          f"gray, bit for bit); JPEG reader {wall / (passes * len(fixtures)) * 1e3:.3f} "
+          f"ms per fixture, {decoded / wall / 1e6:.1f} MB/s of decoded pixels, one "
+          f"thread [{card}]")
+    return decoded / wall / 1e6
+
+
+def run_cls_cli(root, extra, probe):
+    """``run_classification.main`` in this process on ``root``, its
+    ``Fitter`` probed; returns (result, seconds)."""
+    from vit_unet_tpu_torch.cli import run_classification
+    from vit_unet_tpu_torch.train import fitter as fitter_mod
+
+    class Probed(fitter_mod.Fitter):
+        def fit(self, *a, callbacks=(), **kw):
+            self.init_state()
+            probe.wrap(self)
+            return super().fit(*a, callbacks=[probe, *callbacks], **kw)
+
+    ck = os.path.join(root, "models_cls")
+    log = os.path.join(root, "log_cls.jsonl")
+    argv = ["--input_folder", os.path.join(root, "classes"), "--checkpoint_dir", ck,
+            "--log_jsonl", log, *extra]
+    t0 = time.perf_counter()
+    with mock.patch.object(fitter_mod, "Fitter", Probed):
+        result = run_classification.main(argv)
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(float(v)) for v in result.values()):
+        raise AssertionError(f"classification: result not finite: {result}")
+    if not os.path.isfile(os.path.join(ck, "best-checkpoint.pt")):
+        raise AssertionError("classification: no best checkpoint written")
+    return result, seconds
+
+
+def cls_cli(routes):
+    """(c) the CLI on class folders written here, 2 epochs, launches by
+    route per epoch, img/s over steps 2-4 and the idle share."""
+    import tempfile
+    card = card_line()
+    n = CLS_CLASSES * CLS_PER_CLASS
+    n_val = max(1, int(n * 0.2))
+    steps, val_batches = (n - n_val) // CLI_BATCH, -(-n_val // CLI_BATCH)
+    fixtures = jpeg_fixtures()
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as root:
+        files = write_class_folders(os.path.join(root, "classes"), fixtures)
+        mbps = check_class_files(files, fixtures, card)
+        probe = CliProbe(steps, profiled=True)
+        result, secs = run_cls_cli(root, ["--im_size", "224", "--dtype", "bfloat16",
+                                          "--flash", "--batch_size", str(CLI_BATCH),
+                                          "--n_epochs", "2"], probe)
+        final = all_launches()
+    want = {**cls_expected({"bn_fwd": routes["bn_fwd"], "bwd": routes["bwd"]}, steps),
+            **cls_expected({"eval": routes["eval"]}, val_batches)}
+    for epoch in (0, 1):
+        got = probe.launches[epoch]
+        require_launches(f"(c) epoch {epoch}", got, want)
+        launches.update(got)
+        wall, busy = probe.busy[epoch]
+        print(f"  (c) epoch {epoch}, steps 2-{steps} of {CLI_BATCH} images (PNG, BMP, "
+              f"JPEG; resize, ShiftScaleRotate, 2 loader threads), profiled: "
+              f"{probe.rates[epoch]:.1f} img/s, wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms, idle {1 - busy / wall:.1%} [{card}]")
+    require_launches("(c) final evaluation", final,
+                     cls_expected({"eval": routes["eval"]}, val_batches))
+    launches.update(final)
+    print(f"  (c) run_classification: {result} in {secs:.1f} s")
+    return launches, dict(rates=probe.rates, busy=probe.busy, mbps=mbps, secs=secs)
+
+
+def phase_classifier():
+    print("== phase 8: ViTClassifier (16 heads) and run_classification")
+    t_phase = time.perf_counter()
+    routes = cls_routes()
+    print(f"  (a0) kernels 1-4 at the classifier's levels, B{BATCH}, rate {RATE}:")
+    kernels = cls_kernels()
+    model_launches, model_t = cls_model_runs(routes)
+    paths = cls_compare_paths()
+    cli_launches, cli_t = cls_cli(routes)
+    print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels=kernels, model=model_launches, cli=cli_launches,
+                model_t=model_t, cli_t=cli_t, paths=paths)
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -2539,7 +2975,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6", "7"))
+    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6", "7", "8"))
     phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
     if "2a" in phases:
         k = phase_kernels()
@@ -2555,6 +2991,8 @@ def main(argv=None) -> int:
         cli_launches = phase_entry()
     if "7" in phases:
         tf = phase_tf()
+    if "8" in phases:
+        cls = phase_classifier()
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {','.join(phases)} only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines")
@@ -2566,18 +3004,20 @@ def main(argv=None) -> int:
     for per_epoch in fit_launches:
         for counts in per_epoch.values():
             fit_total.update(counts)
-    # the entry point (phase 6: the CLI's runs, the loaded programs) and
-    # the TF-flavour model (phase 7: serving, the keras-attention steps and
-    # the re-attention variant's steps)
-    tf_paths = {"tf_serving": tf["serving"], "tf_train": tf["train"],
-                "tf_variant": tf["variant"]}
+    # the entry point (phase 6: the CLI's runs, the loaded programs), the
+    # TF-flavour model (phase 7: serving, the keras-attention steps and the
+    # re-attention variant's steps) and the classifier (phase 8)
+    model_paths = {"tf_serving": tf["serving"], "tf_train": tf["train"],
+                   "tf_variant": tf["variant"],
+                   # the classifier (phase 8): its forward and steps, the CLI
+                   "classifier": cls["model"], "classifier_cli": cls["cli"]}
     by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"],
                                      "entry": cli_launches["eval"],
-                                     **{p: c["eval"] for p, c in tf_paths.items()}}}
+                                     **{p: c["eval"] for p, c in model_paths.items()}}}
     for key, _, _ in TRAIN_KERNELS:
         by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key],
                         "entry": cli_launches[key],
-                        **{p: c[key] for p, c in tf_paths.items()}}
+                        **{p: c[key] for p, c in model_paths.items()}}
     tf_shape = "H{} dh{} N{}".format(*TF_SHAPE)
     kernels = [{
         "name": "flash_reattention",
@@ -2601,6 +3041,9 @@ def main(argv=None) -> int:
         # the keras attention's level-0 shape (phase 7a), bf16 and f32
         "tf_level0": {tf_shape: {dt: r["flash_reattention"]
                                  for dt, r in tf["kernels"].items()}},
+        # the classifier's 16-head levels at b64 (phase 8a0)
+        "head16": {shape: {dt: r["flash_reattention"] for dt, r in rows.items()}
+                   for shape, rows in cls["kernels"].items()},
     }]
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
@@ -2617,6 +3060,8 @@ def main(argv=None) -> int:
         if key in TF_KERNEL_ROWS:      # the keras attention's shape (phase 7a)
             kernels[-1]["tf_level0"] = {tf_shape: {
                 dt: r[TF_KERNEL_ROWS[key]] for dt, r in tf["kernels"].items()}}
+        kernels[-1]["head16"] = {shape: {dt: r[key] for dt, r in rows.items()}
+                                 for shape, rows in cls["kernels"].items()}
         if key in TC_SOURCES:
             # the bf16 tensor-core route it includes, which base classes ran
             # on which route, and the main path's launches by route
@@ -2625,7 +3070,7 @@ def main(argv=None) -> int:
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
                 route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
                                 + cli_launches[f"{key}_{r}"]
-                                + sum(c[f"{key}_{r}"] for c in tf_paths.values())
+                                + sum(c[f"{key}_{r}"] for c in model_paths.values())
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -30,11 +30,19 @@ def _rel(got, want):
             / want.float().abs().max()).item()
 
 
+# 16 heads: the classifier's levels at its N, a ragged case, and the two
+# wider head dims kernel_takes admits at 16 heads
+HEAD16_CASES = [
+    (2, 16, 48, 196, 196), (2, 16, 12, 784, 784), (2, 16, 48, 100, 130),
+    (2, 16, 192, 196, 196), (2, 16, 384, 49, 49),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [
     (2, 8, 384, 49, 49), (2, 8, 96, 196, 196), (2, 8, 24, 784, 784),
     (2, 4, 8, 96, 200), (2, 16, 12, 64, 64),
-])
+] + HEAD16_CASES)
 def test_kernel_matches_plain(cuda, dtype, batch, heads, dh, n_q, n_k):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(batch, heads, n_q, dh, generator=g) * dh ** -0.5
@@ -166,7 +174,7 @@ def _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k):
 @pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [
     (2, 8, 384, 49, 49), (2, 8, 96, 196, 196), (2, 8, 24, 784, 784),
     (2, 4, 12, 96, 200),
-])
+] + HEAD16_CASES)
 def test_train_kernels_match_plain(cuda, dtype, rate, batch, heads, dh, n_q, n_k):
     q, k, v, m, c, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
     vsum = v.float().sum(1)
@@ -220,6 +228,38 @@ def test_train_functions_grads_match_nxn_autograd(cuda, mode):
     g_want = torch.autograd.grad(loss(want), ref)
     for i, (a, b) in enumerate(zip(g_got, g_want)):
         assert _rel(a, b) <= 1e-3, i
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("mode", ["frozen", "bn"])
+@pytest.mark.parametrize("batch,heads,dh,n", [(2, 16, 48, 196), (2, 16, 12, 784),
+                                              (2, 16, 192, 196), (2, 16, 384, 49)])
+def test_train_functions_at_16_heads_match_nxn_autograd(cuda, batch, heads, dh, n,
+                                                         mode, dtype, tol, rate):
+    """Both autograd Functions at 16 heads against torch autograd of the
+    N x N forward in float64 on the same inputs and mask (bf16 inputs are
+    held to their rounding, as chip_smoke.py's GRAD_TOL does)."""
+    q, k, v, m, c, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n, n)
+    mask = TT.dropout_mask(99, rate, batch, heads, n, n, cuda)
+    ga, be = torch.rand(heads, device=cuda) + 0.5, torch.randn(heads, device=cuda) * 0.2
+    leaves = [t.clone().requires_grad_() for t in
+              ((q, k, v, m, c) if mode == "frozen" else (q, k, v, m, c, ga, be))]
+    ref = [t.detach().double().requires_grad_() for t in leaves]
+    if mode == "frozen":
+        got = (TT.flash_reattention_train(*leaves, seed, num_heads=heads, rate=rate),)
+        want = (TT.reattention_nxn(*ref, mask)[0],)
+    else:
+        got = TT.flash_reattention_train_bn(*leaves, seed, num_heads=heads, rate=rate)
+        out, moments = TT.reattention_nxn(*ref[:5], mask, norm=ref[5:])
+        want = (out, *moments)
+    loss = lambda outs: ((outs[0] * gout.to(outs[0].dtype)).sum()
+                         + sum(o.sum() for o in outs[1:]))
+    g_got = torch.autograd.grad(loss(got), leaves)
+    g_want = torch.autograd.grad(loss(want), ref)
+    assert _rel(got[0], want[0]) <= tol
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert _rel(a, b) <= tol, i
 
 
 def test_train_kernels_reject_what_they_do_not_take(cuda):
@@ -800,3 +840,59 @@ def test_remat_step_matches_no_remat_on_the_card(cuda):
     assert all(torch.equal(a, b) for a, b in zip(b1, b0))
     gmax = max(g.abs().max().item() for g in g0)
     assert max((a - b).abs().max().item() for a, b in zip(g1, g0)) <= 1e-4 * gmax
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 2e-2)])
+def test_classifier_serves_and_trains_against_its_plain_path(cuda, dtype, tol):
+    """The classifier at the CLI's widths (224², patch 16, 16 heads: levels
+    (16, 48) at N 196 and (16, 12) at N 784), one block a level: eval
+    logits, and one train step's loss and running statistics (and in
+    float32 its gradients), exact and frozen BN with dropout on, against
+    the same model with every layer on the plain path; the same weights
+    and dropout seed give the same masks on both."""
+    import copy
+
+    from vit_unet_tpu_torch import get_vit_classifier
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import categorical_crossentropy
+
+    model = get_vit_classifier(device=cuda, seed=0, num_patches=196, depth_te=1,
+                               dtype=dtype, param_dtype=dtype)
+    layers = lambda mod: [x for x in mod.modules() if isinstance(x, ReAttention)]
+    assert all(x._kernels for x in layers(model)) and len(layers(model)) == 2
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.rand(4, 3, 224, 224, generator=gen, device=cuda)
+    y = torch.eye(4, device=cuda)[torch.tensor([0, 3, 1, 2], device=cuda)]
+    before = TK.flash_reattention.launches
+    with torch.inference_mode():
+        got = model(x).float()
+        torch.cuda.synchronize()
+        assert TK.flash_reattention.launches == before + 2
+        for layer in layers(model):
+            layer.use_flash = False
+        want = model(x).float()
+        for layer in layers(model):
+            layer.use_flash = True
+    assert _rel(got, want) <= tol
+
+    loss = lambda logits, target: categorical_crossentropy(logits, target, 0.05)
+    for frozen in (False, True):
+        results = []
+        for flash in (True, False):
+            m = copy.deepcopy(model).train()
+            for layer in layers(m):
+                layer.flash_train = flash
+            opt = torch.optim.Adam(m.parameters(), 1e-4)
+            steps = build_step_functions(m, opt, loss, bn_frozen=frozen)
+            _, met = steps.train_step(TrainState.create(model=m, optimizer=opt, seed=7),
+                                      {"x": x, "y": y})
+            results.append((met["loss"].float(),
+                            torch.cat([p.grad.float().flatten() for p in m.parameters()]),
+                            torch.cat([b.float() for n, b in m.named_buffers()
+                                       if "running" in n])))
+        (kl, kg, ks), (pl, pg, ps) = results
+        assert _rel(kl, pl) <= tol and _rel(ks, ps) <= tol
+        if dtype == "float32":
+            assert _rel(kg, pg) <= tol

@@ -127,10 +127,22 @@ def test_unsupported_and_unreadable_raise(tmp_path):
     jpg = str(tmp_path / "a.jpg")
     bmp = str(tmp_path / "a.bmp")
     assert cv2.imwrite(jpg, img) and cv2.imwrite(bmp, img)
+    # JPEG and BMP are read now (tests/test_torch_codecs.py); their
+    # variants the port does not take raise, as other formats do
+    data = bytearray(open(jpg, "rb").read())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9      # arithmetic coding
+    open(jpg, "wb").write(bytes(data))
     with pytest.raises(IOError, match=r"a\.jpg.*JPEG"):
         io.imread_rgb(jpg)
+    data = bytearray(open(bmp, "rb").read())
+    data[30] = 1                                   # RLE8
+    open(bmp, "wb").write(bytes(data))
     with pytest.raises(IOError, match=r"a\.bmp.*BMP"):
         io.imread_gray(bmp)
+    gif = str(tmp_path / "a.gif")
+    open(gif, "wb").write(b"GIF89a" + bytes(16))
+    with pytest.raises(IOError, match=r"a\.gif.*GIF"):
+        io.imread_rgb(gif)
     adam7 = str(tmp_path / "i.png")
     write_png(adam7, img, 2, 8, interlace=1)
     with pytest.raises(IOError, match="Adam7"):

@@ -2,8 +2,11 @@
 Hopper (H100).
 
 So far it covers the torch-flavour ViT-UNet (with the Fourier block and
-``remat``) and the TF-flavour ``HViTUNetTF`` (``models/hvit_unet_tf.py``,
-keras-style attention on the same kernels with an identity head mix); the
+``remat``), the TF-flavour ``HViTUNetTF`` (``models/hvit_unet_tf.py``,
+keras-style attention on the same kernels with an identity head mix) and
+the hierarchical ViT classifier (``models/vit_classifier.py``, trained by
+``python -m vit_unet_tpu_torch.cli.run_classification`` from PNG, JPEG or
+BMP class folders); the
 ViT-UNet's eval (serving) path with
 model export (``serving.py``), its single-device train step
 (``parallel/train_step.py``) and trainer (``train/fitter.py::Fitter``)
@@ -23,6 +26,9 @@ __version__ = "0.1.0"
 from vit_unet_tpu_torch.models.hvit_unet_tf import (  # noqa: E402
     HViTUNetTF, HViTUNetTFConfig, get_hvit_unet_tf,
 )
+from vit_unet_tpu_torch.models.vit_classifier import (  # noqa: E402
+    ViTClassifier, ViTClassifierConfig, get_vit_classifier,
+)
 from vit_unet_tpu_torch.models.vit_unet import (      # noqa: E402
     ViTUNet, ViTUNetConfig, get_config, get_vit_unet,
 )
@@ -30,4 +36,5 @@ from vit_unet_tpu_torch.serving import Predictor      # noqa: E402
 
 __all__ = ["ViTUNet", "ViTUNetConfig", "get_config", "get_vit_unet",
            "HViTUNetTF", "HViTUNetTFConfig", "get_hvit_unet_tf",
+           "ViTClassifier", "ViTClassifierConfig", "get_vit_classifier",
            "Predictor", "__version__"]

@@ -1,5 +1,6 @@
 """Build and load the data path's native half (``_native.cc``): the
-TFRecord codec's CRC32C and record scan, and PNG's row unfiltering.
+TFRecord codec's CRC32C and record scan, PNG's row unfiltering, and the
+JPEG decoder.
 
 The source is compiled at first use with the host's C++ compiler into a
 shared library with a plain C interface, under ``build/torch_native/`` at
@@ -28,6 +29,24 @@ FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 SPANS_PER_CALL = 4096
 _SCAN_FAULTS = {-1: "truncated record header", -2: "truncated record",
                 -3: "corrupt record header", -4: "corrupt record payload"}
+#: ``jpeg::Status`` -> (what it is, whether it is a variant the decoder does
+#: not take, rather than damaged data)
+JPEG_FAULTS = {
+    -1: ("not a JPEG file", False),
+    -2: ("corrupt JPEG data", False),
+    -3: ("an arithmetic-coded JPEG", True),
+    -4: ("a lossless JPEG", True),
+    -5: ("a hierarchical JPEG", True),
+    -6: ("a JPEG of a sample precision other than 8 bits (12-bit)", True),
+    -7: ("a four-component (CMYK / YCCK) JPEG", True),
+    -8: ("a JPEG with other than 1 or 3 components", True),
+    -9: ("a JPEG with fractional sampling factors", True),
+    -10: ("a JPEG without a frame header", False),
+    -11: ("a progressive JPEG whose scans leave its low AC coefficients "
+          "inexact (libjpeg block-smooths it; a file cut short)", True),
+    -12: ("an RGB-coded JPEG (Adobe transform 0, or components 'R', 'G', 'B')",
+          True),
+}
 
 _lock = threading.Lock()
 _codec: "NativeCodec | None" = None
@@ -87,6 +106,12 @@ class NativeCodec:
             ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64]
         lib.vit_png_unfilter.restype = ctypes.c_int64
+        lib.vit_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_void_p]
+        lib.vit_jpeg_info.restype = ctypes.c_int64
+        lib.vit_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                        ctypes.c_int64, ctypes.c_void_p]
+        lib.vit_jpeg_decode.restype = ctypes.c_int64
         self._lib = lib
         self.calls = {"crc": 0, "crc_bytes": 0, "scan": 0, "scan_bytes": 0}
 
@@ -133,6 +158,43 @@ class NativeCodec:
             raise ValueError(f"unknown filter type "
                              f"{data[row * (rowbytes + 1)]} in row {row}")
         return out
+
+
+    def jpeg_info(self, data: bytes) -> dict:
+        """The header of a JPEG file's bytes: height, width, components,
+        EXIF orientation (1-8) and progressive.  Raises ``JpegError``."""
+        info = np.zeros(5, np.int64)
+        rc = self._lib.vit_jpeg_info(data, len(data), info.ctypes.data)
+        if rc:
+            raise JpegError(int(rc))
+        h, w, comps, orientation, progressive = (int(v) for v in info)
+        return dict(height=h, width=w, components=comps,
+                    orientation=orientation, progressive=bool(progressive))
+
+    def jpeg_decode(self, data: bytes, gray: bool) -> tuple[np.ndarray, dict]:
+        """A JPEG file's bytes decoded as libjpeg-turbo decodes them: (H, W,
+        3) uint8 RGB, or (H, W) uint8 luma with ``gray``, in stored
+        orientation, and its ``jpeg_info``.  Raises ``JpegError``.  Safe to
+        call from several threads (it counts nothing in ``calls``)."""
+        info = self.jpeg_info(data)
+        shape = ((info["height"], info["width"]) if gray
+                 else (info["height"], info["width"], 3))
+        out = np.empty(shape, np.uint8)
+        rc = self._lib.vit_jpeg_decode(data, len(data), int(gray),
+                                       out.ctypes.data)
+        if rc:
+            raise JpegError(int(rc))
+        return out, info
+
+
+class JpegError(ValueError):
+    """A JPEG the decoder cannot read: ``status`` is the ``jpeg::Status``,
+    ``unsupported`` whether the file is a variant it does not take."""
+
+    def __init__(self, status: int):
+        what, self.unsupported = JPEG_FAULTS.get(status, ("corrupt JPEG data", False))
+        self.status = status
+        super().__init__(what)
 
 
 def codec() -> NativeCodec:

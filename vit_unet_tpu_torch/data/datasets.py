@@ -1,14 +1,17 @@
-"""Dataset readers for the README's tasks: the counterpart of
-``vit_unet_tpu/data/datasets.py``, reading PNG folders with the port's own
-decoder and resize (``data/image_io.py``) instead of ``cv2``.
+"""Dataset readers for the README's tasks and for classification: the
+counterpart of ``vit_unet_tpu/data/datasets.py``, reading PNG, BMP and JPEG
+folders with the port's own decoders and resize (``data/image_io.py``)
+instead of ``cv2``.
 
 * ``DenoisingDataset`` (clean/noisy), ``DeblurringDataset`` (sharp/blur),
   ``DerainingDataset`` (norain/rain): paired images matched by sorted
   order, unequal counts raise;
-* ``SegmentationFolderDataset``: images/masks PNG folders, binary masks
+* ``SegmentationFolderDataset``: images/masks folders, binary masks
   that stay binary after the geometric transforms;
 * ``SegmentationDataset``: Pancreas-CT DICOM slices and NIfTI masks, gated
   on pydicom and nibabel;
+* ``ClassificationDataset``: ``root/<class>/*`` image trees, one-hot
+  labels;
 * ``kfold_split``: the reference's 5-fold protocol, the same folds as the
   JAX package's for the same seed.
 
@@ -165,7 +168,7 @@ class SegmentationDataset:
 
 
 class SegmentationFolderDataset(PairedImageDataset):
-    """Binary segmentation from PNG folders (``{root}/images/*`` and
+    """Binary segmentation from image folders (``{root}/images/*`` and
     ``{root}/masks/*``, matched by sorted order).  Yields x (3, H, W) in
     [0, 1] and y (1, H, W) binary."""
 
@@ -193,6 +196,68 @@ class SegmentationFolderDataset(PairedImageDataset):
             x = x.transpose(2, 0, 1)
             y = y.transpose(2, 0, 1)
         return {"x": x, "y": y.astype(np.float32)}
+
+
+class ClassificationDataset:
+    """Image-classification pairs from a class-subdirectory tree
+    (``root/<class_name>/*.png|jpg|jpeg|bmp``).  Yields {'x': (C, H, W)
+    float32 in [0, 1], 'y': one-hot (num_classes,) float32}: each image
+    resized to ``im_size`` (``resize_linear``, as the JAX dataset's
+    ``cv2.resize``), then ``transforms(rng, img, None)``."""
+
+    EXTS = (".png", ".jpg", ".jpeg", ".bmp")
+
+    def __init__(self, paths: Sequence[str], labels: Sequence[int],
+                 num_classes: int, im_size: int = 224, transforms=None,
+                 channels_first: bool = True, seed: int = 0):
+        if len(paths) != len(labels):
+            raise ValueError("paths/labels length mismatch")
+        self.paths = list(paths)
+        self.labels = list(labels)
+        self.num_classes = num_classes
+        self.im_size = im_size
+        self.transforms = transforms
+        self.channels_first = channels_first
+        self.rng = np.random.default_rng(seed)
+
+    @classmethod
+    def from_folder(cls, root: str, im_size: int = 224, transforms=None,
+                    indices: Optional[Sequence[int]] = None, **kw):
+        """Classes from the sorted subdirectories of ``root``, files from
+        each one's sorted listing, taken where their lower-cased name ends
+        in ``EXTS``, then at ``indices``."""
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        if not classes:
+            raise ValueError(f"no class subdirectories under {root!r}")
+        paths, labels = [], []
+        for ci, cname in enumerate(classes):
+            for p in sorted(glob.glob(os.path.join(root, cname, "*"))):
+                if p.lower().endswith(cls.EXTS):
+                    paths.append(p)
+                    labels.append(ci)
+        if indices is not None:
+            paths = [paths[i] for i in indices]
+            labels = [labels[i] for i in indices]
+        ds = cls(paths, labels, num_classes=len(classes), im_size=im_size,
+                 transforms=transforms, **kw)
+        ds.class_names = classes
+        return ds
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, idx: int) -> dict:
+        img = resize_linear(imread_rgb(self.paths[idx]),
+                            (self.im_size, self.im_size))
+        if self.transforms is not None:
+            img, _ = self.transforms(self.rng, img, None)
+        x = img.astype(np.float32) / 255.0
+        if self.channels_first:
+            x = x.transpose(2, 0, 1)
+        y = np.zeros(self.num_classes, np.float32)
+        y[self.labels[idx]] = 1.0
+        return {"x": x, "y": y}
 
 
 def kfold_split(n: int, n_folds: int = 5, seed: int = 42):

@@ -3,16 +3,36 @@ port's own copy of the ``cv2`` behaviour the JAX package's readers use
 (``vit_unet_tpu/data/datasets.py`` and ``augment.py``).
 
 * ``imread_rgb`` / ``imread_gray``: ``cv2.imread`` with ``IMREAD_COLOR``
-  (then BGR -> RGB) and ``IMREAD_GRAYSCALE``, for PNG files.  The chunks
-  are read here, ``IDAT`` is inflated with ``zlib``, and the row filters
-  are reversed by ``vit_png_unfilter`` in ``_native.cc``.  Colour types 0,
-  2, 3, 4 and 6 at bit depths 1-16 (as the format allows them),
-  non-interlaced.  As ``cv2`` does: gray is repeated to three channels, a
-  palette is looked up, alpha is dropped (not composited), 16-bit samples
-  keep their high byte, and gray from colour takes libpng's fixed-point
-  BT.601 weights (9797, 19234, 3737) / 2^15, truncated at 8 bits and
-  rounded at 16 before the high byte is kept.  Anything else raises
-  ``IOError`` naming the file and the format.
+  (then BGR -> RGB) and ``IMREAD_GRAYSCALE``, for PNG, BMP and JPEG files,
+  told apart by their first bytes:
+
+  - PNG (``read_png``): the chunks are read here, ``IDAT`` is inflated with
+    ``zlib``, and the row filters are reversed by ``vit_png_unfilter`` in
+    ``_native.cc``.  Colour types 0, 2, 3, 4 and 6 at bit depths 1-16 (as
+    the format allows them), non-interlaced.  As ``cv2`` does: gray is
+    repeated to three channels, a palette is looked up, alpha is dropped
+    (not composited), 16-bit samples keep their high byte, and gray from
+    colour takes libpng's fixed-point BT.601 weights (9797, 19234, 3737) /
+    2^15, truncated at 8 bits and rounded at 16 before the high byte is
+    kept.
+  - BMP (``read_bmp``): OpenCV's own reader (``grfmt_bmp``): the
+    BITMAPINFOHEADER and the V4 / V5 headers, bottom-up and top-down rows
+    padded to 4 bytes, uncompressed 1-, 4- and 8-bit palettes, 24- and
+    32-bit (alpha dropped; BITFIELDS only with the plain BGRX masks, as
+    ``cv2.imwrite`` writes it); gray from
+    colour takes OpenCV's weights (4899, 9617, 1868) / 2^14, rounded (from
+    BITFIELDS: float32 weights, truncated, as cv2 5.0 does there).
+  - JPEG (``read_jpeg``): ``_native.cc``'s decoder, libjpeg-turbo's output
+    with its defaults (ISLOW IDCT, fancy upsampling, its YCbCr -> RGB
+    tables): baseline and progressive Huffman, restart markers, gray and
+    YCbCr at any integer sampling.  Gray from a colour JPEG is its luma
+    plane, as libjpeg's gray output is.  The EXIF orientation is applied,
+    as ``cv2.imread`` applies it.
+
+  Anything else (Adam7 PNG; RLE, other BITFIELDS, embedded-image, 16-bit
+  or OS/2-header BMP; arithmetic-coded, lossless, 12-bit, CMYK, RGB-coded
+  or block-smoothed progressive JPEG; other formats) raises ``IOError``
+  naming the file and the format.
 * ``resize_linear`` / ``resize_nearest``: ``cv2.resize`` with
   ``INTER_LINEAR`` / ``INTER_NEAREST``.  Linear on uint8 is ``cv2``'s
   fixed point (11-bit weights, the vector path's rounding): bit for bit on
@@ -45,11 +65,28 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
 _GRAY_WEIGHTS = (9797, 19234, 3737)
 _MAGIC = {b"\xff\xd8\xff": "JPEG", b"BM": "BMP", b"GIF8": "GIF",
           b"II*\x00": "TIFF", b"MM\x00*": "TIFF", b"RIFF": "WebP/RIFF"}
+#: OpenCV's BGR -> gray weights for (0.299, 0.587), in units of 2^-14
+#: (R, G, B), as its image codecs convert
+_CV_GRAY_WEIGHTS = (4899, 9617, 1868)
+#: BMP compression codes the reader does not take
+_BMP_COMPRESSION = {1: "RLE8", 2: "RLE4", 3: "BITFIELDS", 4: "embedded JPEG",
+                    5: "embedded PNG", 6: "ALPHABITFIELDS"}
+#: the (R, G, B) masks of a 32-bit BITFIELDS BMP laid out as plain BGRX
+_BGRX_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)
 
 
 def _unsupported(path, what: str) -> IOError:
     return IOError(f"cannot read image {path!r}: {what} is not supported "
-                   "(the port reads non-interlaced PNG only)")
+                   "(the port reads non-interlaced PNG, uncompressed BMP and "
+                   "Huffman-coded 8-bit gray or YCbCr JPEG)")
+
+
+def _read_bytes(path) -> bytes:
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError as e:
+        raise IOError(f"could not read image {path!r}: {e}") from e
 
 
 def _format_of(head: bytes) -> str:
@@ -65,11 +102,7 @@ def read_png(path) -> tuple[np.ndarray, int, int]:
     palette indices looked up into RGB (colour type 3 comes back as
     (H, W, 3) uint8) and depths below 8 unpacked to one sample a byte,
     unscaled."""
-    try:
-        with open(path, "rb") as f:
-            data = f.read()
-    except OSError as e:
-        raise IOError(f"could not read image {path!r}: {e}") from e
+    data = _read_bytes(path)
     if not data.startswith(PNG_SIGNATURE):
         raise _unsupported(path, _format_of(data[:4]))
     pos, ihdr, palette, idat = len(PNG_SIGNATURE), None, None, []
@@ -138,9 +171,7 @@ def _to_8bit(samples: np.ndarray, ctype: int, depth: int) -> np.ndarray:
     return samples
 
 
-def imread_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB, as ``cv2.imread(path, IMREAD_COLOR)`` followed by
-    ``COLOR_BGR2RGB``."""
+def _png_rgb(path) -> np.ndarray:
     samples, ctype, depth = read_png(path)
     img = _to_8bit(samples, ctype, depth)
     if ctype in (0, 4):
@@ -148,8 +179,7 @@ def imread_rgb(path) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
-def imread_gray(path) -> np.ndarray:
-    """(H, W) uint8, as ``cv2.imread(path, IMREAD_GRAYSCALE)``."""
+def _png_gray(path) -> np.ndarray:
     samples, ctype, depth = read_png(path)
     if ctype in (0, 4):
         return np.ascontiguousarray(_to_8bit(samples[..., 0], ctype, depth))
@@ -158,6 +188,135 @@ def imread_gray(path) -> np.ndarray:
     if depth == 16:
         return (((gray + (1 << 14)) >> 15) >> 8).astype(np.uint8)
     return (gray >> 15).astype(np.uint8)
+
+
+def _cv_gray(rgb: np.ndarray) -> np.ndarray:
+    """OpenCV's fixed-point gray of (..., 3) RGB samples, rounded."""
+    gray = rgb.astype(np.int64) @ np.asarray(_CV_GRAY_WEIGHTS, np.int64)
+    return ((gray + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def read_bmp(path, gray: bool = False) -> np.ndarray:
+    """A BMP file as ``cv2.imread`` reads it: (H, W, 3) uint8 RGB, or
+    (H, W) uint8 with ``gray``.  A palette's entries past those the file
+    lists are black."""
+    data = _read_bytes(path)
+    if not data.startswith(b"BM"):
+        raise _unsupported(path, _format_of(data[:4]))
+    if len(data) < 26:
+        raise IOError(f"could not read image {path!r}: truncated BMP header")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    if hsize < 40 or len(data) < 54:     # BITMAPINFOHEADER, V4, V5 only
+        raise _unsupported(path, f"a BMP with a {hsize}-byte header")
+    width, height, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
+    used = struct.unpack_from("<I", data, 46)[0]
+    bitfields = compression == 3 and bpp == 32 and len(data) >= 66 and (
+        struct.unpack_from("<III", data, 54) == _BGRX_MASKS)
+    if bitfields:
+        compression = 0     # the masks of plain 32-bit BGRX, as cv2 writes them
+    if compression in _BMP_COMPRESSION:
+        raise _unsupported(path, f"a {_BMP_COMPRESSION[compression]} BMP")
+    if compression or bpp not in (1, 4, 8, 24, 32):
+        raise _unsupported(path, f"a BMP of {bpp} bits a pixel, "
+                                 f"compression {compression}")
+    top_down, height = height < 0, abs(height)
+    if width <= 0 or height == 0:
+        raise IOError(f"could not read image {path!r}: BMP of {width} x {height}")
+    pitch = (width * bpp + 31) // 32 * 4
+    if offset + pitch * height > len(data):
+        raise IOError(f"could not read image {path!r}: truncated BMP pixel data")
+    rows = np.frombuffer(data, np.uint8, pitch * height, offset).reshape(height, pitch)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp <= 8:
+        count = used or 1 << bpp
+        if count > 256:
+            raise IOError(f"could not read image {path!r}: {count} palette entries")
+        start = 14 + hsize
+        table = np.frombuffer(data[start:start + count * 4], np.uint8)
+        palette = np.zeros((256, 3), np.uint8)    # BGR
+        listed = table.reshape(-1, 4)[:, :3]
+        palette[:len(listed)] = listed
+        shifts = np.arange(8 - bpp, -1, -bpp, dtype=np.uint8)
+        index = ((rows[:, :, None] >> shifts) & np.uint8((1 << bpp) - 1))
+        index = index.reshape(height, -1)[:, :width]
+        rgb_palette = palette[:, ::-1]
+        if gray:
+            return _cv_gray(rgb_palette)[index]
+        return rgb_palette[index]
+    rgb = rows[:, :width * bpp // 8].reshape(height, width, bpp // 8)[..., 2::-1]
+    if gray and bitfields:
+        # cv2's masked-channel path: float32 (0.299 R + 0.587 G) + 0.114 B,
+        # truncated
+        r, g, b = (rgb[..., i].astype(np.float32) for i in range(3))
+        mixed = (np.float32(0.299) * r + np.float32(0.587) * g) + np.float32(0.114) * b
+        return mixed.astype(np.uint8)
+    if gray:
+        return _cv_gray(rgb)
+    return np.ascontiguousarray(rgb.astype(np.uint8))
+
+
+# EXIF orientation -> what cv2.imread does to the stored image: transpose
+# first, then flip (0 rows, 1 columns, -1 both), as cv2's
+# ApplyExifOrientation does
+_ORIENT = {1: (False, None), 2: (False, 1), 3: (False, -1), 4: (False, 0),
+           5: (True, None), 6: (True, 1), 7: (True, -1), 8: (True, 0)}
+
+
+def read_jpeg(path, gray: bool = False) -> np.ndarray:
+    """A JPEG file as ``cv2.imread`` reads it: (H, W, 3) uint8 RGB, or
+    (H, W) uint8 luma with ``gray``, the EXIF orientation applied."""
+    data = _read_bytes(path)
+    try:
+        img, info = _native.codec().jpeg_decode(data, gray)
+    except _native.JpegError as e:
+        if e.unsupported:
+            raise _unsupported(path, str(e)) from e
+        raise IOError(f"could not read image {path!r}: {e}") from e
+    transpose, flip = _ORIENT[info["orientation"]]
+    if transpose:
+        img = img.swapaxes(0, 1)
+    if flip in (0, -1):
+        img = img[::-1]
+    if flip in (1, -1):
+        img = img[:, ::-1]
+    return np.ascontiguousarray(img)
+
+
+def _kind(path) -> str:
+    try:
+        with open(path, "rb") as f:
+            head = f.read(8)
+    except OSError as e:
+        raise IOError(f"could not read image {path!r}: {e}") from e
+    if head.startswith(PNG_SIGNATURE):
+        return "png"
+    if head.startswith(b"BM"):
+        return "bmp"
+    if head.startswith(b"\xff\xd8"):
+        return "jpeg"
+    raise _unsupported(path, _format_of(head))
+
+
+def imread_rgb(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB, as ``cv2.imread(path, IMREAD_COLOR)`` followed by
+    ``COLOR_BGR2RGB``."""
+    kind = _kind(path)
+    if kind == "bmp":
+        return read_bmp(path)
+    if kind == "jpeg":
+        return read_jpeg(path)
+    return _png_rgb(path)
+
+
+def imread_gray(path) -> np.ndarray:
+    """(H, W) uint8, as ``cv2.imread(path, IMREAD_GRAYSCALE)``."""
+    kind = _kind(path)
+    if kind == "bmp":
+        return read_bmp(path, gray=True)
+    if kind == "jpeg":
+        return read_jpeg(path, gray=True)
+    return _png_gray(path)
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Carry the JAX model's weights into the port.
 
 ``load_flax_variables`` takes the flax ``{"params", "batch_stats"}`` tree of
-``vit_unet_tpu``'s ViTUNet or HViTUNetTF (or one of their submodules), as
-nested dicts of numpy arrays, and fills the port's module of the same
-structure.  For ViTUNet it is the inverse of
+``vit_unet_tpu``'s ViTUNet, HViTUNetTF or ViTClassifier (or one of their
+submodules), as nested dicts of numpy arrays, and fills the port's module
+of the same structure.  For ViTUNet it is the inverse of
 ``vit_unet_tpu/utils/torch_import.py``:
 
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
@@ -18,7 +18,7 @@ structure.  For ViTUNet it is the inverse of
 * Embed ``embedding``                 -> Embedding ``weight``
 * LayerNorm/BatchNorm ``scale``       -> ``weight``
 * batch_stats ``mean``/``var``        -> ``running_mean``/``running_var``
-* module ``Encoders_0``               -> ``Encoders.0``; SkipConnection's
+* module ``Encoders_0`` / ``head_0``  -> ``Encoders.0`` / ``head.0``; SkipConnection's
   inner ``attn`` scope is dropped (the port keeps its layers on the module).
 """
 from __future__ import annotations
