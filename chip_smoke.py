@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # everything, with the result lines
     python3 chip_smoke.py --phases 2a      # phase 1 and the named phases only
-                                           # (2a, 2b, 3, 4, 5, 6, 7, 8; no result lines)
+                                           # (2a, 2b, 3, 4, 5, 6, 7, 8, 9; no result lines)
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -86,10 +86,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    path against the plain path; (d) 3 exact-BN steps of the re-attention
    variant (``original_attn=False``), kernels 4 and 3 on the tensor cores;
    (e) base b64 bf16 exact-BN steps with and without ``remat`` (the same
-   loss, running statistics and generator state; on the kernel path each
-   gradient within its run-to-run spread from the backward's atomics, on
-   the plain path every gradient equal bit for bit; peak memory) and the
-   Fourier block's forward and step;
+   loss, running statistics and generator state; on the kernel path every
+   gradient equal bit for bit with the backward's launches replayed from a
+   no-remat step, whose inputs must match bit for bit, and a planted
+   recomputation fault caught; on the plain path every gradient equal bit
+   for bit; peak memory) and the Fourier block's forward and step;
 8. the classifier: (a0) kernels 1-4 at its two 16-head level shapes
    ((16, 48) at N 196, (16, 12) at N 784; b64, f32 and bf16, rate 0.2)
    against their plain versions, timed with their bounds and SDPA beside
@@ -104,7 +105,33 @@ Phases, each of which raises (exit code != 0) when it fails:
    JPEG fixtures, every file read back exactly), bf16, ``--flash``, batch
    16, 2 epochs, each epoch's launches by route, img/s over steps 2-4 and
    the idle share, and the JPEG reader's MB/s;
-9. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+9. multi-GPU: (a) the plain train paths' dropout (ReAttention and
+   KerasMHA, b8, rate 0.2) forward and backward under
+   ``torch.cuda.set_sync_debug_mode("error")``; (b) kernels 1-4 at the
+   sequence-parallel shard shapes (each rank's 512 / 2048 query rows against
+   1024 / 4096 keys, base's (8, 96) and (8, 24), bf16 b8) against their
+   plain versions, timed with their bounds; (c) a world of 2 processes on
+   this one card over gloo (NCCL refuses two ranks on one device): base's
+   widths at 512² (levels N 256 / 1024 / 4096, ``sp_min_tokens`` 1024) split
+   over the mesh's model axis: (c1) the bf16 b8 eval forward, exact- and
+   frozen-BN steps against the single process on the same inputs (dropout
+   0; the exact step's gradients printed beside the single process's own
+   spread over other batch orders), launches by route, ms a step and the
+   share in the token collectives; (c2) the b2 exact-BN step in float64
+   against the single process's; (c3) the exact-BN function split over the
+   two ranks' rows on the kernels, f32 and bf16, against float64, and three
+   faults planted in its cross-rank sums, each of which must fail; (d) data
+   parallelism with ZeRO-1 on a 2 x 1 mesh: base at 224² b64 (bf16 on
+   float32 parameters) as two ranks of 32, the loss against the
+   single-process step, each gradient bucket the mean of the ranks' own,
+   each parameter's update AdamW's first from the averaged gradients, each
+   rank's optimizer-state bytes, three planted faults (no all-reduce, no
+   ZeRO broadcast, no update) that must fail; (d2) the same split at b8 in
+   float64 against the single process's step; (e) NCCL at a world of 1: a
+   data-parallel step whose all-reduce hands each bucket back unchanged,
+   its update AdamW's first, its loss the step's without a mesh.
+   Both ranks share one card, so nothing here measures scaling;
+10. a ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
@@ -167,7 +194,7 @@ EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
 ]
 SERVE_SIZES = (1, 17, 64, 70)
 BATCH = 64
-PHASES = ("2a", "2b", "3", "4", "5", "6", "7", "8")
+PHASES = ("2a", "2b", "3", "4", "5", "6", "7", "8", "9")
 EVAL_SOURCE = "flash_reattention.cu"
 TRAIN_SOURCE = "flash_reattention_train.cu"
 
@@ -2401,11 +2428,13 @@ def tf_variant():
     return launches
 
 
-def base_step(remat, block_type="reattention", flash_train=True, timed=True):
+def base_step(remat, block_type="reattention", flash_train=True, timed=True,
+              spy=None):
     """One base b64 bf16 exact-BN step with dropout on, from seed 0's
     weights: its loss, gradients (by name), running statistics, generator
     state and peak GiB; with ``timed``, also the median ms of 3 steps after
-    it and the forward's ms."""
+    it and the forward's ms.  ``spy`` (a ``BackwardReplay``) watches that
+    one step."""
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
@@ -2422,7 +2451,8 @@ def base_step(remat, block_type="reattention", flash_train=True, timed=True):
     batch = {"x": x, "y": 0.9 * x}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, m = steps.train_step(state, batch)
+    with spy or contextlib.nullcontext():
+        state, m = steps.train_step(state, batch)
     out = dict(
         loss=m["loss"].item(), peak=torch.cuda.max_memory_allocated() / 2 ** 30,
         grads={n: p.grad.float().clone() for n, p in model.named_parameters()},
@@ -2443,15 +2473,81 @@ def base_step(remat, block_type="reattention", flash_train=True, timed=True):
 # remat against no remat, base b64 bf16 exact BN with dropout on.  The loss
 # and running statistics come from the forward, which is deterministic, and
 # must be equal bit for bit, as must the generator's state.  The kernel
-# path's backward sums dq by atomics whose order varies from run to run, so
-# each gradient tensor must lie within REMAT_SPREAD times its own spread:
-# the largest distance between any two of REMAT_RUNS no-remat runs, plus
-# one bf16 step at the tensor's scale.  The plain path's backward
-# (flash_train=False) is deterministic in bf16: there remat's gradients must
-# equal no remat's bit for bit, so a recompute that drew another mask or
-# seed anywhere fails there.
-REMAT_SPREAD = 2.0
-REMAT_RUNS = 3
+# path's backward sums one gradient by f32 atomics whose order varies from
+# run to run, and exact BN at random init magnifies those last bits to
+# about 1e-2 of the largest gradient, so two no-remat runs' gradients
+# differ too.  A bound on that spread is a statistic and can miss or flag
+# anything; instead the backward is made repeatable (``BackwardReplay``):
+# a no-remat step records every backward launch's inputs and outputs, and
+# the remat step's launches, whose inputs (the recomputed q, k, v_cat, lse
+# and seed among them) must each equal a recorded launch's bit for bit,
+# return the recorded outputs.  Then every gradient of remat must equal no
+# remat's bit for bit.  A planted fault (the recomputation not setting the
+# generator and buffers back) must fail the same check.  The plain path's
+# backward (flash_train=False) is deterministic in bf16: there remat's
+# gradients must equal no remat's bit for bit as they come.
+
+
+class BackwardReplay:
+    """Watches ``launch_bwd``, the kernel backward's one launch.  Without
+    ``recorded`` it keeps each launch's inputs and outputs (``records``);
+    with a recording ``BackwardReplay``, each launch still runs, and where
+    its inputs equal an unused recorded launch's bit for bit it returns
+    copies of that launch's outputs, else its own (``unmatched`` counts
+    those).  Only the atomics' summation order, which varies from run to
+    run, is taken out of the backward so."""
+
+    def __init__(self, recorded=None):
+        self.recorded = recorded
+        self.records, self.used, self.unmatched, self.calls = [], set(), 0, 0
+
+    def __enter__(self):
+        from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+        self.launch = T.launch_bwd
+        self.patch = mock.patch.object(T, "launch_bwd", self)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+        del self.patch        # it holds self: free the records without a gc pass
+
+    @staticmethod
+    def _inputs(args, kwargs):
+        flat = []
+        for a in list(args) + sorted(kwargs.items()):
+            flat.extend(a if isinstance(a, tuple) else (a,))
+        return [a.detach().clone() if torch.is_tensor(a) else a for a in flat]
+
+    @staticmethod
+    def _same(a, b) -> bool:
+        return len(a) == len(b) and all(
+            (torch.is_tensor(x) and torch.is_tensor(y) and x.dtype == y.dtype
+             and x.shape == y.shape and torch.equal(x, y))
+            or (not torch.is_tensor(x) and not torch.is_tensor(y) and x == y)
+            for x, y in zip(a, b))
+
+    def __call__(self, *args, **kwargs):
+        out = self.launch(*args, **kwargs)
+        inputs = self._inputs(args, kwargs)
+        self.calls += 1
+        if self.recorded is None:
+            self.records.append((inputs, tuple(t.clone() for t in out)))
+            return out
+        records = self.recorded.records
+        order = [self.calls - 1] + list(range(len(records)))
+        for i in order:
+            if i < len(records) and i not in self.used and self._same(records[i][0], inputs):
+                self.used.add(i)
+                return tuple(t.clone() for t in records[i][1])
+        self.unmatched += 1
+        return out
+
+    def complete(self) -> bool:
+        """Every launch matched a recorded one, and every recorded one was
+        matched."""
+        n = len(self.recorded.records)
+        return self.unmatched == 0 and self.calls == n and len(self.used) == n
 
 
 def same_step(a, b) -> bool:
@@ -2460,46 +2556,67 @@ def same_step(a, b) -> bool:
             and torch.equal(a["gen"], b["gen"]))
 
 
+def unequal_grads(a, b) -> list:
+    """The names of the gradients of ``a`` that are not ``b``'s bit for bit."""
+    return [n for n, g in a["grads"].items() if not torch.equal(g, b["grads"][n])]
+
+
+def replayed_remat(record):
+    """The remat step replaying ``record``'s backward."""
+    replay = BackwardReplay(record)
+    out = base_step(True, timed=False, spy=replay)
+    out["replay"] = replay
+    return out
+
+
 def tf_remat_fourier():
     """(e) remat against no remat on base, and the Fourier block."""
-    refs = [base_step(False, timed=i == 0) for i in range(REMAT_RUNS)]
+    from vit_unet_tpu_torch.nn import remat as remat_module
+    ref = base_step(False)
     remat = base_step(True)
-    ref = refs[0]
-    step = torch.finfo(torch.bfloat16).eps
-    worst = (0.0, "")
-    for name, want in ref["grads"].items():
-        scale = want.abs().max().item()
-        ulp = step * 2.0 ** math.floor(math.log2(scale)) if scale > 0 else 0.0
-        spread = max((a["grads"][name] - b["grads"][name]).abs().max().item()
-                     for a, b in itertools.combinations(refs, 2))
-        off = (remat["grads"][name] - want).abs().max().item()
-        if off > REMAT_SPREAD * spread + ulp:
-            raise AssertionError(f"remat's gradient of {name} is off by {off:.3e}, "
-                                 f"beyond {REMAT_SPREAD:g}x its run-to-run spread "
-                                 f"{spread:.3e} + {ulp:.3e}")
-        if off > 0:
-            worst = max(worst, (off / (spread + ulp), name))
+    record = BackwardReplay()
+    again = base_step(False, timed=False, spy=record)
+    replayed = replayed_remat(record)
+    with mock.patch.object(remat_module, "_set", lambda *a: None):
+        planted = replayed_remat(record)
     gmax = max(g.abs().max().item() for g in ref["grads"].values())
-    spread_all = max((a["grads"][n] - b["grads"][n]).abs().max().item()
-                     for a, b in itertools.combinations(refs, 2)
-                     for n in ref["grads"]) / gmax
-    off_all = max((remat["grads"][n] - g).abs().max().item()
-                  for n, g in ref["grads"].items()) / gmax
-    steady = all(same_step(r, ref) for r in refs[1:])
+    spread = max((again["grads"][n] - g).abs().max().item()
+                 for n, g in ref["grads"].items()) / gmax
+    off = max((remat["grads"][n] - g).abs().max().item()
+              for n, g in ref["grads"].items()) / gmax
+    unequal = unequal_grads(replayed, again)
+    rep = replayed["replay"]
     card = card_line()
     print(f"  (e) base b{BATCH} bf16 exact-BN step, dropout 0.2, kernel path: remat "
           f"vs no remat: loss, running statistics and generator state equal bit "
-          f"for bit {same_step(remat, ref)} (across {REMAT_RUNS} no-remat runs "
-          f"{steady}); grads {off_all:.2e} of the largest (no-remat spread "
-          f"{spread_all:.2e}), worst tensor {worst[0]:.3f} of its own spread + 1 "
-          f"bf16 step ({worst[1]}, tol {REMAT_SPREAD:g}); peak memory remat "
-          f"{remat['peak']:.2f} GiB, no remat {ref['peak']:.2f} GiB; step (median "
-          f"of 3 after the first) {remat['ms']:.3f} / {ref['ms']:.3f} ms [{card}]")
-    if not (steady and same_step(remat, ref)):
+          f"for bit {same_step(remat, ref)} (two no-remat runs {same_step(again, ref)}); "
+          f"as they come, grads {off:.2e} of the largest apart (two no-remat runs "
+          f"{spread:.2e}: the backward's atomics); with the backward replayed, "
+          f"{rep.calls - rep.unmatched}/{len(record.records)} launches' inputs "
+          f"equal bit for bit and gradients {len(ref['grads']) - len(unequal)}/"
+          f"{len(ref['grads'])}; peak memory remat {remat['peak']:.2f} GiB, no "
+          f"remat {ref['peak']:.2f} GiB; step (median of 3 after the first) "
+          f"{remat['ms']:.3f} / {ref['ms']:.3f} ms [{card}]")
+    planted_caught = (not planted["replay"].complete() and bool(unequal_grads(planted, again))
+                      and not same_step(planted, again))
+    print(f"  (e) planted fault, the recomputation not setting the generator and "
+          f"buffers back: {planted['replay'].unmatched}/{planted['replay'].calls} "
+          f"launches unmatched, {len(unequal_grads(planted, again))} gradients "
+          f"unequal, step equal {same_step(planted, again)}: caught {planted_caught}")
+    if not (same_step(again, ref) and same_step(remat, ref) and same_step(replayed, ref)):
         raise AssertionError("remat changed the loss, the running statistics or "
                              "the generator's state")
+    if not record.records or not rep.complete() or unequal:
+        raise AssertionError(
+            f"remat's replayed backward is not no remat's: {rep.unmatched} of "
+            f"{rep.calls} launches unmatched ({len(record.records)} recorded), "
+            f"gradients unequal: {unequal[:5]}")
+    if not planted_caught:
+        raise AssertionError("the replay check did not catch a recomputation "
+                             "that draws other seeds")
     if not remat["peak"] < ref["peak"]:
         raise AssertionError("remat did not lower the step's peak memory")
+    del record, again, replayed, planted, rep    # the records hold GiBs
     plain = [base_step(r, flash_train=False, timed=False) for r in (False, False, True)]
     unequal = [n for n, g in plain[0]["grads"].items()
                if not all(torch.equal(p["grads"][n], g) for p in plain[1:])]
@@ -2508,7 +2625,7 @@ def tf_remat_fourier():
           f"gradients {len(plain[0]['grads']) - len(unequal)}/{len(plain[0]['grads'])}")
     if unequal or not all(same_step(p, plain[0]) for p in plain[1:]):
         raise AssertionError(f"the plain path's remat step is not no remat's: {unequal[:5]}")
-    del refs, plain
+    del plain
     fourier = base_step(False, block_type="fourier")
     finite = (math.isfinite(fourier["loss"])
               and all(torch.isfinite(g).all() for g in fourier["grads"].values()))
@@ -2517,7 +2634,7 @@ def tf_remat_fourier():
           f"{finite}, peak memory {fourier['peak']:.2f} GiB [{card}]")
     if not finite:
         raise AssertionError("the Fourier model's step is not finite")
-    return dict(spread=spread_all, remat=off_all, worst=worst,
+    return dict(spread=spread, remat=off,
                 peak=(remat["peak"], ref["peak"]), step_ms=(remat["ms"], ref["ms"]),
                 fourier=(fourier["fwd_ms"], fourier["ms"]))
 
@@ -2942,6 +3059,749 @@ def phase_classifier():
                 model_t=model_t, cli_t=cli_t, paths=paths)
 
 
+# --- phase 9: multi-GPU ------------------------------------------------------------
+
+# base's widths at 512² (the long-context geometry of
+# examples/train_sp_longcontext.py): levels N 256 (dh 384) x3, 1024 (dh 96)
+# x5 and 4096 (dh 24) x4; the two longer ones split over two ranks
+SP_MODEL = dict(im_size=512, attn_drop=0.0, proj_drop=0.0, sp_min_tokens=1024)
+SP_BATCH = 8
+SP_CALLS = 12                # re-attention calls a forward or step
+SP_SHARD_SHAPES = [(SP_BATCH, 8, 96, 512, 1024), (SP_BATCH, 8, 24, 2048, 4096)]
+# At random initialisation the exact-BN step's f32 and bf16 gradients are
+# set by rounding: the head mix's batch variance is tiny beside its mean, so
+# its layers cancel large terms, and the single process's own step with
+# only the batch in another order (BATCH_ORDERS: the same function) moves
+# them by more than the largest gradient (PERF.md section 7).  No bound at
+# those precisions tells a fault from that, so the split steps' gradients
+# are printed beside that spread, and held instead (c2, d2) in float64,
+# where split and unsplit steps agree to F64_TOL, and (c3) through the
+# kernels at the function level, on inputs whose maps are peaked, against
+# float64 at GRAD_TOL, where faults planted in the cross-rank sums must
+# fail.  (d1) holds the data-parallel step's all-reduce and update exactly.
+SP_EXACT_BATCH = 2           # the float64 exact-BN step
+F64 = dict(flash_train=False, attn_bn_eps=EXACT_EPS, dtype="float64",
+           param_dtype="float64")
+F64_TOL = 1e-8
+BATCH_ORDERS = ("roll", "flip")
+DP_F64_BATCH = 8             # the float64 data-parallel step, b4 a rank
+SP_FN_SHAPES = [(2, 8, 96, 1024), (1, 8, 24, 4096)]   # (B, H, dh, N): N/2 rows a rank
+SP_TIMED_STEPS = 3
+# data parallelism: bf16 compute on float32 parameters, so that the first
+# AdamW update shows in every parameter and is held against its formula
+DP_MODEL = dict(attn_drop=0.0, proj_drop=0.0, dtype="bfloat16", param_dtype="float32")
+DP_F64 = dict(attn_drop=0.0, proj_drop=0.0, flash_train=False, dtype="float64",
+              param_dtype="float64")
+LR = 1e-4
+WORLD = 2
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+
+
+def sync_free_dropout():
+    """The plain train paths of ReAttention (base's (8, 96) level, N 196) and
+    KerasMHA (HViTUNetTF's (8, 192) level, N 256) at b8 with dropout 0.2:
+    forward and backward with any host synchronisation an error; the mask
+    drawn from the seed tensor equals the int seed's bit for bit."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    torch.manual_seed(0)
+    ra = ReAttention(768, num_heads=8, attn_drop=RATE, flash_train=False).cuda()
+    mha = KerasMHA(192, 8, key_dim=192, dropout=RATE, use_flash=False).cuda()
+    x_ra = torch.randn(SP_BATCH, 196, 768, device="cuda")
+    x_mha = torch.randn(SP_BATCH, 256, 192, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seed = torch.tensor([2 ** 40 + 9], dtype=torch.int64, device="cuda")
+    want = T.dropout_mask(2 ** 40 + 9, RATE, SP_BATCH, 8, 196, 196, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = T.dropout_mask(seed, RATE, SP_BATCH, 8, 196, 196)
+        ra(x_ra, deterministic=False, use_running_average=False,
+           generator=gen).square().sum().backward()
+        mha(x_mha, x_mha, deterministic=False, generator=gen).square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(got, want):
+        raise AssertionError("the seed tensor's dropout mask differs from the int seed's")
+    print(f"  (a) plain train paths (ReAttention (8, 96) N 196, KerasMHA (8, 192) "
+          f"N 256, b{SP_BATCH}, rate {RATE}) forward and backward under "
+          f"set_sync_debug_mode('error'): no host synchronisation; the mask "
+          f"from the seed tensor equals the int seed's ({want.numel()} entries)")
+
+
+def sp_shard_kernels():
+    """Kernels 1-4 at the shard shapes (each rank's query rows against every
+    key) in bf16, rate 0.2 for the training kernels, against their plain
+    versions, timed with their bounds, each on the route its function names."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    rows = {}
+    for batch, heads, dh, n_q, n_k in SP_SHARD_SHAPES:
+        shape = f"B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k}"
+        k1 = check_kernel(batch, heads, dh, n_q, n_k, torch.bfloat16, reps=10,
+                          label="shard")
+        tk = check_train_kernels(batch, heads, dh, n_q, n_k, torch.bfloat16, RATE,
+                                 reps=10)
+        bounds = train_bounds(batch, heads, dh, n_q, n_k, torch.bfloat16)
+        row = {"flash_reattention": dict(
+            max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+            bound_ms=bound_of(k1["t_bytes"], k1["t_ops"])[0], route=k1["route"])}
+        for key in ("fwd", "bn_fwd", "bwd"):
+            pick = {"fwd": T.train_fwd_route, "bn_fwd": T.bn_fwd_route,
+                    "bwd": T.train_bwd_route}[key]
+            row[key] = dict(max_abs_err=tk[key]["err"], ms=tk[key]["ms"],
+                            plain_ms=tk[key]["plain_ms"],
+                            bound_ms=bound_of(*bounds[key])[0],
+                            route=pick(torch.bfloat16, heads, dh))
+            print(f"    {key} [{row[key]['route']}]: kernel {row[key]['ms']:.4f} ms, "
+                  f"plain {row[key]['plain_ms']:.4f} ms, bound "
+                  f"{row[key]['bound_ms']:.4f} ms")
+        square = square_call_ms(batch, heads, dh, n_k)
+        for key, ms in square.items():
+            row[key]["square_ms"] = ms
+        print(f"    the square call at N {n_k} (kernels only): "
+              + ", ".join(f"{key} {ms:.4f} ms" for key, ms in square.items()))
+        rows[shape] = row
+    return rows
+
+
+def square_call_ms(batch, heads, dh, n, reps=10) -> dict:
+    """Each kernel's time at the unsplit call, Nq = Nk = n, for the shard
+    calls beside it."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.kernels.flash_reattention import flash_reattention
+    args = reattention_inputs(batch, heads, dh, n, n, torch.bfloat16, 0)
+    q, k, v, m_eff, c_eff, g_out, seed = train_inputs(batch, heads, dh, n, n,
+                                                      torch.bfloat16)
+    vsum = v.float().sum(1)
+    lse = T.train_fwd(q, k, v, vsum, m_eff, c_eff, seed, RATE)[1]
+    d = torch.randn(batch, heads, n, device="cuda")
+    return {"flash_reattention": time_ms(lambda: flash_reattention(*args, num_heads=heads), reps),
+            "fwd": time_ms(lambda: T.train_fwd(q, k, v, vsum, m_eff, c_eff, seed, RATE), reps),
+            "bn_fwd": time_ms(lambda: T.bn_fwd(q, k, v, seed, RATE), reps),
+            "bwd": time_ms(lambda: T.train_bwd(q, k, v, lse, g_out, m_eff, d, seed, RATE),
+                           reps)}
+
+
+def sp_model(mesh=None, **overrides):
+    from vit_unet_tpu_torch import get_vit_unet
+    return get_vit_unet("base", mesh, device="cuda", seed=0,
+                        **{**SP_MODEL, **overrides})
+
+
+def image_batch(n, side, seed=3):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, 3, side, side, generator=gen, device="cuda")
+    return {"x": x, "y": 0.9 * x}
+
+
+def reorder(batch, how):
+    """The batch in another order, rolled by one or reversed: the same
+    step, since the loss and the batch statistics take every sample alike."""
+    idx = torch.arange(next(iter(batch.values())).shape[0], device="cuda")
+    idx = idx.roll(1) if how == "roll" else idx.flip(0)
+    return {k: v[idx] for k, v in batch.items()}
+
+
+def one_step(model, batch, mesh=None, bn_frozen=False, zero=False, plant=None):
+    """One AdamW step at LR: (metrics, steps, state, seen).  ``seen`` holds
+    the parameters before the step (``before``) and the gradients the
+    optimizer stepped with (``grads``: after the average over ranks).
+    ``plant``: a fault, a function of the step's optimizer returning the
+    context that plants it for the step."""
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model.train()
+    steps = build_step_functions(model, adamw(model, LR), mse, mesh=mesh,
+                                 bn_frozen=bn_frozen, zero_sharding=zero)
+    state = TrainState.create(model=model, optimizer=steps.optimizer, seed=7)
+    params = list(model.parameters())
+    seen = dict(before=[p.detach().clone() for p in params])
+    opt_step = steps.optimizer.step
+
+    def step(*args, **kwargs):
+        seen["grads"] = [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                         for p in params]
+        return opt_step(*args, **kwargs)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(steps.optimizer, "step", step))
+        if plant is not None:
+            stack.enter_context(plant(steps.optimizer))
+        state, m = steps.train_step(state, batch)
+    return m, steps, state, seen
+
+
+def step_record(model, m, seen) -> dict:
+    """Loss, each parameter's gradient (float32, or float64 for float64)
+    and the running statistics, on the host."""
+    wide = lambda t: t.double() if t.dtype == torch.float64 else t.float()
+    return dict(
+        loss=m["loss"].item(),
+        grads=[wide(g).cpu() for g in seen["grads"]],
+        stats=torch.cat([b.double().flatten() for n, b in model.named_buffers()
+                         if "running" in n]).cpu())
+
+
+def rel_to_largest(a, b) -> float:
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def leaf_rel(a, b) -> float:
+    """The largest |a - b| over tensor lists, relative to the largest |b|."""
+    return (max((x - y).abs().max().item() for x, y in zip(a, b))
+            / max(y.abs().max().item() for y in b))
+
+
+def order_spread(make, batch, grads) -> float:
+    """The single process's own gradient spread: the largest change, over
+    steps of a fresh model from ``make`` on the batch in the BATCH_ORDERS,
+    from ``grads`` (the step on the batch as it is), relative to the
+    largest of ``grads``."""
+    ref = [g.float() for g in grads]
+    spread = 0.0
+    for how in BATCH_ORDERS:
+        seen = one_step(make(), reorder(batch, how))[3]
+        spread = max(spread, leaf_rel([g.float() for g in seen["grads"]], ref))
+    return spread
+
+
+def all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def adamw_update_margin(before, after, grads, wd=1e-4, eps=1e-8) -> float:
+    """The largest ratio, over every float32 parameter, of its distance
+    from AdamW's first update to the tolerance.  The first update from p
+    with gradient g is p (1 - LR wd) - LR g / (|g| + eps) (the moments
+    (1 - b1) g and (1 - b2) g^2 after their bias corrections), computed in
+    float64; the tolerance is 1e-3 LR plus two float32 roundings of p.  A
+    parameter that kept its value or moved the wrong way is off by about
+    LR, a thousand times the tolerance."""
+    worst = 0.0
+    for p0, p1, g in zip(before, after, grads):
+        p0, p1, g = p0.double(), p1.detach().double(), g.double()
+        want = p0 * (1 - LR * wd) - LR * g / (g.abs() + eps)
+        tol = 1e-3 * LR + 2 * torch.finfo(torch.float32).eps * p0.abs()
+        worst = max(worst, ((p1 - want).abs() / tol).max().item())
+    return worst
+
+
+class BucketSpy:
+    """The train step's flatten of a gradient bucket, watched: each bucket
+    is kept as it was before the all-reduce, beside the bucket itself,
+    which the step then sums over the ranks and divides in place."""
+
+    def __init__(self, flatten):
+        self.flatten, self.buckets = flatten, []
+
+    def __call__(self, tensors):
+        flat = self.flatten(tensors)
+        self.buckets.append((flat.clone(), flat))
+        return flat
+
+
+def allreduce_margin(spy, world) -> float:
+    """The largest ratio, over the gradient buckets of the step ``spy``
+    watched, of |world sum(w after) - sum over ranks of sum(w before)| to
+    its rounding bound (two roundings of the bucket's dtype on each rank's
+    sum |w before|), w a fixed random weight per entry: each rank's
+    averaged bucket must be the mean of every rank's own."""
+    import torch.distributed as dist
+    if not spy.buckets:
+        return math.inf
+    pre, post, tol = [], [], []
+    for i, (before, after) in enumerate(spy.buckets):
+        gen = torch.Generator(device="cuda").manual_seed(11 + i)
+        w = torch.randn(before.numel(), generator=gen, device="cuda", dtype=torch.float64)
+        pre.append((w * before.double()).sum())
+        post.append((w * after.double()).sum())
+        tol.append(2 * torch.finfo(before.dtype).eps * (w * before.double()).abs().sum())
+    sums = torch.stack(pre + tol)
+    if world > 1:
+        dist.all_reduce(sums)
+    n = len(pre)
+    return ((world * torch.stack(post) - sums[:n]).abs() / sums[n:]).max().item()
+
+
+def parallel_references(path):
+    """The single-process results the world of two is held against, on this
+    card: base at 512² bf16 b8 (eval forward, exact- and frozen-BN steps,
+    the exact step's spread over other batch orders), the b2 exact-BN step
+    (eps 1e-3) in float64, and base at 224²: b64 in DP_MODEL (one exact-BN
+    step and its spread) and b8 in float64.  Returns the spreads."""
+    from vit_unet_tpu_torch import get_vit_unet
+    refs = {}
+    batch = image_batch(SP_BATCH, 512)
+    model = sp_model(**BF16)
+    with torch.no_grad():
+        refs["eval"] = model(batch["x"]).float().cpu()
+    m, _, _, seen = one_step(model, batch)
+    refs["exact"] = step_record(model, m, seen)
+    refs["exact"]["spread"] = order_spread(lambda: sp_model(**BF16), batch, seen["grads"])
+    model = sp_model(**BF16)
+    m, _, _, seen = one_step(model, batch, bn_frozen=True)
+    refs["frozen"] = step_record(model, m, seen)
+    small = image_batch(SP_EXACT_BATCH, 512, seed=4)
+    model = sp_model(**F64)
+    m, _, _, seen = one_step(model, {k: v.double() for k, v in small.items()})
+    refs["exact_f64"] = step_record(model, m, seen)
+    dp_batch = image_batch(BATCH, 224, seed=6)
+    make_dp = lambda: get_vit_unet("base", device="cuda", seed=0, **DP_MODEL)
+    model = make_dp()
+    m, _, _, seen = one_step(model, dp_batch)
+    refs["dp"] = step_record(model, m, seen)
+    refs["dp"]["spread"] = order_spread(make_dp, dp_batch, seen["grads"])
+    model = get_vit_unet("base", device="cuda", seed=0, **DP_F64)
+    f64_batch = {k: v.double() for k, v in image_batch(DP_F64_BATCH, 224, seed=9).items()}
+    m, _, _, seen = one_step(model, f64_batch)
+    refs["dp_f64"] = step_record(model, m, seen)
+    del model, seen
+    torch.save(refs, os.path.join(path, "refs.pt"))
+    torch.cuda.empty_cache()
+    return {key: refs[key]["spread"] for key in ("exact", "dp")}
+
+
+class CollectiveClock:
+    """``torch.distributed`` as ``parallel/sequence.py`` calls it, with the
+    host time of each collective summed (the card synchronised around it)."""
+
+    TIMED = ("all_gather", "all_reduce", "reduce_scatter")
+
+    def __init__(self, real):
+        self.real, self.ms = real, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self.real, name)
+        if name not in self.TIMED:
+            return fn
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+
+class PlantedShards:
+    """A fault planted in the exact-BN functions' cross-rank sums: the
+    all-reduce calls numbered in ``skip`` (0: the forward's moments, 1: the
+    backward's statistics terms) return the rank's own part, and
+    ``row_shards`` may be a wrong count."""
+
+    def __init__(self, real, skip=(), row_shards=None):
+        self.real, self.skip, self.calls = real, skip, 0
+        self.size = real.size
+        self.row_shards = real.row_shards if row_shards is None else row_shards
+
+    def all_reduce(self, t):
+        call, self.calls = self.calls, self.calls + 1
+        return t if call in self.skip else self.real.all_reduce(t)
+
+
+PLANTED_SHARDS = {"the backward's statistics terms not summed": dict(skip=(1,)),
+                  "the forward's moments not summed": dict(skip=(0,)),
+                  "row_shards 1 for 2": dict(row_shards=1)}
+FN_OUTPUTS = ("out", "mean", "var", "dq", "dk", "dv", "dW", "dcb", "dgamma", "dbeta")
+
+
+def exact_fn_inputs(batch, heads, dh, n, dtype):
+    """Inputs of the exact-BN function at N tokens (``train_inputs``: the
+    maps are peaked, so the batch variance of the head mix stays far above
+    the BatchNorm epsilon), its BatchNorm parameters and the output's
+    cotangent."""
+    q, k, v_cat, _, _, g_out, _ = train_inputs(batch, heads, dh, n, n, dtype)
+    gen = torch.Generator().manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=gen).cuda()
+    return (q, k, v_cat, rnd(heads, heads) * 0.4, rnd(heads) * 0.2,
+            1 + 0.3 * rnd(heads), rnd(heads) * 0.2, g_out)
+
+
+def exact_fn_run(inputs, mesh=None, plant=None, reference=False):
+    """The exact-BN function's output, moments and gradients (FN_OUTPUTS)
+    under a loss on the output and both moments: split over ``mesh``'s
+    model line through ``sequence_parallel_reattention_train`` on the
+    kernels (``plant``: a PlantedShards fault), unsplit on the kernels
+    (no mesh), or the unsplit N x N version in float64 (``reference``)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.parallel import sequence as PS
+    q, k, v_cat, cm, cb, ga, be, g_out = inputs
+    b, h, n, dh = q.shape
+    if reference:
+        leaves = [t.detach().double().requires_grad_() for t in inputs[:7]]
+        out, (mu, var) = T.reattention_nxn(*leaves[:5], None, norm=leaves[5:])
+    elif mesh is None:
+        leaves = [t.detach().clone().requires_grad_() for t in inputs[:7]]
+        out, mu, var = T.flash_reattention_train_bn(*leaves, num_heads=h)
+    else:
+        v = v_cat.view(b, n, h, dh).transpose(1, 2).contiguous()
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, cm, cb, ga, be)]
+        shards = mesh.shards
+        with (mock.patch.object(mesh, "shards", lambda axes: PlantedShards(
+                shards(axes), **plant)) if plant else contextlib.nullcontext()):
+            out, mu, var = PS.sequence_parallel_reattention_train(
+                *leaves, mesh, use_flash=True, data_axis=None)
+    loss = (out * g_out.to(out.dtype)).sum() + mu.sum() + var.sum()
+    grads = list(torch.autograd.grad(loss, leaves))
+    if grads[2].ndim == 4:
+        grads[2] = grads[2].transpose(1, 2).reshape(b, n, h * dh)
+    return [out, mu, var, *grads]
+
+
+def fn_worst(got, want) -> tuple:
+    rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    i = max(range(len(rels)), key=lambda j: rels[j])
+    return rels[i], FN_OUTPUTS[i]
+
+
+def sp_exact_functions(mesh, say) -> dict:
+    """(c3) The exact-BN function split over the two ranks' rows on the
+    kernels (each rank N/2 query rows against the N gathered keys), f32 and
+    bf16 at SP_FN_SHAPES, against the unsplit N x N version in float64,
+    every output and gradient at GRAD_TOL of its largest entry, as phase
+    2b holds the unsplit call (whose error is printed beside it).  Then
+    each PLANTED_SHARDS fault, in f32 at the first shape, must fail."""
+    held, planted = {}, {}
+    for batch, heads, dh, n in SP_FN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = exact_fn_inputs(batch, heads, dh, n, dtype)
+            want = exact_fn_run(inputs, reference=True)
+            split = fn_worst(exact_fn_run(inputs, mesh), want)
+            alone = fn_worst(exact_fn_run(inputs), want)
+            label = f"B{batch} H{heads} dh{dh} Nq{n // 2} Nk{n} {str(dtype)[6:]}"
+            held[label] = dict(split=split[0], unsplit=alone[0])
+            say(f"  (c3) exact-BN function split over 2 ranks, {label}: worst "
+                f"{split[1]} rel {split[0]:.2e} against float64 (tol "
+                f"{GRAD_TOL[dtype]:.0e}); the unsplit call's {alone[0]:.2e}")
+            if not split[0] <= GRAD_TOL[dtype]:
+                raise AssertionError(f"the split exact-BN function disagrees at {label}")
+            if dtype == torch.float32 and not planted:
+                for name, plant in PLANTED_SHARDS.items():
+                    rel, at = fn_worst(exact_fn_run(inputs, mesh, plant), want)
+                    planted[name] = rel
+                    say(f"  (c3) planted fault, {name}: worst {at} rel {rel:.2e} "
+                        f"(must fail the {GRAD_TOL[dtype]:.0e} check)")
+                    if rel <= GRAD_TOL[dtype]:
+                        raise AssertionError(f"the check cannot see a planted fault: {name}")
+            del inputs, want
+    torch.cuda.empty_cache()
+    return dict(held=held, planted=planted)
+
+
+PLANTED_DP = {
+    # the gradients' (and the moments') all-reduce does nothing
+    "no all-reduce": ("reduce", lambda opt: mock.patch(
+        "torch.distributed.all_reduce", lambda *a, **k: None)),
+    # ZeRO-1 does not send the shard a rank updated
+    "no broadcast": ("update", lambda opt: mock.patch.object(opt, "_sync_params", lambda: None)),
+    # the local optimizer step does nothing
+    "no update": ("update", lambda opt: mock.patch.object(opt, "_local_step",
+                                                          lambda *a, **k: None)),
+}
+
+
+def dp_step(dev, mesh, batch, plant=None) -> dict:
+    """One DP + ZeRO-1 step of base 224² (DP_MODEL) on ``mesh`` with its
+    gradient buckets watched: the metrics, the step's optimizer, the
+    launches, the gradients stepped with, and the all-reduce and update
+    margins (each <= 1 when right)."""
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.parallel import train_step as TS
+    model = get_vit_unet("base", device=dev, seed=0, **DP_MODEL)
+    spy = BucketSpy(TS._flatten_dense_tensors)
+    zero_launches()
+    with mock.patch.object(TS, "_flatten_dense_tensors", spy):
+        m, steps, _, seen = one_step(model, batch, mesh, zero=True, plant=plant)
+    torch.cuda.synchronize()
+    return dict(metrics=m, optimizer=steps.optimizer, launches=all_launches(),
+                model=model, seen=seen, reduce=allreduce_margin(spy, mesh.size),
+                update=adamw_update_margin(seen["before"], model.parameters(),
+                                           seen["grads"]))
+
+
+def parallel_worker(rank, world, port, root) -> int:
+    """One rank of phase 9's world (both on this card, over gloo): the
+    sequence-parallel model on 1 x 2 and the data-parallel ZeRO-1 step on
+    2 x 1, each held against the references; writes rank<r>.json."""
+    from vit_unet_tpu_torch.parallel import mesh as PM
+    from vit_unet_tpu_torch.parallel import sequence as PS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    dev = PM.initialize_distributed(f"localhost:{port}", world, rank, device="cuda")
+    import torch.distributed as dist
+    out["backend"] = dist.get_backend()
+    refs = torch.load(os.path.join(root, "refs.pt"), weights_only=False)
+    sp = PM.create_mesh(2, device=dev)
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"  (c) world of {world} on {torch.cuda.get_device_name(dev)}, backend "
+        f"{out['backend']}; sequence-parallel mesh {sp.shape}")
+
+    # (c1) base at 512² bf16 b8 split over model: eval, exact and frozen steps
+    batch = image_batch(SP_BATCH, 512)
+    model = sp_model(sp, sequence_parallel=True, **BF16)
+    zero_launches()
+    with torch.no_grad():
+        ev = model(batch["x"]).float().cpu()
+    torch.cuda.synchronize()
+    launches = {"eval": all_launches()}
+    rel = rel_to_largest(ev, refs["eval"])
+    say(f"  (c1) eval forward b{SP_BATCH} against the single process: rel {rel:.2e} "
+        f"(tol {MODEL_TOL_BF16:.0e})")
+    if not rel <= MODEL_TOL_BF16:
+        raise AssertionError(f"sequence-parallel eval forward off by {rel:.2e}")
+    held = {}
+    for mode, frozen in (("exact", False), ("frozen", True)):
+        model = sp_model(sp, sequence_parallel=True, **BF16)
+        zero_launches()
+        m, steps, state, seen = one_step(model, batch, sp, bn_frozen=frozen)
+        torch.cuda.synchronize()
+        launches[mode] = all_launches()
+        got, want = step_record(model, m, seen), refs[mode]
+        lrel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        grel = leaf_rel(got["grads"], want["grads"])
+        srel = rel_to_largest(got["stats"], want["stats"])
+        if frozen:
+            gok = grel <= GRAD_TOL[torch.bfloat16]
+            gline = f"(tol {GRAD_TOL[torch.bfloat16]:.0e})"
+        else:
+            gok = all_finite(got["grads"])
+            gline = (f"(finite; not bounded: the single process's own spread over "
+                     f"{len(BATCH_ORDERS)} other batch orders is {want['spread']:.2e}; "
+                     f"held in float64 in (c2) and on the kernels in (c3))")
+        held[mode] = dict(grads=grel)
+        say(f"  (c1) {mode}-BN step b{SP_BATCH} bf16 against the single process: "
+            f"loss rel {lrel:.2e}, running stats rel {srel:.2e} (tol "
+            f"{MODEL_TOL_BF16:.0e}), grads rel {grel:.2e} of the largest {gline}")
+        if not (lrel <= MODEL_TOL_BF16 and srel <= MODEL_TOL_BF16 and gok):
+            raise AssertionError(f"sequence-parallel {mode}-BN step disagrees")
+        times = []
+        for _ in range(SP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps.train_step(state, batch)
+            m["loss"].item()
+            times.append((time.perf_counter() - t0) * 1e3)
+        clock = CollectiveClock(PS.dist)
+        with mock.patch.object(PS, "dist", clock):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps.train_step(state, batch)
+            m["loss"].item()
+            clocked = (time.perf_counter() - t0) * 1e3
+        held[mode].update(loss=lrel, stats=srel,
+                          step_ms=sorted(times)[len(times) // 2],
+                          collective_ms=clock.ms, clocked_ms=clocked)
+        say(f"  (c1) {mode}-BN step: median {held[mode]['step_ms']:.3f} ms of "
+            f"{SP_TIMED_STEPS}; a step with each token collective timed alone "
+            f"(card synchronised around it): {clocked:.3f} ms, "
+            f"{clock.ms:.3f} ms of it in the collectives ({clock.ms / clocked:.1%})"
+            f" [{card_line()}]")
+        del model, steps, state, seen
+    out["launches"] = launches
+    out["sp"] = held
+
+    # (c2) the b2 exact-BN step (eps 1e-3) in float64, split and unsplit
+    small = image_batch(SP_EXACT_BATCH, 512, seed=4)
+    model = sp_model(sp, sequence_parallel=True, **F64)
+    m, _, _, seen = one_step(model, {k: v.double() for k, v in small.items()}, sp)
+    got, ref = step_record(model, m, seen), refs["exact_f64"]
+    kl = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    kg, ks = leaf_rel(got["grads"], ref["grads"]), rel_to_largest(got["stats"], ref["stats"])
+    say(f"  (c2) float64 b{SP_EXACT_BATCH} exact-BN (eps {EXACT_EPS:.0e}) step split "
+        f"over 2 ranks against the single process: loss rel {kl:.2e}, running "
+        f"stats rel {ks:.2e}, grads rel {kg:.2e} of the largest (tol {F64_TOL:.0e})")
+    if not max(kl, ks, kg) <= F64_TOL:
+        raise AssertionError("the float64 sequence-parallel exact-BN step disagrees")
+    out["sp_exact_f64"] = dict(loss=kl, stats=ks, grads=kg)
+    del model, seen
+    torch.cuda.empty_cache()
+
+    # (c3) the exact-BN function on the kernels at the shard shapes
+    out["sp_functions"] = sp_exact_functions(sp, say)
+
+    # (d) data parallelism + ZeRO-1: base 224² b64 as two ranks of 32
+    dp = PM.create_mesh(1, device=dev)
+    dp_batch = image_batch(BATCH, 224, seed=6)
+    run = dp_step(dev, dp, dp_batch)
+    launches["dp_zero"] = run["launches"]
+    want = refs["dp"]
+    lrel = abs(run["metrics"]["loss"].item() - want["loss"]) / abs(want["loss"])
+    grads = [g.float().cpu() for g in run["seen"]["grads"]]
+    grel = leaf_rel(grads, want["grads"])
+    local = run["optimizer"].optim
+    share = sum(t.numel() * t.element_size() for st in local.state.values()
+                for t in st.values() if torch.is_tensor(t) and t.ndim > 0)
+    total = 2 * sum(p.numel() * p.element_size() for p in run["model"].parameters())
+    print(f"  (d) rank {rank}: DP + ZeRO-1 step b{BATCH} (b{BATCH // world} a rank), "
+          f"bf16 on float32 parameters: loss rel {lrel:.2e} against the single "
+          f"process (tol 1e-2); gradient all-reduce at {run['reduce']:.3f} of its "
+          f"rounding bound; update at {run['update']:.3f} of its tolerance from "
+          f"AdamW's first step on the averaged gradients; averaged gradients "
+          f"finite, rel {grel:.2e} of the single process's largest (not bounded: "
+          f"its own spread over other batch orders is {want['spread']:.2e}; held "
+          f"in float64 in (d2)); optimizer state {share} bytes of the unsharded "
+          f"{total} ({share / total:.1%})")
+    if not (lrel <= 1e-2 and run["reduce"] <= 1.0 and run["update"] <= 1.0
+            and all_finite(grads) and share < 0.6 * total):
+        raise AssertionError("the data-parallel ZeRO-1 step disagrees")
+    out["dp"] = dict(loss=lrel, reduce=run["reduce"], update=run["update"],
+                     grads=grel, state_bytes=share, total_bytes=total)
+    del run
+
+    # (d2) the same split, with ZeRO-1, in float64 at b8 (b4 a rank)
+    from vit_unet_tpu_torch import get_vit_unet
+    model = get_vit_unet("base", device=dev, seed=0, **DP_F64)
+    f64_batch = {k: v.double() for k, v in image_batch(DP_F64_BATCH, 224, seed=9).items()}
+    m, _, _, seen = one_step(model, f64_batch, dp, zero=True)
+    got, ref = step_record(model, m, seen), refs["dp_f64"]
+    kl = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    kg, ks = leaf_rel(got["grads"], ref["grads"]), rel_to_largest(got["stats"], ref["stats"])
+    say(f"  (d2) float64 b{DP_F64_BATCH} DP + ZeRO-1 exact-BN step (b{DP_F64_BATCH // world} "
+        f"a rank) against the single process: loss rel {kl:.2e}, running stats rel "
+        f"{ks:.2e}, averaged grads rel {kg:.2e} of the largest (tol {F64_TOL:.0e})")
+    if not max(kl, ks, kg) <= F64_TOL:
+        raise AssertionError("the float64 data-parallel step disagrees")
+    out["dp_f64"] = dict(loss=kl, stats=ks, grads=kg)
+    del model, seen
+    planted = {}
+    for name, (check, plant) in PLANTED_DP.items():
+        margin = dp_step(dev, dp, dp_batch, plant)[check]
+        planted[name] = margin
+        say(f"  (d) planted fault, {name}: {check} margin {margin:.3e} (must exceed 1)")
+        if not margin > 1.0:
+            raise AssertionError(f"the data-parallel check cannot see a planted fault: {name}")
+    out["dp"]["planted"] = planted
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def run_world(root) -> list:
+    """The world of two, both ranks on card 0, started together; each
+    rank's results."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, LOCAL_WORLD_SIZE=str(WORLD), CUDA_VISIBLE_DEVICES=
+               os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--parallel-worker", str(r), str(WORLD), str(port), root],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if r == 0 or p.returncode:
+            print("\n".join(f"  [rank {r}] {line}" if p.returncode else line
+                            for line in log.rstrip().splitlines()))
+        if p.returncode:
+            raise AssertionError(f"phase 9 rank {r} failed (exit {p.returncode})")
+    print("\n".join(line for line in logs[1].rstrip().splitlines()
+                    if line.startswith("  (d) rank 1")))
+    results = []
+    for r in range(WORLD):
+        with open(os.path.join(root, f"rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def nccl_world_of_one():
+    """NCCL at a world of one: a data-parallel step of base 224² b8
+    (DP_MODEL) through the mesh.  Its gradient all-reduce must hand each
+    bucket back unchanged, its update must be AdamW's first update from the
+    gradients it stepped with, and its loss must equal the loss of the same
+    step without a mesh (the backward's dq atomics leave the gradients
+    themselves free to differ in their last bits)."""
+    import socket
+    import torch.distributed as dist
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.parallel import mesh as PM
+    from vit_unet_tpu_torch.parallel import train_step as TS
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    PM.initialize_distributed(f"localhost:{port}", 1, 0, device="cuda", backend="nccl")
+    try:
+        mesh = PM.create_mesh(1)
+        batch = image_batch(8, 224, seed=8)
+        model = get_vit_unet("base", device="cuda", seed=0, **DP_MODEL)
+        spy = BucketSpy(TS._flatten_dense_tensors)
+        zero_launches()
+        with mock.patch.object(TS, "_flatten_dense_tensors", spy):
+            metrics, _, _, seen = one_step(model, batch, mesh)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    unchanged = bool(spy.buckets) and all(torch.equal(b, a) for b, a in spy.buckets)
+    update = adamw_update_margin(seen["before"], model.parameters(), seen["grads"])
+    lone = get_vit_unet("base", device="cuda", seed=0, **DP_MODEL)
+    lone_loss = one_step(lone, batch)[0]["loss"].item()
+    lrel = abs(metrics["loss"].item() - lone_loss) / abs(lone_loss)
+    print(f"  (e) backend {backend}, world of 1: a data-parallel step of base 224² "
+          f"b8, bf16 on float32 parameters: {len(spy.buckets)} gradient buckets "
+          f"through the NCCL all-reduce, "
+          f"{'each unchanged' if unchanged else 'CHANGED'}; update at {update:.3f} of "
+          f"its tolerance from AdamW's first step; loss {metrics['loss'].item():.6f}, "
+          f"rel {lrel:.2e} against the step without a mesh (tol 1e-5)")
+    if backend != "nccl" or not (unchanged and update <= 1.0 and lrel <= 1e-5):
+        raise AssertionError("the NCCL world of one disagrees")
+    return launches
+
+
+def phase_parallel():
+    print("== phase 9: multi-GPU: sequence and data parallelism (a world of 2 on "
+          "one card over gloo), NCCL at a world of 1")
+    import tempfile
+    t_phase = time.perf_counter()
+    sync_free_dropout()
+    print(f"  (b) kernels 1-4 at the sequence-parallel shard shapes, bf16, rate {RATE}:")
+    shards = sp_shard_kernels()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as root:
+        spread = parallel_references(root)
+        print(f"  (c) references written; the single process's own gradient spread "
+              f"over {len(BATCH_ORDERS)} other batch orders: "
+              f"{spread['exact']:.2e} of the largest (512² b{SP_BATCH} bf16 exact BN), "
+              f"{spread['dp']:.2e} (224² b{BATCH}, bf16 on float32 parameters)")
+        t_world = time.perf_counter()
+        ranks = run_world(root)
+        world_s = time.perf_counter() - t_world
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"the world of two ran on {r['backend']}")
+    want = {"eval": {"eval": SP_CALLS, "eval_tensor_core": SP_CALLS},
+            "exact": {"bn_fwd": SP_CALLS, "bn_fwd_tensor_core": SP_CALLS,
+                      "bwd": SP_CALLS, "bwd_tensor_core": SP_CALLS},
+            "frozen": {"fwd": SP_CALLS, "fwd_tensor_core": SP_CALLS,
+                       "bwd": SP_CALLS, "bwd_tensor_core": SP_CALLS},
+            "dp_zero": {"bn_fwd": 12, "bn_fwd_tensor_core": 12,
+                        "bwd": 12, "bwd_tensor_core": 12}}
+    launches = collections.Counter()
+    for r, res in enumerate(ranks):
+        for path, counts in res["launches"].items():
+            require_launches(f"rank {r} {path}", counts, want[path])
+            launches.update(counts)
+    nccl = nccl_world_of_one()
+    require_launches("(e) NCCL step", nccl, want["dp_zero"])
+    launches.update(nccl)
+    print(f"  the world of two: {world_s:.1f} s (start-up included); phase 9: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(shards=shards, launches=dict(launches), ranks=ranks, spread=spread)
+
+
 TRAIN_KERNELS = [  # (key, name, replaces)
     ("fwd", "flash_reattention_train_fwd",
      "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
@@ -2966,7 +3826,13 @@ def main(argv=None) -> int:
                         help="comma-separated phases to run after phase 1 "
                              f"(default: all of {','.join(PHASES)}); the result "
                              "lines are printed only when all ran")
-    phases = parser.parse_args(argv).phases.split(",")
+    # one rank of phase 9's world, started by phase 9 itself
+    parser.add_argument("--parallel-worker", nargs=4, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.parallel_worker:
+        rank, world, port, root = args.parallel_worker
+        return parallel_worker(int(rank), int(world), port, root)
+    phases = args.phases.split(",")
     if not phases or any(ph not in PHASES for ph in phases):
         parser.error(f"--phases takes a comma-separated subset of {PHASES}")
     if not torch.cuda.is_available():
@@ -2975,7 +3841,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6", "7", "8"))
+    needs_train = any(ph in phases for ph in ("2b", "4", "5", "6", "7", "8", "9"))
     phase_environment((EVAL_SOURCE, TRAIN_SOURCE) if needs_train else (EVAL_SOURCE,))
     if "2a" in phases:
         k = phase_kernels()
@@ -2993,6 +3859,8 @@ def main(argv=None) -> int:
         tf = phase_tf()
     if "8" in phases:
         cls = phase_classifier()
+    if "9" in phases:
+        par = phase_parallel()
     if set(phases) != set(PHASES):
         print(f"chip_smoke: phases {','.join(phases)} only, "
               f"{time.perf_counter() - t_start:.1f} s; no result lines")
@@ -3011,13 +3879,15 @@ def main(argv=None) -> int:
                    "tf_variant": tf["variant"],
                    # the classifier (phase 8): its forward and steps, the CLI
                    "classifier": cls["model"], "classifier_cli": cls["cli"]}
+    # phase 9: both ranks' sequence- and data-parallel paths and the NCCL step
+    model_paths["parallel"] = par["launches"]
     by_path = {"flash_reattention": {"serving": launches, "fitter": fit_total["eval"],
                                      "entry": cli_launches["eval"],
-                                     **{p: c["eval"] for p, c in model_paths.items()}}}
+                                     **{p: c.get("eval", 0) for p, c in model_paths.items()}}}
     for key, _, _ in TRAIN_KERNELS:
         by_path[key] = {"train_step": train_launches_[key], "fitter": fit_total[key],
                         "entry": cli_launches[key],
-                        **{p: c[key] for p, c in model_paths.items()}}
+                        **{p: c.get(key, 0) for p, c in model_paths.items()}}
     tf_shape = "H{} dh{} N{}".format(*TF_SHAPE)
     kernels = [{
         "name": "flash_reattention",
@@ -3044,6 +3914,9 @@ def main(argv=None) -> int:
         # the classifier's 16-head levels at b64 (phase 8a0)
         "head16": {shape: {dt: r["flash_reattention"] for dt, r in rows.items()}
                    for shape, rows in cls["kernels"].items()},
+        # the sequence-parallel shard shapes, bf16 b8 (phase 9b)
+        "sp_shards": {shape: row["flash_reattention"]
+                      for shape, row in par["shards"].items()},
     }]
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
@@ -3062,6 +3935,7 @@ def main(argv=None) -> int:
                 dt: r[TF_KERNEL_ROWS[key]] for dt, r in tf["kernels"].items()}}
         kernels[-1]["head16"] = {shape: {dt: r[key] for dt, r in rows.items()}
                                  for shape, rows in cls["kernels"].items()}
+        kernels[-1]["sp_shards"] = {shape: row[key] for shape, row in par["shards"].items()}
         if key in TC_SOURCES:
             # the bf16 tensor-core route it includes, which base classes ran
             # on which route, and the main path's launches by route
@@ -3070,7 +3944,7 @@ def main(argv=None) -> int:
                 routes=t["routes"], cuda_core_ms=t["old_ms"],
                 route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
                                 + cli_launches[f"{key}_{r}"]
-                                + sum(c[f"{key}_{r}"] for c in model_paths.values())
+                                + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
                                 for r in ("cuda_core", "tensor_core")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

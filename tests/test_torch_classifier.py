@@ -266,6 +266,11 @@ def test_main_trains_on_cpu(tmp_path, monkeypatch):
                     [probe.paths[i] for i in order[:n_val]]]
 
 
-def test_data_parallel_raises_before_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TCLI.main(["--input_folder", str(tmp_path), "--data_parallel"])
+def test_data_parallel_raises_before_training(tmp_path, monkeypatch):
+    """--data_parallel starts the process group first: a world of two
+    without a rank is an error before any data is read."""
+    monkeypatch.setenv("VIT_UNET_NUM_PROCESSES", "2")
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="RANK"):
+        TCLI.main(["--input_folder", str(tmp_path), "--data_parallel",
+                   "--device", "cpu"])

@@ -78,8 +78,12 @@ def test_main_trains_one_epoch_on_cpu(tmp_path, monkeypatch, task, key):
                     (False, [names[i] for i in val_idx])]
 
 
-def test_data_parallel_raises_before_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+def test_data_parallel_raises_before_training(tmp_path, monkeypatch):
+    """--data_parallel starts the process group first: a world of two
+    without a rank is an error before any data is read."""
+    monkeypatch.setenv("VIT_UNET_NUM_PROCESSES", "2")
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="RANK"):
         TC.main(["--data_parallel", "--input_folder", str(tmp_path / "none"),
                  "--device", "cpu"])
 

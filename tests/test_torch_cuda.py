@@ -896,3 +896,67 @@ def test_classifier_serves_and_trains_against_its_plain_path(cuda, dtype, tol):
         assert _rel(kl, pl) <= tol and _rel(ks, ps) <= tol
         if dtype == "float32":
             assert _rel(kg, pg) <= tol
+
+
+# --- sequence parallelism: the shard shapes, and the plain paths' dropout -------
+
+# base at 512² split over two ranks: each rank's query rows (Nq = N / 2)
+# against every key, at the levels that shard (N 1024, dh 96; N 4096, dh 24)
+SP_SHARD_CASES = [(2, 8, 96, 512, 1024), (2, 8, 24, 2048, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", SP_SHARD_CASES)
+def test_four_kernels_at_sequence_parallel_shard_shapes(cuda, dtype, rate, batch,
+                                                        heads, dh, n_q, n_k):
+    """Kernels 1-4 at the rectangular calls of a sequence-parallel shard,
+    each on the route its function names, against their plain versions."""
+    args = _eval_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    got = TK.flash_reattention(*args, num_heads=heads)
+    assert _rel(got, TK.flash_reattention_plain(*args, num_heads=heads)) <= TOL[dtype]
+    q, k, v, m, c, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    vsum = v.float().sum(1)
+    for a, b, tol in zip(TT.train_fwd(q, k, v, vsum, m, c, seed, rate),
+                         TT.train_fwd_plain(q, k, v, vsum, m, c, seed, rate),
+                         (TOL, F32_TOL, TOL)):
+        assert _rel(a, b) <= tol[dtype]
+    want = TT.bn_fwd_plain(q, k, v, seed, rate)
+    for a, b, tol in zip(TT.bn_fwd(q, k, v, seed, rate), want,
+                         (F32_TOL, F32_TOL, F32_TOL, TOL)):
+        assert _rel(a, b) <= tol[dtype]
+    d = torch.randn(batch, heads, n_q, device=cuda)
+    extra = (torch.randn(heads, heads, device=cuda) * 0.1,
+             torch.randn(heads, device=cuda) * 0.1)
+    for bn_extra in (None, extra):
+        for a, b in zip(TT.train_bwd(q, k, v, want[2], gout, m, d, seed, rate, bn_extra),
+                        TT.train_bwd_plain(q, k, v, want[2], gout, m, d, seed, rate,
+                                           bn_extra)):
+            assert _rel(a, b) <= F32_TOL[dtype]
+
+
+def test_plain_train_paths_draw_dropout_without_a_host_sync(cuda):
+    """The plain N x N paths of ReAttention and KerasMHA draw their dropout
+    mask from the seed tensor on the card: a training forward and backward
+    with any synchronisation an error; the mask is the int seed's, bit for
+    bit."""
+    from vit_unet_tpu_torch.nn.mha import KerasMHA
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    seed = torch.tensor([2 ** 40 + 7], dtype=torch.int64, device=cuda)
+    want = TT.dropout_mask(2 ** 40 + 7, 0.2, 2, 4, 70, 130, cuda)
+    torch.manual_seed(0)
+    mods = [ReAttention(48, num_heads=4, attn_drop=0.2, flash_train=False).to(cuda),
+            KerasMHA(48, 4, key_dim=12, dropout=0.2, use_flash=False).to(cuda)]
+    x = torch.randn(2, 64, 48, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TT.dropout_mask(seed, 0.2, 2, 4, 70, 130)
+        mods[0](x, deterministic=False, use_running_average=False,
+                generator=gen).square().sum().backward()
+        mods[1](x, x, deterministic=False, generator=gen).square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert all(torch.isfinite(p.grad).all() for mod in mods for p in mod.parameters())

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from vit_unet_tpu_torch import Predictor, get_vit_unet
+from vit_unet_tpu_torch import Predictor, get_hvit_unet_tf, get_vit_unet
 from vit_unet_tpu_torch.nn import reattention as R
 from vit_unet_tpu_torch.serving import PROGRAM, export_predictor, load_predictor
 from tests.test_torch_model import one_torch_thread  # noqa: F401
@@ -95,3 +95,39 @@ def test_op_matches_plain_and_counts_nothing_on_cpu():
         torch.ops.vit_unet_tpu_torch.flash_reattention(q, k, v, w, bias, h),
         want, rtol=0, atol=0)
     assert FR.flash_reattention.launches == before
+
+
+# --- the rest of the model family ---------------------------------------------
+
+TF_SMALL = dict(img_size=32, patch_size=(4, 8), transformer_layers=(1,),
+                size_bottleneck=1, num_heads=2)
+FAMILY = {   # name -> (a function making the model, per-sample input shape)
+    "tf_default": (lambda: get_hvit_unet_tf(device="cpu", seed=4, **TF_SMALL),
+                   (32, 32, 3)),
+    "tf_reattention": (lambda: get_hvit_unet_tf(device="cpu", seed=5, **TF_SMALL,
+                                                original_attn=False), (32, 32, 3)),
+    "tf_conv_resampling": (lambda: get_hvit_unet_tf(device="cpu", seed=6, **TF_SMALL,
+                                                    resampling_type="conv"),
+                           (32, 32, 3)),
+    "fourier": (lambda: get_vit_unet("lite", device="cpu", seed=7, **TINY,
+                                     block_type="fourier"), (3, 64, 64)),
+    "remat": (lambda: get_vit_unet("lite", device="cpu", seed=8, **TINY, remat=True),
+              (3, 64, 64)),
+    "bf16": (lambda: get_vit_unet("lite", device="cpu", seed=9, **TINY,
+                                  dtype="bfloat16"), (3, 64, 64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY))
+def test_family_round_trips_bit_for_bit(name, tmp_path):
+    """``HViTUNetTF`` in its default, re-attention and conv-resampling
+    forms, and ViTUNet with the Fourier block, ``remat`` and bf16: each
+    program loads back and serves what ``Predictor`` serves, bit for bit."""
+    build, shape = FAMILY[name]
+    model = build()
+    x = np.random.default_rng(2).standard_normal((5, *shape)).astype(np.float32)
+    before = Predictor(model, batch_size=2, device="cpu")(x)
+    export_predictor(model, str(tmp_path), batch_size=2)
+    got = load_predictor(str(tmp_path), device="cpu")(x)
+    assert got.shape == before.shape and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, before)

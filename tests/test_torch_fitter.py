@@ -31,6 +31,7 @@ from vit_unet_tpu.train.fitter import Fitter as JFitter
 from vit_unet_tpu.utils.torch_import import import_torch_state_dict
 from vit_unet_tpu_torch.data.loader import DataLoader
 from vit_unet_tpu_torch.models import vit_unet as TM
+from vit_unet_tpu_torch.parallel.mesh import create_mesh
 from vit_unet_tpu_torch.parallel.train_step import TrainState, build_step_functions
 from vit_unet_tpu_torch.train import bn_refold as TB
 from vit_unet_tpu_torch.train import callbacks as TC
@@ -371,9 +372,11 @@ def test_fit_rules(tmp_path):
 
 def test_fitter_options_and_device_rule(tmp_path, monkeypatch):
     model = TM.get_vit_unet("lite", device="cpu", **FIT_CFG)
-    for kw in (dict(mesh=object()), dict(zero_sharding=True)):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            Fitter(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        Fitter(model, device="cpu", zero_sharding=True)
+    lone = create_mesh(device="cpu")       # one process: one replica
+    on_mesh = Fitter(model, learning_rate=0.5, mesh=lone, scale_lr_by_replicas=True)
+    assert on_mesh.device == torch.device("cpu") and on_mesh.learning_rate == 0.5
     with pytest.raises(ValueError, match="bn_warmup"):
         Fitter(model, device="cpu", bn_warmup="nope")
     frozen = TM.get_vit_unet("lite", device="cpu", **FIT_CFG, flash_frozen_bn=True)

@@ -189,8 +189,9 @@ def test_extension_weights_round_trip():
 
 
 def test_eval_only_and_unported_options_raise():
-    """Train mode, the training flags, remat and the Fourier block work;
-    sequence parallelism still raises."""
+    """Train mode, the training flags, remat, the Fourier block and
+    sequence parallelism work (without a mesh sequence parallelism leaves
+    the model as it is); invalid options raise."""
     model = TM.ViTUNet(TM.ViTUNetConfig(**{**TINY, "attn_drop": 0.2}))
     assert not model.training
     x = torch.zeros(1, 3, 64, 64)
@@ -206,7 +207,12 @@ def test_eval_only_and_unported_options_raise():
         out = TM.ViTUNet(TM.ViTUNetConfig(**TINY, **ported))(
             x, deterministic=False, use_running_average=False)
         assert out.shape == x.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):
-        TM.ViTUNet(TM.ViTUNetConfig(**TINY, sequence_parallel=True))
+    torch.manual_seed(0)
+    plain = TM.ViTUNet(TM.ViTUNetConfig(**TINY))
+    sp = TM.ViTUNet(TM.ViTUNetConfig(**TINY, sequence_parallel=True, sp_min_tokens=16))
+    sp.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 3, 64, 64)
+    with torch.no_grad():
+        torch.testing.assert_close(sp(x), plain(x), rtol=0, atol=0)
     with pytest.raises(ValueError, match="residual_gain"):
         TM.ViTUNetConfig(**TINY, residual_gain=True)

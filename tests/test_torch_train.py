@@ -31,6 +31,7 @@ from vit_unet_tpu_torch.models import vit_unet as TM
 from vit_unet_tpu_torch.nn.blocks import ReAttentionEncoderBlock
 from vit_unet_tpu_torch.nn.feedforward import FeedForward
 from vit_unet_tpu_torch.nn.reattention import ReAttention, SkipConnection
+from vit_unet_tpu_torch.parallel.mesh import create_mesh
 from vit_unet_tpu_torch.parallel.train_step import (
     TrainState, adamw, build_step_functions,
 )
@@ -243,10 +244,23 @@ def test_train_step_options():
     model = TM.ViTUNet(TM.ViTUNetConfig(**TINY))
     opt = adamw(model)
     assert opt.defaults["weight_decay"] == 1e-4
-    with pytest.raises(NotImplementedError):
-        build_step_functions(model, opt, TL.mse, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         build_step_functions(model, opt, TL.mse, zero_sharding=True)
+    # the mesh of a lone process: the same step as without one
+    twin = TM.ViTUNet(TM.ViTUNetConfig(**TINY))
+    twin.load_state_dict(model.state_dict())
+    twin_opt = adamw(twin)
+    on_mesh = build_step_functions(twin, twin_opt, TL.mse, mesh=create_mesh(device="cpu"))
+    assert on_mesh.optimizer is twin_opt
+    xm = torch.randn(2, 3, 64, 64)
+    mesh_loss = on_mesh.train_step(TrainState.create(model=twin, optimizer=twin_opt),
+                                   {"x": xm, "y": xm})[1]["loss"]
+    ref = build_step_functions(model, opt, TL.mse).train_step(
+        TrainState.create(model=model, optimizer=opt), {"x": xm, "y": xm})[1]["loss"]
+    torch.testing.assert_close(mesh_loss, ref, rtol=0, atol=0)
+    for a, b in zip(model.parameters(), twin.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    opt = adamw(model)
     steps = build_step_functions(model, opt, TL.mse, metrics={"psnr": TMet.psnr})
     x = torch.randn(3, 3, 64, 64)
     batch = {"x": x, "y": x * 0.9}

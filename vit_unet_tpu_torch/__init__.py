@@ -8,8 +8,10 @@ the hierarchical ViT classifier (``models/vit_classifier.py``, trained by
 ``python -m vit_unet_tpu_torch.cli.run_classification`` from PNG, JPEG or
 BMP class folders); the
 ViT-UNet's eval (serving) path with
-model export (``serving.py``), its single-device train step
-(``parallel/train_step.py``) and trainer (``train/fitter.py::Fitter``)
+model export (``serving.py``), its train step (``parallel/train_step.py``,
+on one device or a mesh of processes: data parallelism, ZeRO-1 and
+sequence parallelism, ``parallel/mesh.py`` and ``parallel/sequence.py``)
+and trainer (``train/fitter.py::Fitter``)
 with its data feed, image datasets and augmentations (``data/``), the
 training CLI (``python -m vit_unet_tpu_torch.cli.run_denoising``) and the
 utilities (``utils/``, ``ops/sparse.py``), with every

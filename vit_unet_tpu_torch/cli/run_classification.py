@@ -47,8 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the hand-written re-attention kernels (eval and "
                         "training); without it the plain PyTorch path")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the batch over all local devices (not "
-                        "ported yet: raises)")
+                   help="data parallelism over every rank: start one process "
+                        "per card (torchrun --nproc_per_node=N -m ...); each "
+                        "reads batch_size / N samples of every batch")
     p.add_argument("--log_jsonl", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="the device to train on: cuda (the card) or cpu")
@@ -57,15 +58,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel needs the port's multi-GPU slice (ROADMAP "
-            "Queue A item 4), which is not ported yet")
 
     from vit_unet_tpu_torch.data.augment import eval_transforms, train_transforms
     from vit_unet_tpu_torch.data.datasets import ClassificationDataset
+    from vit_unet_tpu_torch.cli.run_denoising import _rank_loading
     from vit_unet_tpu_torch.data.loader import DataLoader
     from vit_unet_tpu_torch.models.vit_classifier import get_vit_classifier
+    from vit_unet_tpu_torch.parallel.mesh import data_parallel_mesh, replica_count
     from vit_unet_tpu_torch.train.callbacks import JSONLLogger
     from vit_unet_tpu_torch.train.fitter import Fitter
     from vit_unet_tpu_torch.train.losses import categorical_crossentropy
@@ -75,6 +74,11 @@ def main(argv=None) -> dict:
     from vit_unet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        device = mesh.device
+    replicas = replica_count(mesh) if mesh is not None else 1
+    shard, per_rank = _rank_loading(mesh, args.batch_size)
     probe = ClassificationDataset.from_folder(args.input_folder,
                                               im_size=args.im_size)
     n = len(probe)
@@ -95,10 +99,10 @@ def main(argv=None) -> dict:
     val_ds = ClassificationDataset.from_folder(
         args.input_folder, im_size=args.im_size,
         transforms=eval_transforms(args.im_size), indices=val_idx)
-    train_dl = DataLoader(train_ds, args.batch_size, shuffle=True,
-                          num_workers=args.num_workers)
-    val_dl = DataLoader(val_ds, args.batch_size, drop_remainder=False,
-                        num_workers=args.num_workers)
+    train_dl = DataLoader(train_ds, per_rank, shuffle=True,
+                          num_workers=args.num_workers, **shard)
+    val_dl = DataLoader(val_ds, per_rank, drop_remainder=False,
+                        num_workers=args.num_workers, **shard)
 
     side = args.im_size // args.patch_size
     model = get_vit_classifier(
@@ -114,14 +118,14 @@ def main(argv=None) -> dict:
     loss_fn.__name__ = "ce"
 
     fitter = Fitter(model, learning_rate=args.start_lr, optimizer="adam",
-                    loss=loss_fn, metrics=(accuracy, f1),
+                    loss=loss_fn, metrics=(accuracy, f1), mesh=mesh,
                     checkpoint_dir=args.checkpoint_dir,
                     monitor="val_loss", mode="min", device=device)
     callbacks = [LearningRateScheduler(rampup_exp_decay(
         start_lr=args.start_lr, max_lr=args.max_lr, min_lr=args.start_lr,
         rampup_epochs=args.rampup_epochs, exp_decay=args.exp_decay,
-        replicas=1), verbose=True)]
-    if args.log_jsonl:
+        replicas=replicas), verbose=True)]
+    if args.log_jsonl and fitter.writes_checkpoints:
         callbacks.append(JSONLLogger(args.log_jsonl))
 
     fitter.fit(lambda: iter(train_dl), lambda: iter(val_dl),

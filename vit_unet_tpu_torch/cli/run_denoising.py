@@ -63,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the hand-written re-attention kernels (eval and "
                         "training); without it the plain PyTorch path")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the batch over all local devices (not "
-                        "ported yet: raises)")
+                   help="data parallelism over every rank: start one process "
+                        "per card (torchrun --nproc_per_node=N -m ...); each "
+                        "reads batch_size / N samples of every batch")
     p.add_argument("--log_jsonl", type=str, default=None)
     p.add_argument("--bn_freeze_epochs", type=int, default=0,
                    help="frozen-BN warmup epochs before flipping to exact "
@@ -81,21 +82,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel needs the port's multi-GPU slice (ROADMAP "
-            "Queue A item 9), which is not ported yet")
 
     from vit_unet_tpu_torch.data import datasets as ds_mod
     from vit_unet_tpu_torch.data.augment import eval_transforms, train_transforms
     from vit_unet_tpu_torch.data.datasets import kfold_split
     from vit_unet_tpu_torch.data.loader import DataLoader
     from vit_unet_tpu_torch.models.vit_unet import get_vit_unet
+    from vit_unet_tpu_torch.parallel.mesh import data_parallel_mesh
     from vit_unet_tpu_torch.train.callbacks import JSONLLogger, ReduceLROnPlateau
     from vit_unet_tpu_torch.train.fitter import Fitter
     from vit_unet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        device = mesh.device
+    shard, per_rank = _rank_loading(mesh, args.batch_size)
     task = TASKS[args.task]
     dataset_cls = getattr(ds_mod, task["dataset"])
     loss = args.loss or task["loss"]
@@ -120,12 +122,14 @@ def main(argv=None) -> dict:
         val_ds = dataset_cls.from_folder(
             args.input_folder, im_size=args.im_size,
             transforms=eval_transforms(args.im_size), indices=val_idx)
-        train_dl = DataLoader(train_ds, args.batch_size, shuffle=True,
-                              num_workers=args.num_workers)
-        # evaluation sees every sample: no remainder dropping
-        val_dl = DataLoader(val_ds, min(args.batch_size, len(val_ds)),
+        train_dl = DataLoader(train_ds, per_rank, shuffle=True,
+                              num_workers=args.num_workers, **shard)
+        # evaluation sees every sample (on a mesh, all but the last few that
+        # do not share out over the ranks): no remainder dropping
+        val_dl = DataLoader(val_ds, max(1, min(args.batch_size, len(val_ds))
+                                        * per_rank // args.batch_size),
                             shuffle=False, drop_remainder=False,
-                            num_workers=args.num_workers)
+                            num_workers=args.num_workers, **shard)
 
         overrides = {}
         if args.task == "segment":
@@ -135,13 +139,14 @@ def main(argv=None) -> dict:
                              use_flash=args.flash, flash_train=args.flash,
                              **overrides)
         fitter = Fitter(model, learning_rate=args.lr, optimizer="adamw",
-                        loss=loss, metrics=task["metrics"],
+                        loss=loss, metrics=task["metrics"], mesh=mesh,
+                        scale_lr_by_replicas=args.data_parallel,
                         checkpoint_dir=os.path.join(args.checkpoint_dir,
                                                     f"fold{fold}"),
                         bn_freeze_epochs=args.bn_freeze_epochs,
                         bn_warmup=args.bn_warmup, device=device)
         callbacks = [ReduceLROnPlateau()]
-        if args.log_jsonl:
+        if args.log_jsonl and fitter.writes_checkpoints:
             callbacks.append(JSONLLogger(args.log_jsonl))
         fitter.fit(lambda: iter(train_dl), lambda: iter(val_dl),
                    n_epochs=args.n_epochs, callbacks=callbacks)
@@ -156,6 +161,20 @@ def main(argv=None) -> dict:
               f"{key}_std": float(np.std(scores))}
     print(json.dumps(result))
     return result
+
+
+def _rank_loading(mesh, batch_size: int):
+    """(DataLoader shard arguments, batch size a rank) of a data-parallel
+    mesh: each data rank reads its own equal part of every batch."""
+    if mesh is None:
+        return {}, batch_size
+    from vit_unet_tpu_torch.parallel.mesh import replica_count
+    ranks = replica_count(mesh)
+    if batch_size % ranks:
+        raise SystemExit(f"--batch_size {batch_size} does not split over "
+                         f"{ranks} data-parallel ranks")
+    return (dict(shard_id=mesh.index("data"), num_shards=ranks),
+            batch_size // ranks)
 
 
 if __name__ == "__main__":

@@ -39,8 +39,19 @@ the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
 1/(1 - rate).  The bits are keyed on (seed, b, h, row, column group),
 absolute indices, one Philox call for four entries (``dropout_bits``), so
 every kernel draws the same mask whatever its tiling and ``dropout_mask``
-here regenerates it exactly with integer torch ops.  The normaliser uses the
-pre-dropout probabilities, as on the TPU.
+here regenerates it exactly with integer torch ops, from the seed tensor on
+its device (no host synchronisation).  The normaliser uses the pre-dropout
+probabilities, as on the TPU.
+
+Where a call's (batch, row) plane is split over ranks (data or sequence
+parallelism), the exact-BN functions take ``shards``: an object with
+``all_reduce(t)`` (sum in place over the ranks that hold the plane's
+parts), ``size`` (those ranks) and ``row_shards`` (how many of them split
+the rows of one batch part; the rest split the batch).  Every part must be
+the same size.  The moments and the through-the-statistics gradient terms
+are then summed over the ranks, so each equals the unsplit call's; the
+parameter gradients come back divided by ``size``, so that summing them
+over the ranks gives the unsplit call's.
 
 The math the JAX package computes outside its ``pallas_call`` stays plain
 torch: R, D and dm_eff from ``o_norm``, vsum and the c_eff terms, the BN
@@ -107,11 +118,14 @@ def _mulhilo(m: int, a: torch.Tensor):
     return (t2 >> 16) + (u >> 32), u & _MASK32
 
 
-def philox4(seed: int, b, h, row, grp):
+def philox4(seed, b, h, row, grp):
     """Philox-4x32-10 with key (seed lo, seed hi) and counter
-    (grp, row, h, b): int64 tensors broadcast together; returns the four
-    output words, values in [0, 2^32).  Bit for bit the generator of
-    ``reattention_common.cuh``."""
+    (grp, row, h, b): int64 tensors broadcast together; ``seed`` an int or
+    an int64 tensor (one element, on the indices' device), read there, so
+    no value goes to the host.  Returns the four output words, values in
+    [0, 2^32).  Bit for bit the generator of ``reattention_common.cuh``."""
+    if torch.is_tensor(seed):
+        seed = seed.reshape(())
     c0, c1, c2, c3 = grp, row, h, b
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
     for _ in range(10):
@@ -123,17 +137,29 @@ def philox4(seed: int, b, h, row, grp):
     return c0, c1, c2, c3
 
 
-def dropout_bits(seed: int, b, h, rows, cols) -> torch.Tensor:
-    """The 32 random bits of map entries (b, h, row, col), for 1-D int64
-    tensors of absolute indices: (len(b), len(h), len(rows), len(cols)).
-    Entry (row, col) takes word (col >> 4) & 3 of the call with group
-    (col >> 6) * 16 + (col & 15), as the kernels draw them."""
-    groups = torch.unique((cols >> 6) * 16 + (cols & 15))
-    words = torch.stack(philox4(int(seed), b[:, None, None, None],
+def _column_call(cols):
+    """(group, word) of map columns: entry (row, col) takes word
+    (col >> 4) & 3 of the Philox call with group (col >> 6) * 16 + (col & 15),
+    as the kernels draw them."""
+    return (cols >> 6) * 16 + (cols & 15), (cols >> 4) & 3
+
+
+def dropout_bits(seed, b, h, rows, n_k: int) -> torch.Tensor:
+    """The 32 random bits of map entries (b, h, row, col) for columns
+    0..n_k-1: (len(b), len(h), len(rows), n_k), for 1-D int64 tensors of
+    absolute indices b, h and rows (a block of rows is drawn on its own);
+    ``seed`` as ``philox4`` takes it.  One Philox call per group: the
+    groups of those columns are exactly 0..G-1, G = 16 * (n_k // 64) +
+    min(16, n_k % 64) (the lanes col & 15 of each 64-column block fill up
+    from 0), so group g sits at slot g and no search over the groups is
+    needed."""
+    n_groups = 16 * (n_k // 64) + min(16, n_k % 64)
+    groups = torch.arange(n_groups, dtype=torch.int64, device=rows.device)
+    words = torch.stack(philox4(seed, b[:, None, None, None],
                                 h[None, :, None, None], rows[None, None, :, None],
                                 groups[None, None, None, :]), dim=-1)
-    slot = torch.searchsorted(groups, (cols >> 6) * 16 + (cols & 15))
-    return words.flatten(-2)[..., slot * 4 + ((cols >> 4) & 3)]
+    grp, word = _column_call(torch.arange(n_k, dtype=torch.int64, device=rows.device))
+    return words.flatten(-2)[..., grp * 4 + word]
 
 
 def keep_threshold(rate: float) -> int:
@@ -146,17 +172,19 @@ def _keep_scale(rate: float) -> float:
     return struct.unpack("f", struct.pack("f", 1.0 / (1.0 - rate)))[0]
 
 
-def dropout_mask(seed: int, rate: float, batch: int, heads: int, n_q: int,
+def dropout_mask(seed, rate: float, batch: int, heads: int, n_q: int,
                  n_k: int, device=None) -> torch.Tensor:
-    """The (B, H, Nq, Nk) f32 dropout scale, 0 or 1/(1 - rate)."""
+    """The (B, H, Nq, Nk) f32 dropout scale, 0 or 1/(1 - rate).  ``seed``:
+    an int, or the one-element int64 seed tensor the kernels take
+    (``new_seed``), read on its device: drawing the mask then needs no
+    value from the host, so the card runs it without a synchronisation.
+    ``device`` defaults to the seed tensor's."""
+    if device is None and torch.is_tensor(seed):
+        device = seed.device
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    bits = dropout_bits(seed, ar(batch), ar(heads), ar(n_q), ar(n_k))
+    bits = dropout_bits(seed, ar(batch), ar(heads), ar(n_q), n_k)
     keep = (bits >> 8) >= keep_threshold(rate)
     return torch.where(keep, _keep_scale(rate), 0.0).to(torch.float32)
-
-
-def _seed_value(seed) -> int:
-    return int(seed.reshape(-1)[0].item()) if torch.is_tensor(seed) else int(seed)
 
 
 def new_seed(generator: torch.Generator) -> torch.Tensor:
@@ -181,7 +209,7 @@ def _probs_plain(q, k, seed, rate):
     p = torch.exp(s - lse[..., None])
     if rate > 0.0:
         b, h, n_q, n_k = p.shape
-        a = p * dropout_mask(_seed_value(seed), rate, b, h, n_q, n_k, p.device)
+        a = p * dropout_mask(seed, rate, b, h, n_q, n_k, p.device)
     else:
         a = p
     return p, a, lse
@@ -221,7 +249,7 @@ def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
     n_k = k.shape[2]
     s = torch.einsum("bhnd,bhmd->bhnm", _wide(q), _wide(k))
     p = torch.exp(s - lse[..., None])
-    mask = (dropout_mask(_seed_value(seed), rate, batch, heads, n_q, n_k,
+    mask = (dropout_mask(seed, rate, batch, heads, n_q, n_k,
                          p.device) if rate > 0.0 else None)
     a = p * mask if mask is not None else p
     m32 = _wide(m_eff)
@@ -270,12 +298,42 @@ def apply_mixed_map(c, v_cat, norm=None, stats=None, eps: float = 1e-5):
     return out.reshape(batch, n_q, -1)
 
 
+class _Summed(torch.autograd.Function):
+    """A tensor summed over ``shards``' ranks; its cotangent too (each
+    rank's part of the sum feeds every rank's use of it)."""
+
+    @staticmethod
+    def forward(ctx, t, shards):
+        ctx.shards = shards
+        return shards.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shards.all_reduce(g.clone()), None
+
+
+def batch_moments(c, shards=None):
+    """flax's batch moments of c (B, H, Nq, Nk) per head: (mean, E[c^2] -
+    mean^2 clamped at 0), over every rank's part with ``shards``
+    (differentiable, one all-reduce)."""
+    if shards is None:
+        mean = c.mean((0, 2, 3))
+        return mean, ((c * c).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    heads = c.shape[1]
+    cnt = c.numel() // heads * shards.size
+    sums = _Summed.apply(torch.cat([c.sum((0, 2, 3)), (c * c).sum((0, 2, 3))]),
+                         shards) / cnt
+    mean = sums[:heads]
+    return mean, (sums[heads:] - mean * mean).clamp_min(0.0)
+
+
 def reattention_nxn(q, k, v_cat, conv_m, conv_c, mask=None, *, norm=None,
-                    stats=None, eps: float = 1e-5):
+                    stats=None, eps: float = 1e-5, shards=None):
     """Plain N x N re-attention, differentiable in every input, in float32
     (float64 for float64 inputs): ``apply_mixed_map`` of ``mixed_map``.
     With ``norm`` = (gamma, beta), BatchNorm of c by ``stats`` = (mean,
-    var), or by c's batch moments over (B, Nq, Nk) when ``stats`` is None.
+    var), or by c's batch moments over (B, Nq, Nk) when ``stats`` is None
+    (over every rank's part with ``shards``, as the kernels take it).
     Returns (out (B, Nq, H*dh), moments): with ``norm``, moments are c's
     batch (mean, var) as flax takes them (E[c^2] - E[c]^2, clamped at 0),
     else None.
@@ -286,9 +344,7 @@ def reattention_nxn(q, k, v_cat, conv_m, conv_c, mask=None, *, norm=None,
     c = mixed_map(q, k, conv_m, conv_c, mask)
     moments = None
     if norm is not None:
-        mean = c.mean((0, 2, 3))
-        var = ((c * c).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
-        moments = (mean, var)
+        moments = batch_moments(c, shards)
     out = apply_mixed_map(c, v_cat, norm, moments if stats is None else stats, eps)
     return out, moments
 
@@ -536,11 +592,16 @@ def _c_terms(g, vsum, c_eff, heads: int, dh: int):
     return dc_eff, (c_rep[None, :] * gsum)[:, None, :]
 
 
-def _bn_moments(s_rows, c_rows, conv_m, conv_c, cnt: int):
+def _bn_moments(s_rows, c_rows, conv_m, conv_c, cnt: int, shards=None):
     """(mu, var, sum S, sum C) of c = W A + cb over (B, Nq, Nk), taken about
-    cb (``_bn_moments`` :805)."""
+    cb (``_bn_moments`` :805).  With ``shards`` the row sums are every
+    rank's (one all-reduce) and ``cnt`` the whole plane's count."""
     ssum = s_rows.sum((0, 2))                                     # (H,)
     csum = c_rows.sum((0, 3))                                     # (H2, H3)
+    if shards is not None:
+        h = ssum.shape[0]
+        both = shards.all_reduce(torch.cat([ssum, csum.reshape(-1)]))
+        ssum, csum = both[:h], both[h:].reshape(h, h)
     w = _wide(conv_m)
     cb = _wide(conv_c)
     dev = (w @ ssum) / cnt
@@ -589,28 +650,30 @@ def flash_reattention_train(q, k, v_cat, m_eff, c_eff, seed=None, *,
 class _FlashTrainBN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v_cat, conv_m, conv_c, gamma, beta, seed, rate,
-                eps, reatten_scale):
+                eps, reatten_scale, shards):
         batch, heads, n_q, dh = q.shape
-        cnt = batch * n_q * k.shape[2]
+        cnt = batch * n_q * k.shape[2] * (1 if shards is None else shards.size)
         vsum = _wide(v_cat).sum(1)
         s_rows, c_rows, lse, onorm = bn_fwd(q, k, v_cat, seed, rate)
-        mu, var, _, _ = _bn_moments(s_rows, c_rows, conv_m, conv_c, cnt)
+        mu, var, ssum, csum = _bn_moments(s_rows, c_rows, conv_m, conv_c, cnt,
+                                          shards)
         m_eff, c_eff = fold_reattention_compact(
             conv_m, conv_c, gamma, beta, mu, var, eps=eps,
             reatten_scale=reatten_scale)
         out = _mix(onorm, m_eff, c_eff, vsum, dh).to(q.dtype)
         ctx.save_for_backward(q, k, v_cat, conv_m, conv_c, gamma, beta,
                               s_rows, c_rows, lse, vsum, onorm, m_eff, c_eff,
-                              mu, var)
+                              mu, var, ssum, csum)
         ctx.seed, ctx.rate, ctx.eps, ctx.reatten_scale = seed, rate, eps, reatten_scale
+        ctx.shards, ctx.cnt = shards, cnt
         return out, mu, var
 
     @staticmethod
     def backward(ctx, g, g_mu, g_var):
         (q, k, v_cat, conv_m, conv_c, gamma, beta, s_rows, c_rows, lse, vsum,
-         onorm, m_eff, c_eff, mu, var) = ctx.saved_tensors
+         onorm, m_eff, c_eff, mu, var, ssum, csum) = ctx.saved_tensors
         batch, heads, n_q, dh = q.shape
-        cnt = batch * n_q * k.shape[2]
+        shards, cnt = ctx.shards, ctx.cnt
         g_mu = torch.zeros_like(mu) if g_mu is None else _wide(g_mu)
         g_var = torch.zeros_like(var) if g_var is None else _wide(g_var)
         w32, cb32 = _wide(conv_m), _wide(conv_c)
@@ -619,6 +682,16 @@ class _FlashTrainBN(torch.autograd.Function):
         r = _r_rows(onorm, g, heads, dh)
         dm_eff = r.sum((0, 2)).t()
         dc_eff, dv_c = _c_terms(g, vsum, c_eff, heads, dh)
+        if shards is not None:
+            # every rank's rows into the affine's cotangents; mu and var
+            # are each batch part's output on its row_shards ranks, so
+            # their summed cotangents count each part that many times
+            hh = heads * heads
+            both = shards.all_reduce(torch.cat([
+                dm_eff.reshape(-1), dc_eff, g_mu, g_var]))
+            dm_eff, dc_eff = both[:hh].reshape(heads, heads), both[hh:hh + heads]
+            g_mu = both[hh + heads:hh + 2 * heads] / shards.row_shards
+            g_var = both[hh + 2 * heads:] / shards.row_shards
 
         # cotangents into (W, cb, gamma, beta, mu, var) through the fold
         with torch.enable_grad():
@@ -644,8 +717,6 @@ class _FlashTrainBN(torch.autograd.Function):
                                ctx.rate, bn_extra=(g_mat, kappa))
 
         # direct d(mu, var)/d(W, cb) terms (:968-984)
-        ssum = s_rows.sum((0, 2))
-        csum = c_rows.sum((0, 3))
         d_cm = _wide(d_cm) + (
             u[:, None] * ssum[None, :] / cnt
             + 2.0 * wv[:, None] * (w32 @ csum
@@ -654,36 +725,42 @@ class _FlashTrainBN(torch.autograd.Function):
         # the direct mu-output cotangent reaches cb; assembling it from the
         # fold's two cancelling terms would keep only their rounding noise
         d_cc = g_mu
+        part = 1.0 if shards is None else 1.0 / shards.size
         return (dq.to(q.dtype), dk.to(k.dtype), (dv + dv_c).to(v_cat.dtype),
-                d_cm.reshape(conv_m.shape).to(conv_m.dtype),
-                d_cc.to(conv_c.dtype), d_ga.to(gamma.dtype),
-                d_be.to(beta.dtype), None, None, None, None)
+                (d_cm * part).reshape(conv_m.shape).to(conv_m.dtype),
+                (d_cc * part).to(conv_c.dtype), (d_ga * part).to(gamma.dtype),
+                (d_be * part).to(beta.dtype), None, None, None, None, None)
 
 
 def flash_reattention_train_bn(q, k, v_cat, conv_m, conv_c, gamma, beta,
                                seed=None, *, num_heads: int, rate: float = 0.0,
-                               eps: float = 1e-5, reatten_scale: float = 1.0):
+                               eps: float = 1e-5, reatten_scale: float = 1.0,
+                               shards=None):
     """Training re-attention with exact batch-statistics BatchNorm in the
     head mix.  conv_m: (H, H) [h_out, h_in] (or torch's (H, H, 1, 1));
     conv_c, gamma, beta: (H,).  Returns (out (B, Nq, H*dh), mu (H,),
     var (H,)): the batch moments of the mixed map (biased variance) for the
-    caller's running-average update."""
+    caller's running-average update.  ``shards``: the ranks this call's
+    (batch, row) plane is split over (module docstring); the moments are
+    then the whole plane's."""
     if q.shape[1] != num_heads:
         raise ValueError(f"q has {q.shape[1]} heads, num_heads={num_heads}")
     return _FlashTrainBN.apply(q, k, v_cat, _conv_matrix(conv_m), conv_c,
                                gamma, beta, seed, float(rate), float(eps),
-                               float(reatten_scale))
+                               float(reatten_scale), shards)
 
 
 @torch.no_grad()
 def flash_bn_batch_moments(q, k, v_cat, conv_m, conv_c, seed=None, *,
-                           num_heads: int, rate: float = 0.0):
+                           num_heads: int, rate: float = 0.0, shards=None):
     """Batch moments (mu, var) of the head-mixed map without normalising
     with them (the ``bn_track`` side channel); no gradient.  ``seed`` and
-    ``rate`` must be those of the paired forward."""
+    ``rate`` must be those of the paired forward; ``shards`` as
+    ``flash_reattention_train_bn`` takes it."""
     if q.shape[1] != num_heads:
         raise ValueError(f"q has {q.shape[1]} heads, num_heads={num_heads}")
-    cnt = q.shape[0] * q.shape[2] * k.shape[2]
+    cnt = q.shape[0] * q.shape[2] * k.shape[2] * (1 if shards is None else shards.size)
     s_rows, c_rows, _, _ = bn_fwd(q, k, v_cat, seed, rate)
-    mu, var, _, _ = _bn_moments(s_rows, c_rows, _conv_matrix(conv_m), conv_c, cnt)
+    mu, var, _, _ = _bn_moments(s_rows, c_rows, _conv_matrix(conv_m), conv_c,
+                                cnt, shards)
     return mu, var

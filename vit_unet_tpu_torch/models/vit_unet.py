@@ -31,8 +31,10 @@ from vit_unet_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ViTUNetConfig:
-    """The JAX package's config, field for field.  Sequence parallelism
-    raises ``NotImplementedError`` when the model is built.  ``remat``
+    """The JAX package's config, field for field.  ``sequence_parallel``
+    splits the tokens of every level with at least ``sp_min_tokens`` over
+    the mesh's ``model`` axis (``ViTUNet(cfg, mesh=...)``, or the mesh of
+    the running step).  ``remat``
     recomputes each encoder, bottleneck and decoder block's activations in
     the backward (``nn/remat.py``).  ``use_flash`` and
     ``flash_train`` default to True here: every re-attention, eval and
@@ -148,16 +150,16 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 class ViTUNet(nn.Module):
     """(B, C, H, W) -> (B, C_out, im_size, im_size).  Starts in eval mode;
-    ``train()`` makes ``forward`` default to the training semantics."""
+    ``train()`` makes ``forward`` default to the training semantics.
+    ``mesh`` (``parallel/mesh.py``) is the mesh of sequence parallelism
+    when ``config.sequence_parallel``; without it the layers take the mesh
+    of the running step (``use_mesh``)."""
 
-    def __init__(self, config: ViTUNetConfig):
+    def __init__(self, config: ViTUNetConfig, mesh=None):
         super().__init__()
         cfg = config
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence parallelism belongs to the port's multi-GPU slice "
-                "and is not implemented yet")
         self.config = cfg
+        self.mesh = mesh
         self.dtype = dt = _torch_dtype(cfg.dtype)
         self.PE = PatchEncoder(cfg.depth, cfg.num_patches, cfg.patch_size,
                                cfg.num_channels, cfg.preprocessing, dtype=dt)
@@ -166,7 +168,9 @@ class ViTUNet(nn.Module):
                       proj_drop=cfg.proj_drop, use_flash=cfg.use_flash,
                       flash_train=cfg.flash_train,
                       flash_frozen_bn=cfg.flash_frozen_bn,
-                      bn_track=cfg.bn_track, bn_eps=cfg.attn_bn_eps, dtype=dt)
+                      bn_track=cfg.bn_track, bn_eps=cfg.attn_bn_eps,
+                      sequence_parallel=cfg.sequence_parallel, sp_mesh=mesh,
+                      sp_min_tokens=cfg.sp_min_tokens, dtype=dt)
 
         def block(level: int):
             g = cfg.level_geometry(level)
@@ -309,10 +313,11 @@ def get_config(name: str, **overrides) -> ViTUNetConfig:
     return ViTUNetConfig(**{**PRESETS[name.lower()], **overrides})
 
 
-def get_vit_unet(name: str, *, device: str | torch.device | None = None,
+def get_vit_unet(name: str, mesh=None, *, device: str | torch.device | None = None,
                  seed: int = 0, **overrides) -> ViTUNet:
     """Preset name -> model on ``device`` (default: the card), in eval
-    mode.
+    mode.  ``mesh`` with ``sequence_parallel=True``: the mesh to split the
+    long levels' tokens over.
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     (so one seed gives one model on every device), then cast to
@@ -322,8 +327,8 @@ def get_vit_unet(name: str, *, device: str | torch.device | None = None,
     cfg = get_config(name, **overrides)
     if dev.type == "meta":
         with torch.device("meta"):
-            return ViTUNet(cfg)
-    model = ViTUNet(cfg).init_weights(torch.Generator().manual_seed(seed))
+            return ViTUNet(cfg, mesh=mesh)
+    model = ViTUNet(cfg, mesh=mesh).init_weights(torch.Generator().manual_seed(seed))
     pdt = _torch_dtype(cfg.param_dtype)
     for p in model.parameters():     # BN running statistics stay float32
         p.data = p.data.to(pdt)

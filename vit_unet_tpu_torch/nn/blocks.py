@@ -37,7 +37,9 @@ class ReAttentionEncoderBlock(nn.Module):
                  qkv_kernel: int = 3, ln_mode: str = "shared",
                  use_flash: bool = True, flash_train: bool = True,
                  flash_frozen_bn: bool = False, bn_track: bool = False,
-                 bn_eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 bn_eps: float = 1e-5, sequence_parallel: bool = False,
+                 sp_mesh=None, sp_min_tokens: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if ln_mode not in ("shared", "dual"):
             raise ValueError(f"ln_mode must be 'shared' or 'dual', got {ln_mode!r}")
@@ -48,7 +50,8 @@ class ReAttentionEncoderBlock(nn.Module):
             qkv_kernel=qkv_kernel, attn_drop=attn_drop, proj_drop=proj_drop,
             use_flash=use_flash, flash_train=flash_train,
             flash_frozen_bn=flash_frozen_bn, bn_track=bn_track, bn_eps=bn_eps,
-            dtype=dtype)
+            sequence_parallel=sequence_parallel, sp_mesh=sp_mesh,
+            sp_min_tokens=sp_min_tokens, dtype=dtype)
         shape = (num_patches, projection_dim)
         if ln_mode == "shared":
             self.LN = nn.LayerNorm(shape, eps=1e-5)

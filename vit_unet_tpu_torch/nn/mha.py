@@ -100,8 +100,8 @@ class KerasMHA(nn.Module):
         probs = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", qh, kh), dim=-1)
         if rate > 0.0:
             b, _, n_q, n_k = probs.shape
-            probs = probs * dropout_mask(int(seed.item()), rate, b, h, n_q,
-                                         n_k, probs.device)
+            probs = probs * dropout_mask(seed, rate, b, h, n_q, n_k,
+                                         probs.device)
         ctx = torch.einsum("bhnm,bhmd->bnhd", probs, vh)
         return ctx.reshape(ctx.shape[0], ctx.shape[1], -1).to(self.dtype)
 

@@ -21,6 +21,12 @@ card the kernels run, on the CPU their plain versions.  ``flash_train=False``
 (or ``use_flash=False``) runs the plain N x N path, whose dropout draws the
 same mask.
 
+On a mesh (``parallel/mesh.py``), a layer with ``sequence_parallel`` and at
+least ``sp_min_tokens`` tokens splits its tokens over the mesh's ``model``
+axis (``parallel/sequence.py``), and, inside a step whose batch is split
+over ``data`` (``use_mesh``), every layer takes its exact-BN moments over
+the whole batch, as the JAX package's one program over the mesh does.
+
 The running statistics follow flax's BatchNorm, not torch's: momentum 0.9
 on the old value and the *biased* batch variance,
 ``running = 0.9 * running + 0.1 * batch``; ``nn.BatchNorm2d`` only holds the
@@ -45,6 +51,7 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import (
 )
 from vit_unet_tpu_torch.nn.dropout import dropout, require_generator
 from vit_unet_tpu_torch.ops.patches import unflatten, unflatten_cl
+from vit_unet_tpu_torch.parallel.mesh import current_layout
 
 BN_MOMENTUM = 0.9
 
@@ -170,6 +177,13 @@ class ReAttention(nn.Module):
     JAX defaults it to False).
     A (heads, dh) beyond the kernels' limits (``kernel_takes``) takes the
     plain path whatever the flags say.
+
+    ``sequence_parallel``: at ``sp_min_tokens`` tokens or more, on a mesh
+    whose ``model`` axis has more than one rank (``sp_mesh``, else the mesh
+    of the step running, ``use_mesh``) and divides the tokens, the attention
+    runs sequence-parallel (``_attend_sp``).  Only ``kernel_takes`` gates
+    its kernels: the JAX package's floor of 128 rows a shard does not carry
+    over.
     """
 
     def __init__(self, dim: int, num_channels: int = 3, num_heads: int = 8,
@@ -179,7 +193,8 @@ class ReAttention(nn.Module):
                  bn_track: bool = False, bn_eps: float = 1e-5,
                  qkv_gelu: bool = False,
                  token_layout: str = "cm",
-                 dtype: torch.dtype = torch.float32):
+                 sequence_parallel: bool = False, sp_min_tokens: int = 1024,
+                 sp_mesh=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         if token_layout not in ("cm", "cl"):
             raise ValueError(f"token_layout must be 'cm' or 'cl', got "
@@ -196,6 +211,9 @@ class ReAttention(nn.Module):
         self.bn_eps = bn_eps
         self.qkv_gelu = qkv_gelu
         self.token_layout = token_layout
+        self.sequence_parallel = sequence_parallel
+        self.sp_min_tokens = sp_min_tokens
+        self.sp_mesh = sp_mesh
         self.dtype = dtype
         c = num_channels
         conv = lambda: nn.Conv2d(c, c, qkv_kernel, padding="same", bias=False)
@@ -285,10 +303,82 @@ class ReAttention(nn.Module):
         bn.running_var.mul_(BN_MOMENTUM).add_(
             (1 - BN_MOMENTUM) * var.float().clamp_min(0.0))
 
+    def _sp_mesh_for(self, n: int):
+        """The mesh to split ``n`` tokens over, or None where sequence
+        parallelism does not apply (off, no mesh, an axis of one rank, too
+        few tokens, or a count the axis does not divide)."""
+        if not self.sequence_parallel:
+            return None
+        mesh = self.sp_mesh
+        if mesh is None:
+            layout = current_layout()
+            mesh = None if layout is None else layout.mesh
+        if mesh is None:
+            return None
+        size = mesh.shape["model"]
+        if size <= 1 or n < self.sp_min_tokens or n % size:
+            return None
+        return mesh
+
+    @staticmethod
+    def _batch_shards():
+        """The ``shards`` of a step whose batch is split over the data axis
+        (its exact-BN moments are the whole batch's), else None."""
+        layout = current_layout()
+        if layout is None or not layout.batch_split:
+            return None
+        return layout.mesh.shards(("data",))
+
+    def _attend_sp(self, q, k, v, mesh, *, deterministic: bool,
+                   use_running_average: bool, generator):
+        """Sequence-parallel attention (``parallel/sequence.py``) over
+        ``mesh``'s ``model`` axis: eval with the folded running statistics;
+        training with dropout and the head-mix BatchNorm on batch statistics
+        over the whole (batch, token) plane, or frozen (``use_running_average``,
+        or ``flash_frozen_bn`` on the kernels), or tracking (``bn_track``).
+        The exact moments across ranks update the running statistics
+        directly (JAX feeds them through a two-point tensor)."""
+        from vit_unet_tpu_torch.parallel.sequence import (
+            sequence_parallel_reattention, sequence_parallel_reattention_train)
+
+        qs = q * self.scale
+        if deterministic and use_running_average:
+            m_eff, c_eff = self._folded()
+            return sequence_parallel_reattention(
+                qs, k, v, m_eff, c_eff, mesh, use_flash=self._kernels)
+        rate = 0.0 if deterministic else float(self.attn_drop)
+        seed = None
+        if rate > 0.0:
+            seed = new_seed(require_generator(generator, rate, "attention dropout"))
+        kernels = self._kernels and self.flash_train
+        frozen = use_running_average or (kernels and self.flash_frozen_bn)
+        tracking = self.bn_track and not frozen
+        bn = self.var_norm
+        running = None
+        if frozen or tracking:
+            running = (bn.running_mean.clone(), bn.running_var.clone())
+        # the batch is split over the data axis inside a step that says so,
+        # and outside a step wherever the mesh has a data axis
+        layout = current_layout()
+        split = layout is None or layout.batch_split
+        out, mean, var = sequence_parallel_reattention_train(
+            qs, k, v, self.reatten_matrix.weight[:, :, 0, 0],
+            self.reatten_matrix.bias, bn.weight, bn.bias, mesh, seed=seed,
+            rate=rate, data_axis="data" if split else None, eps=self.bn_eps,
+            running_stats=running, use_flash=kernels, track_stats=tracking)
+        if not frozen:
+            self._update_running(mean.detach(), var.detach())
+        return out
+
     def _attend(self, q, k, v, *, deterministic: bool = True,
                 use_running_average: bool = True,
                 generator: Optional[torch.Generator] = None):
         """q, k, v (B, H, N, dh) -> merged-head (B, N_q, E)."""
+        sp_mesh = self._sp_mesh_for(q.shape[2])
+        if sp_mesh is not None:
+            return self._attend_sp(q, k, v, sp_mesh, deterministic=deterministic,
+                                   use_running_average=use_running_average,
+                                   generator=generator)
         qs = (q * self.scale).contiguous()
         k, v_cat = k.contiguous(), merge_heads(v).contiguous()
         if deterministic and use_running_average:
@@ -316,19 +406,21 @@ class ReAttention(nn.Module):
             return flash_reattention_train(q, k, v_cat, m_eff, c_eff, seed,
                                            num_heads=heads, rate=rate)
         conv = self.reatten_matrix
+        shards = self._batch_shards()
         if self.bn_track:
             m_eff, c_eff = self._folded()
             out = flash_reattention_train(q, k, v_cat, m_eff, c_eff, seed,
                                           num_heads=heads, rate=rate)
             mu, var = flash_bn_batch_moments(
                 q.detach(), k.detach(), v_cat.detach(), conv.weight.detach(),
-                conv.bias.detach(), seed, num_heads=heads, rate=rate)
+                conv.bias.detach(), seed, num_heads=heads, rate=rate,
+                shards=shards)
             self._update_running(mu, var)
             return out
         bn = self.var_norm
         out, mu, var = flash_reattention_train_bn(
             q, k, v_cat, conv.weight, conv.bias, bn.weight, bn.bias, seed,
-            num_heads=heads, rate=rate, eps=self.bn_eps)
+            num_heads=heads, rate=rate, eps=self.bn_eps, shards=shards)
         self._update_running(mu.detach(), var.detach())
         return out
 
@@ -340,15 +432,16 @@ class ReAttention(nn.Module):
         batch, heads, n_q, _ = q.shape
         mask = None
         if rate > 0.0:
-            mask = dropout_mask(int(seed.item()), rate, batch, heads, n_q,
-                                k.shape[2], q.device)
+            mask = dropout_mask(seed, rate, batch, heads, n_q, k.shape[2],
+                                q.device)
         conv, bn = self.reatten_matrix, self.var_norm
         stats = None
         if use_running_average or self.bn_track:
             stats = (bn.running_mean.clone(), bn.running_var.clone())
         out, (mean, var) = reattention_nxn(
             q, k, v_cat, conv.weight[:, :, 0, 0], conv.bias, mask,
-            norm=(bn.weight, bn.bias), stats=stats, eps=self.bn_eps)
+            norm=(bn.weight, bn.bias), stats=stats, eps=self.bn_eps,
+            shards=None if use_running_average else self._batch_shards())
         if not use_running_average:
             self._update_running(mean.detach(), var.detach())
         return out.to(q.dtype)

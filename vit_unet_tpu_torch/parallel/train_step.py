@@ -1,5 +1,6 @@
-"""Single-device train and eval steps, the counterpart of
-``vit_unet_tpu/parallel/train_step.py``.
+"""Train and eval steps, the counterpart of
+``vit_unet_tpu/parallel/train_step.py``: on one device, or on a mesh of
+processes (``parallel/mesh.py``).
 
 One train step: the model's training forward (dropout on, the head-mix
 BatchNorm on batch statistics unless ``bn_frozen``), the loss in float32,
@@ -13,16 +14,35 @@ chain ``MultiSteps(chain(clip_by_global_norm(c), tx), k)`` computes: the
 mean of k micro-batch gradients, clipped by its global norm, then one
 optimizer update.
 
-Meshes, data parallelism and ZeRO sharding belong to the port's multi-GPU
-slice: ``mesh`` and ``zero_sharding`` raise ``NotImplementedError``.
+On a mesh (the JAX mesh path, :150-236): the batch is split over the
+``data`` axis, the parameters are replicated (broadcast from rank 0 when
+the steps are built), and the gradients are averaged over every rank before
+clipping and the update, so ``clip_norm`` and ``accum_steps`` mean what
+they mean on one device.  A whole batch (every rank holds all of it) that
+the data axis does not divide runs replicated (:214-220).  The layers see
+the mesh while the step runs (``use_mesh``): the exact-BN moments are the
+whole batch's, as in the JAX package's one program, and sequence-parallel
+layers split their tokens over ``model``.  Loss and metrics are averaged
+over the ranks (a weighted loss is normalised by the whole batch's weight).
+Each data index draws its own dropout; the ranks of one model line draw
+alike.  ``zero_sharding`` (ZeRO-1) holds the optimizer state sharded over
+``data`` (``torch.distributed.optim.ZeroRedundancyOptimizer`` around the
+given optimizer's class): each rank updates its share of the parameters and
+broadcasts it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from vit_unet_tpu_torch.parallel.mesh import Mesh, data_sharding, use_mesh
 
 
 def adamw(model: nn.Module, lr: float = 1e-4, *, weight_decay: float = 1e-4,
@@ -64,23 +84,69 @@ class TrainState:
 
 @dataclasses.dataclass
 class StepFunctions:
+    """The steps, and the optimizer the ``TrainState`` must hold (the
+    given one, or its ZeRO-1 wrapper with ``zero_sharding``)."""
+
     train_step: Callable
     eval_step: Callable
+    optimizer: Optional[torch.optim.Optimizer] = None
+
+
+def zero_optimizer(optimizer: torch.optim.Optimizer, mesh: Mesh):
+    """``optimizer`` as ZeRO-1 over ``mesh``'s data axis: a
+    ``ZeroRedundancyOptimizer`` of the same class, parameter groups and
+    hyperparameters, whose state each data rank holds for its share of the
+    parameters only.  It must be made before the optimizer has state; a ZeRO
+    optimizer comes back as it is."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+    if isinstance(optimizer, ZeroRedundancyOptimizer):
+        return optimizer
+    if optimizer.state:
+        raise ValueError("ZeRO sharding starts from an optimizer without state")
+    cls = type(optimizer)
+    takes = inspect.signature(cls.__init__).parameters
+    defaults = {k: v for k, v in optimizer.defaults.items() if k in takes}
+    groups = [dict(g) for g in optimizer.param_groups]
+    return ZeroRedundancyOptimizer(groups, optimizer_class=cls,
+                                   process_group=mesh.group("data"), **defaults)
+
+
+GRAD_BUCKET_BYTES = 64 << 20
+
+
+def _grad_buckets(params):
+    """The parameters' gradients in buckets of one dtype, each at most
+    ``GRAD_BUCKET_BYTES`` (or one gradient larger than that)."""
+    by_dtype: dict = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        bucket, size = [], 0
+        for g in grads:
+            nbytes = g.numel() * g.element_size()
+            if bucket and size + nbytes > GRAD_BUCKET_BYTES:
+                yield bucket
+                bucket, size = [], 0
+            bucket.append(g)
+            size += nbytes
+        yield bucket
 
 
 def build_step_functions(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     metrics: Optional[dict[str, Callable]] = None,
     zero_sharding: bool = False,
     bn_frozen: bool = False,
     clip_norm: Optional[float] = None,
     accum_steps: int = 1,
+    local_batches: bool = False,
 ) -> StepFunctions:
-    """Train and eval steps for ``model`` and ``optimizer`` (which the
-    ``TrainState`` passed to the steps must hold).
+    """Train and eval steps for ``model`` and ``optimizer``.  The
+    ``TrainState`` passed to the steps holds ``steps.optimizer``: the given
+    optimizer, or with ``zero_sharding`` its ZeRO-1 form (``zero_optimizer``).
 
     ``batch`` is a dict with ``x``, ``y`` and optionally ``w``, per-sample
     loss weights: the weighted mean normalised by sum(w), so w = 1 gives
@@ -94,34 +160,85 @@ def build_step_functions(
     c: before an update the (averaged) gradient g becomes
     g · c / max(|g|, c), |g| the global norm over every parameter (optax's
     ``clip_by_global_norm``).  The optimizer counts only updates.
+
+    ``mesh``: the steps run on every rank of it (module docstring).  A
+    batch is the whole batch on every rank, or with ``local_batches`` each
+    rank's own equal block of it (a loader sharded over the data axis).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
-    if mesh is not None or zero_sharding:
-        raise NotImplementedError(
-            "meshes and ZeRO sharding belong to the port's multi-GPU slice "
-            "and are not implemented yet")
+    if zero_sharding and mesh is None:
+        raise ValueError("zero_sharding shards over a mesh's data axis: pass mesh")
     metrics = metrics or {}
+    distributed = mesh is not None and dist.is_available() and dist.is_initialized()
+    if distributed:
+        with torch.no_grad():           # replicate rank 0's model
+            for t in model.state_dict().values():
+                dist.broadcast(t, src=int(mesh.grid[0, 0]))
+    step_optimizer = zero_optimizer(optimizer, mesh) if zero_sharding else optimizer
 
-    def _loss(pred, y, w):
+    def _split(batch: dict):
+        """(this rank's batch, whether the batch is split over data)."""
+        if mesh is None or local_batches:
+            return batch, mesh is not None
+        if next(iter(batch.values())).shape[0] % mesh.shape["data"]:
+            return batch, False
+        return data_sharding(mesh).local(batch), True
+
+    def _loss(pred, y, w, split):
         pred, y = pred.float(), y.float()
         if w is None:
             return loss_fn(pred, y)
         per = torch.func.vmap(loss_fn)(pred, y)
         w = w.float().reshape(-1)
-        return torch.sum(per * w) / torch.sum(w).clamp_min(1e-8)
+        total = torch.sum(w)
+        if split and mesh.shape["data"] > 1:
+            # the whole batch's weight: each rank's loss is its share of the
+            # whole weighted mean, times the ranks it is averaged over
+            total = mesh.all_reduce(total.detach().clone(), "data") / mesh.shape["data"]
+        return torch.sum(per * w) / total.clamp_min(1e-8)
 
     def _metrics(pred, y):
         with torch.no_grad():
             return {name: fn(pred.detach().float(), y.float())
                     for name, fn in metrics.items()}
 
+    def _mean_over_ranks(out: dict) -> dict:
+        if not distributed or mesh.size == 1:
+            return out
+        keys = list(out)
+        both = torch.stack([out[k].detach().float().reshape(()) for k in keys])
+        both = mesh.all_reduce(both) / mesh.size
+        return dict(zip(keys, both.unbind()))
+
     def _check(state: TrainState):
-        if state.model is not model or state.optimizer is not optimizer:
+        if state.model is not model or state.optimizer is not step_optimizer:
             raise ValueError("the state holds another model or optimizer than "
-                             "the steps were built for")
+                             "the steps were built for (with zero_sharding: "
+                             "steps.optimizer)")
 
     params = [p for p in model.parameters() if p.requires_grad]
+
+    # The gradients are averaged here, once an update, and not by
+    # DistributedDataParallel: DDP averages at every backward, where
+    # ``accum_steps`` averages once before the update and ``clip_norm``
+    # clips that average, and a sequence-parallel rank's gradient is only
+    # its token shard's part, so the average runs over every rank of the
+    # mesh, not over one data group.  It starts after the backward (no
+    # overlap with it), in buckets of one dtype that each gradient joins at
+    # its own size, so at most GRAD_BUCKET_BYTES are copied at a time.
+    @torch.no_grad()
+    def _average_grads():
+        """Every rank's gradient averaged over all ranks, in place."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for bucket in _grad_buckets(params):
+            flat = _flatten_dense_tensors(bucket)
+            dist.all_reduce(flat, group=mesh.group(None))
+            flat /= mesh.size
+            for g, piece in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+                g.copy_(piece)
 
     @torch.no_grad()
     def _clip():
@@ -132,34 +249,46 @@ def build_step_functions(
             if p.grad is not None:
                 p.grad.mul_(scale)
 
+    def _on_mesh(split: bool):
+        return use_mesh(mesh, split) if mesh is not None else contextlib.nullcontext()
+
     def train_step(state: TrainState, batch: dict):
         _check(state)
+        batch, split = _split(batch)
         x, y, w = batch["x"], batch["y"], batch.get("w")
-        state.generator.manual_seed(step_seed(state.seed, state.step))
+        seed = step_seed(state.seed, state.step)
+        if split and mesh.shape["data"] > 1:
+            seed = step_seed(seed, mesh.index("data"))
+        state.generator.manual_seed(seed)
         if state.accum == 0:
-            optimizer.zero_grad(set_to_none=True)
-        pred = model(x, deterministic=False, use_running_average=bn_frozen,
-                     generator=state.generator)
-        loss = _loss(pred, y, w)
-        loss.backward()
+            step_optimizer.zero_grad(set_to_none=True)
+        with _on_mesh(split):
+            pred = model(x, deterministic=False, use_running_average=bn_frozen,
+                         generator=state.generator)
+            loss = _loss(pred, y, w, split)
+            loss.backward()
         state.accum += 1
         if state.accum == accum_steps:
             if accum_steps > 1:
                 for p in params:
                     if p.grad is not None:
                         p.grad.div_(accum_steps)
+            if distributed:
+                _average_grads()
             if clip_norm is not None:
                 _clip()
-            optimizer.step()
+            step_optimizer.step()
             state.accum = 0
         state.step += 1
-        return state, {"loss": loss.detach(), **_metrics(pred, y)}
+        return state, _mean_over_ranks({"loss": loss.detach(), **_metrics(pred, y)})
 
     def eval_step(state: TrainState, batch: dict):
         _check(state)
+        batch, split = _split(batch)
         x, y, w = batch["x"], batch["y"], batch.get("w")
-        with torch.no_grad():
+        with torch.no_grad(), _on_mesh(split):
             pred = model(x, deterministic=True, use_running_average=True)
-            return {"loss": _loss(pred, y, w), **_metrics(pred, y)}
+            out = {"loss": _loss(pred, y, w, split), **_metrics(pred, y)}
+        return _mean_over_ranks(out)
 
-    return StepFunctions(train_step, eval_step)
+    return StepFunctions(train_step, eval_step, step_optimizer)

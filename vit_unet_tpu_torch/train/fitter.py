@@ -1,5 +1,5 @@
 """Fitter, the port's trainer: the counterpart of
-``vit_unet_tpu/train/fitter.py`` on one device.
+``vit_unet_tpu/train/fitter.py``, on one device or a mesh of processes.
 
 It owns the epoch loop (with a bounded queue of steps whose metrics are
 still on the card), validation weighted by batch size, history, best and
@@ -9,8 +9,14 @@ preemption-safe ``resume``, the callbacks, gradient clipping and
 accumulation, and the frozen -> exact BatchNorm warmup of the head mix
 (``bn_freeze_epochs`` with ``bn_warmup`` 'freeze', 'track' or 'refold').
 
-Meshes, ``scale_lr_by_replicas`` with a mesh and ZeRO sharding belong to
-the port's multi-GPU slice and raise ``NotImplementedError``.
+On a mesh (``parallel/mesh.py``) every rank runs the same ``Fitter`` on its
+own part of each batch (a loader sharded over the data axis, e.g.
+``DataLoader(shard_id=mesh.index("data"), num_shards=replica_count(mesh))``);
+the steps average gradients, losses and metrics over the ranks, so every
+rank logs the same history and takes the same decisions.  Rank 0 alone
+writes checkpoints, after ZeRO's shards of the optimizer state are gathered
+to it and a partly accumulated gradient is averaged over the ranks; every
+rank reads them to resume.
 """
 from __future__ import annotations
 
@@ -24,11 +30,13 @@ from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vit_unet_tpu_torch.nn.reattention import ReAttention
+from vit_unet_tpu_torch.parallel.mesh import replica_count
 from vit_unet_tpu_torch.parallel.train_step import (
-    StepFunctions, TrainState, build_step_functions,
+    StepFunctions, TrainState, build_step_functions, zero_optimizer,
 )
 from vit_unet_tpu_torch.train import losses as losses_lib
 from vit_unet_tpu_torch.train import metrics as metrics_lib
@@ -116,12 +124,22 @@ class Fitter:
         * ``'track'``: the warmup epochs normalise with the running
           statistics while pulling them toward each batch's moments (each
           ``ReAttention.bn_track`` on), so the flip is continuous.
+
+        ``mesh``: train on every rank of it (module docstring); ``device``
+        then defaults to the mesh's.  ``scale_lr_by_replicas``: the
+        reference's ``lr * REPLICAS`` (the data axis's ranks).
+        ``zero_sharding``: ZeRO-1, the optimizer state sharded over the data
+        axis.
         """
-        if mesh is not None or zero_sharding:
-            raise NotImplementedError(
-                "meshes, scale_lr_by_replicas with a mesh and ZeRO sharding "
-                "belong to the port's multi-GPU slice and are not "
-                "implemented yet")
+        if zero_sharding and mesh is None:
+            raise ValueError("zero_sharding shards over a mesh's data axis: "
+                             "pass mesh")
+        self.mesh = mesh
+        self.zero_sharding = zero_sharding
+        if scale_lr_by_replicas and mesh is not None:
+            learning_rate = learning_rate * replica_count(mesh)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.bn_freeze_epochs = int(bn_freeze_epochs)
         self.bn_calib_batches = int(bn_calib_batches)
         if bn_warmup not in ("freeze", "track", "refold"):
@@ -154,6 +172,8 @@ class Fitter:
             }[optimizer]()
         else:
             self.optimizer = optimizer
+        if zero_sharding:
+            self.optimizer = zero_optimizer(self.optimizer, mesh)
         self.gradient_clip_norm = gradient_clip_norm
         self.grad_accum_steps = int(grad_accum_steps)
         self.dispatch_depth = max(1, int(dispatch_depth))
@@ -175,9 +195,10 @@ class Fitter:
 
     def _build_steps(self, bn_frozen: bool) -> StepFunctions:
         return build_step_functions(
-            self.model, self.optimizer, self.loss_fn, metrics=self.metric_fns,
+            self.model, self.optimizer, self.loss_fn, mesh=self.mesh,
+            metrics=self.metric_fns, zero_sharding=self.zero_sharding,
             bn_frozen=bn_frozen, clip_norm=self.gradient_clip_norm,
-            accum_steps=self.grad_accum_steps)
+            accum_steps=self.grad_accum_steps, local_batches=True)
 
     def init_state(self) -> TrainState:
         """The training state of the model as it stands (it is built
@@ -215,10 +236,34 @@ class Fitter:
         if self._write_error:
             raise self._write_error.pop()
 
-    def _payload(self, extra: Optional[dict]) -> dict:
+    @property
+    def _distributed(self) -> bool:
+        return (self.mesh is not None and dist.is_available()
+                and dist.is_initialized())
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        """Whether this process writes checkpoints (rank 0 of a mesh)."""
+        return not self._distributed or dist.get_rank() == 0
+
+    @torch.no_grad()
+    def _payload(self, extra: Optional[dict]) -> Optional[dict]:
+        """The checkpoint's content on the writing rank (None on the
+        others); on a mesh every rank takes part in gathering it."""
         st = self.state
         grads = ([None if p.grad is None else p.grad for p in self.model.parameters()]
                  if st.accum else None)
+        if self._distributed:
+            if grads is not None:
+                # each rank's partial sum, averaged: adding the local rest
+                # and averaging at the update gives the same update
+                grads = [None if g is None else
+                         self.mesh.all_reduce(g.detach().clone()) / self.mesh.size
+                         for g in grads]
+            if self.zero_sharding:
+                self.optimizer.consolidate_state_dict(to=0)
+            if not self.writes_checkpoints:
+                return None
         payload = {"model": self.model.state_dict(),
                    "optimizer": self.optimizer.state_dict(),
                    "step": st.step, "accum": st.accum, "grads": grads,
@@ -236,6 +281,8 @@ class Fitter:
         path = self._ckpt_path(name)
         self.finalize_checkpoints()
         payload = self._payload(extra)
+        if payload is None:
+            return path
 
         def write():
             try:
@@ -256,6 +303,7 @@ class Fitter:
         """Restore the full state from ``<checkpoint_dir>/<name>.pt``."""
         path = self._ckpt_path(name)
         self.finalize_checkpoints()          # don't read a half-written file
+        self._barrier()                      # nor one rank 0 still writes
         if self.state is None:
             self.init_state()
         ck = torch.load(path, map_location="cpu", weights_only=True)
@@ -279,6 +327,8 @@ class Fitter:
             start = fitter.resume()
             fitter.fit(data, n_epochs=N, save_last=True, initial_epoch=start)
         """
+        self.finalize_checkpoints()
+        self._barrier()
         if not os.path.isfile(self._ckpt_path(name)):
             return 0
         if self.state is None:
@@ -290,6 +340,10 @@ class Fitter:
             self.best = float(extra.get("best", self.best))
             return int(extra.get("epoch", 0)) + 1
         return 0
+
+    def _barrier(self) -> None:
+        if self._distributed:
+            dist.barrier()
 
     # -- training loop ------------------------------------------------------
 
@@ -412,7 +466,7 @@ class Fitter:
                 self.history.setdefault(k, []).append(v)
             for cb in callbacks:
                 cb.on_epoch_end(self, epoch, logs)
-            if verbose:
+            if verbose and self.writes_checkpoints:
                 msg = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                                for k, v in logs.items())
                 print(f"epoch {epoch + 1}/{n_epochs}: {msg}", flush=True)
@@ -440,8 +494,15 @@ class Fitter:
                              "no batches to calibrate on")
         moments = estimate_bn_moments(
             self.model, [self._device_batch(b) for b in calib])
+        if self._distributed:
+            # every rank's calibration batches (equal counts a rank)
+            for name, pair in moments.items():
+                both = self.mesh.all_reduce(
+                    torch.stack(pair).to(self.mesh.device)) / self.mesh.size
+                moments[name] = tuple(both.cpu().unbind())
         bn_refold(self.model, moments)
         self.optimizer.state.clear()
+        getattr(self.optimizer, "optim", self.optimizer).state.clear()
         self.optimizer.zero_grad(set_to_none=True)
         self.state.accum = 0
         return itertools.chain(calib, it)
