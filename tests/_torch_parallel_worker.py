@@ -7,8 +7,8 @@ Run as: python tests/_torch_parallel_worker.py <rank> <world> <port> <dir>
 ``tests/test_torch_parallel.py`` made; this rank writes its results to
 ``<dir>/rank<rank>.pkl`` (numpy arrays and numbers) for the parent to hold
 against the JAX package.  A world of 2 runs the checks on a 1 x 2 mesh
-(sequence parallel) and a 2 x 1 mesh (data parallel); a world of 4 on a
-2 x 2 mesh and a 4 x 1 mesh.
+(sequence and tensor parallel) and a 2 x 1 mesh (data parallel); a world
+of 4 on a 2 x 2 mesh and a 4 x 1 mesh.
 """
 from __future__ import annotations
 
@@ -28,9 +28,12 @@ from vit_unet_tpu_torch.kernels.flash_reattention import fold_reattention_compac
 from vit_unet_tpu_torch.kernels.flash_reattention_train import (  # noqa: E402
     dropout_mask, reattention_nxn,
 )
+from vit_unet_tpu_torch.models import hvit_unet_tf as TTF  # noqa: E402
 from vit_unet_tpu_torch.models import vit_unet as TM  # noqa: E402
 from vit_unet_tpu_torch.parallel import mesh as PM  # noqa: E402
+from vit_unet_tpu_torch.parallel import partition as PP  # noqa: E402
 from vit_unet_tpu_torch.parallel import sequence as PS  # noqa: E402
+from vit_unet_tpu_torch.parallel import train_step as TS  # noqa: E402
 from vit_unet_tpu_torch.parallel.train_step import (  # noqa: E402
     TrainState, adamw, build_step_functions,
 )
@@ -129,12 +132,23 @@ def _model(inp, mesh, flash, sp):
     return model
 
 
-def _step_result(model, opt, steps, batch):
+def _step_result(model, opt, steps, batch, mesh=None):
+    """One step's loss, this rank's gradients, state and AdamW moments (its
+    blocks of the split parameters, whose placements ``split`` names), and
+    the gradient's global norm."""
     state = TrainState.create(model=model, optimizer=opt, seed=0)
     state, m = steps.train_step(state, batch)
+    split = PP.placements(model)
+    named = list(model.named_parameters())
+    moments = {n: (N(opt.state[p]["exp_avg"]), N(opt.state[p]["exp_avg_sq"]))
+               for n, p in named if p in opt.state}
+    norm = TS.global_grad_norm([p for n, p in named if n not in split],
+                               [p for n, p in named if n in split], mesh)
     return dict(loss=float(m["loss"]), psnr=float(m.get("psnr", np.nan)),
-                grads={n: N(p.grad) for n, p in model.named_parameters()},
-                state={k: N(t) for k, t in model.state_dict().items()})
+                grads={n: N(p.grad) for n, p in named},
+                state={k: N(t) for k, t in model.state_dict().items()},
+                moments=moments, norm=float(norm),
+                split={n: s.dim for n, s in split.items()})
 
 
 def model_runs(inp, mesh, out, key, sp):
@@ -149,11 +163,13 @@ def model_runs(inp, mesh, out, key, sp):
         opt = adamw(model, 1e-4)
         steps = build_step_functions(model, opt, TL.mse, mesh=mesh,
                                      metrics={"psnr": TMet.psnr})
-        out[f"{key}/{flash}"] = dict(eval=ev, **_step_result(model, opt, steps, batch))
+        out[f"{key}/{flash}"] = dict(eval=ev, **_step_result(model, opt, steps,
+                                                             batch, mesh))
 
 
-def zero_runs(inp, mesh, out):
-    """ZeRO-1 against the replicated optimizer on the data-parallel mesh:
+def zero_runs(inp, mesh, out, key="zero"):
+    """ZeRO-1 against the replicated optimizer state on ``mesh`` (its data
+    axis; split over its model axis too where that holds several ranks):
     two steps each; this rank's share of the optimizer state."""
     batch = {k: T(a) for k, a in inp["batch"].items()}
     res = {}
@@ -170,7 +186,8 @@ def zero_runs(inp, mesh, out):
             t.numel() * t.element_size() for st in local.state.values()
             for t in st.values() if torch.is_tensor(t) and t.ndim > 0)
     res["param_bytes"] = [p.numel() * p.element_size() for p in model.parameters()]
-    out["zero"] = res
+    res["split"] = sorted(PP.placements(model))
+    out[key] = res
 
 
 def remainder_and_weights(inp, mesh, out):
@@ -241,15 +258,115 @@ def fitter_runs(inp, mesh, out, root):
         files=sorted(os.listdir(os.path.join(root, "straight"))))
 
 
+def tp_dropout(inp, mesh, out):
+    """Tensor parallelism with dropout on: the first step's loss and the
+    eval forward of a tiny ViTUNet (frozen BN, every dropout at 0.2) and
+    HViTUNetTF (keras heads split, every dropout at 0.3) on ``mesh``
+    against the lone process's.  The split layers draw their blocks of
+    the whole tensors' masks, so only rounding may part them."""
+    x = T(inp["batch"]["x"])
+    tf_x = x[:, :, :32, :32].permute(0, 2, 3, 1).contiguous()
+    makers = {
+        "vit": (lambda: TM.ViTUNet(TM.ViTUNetConfig(
+            **dict(inp["cfg"], attn_drop=0.2, proj_drop=0.2, linear_drop=0.2),
+            flash_frozen_bn=True)), x),
+        "tf": (lambda: TTF.HViTUNetTF(TTF.HViTUNetTFConfig(
+            img_size=32, patch_size=(4, 8), transformer_layers=(1,),
+            size_bottleneck=1, num_heads=2, drop_attn=0.3, drop_proj=0.3,
+            drop_linear=0.3)), tf_x),
+    }
+    res = {}
+    for name, (make, xb) in makers.items():
+        got = []
+        for m in (mesh, None):
+            model = make().init_weights(torch.Generator().manual_seed(4))
+            opt = adamw(model, 1e-3)
+            steps = build_step_functions(model, opt, TL.mse, mesh=m)
+            state = TrainState.create(model=model, optimizer=opt, seed=2)
+            _, metrics = steps.train_step(state, {"x": xb, "y": 0.5 * xb})
+            with torch.no_grad():
+                ev = model(xb, deterministic=True, use_running_average=True)
+            got.append((float(metrics["loss"]), N(ev), len(PP.placements(model))))
+        res[name] = dict(loss=(got[0][0], got[1][0]), eval=(got[0][1], got[1][1]),
+                         n_split=got[0][2])
+    out["tp_dropout"] = res
+
+
+def tp_checkpoint(inp, mesh, out, root, zero):
+    """Checkpoints of a model split over ``mesh`` (with ZeRO-1 when
+    ``zero``): a split ``Fitter`` trains an epoch and saves, and so does a
+    lone one on the whole batches (the same file up to rounding); a lone
+    ``Fitter`` loads the split one's checkpoint (its parameters and AdamW
+    moments must be the split ones gathered, exactly), and a fresh split
+    ``Fitter`` loads the lone one's (each rank its blocks, exactly)."""
+    from vit_unet_tpu_torch.data.loader import DataLoader
+    # frozen BN: exact BN at init magnifies the split sums' rounding over
+    # the epoch's updates (the module docstring of test_torch_parallel.py)
+    cfg = dict(inp["cfg"], im_size=32, patch_size=16, flash_frozen_bn=True)
+    data = mesh.shape["data"]
+
+    def fitter(m, ck, zero_sharding=False):
+        model = TM.ViTUNet(TM.ViTUNetConfig(**cfg)).init_weights(
+            torch.Generator().manual_seed(3))
+        f = Fitter(model, learning_rate=1e-3, metrics=(), mesh=m,
+                   zero_sharding=zero_sharding, checkpoint_dir=ck, device="cpu")
+        f.init_state()
+        return f
+
+    def whole(f):
+        """{name: [param, exp_avg, exp_avg_sq]} gathered whole (the
+        parameter alone under ZeRO, whose ranks hold others' moments)."""
+        split = PP.placements(f.model)
+        res = {}
+        for n, p in f.model.named_parameters():
+            st = None if zero else f.optimizer.state.get(p)
+            ts = [p.detach()] + ([st["exp_avg"], st["exp_avg_sq"]] if st else [])
+            if n in split:
+                ts = [PP.gather_tensor(t, f.mesh, split[n]) for t in ts]
+            res[n] = ts
+        return res
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for n in a for x, y in zip(a[n], b[n]))
+
+    split_dir = os.path.join(root, "split")
+    lone_dir = os.path.join(root, f"lone{mesh.rank}")
+    trained = fitter(mesh, split_dir, zero)
+    trained.fit(DataLoader(_Pairs(8), 2, num_workers=0, shard_id=mesh.index("data"),
+                           num_shards=data),
+                n_epochs=1, save_best=False, save_last=True, verbose=False)
+    reference = fitter(None, lone_dir)
+    reference.fit(DataLoader(_Pairs(8), 2 * data, num_workers=0), n_epochs=1,
+                  save_best=False, save_last=True, verbose=False)
+    dist.barrier()                       # rank 0 has written its file
+    files = [torch.load(os.path.join(d, "last-checkpoint.pt"), weights_only=True)
+             for d in (split_dir, lone_dir)]
+    lone = fitter(None, split_dir)
+    lone.load("last-checkpoint")
+    again = fitter(mesh, lone_dir, zero)
+    again.load("last-checkpoint")
+    split_names = PP.placements(trained.model)
+    moments = [{k: [v[m] for m in ("exp_avg", "exp_avg_sq")]
+                for k, v in f["optimizer"]["state"].items()} for f in files]
+    out[f"tp_checkpoint/{zero}"] = dict(
+        to_lone=gap(whole(trained), whole(lone)),
+        to_split=gap(whole(again), whole(reference)),
+        shapes=[{k: tuple(v.shape) for k, v in f["model"].items()} for f in files],
+        model=[{k: N(v) for k, v in f["model"].items()} for f in files],
+        moments=[{k: [N(t) for t in v] for k, v in m.items()} for m in moments],
+        n_split=len(split_names))
+
+
 def cli_runs(inp, out, root):
     """Both CLIs with --data_parallel on this world (each rank reads its part
     of every batch), and the long-context script on a 1 x 2 mesh."""
     from vit_unet_tpu_torch.cli import (run_classification, run_denoising,
                                         train_sp_longcontext)
-    out["cli_sp"] = train_sp_longcontext.main(
-        ["--device", "cpu", "--im_size", "64", "--patch_size", "16",
-         "--hidden_dim", "32", "--steps", "3", "--batch", "2",
-         "--sp_min_tokens", "64", "--exact_bn"])
+    long_context = ["--device", "cpu", "--im_size", "64", "--patch_size", "16",
+                    "--hidden_dim", "32", "--batch", "2", "--sp_min_tokens", "64"]
+    out["cli_sp"] = train_sp_longcontext.main(long_context + ["--steps", "3"])
+    out["cli_sp_exact"] = train_sp_longcontext.main(
+        long_context + ["--steps", "2", "--exact_bn"])
     tiny = ["--n_epochs", "1", "--batch_size", "4", "--num_workers", "0",
             "--device", "cpu", "--data_parallel"]
     out["cli_denoise"] = run_denoising.main(
@@ -284,7 +401,11 @@ def main():
         gather_forms(sp_mesh, out)
         model_runs(inp, sp_mesh, out, "model_sp", sp=True)
         model_runs(inp, dp_mesh, out, "dp_step", sp=False)
+        tp_checkpoint(inp, sp_mesh, out, os.path.join(root, "tp_ck"), zero=world == 4)
+        if world == 4:
+            zero_runs(inp, sp_mesh, out, "zero_tp")
         if world == 2:
+            tp_dropout(inp, sp_mesh, out)
             zero_runs(inp, dp_mesh, out)
             remainder_and_weights(inp, dp_mesh, out)
             fitter_runs(inp, dp_mesh, out, os.path.join(root, "fit"))

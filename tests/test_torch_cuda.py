@@ -201,6 +201,36 @@ def test_train_kernels_match_plain(cuda, dtype, rate, batch, heads, dh, n_q, n_k
     assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_base_draws_the_whole_layers_mask(cuda, dtype):
+    """A tensor-parallel rank's heads 4-7 of 8 (``head_base`` 4): kernels 2
+    and 3 against their plain versions with the same head base, and the
+    forward against the 8-head call's heads 4-7 with the identity mix."""
+    batch, heads, dh, n, h = 2, 8, 48, 196, 4
+    q, k, v, _, _, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n, n)
+    eye, zero = torch.eye(heads, device=cuda), torch.zeros(heads, device=cuda)
+    full = TT.flash_reattention_train(q, k, v, eye, zero, seed, num_heads=heads,
+                                      rate=0.2)
+    cut = lambda t: t.view(batch, n, heads, dh)[:, :, h:].reshape(batch, n, h * dh)
+    qh, kh, vh = q[:, h:].contiguous(), k[:, h:].contiguous(), cut(v).contiguous()
+    part = TT.flash_reattention_train(qh, kh, vh, eye[:h, :h], zero[:h], seed,
+                                      num_heads=h, rate=0.2, head_base=h)
+    assert _rel(part, cut(full)) <= TOL[dtype]
+    vsum = vh.float().sum(1)
+    got = TT.train_fwd(qh, kh, vh, vsum, eye[:h, :h], zero[:h], seed, 0.2, head_base=h)
+    want = TT.train_fwd_plain(qh, kh, vh, vsum, eye[:h, :h], zero[:h], seed, 0.2,
+                              head_base=h)
+    for a, b, tol in zip(got, want, (TOL, F32_TOL, TOL)):
+        assert _rel(a, b) <= tol[dtype]
+    d = torch.randn(batch, h, n, device=cuda)
+    got = TT.train_bwd(qh, kh, vh, want[1], cut(gout), eye[:h, :h], d, seed, 0.2,
+                       head_base=h)
+    want = TT.train_bwd_plain(qh, kh, vh, want[1], cut(gout), eye[:h, :h], d, seed,
+                              0.2, head_base=h)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= F32_TOL[dtype]
+
+
 @pytest.mark.parametrize("mode", ["frozen", "bn"])
 def test_train_functions_grads_match_nxn_autograd(cuda, mode):
     """The autograd Functions on the card (f32) against torch autograd of

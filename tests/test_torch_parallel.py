@@ -1,8 +1,11 @@
 """The port's multi-process paths against the JAX package's, float32 on the
 CPU: meshes, sequence parallelism (eval, and training in the frozen,
 exact-BN and tracking modes, with and without a data axis), ViTUNet with
-``sequence_parallel``, the data-parallel step, ZeRO-1, the ``Fitter`` with
-checkpoint and resume, and both CLIs' ``--data_parallel``.
+``sequence_parallel`` and its parameters split over ``model`` (tensor
+parallelism: each rank's blocks against JAX's mesh step, which applies
+the same rules), the data-parallel step, ZeRO-1 (also over a split
+model), the ``Fitter`` with checkpoint and resume (also across meshes),
+and both CLIs' ``--data_parallel``.
 
 The parent computes the JAX side here, on conftest's 8-device CPU mesh,
 and hands numpy inputs to torch-only worker processes
@@ -17,6 +20,7 @@ Philox groups with ``torch.unique``.
 """
 import os
 import pickle
+import re
 import socket
 import subprocess
 import sys
@@ -163,6 +167,7 @@ def _jax_model(variables, batch):
 
     (value, upd), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         variables["params"])
+    named = lambda tree: {k: v.numpy() for k, v in flax_to_state_dict(tree).items()}
     want = {"sp": dict(
         loss=float(value),
         grads={k: v.numpy() for k, v in flax_to_state_dict({"params": grads}).items()},
@@ -181,6 +186,16 @@ def _jax_model(variables, batch):
     want["step"] = dict(loss=float(m["loss"]), state={
         k: v.numpy() for k, v in flax_to_state_dict(
             {"params": state.params, "batch_stats": state.batch_stats}).items()})
+    # the sequence-parallel model's mesh step on 2 x 2: the partition rules
+    # split its parameters and moments over 'model'
+    state = JS.TrainState.create(params=variables["params"], tx=tx,
+                                 batch_stats=variables["batch_stats"])
+    steps = JS.build_step_functions(sp, tx, JL.mse, mesh=sp.mesh, donate=False)
+    state, _ = steps.train_step(state, jb)
+    adam = state.opt_state[0]
+    want["tp_step"] = dict(
+        state=named({"params": state.params, "batch_stats": state.batch_stats}),
+        mu=named({"params": adam.mu}), nu=named({"params": adam.nu}))
     return want
 
 
@@ -408,10 +423,18 @@ def test_gather_backward_forms_agree(worlds, world):
     assert not np.array_equal(ranks[0]["gather_grad"], ranks[1]["gather_grad"])
 
 
-def _hold_step(got, want, flash, stats_tol=1e-4):
+def _model_block(a, got, key, index):
+    """Model index ``index``'s block of the whole array ``a`` where the
+    rank holds ``key`` split (``got["split"]``: its dimension), else ``a``."""
+    dim = got.get("split", {}).get(key)
+    return a if dim is None else np.array_split(a, 2, dim)[index]
+
+
+def _hold_step(got, want, flash, stats_tol=1e-4, index=0):
     gmax = max(np.abs(g).max() for g in want["grads"].values())
     gtol = 5e-4 if flash else 1e-4
     for key, g in want["grads"].items():
+        g = _model_block(g, got, key, index)
         if key.endswith("reatten_matrix.bias"):   # exactly zero under exact BN
             assert np.abs(got["grads"][key]).max() <= 1e-4 * gmax, key
             continue
@@ -434,7 +457,7 @@ def test_vit_unet_sequence_parallel_matches_jax(worlds, world, flash):
         got = r[f"model_sp/{flash}"]
         _close(got["eval"], w["eval"], 1e-4, "eval")
         np.testing.assert_allclose(got["loss"], w["loss"], rtol=1e-4)
-        _hold_step(got, w, flash)
+        _hold_step(got, w, flash, index=r["meshes"]["sp_coords"]["model"])
 
 
 @pytest.mark.parametrize("flash", [True, False])
@@ -460,6 +483,105 @@ def test_data_parallel_step_matches_jax(worlds, world, flash):
     for r in results[world][1:]:
         for key, val in r[f"dp_step/{flash}"]["state"].items():
             np.testing.assert_array_equal(val, first[key], err_msg=key)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+@pytest.mark.parametrize("world", WORLDS)
+def test_tensor_parallel_step_matches_jax(worlds, world, flash):
+    """The split model's step on 1 x 2 and 2 x 2 (sequence parallel too):
+    each rank holds only its blocks of the parameters the rules split, and
+    its parameters and AdamW moments after the step are the matching
+    blocks of JAX's mesh step (1e-3 for the parameters, as
+    ``test_data_parallel_step_matches_jax``; the moments against the
+    largest, as the gradients)."""
+    results, want = worlds
+    w = want["model"]["tp_step"]
+    gtol = 5e-4 if flash else 1e-4
+    for r in results[world]:
+        got, index = r[f"model_sp/{flash}"], r["meshes"]["sp_coords"]["model"]
+        assert set(got["split"]) == {k for k in w["mu"] if re.search(
+            r"FeedForward\.fc(1\.|2\.weight)|\.proj\.|position_embedding", k)}
+        for key, val in w["state"].items():
+            val = _model_block(val, got, key, index)
+            assert got["state"][key].shape == val.shape, key
+            tol = 1e-4 if "running" in key else 1e-3
+            np.testing.assert_allclose(got["state"][key], val, rtol=tol, atol=tol,
+                                       err_msg=key)
+        for i, moment in enumerate(("mu", "nu")):
+            top = max(np.abs(m).max() for m in w[moment].values())
+            for key, val in w[moment].items():
+                if key.endswith("reatten_matrix.bias"):   # rounding noise
+                    continue
+                np.testing.assert_allclose(
+                    got["moments"][key][i], _model_block(val, got, key, index),
+                    rtol=2 * gtol, atol=2 * gtol * top, err_msg=f"{moment} {key}")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tensor_parallel_clip_norm_is_the_global_one(worlds, world):
+    """The split model's gradient norm (the clip's) is the whole
+    gradient's: JAX's, of the unsplit function."""
+    results, want = worlds
+    whole = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
+                        for g in want["model"]["sp"]["grads"].values()))
+    for r in results[world]:
+        for flash in (True, False):
+            np.testing.assert_allclose(r[f"model_sp/{flash}"]["norm"], whole,
+                                       rtol=5e-4, err_msg=f"flash={flash}")
+
+
+def test_zero_sharding_with_tensor_parallelism(worlds):
+    """ZeRO-1 over the data axis of a model split over 'model' (2 x 2):
+    the same update as the replicated optimizer state, each rank holding
+    about half of its blocks' moments."""
+    ranks = worlds[0][4]
+    for r in ranks:
+        z = r["zero_tp"]
+        assert z["split"], "nothing split"
+        for key, val in z[False].items():
+            np.testing.assert_allclose(z[True][key], val, rtol=1e-6, atol=1e-7,
+                                       err_msg=key)
+        full, share = z["state_bytes/False"], z["state_bytes/True"]
+        assert full == 2 * sum(z["param_bytes"])
+        assert abs(share - full / 2) <= 2 * max(z["param_bytes"]), (share, full)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tensor_parallel_checkpoints_are_mesh_free(worlds, world):
+    """A split Fitter's checkpoint (1 x 2; 2 x 2 with ZeRO-1) holds whole
+    tensors: the same keys and shapes as a lone Fitter's, the same values
+    up to rounding after the same epoch; a lone Fitter loads it to the
+    split state gathered, and a split Fitter loads the lone one's to its
+    blocks, both exactly."""
+    zero = world == 4
+    for r in worlds[0][world]:
+        ck = r[f"tp_checkpoint/{zero}"]
+        assert ck["n_split"] > 0
+        assert ck["to_lone"] == 0.0 and ck["to_split"] == 0.0, ck
+        assert ck["shapes"][0] == ck["shapes"][1]
+        split, lone = ck["model"]
+        for key, val in lone.items():
+            tol = 1e-4 if "running" in key else 1e-3
+            np.testing.assert_allclose(split[key], val, rtol=tol, atol=tol, err_msg=key)
+        (m_split, m_lone) = ck["moments"]
+        assert sorted(m_split) == sorted(m_lone)
+        for i in range(2):
+            top = max(np.abs(v[i]).max() for v in m_lone.values())
+            for key, val in m_lone.items():
+                np.testing.assert_allclose(m_split[key][i], val[i], rtol=1e-3,
+                                           atol=1e-3 * top, err_msg=f"{i} {key}")
+
+
+def test_tensor_parallel_dropout_draws_whole_masks(worlds):
+    """With every dropout on, the split models (ViTUNet's FeedForward,
+    proj and position embedding; HViTUNetTF's keras heads) give the lone
+    process's loss and eval forward up to rounding: each split layer takes
+    its block of the whole tensor's mask."""
+    for r in worlds[0][2]:
+        for name, d in r["tp_dropout"].items():
+            assert d["n_split"] > 0, name
+            np.testing.assert_allclose(*d["loss"], rtol=1e-5, err_msg=name)
+            _close(*d["eval"], 1e-5, name)
 
 
 def test_zero_sharding_updates_as_replicated(worlds):
@@ -540,8 +662,24 @@ def test_clis_train_data_parallel(worlds):
 
 def test_long_context_script_trains_sequence_parallel(worlds):
     """The port's ``train_sp_longcontext`` on 1 x 2 (the 256-token level
-    split): the loss falls, alike on both ranks."""
+    split, the parameters split by the rules): in its frozen-BN mode the
+    loss falls and is the lone process's, step for step; with
+    ``--exact_bn`` the first loss is the lone process's (exact BN at init
+    magnifies rounding from the first update on, in the lone process as
+    much: its loss need not fall within a few steps).  Alike on both
+    ranks."""
+    from vit_unet_tpu_torch.cli import train_sp_longcontext
     ranks = worlds[0][2]
+    args = ["--device", "cpu", "--im_size", "64", "--patch_size", "16",
+            "--hidden_dim", "32", "--batch", "2", "--sp_min_tokens", "64",
+            "--model_parallel", "1"]
+    lone = train_sp_longcontext.main(args + ["--steps", "3"])
+    lone_exact = train_sp_longcontext.main(args + ["--steps", "1", "--exact_bn"])
     losses = ranks[0]["cli_sp"]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
-    assert ranks[1]["cli_sp"] == losses
+    np.testing.assert_allclose(losses, lone, rtol=1e-5)
+    exact = ranks[0]["cli_sp_exact"]
+    assert np.isfinite(exact).all(), exact
+    np.testing.assert_allclose(exact[0], lone_exact[0], rtol=1e-5)
+    for key in ("cli_sp", "cli_sp_exact"):
+        assert ranks[1][key] == ranks[0][key], key

@@ -5,9 +5,11 @@ plus ``--device``).
 ViT-UNet trains with the token axis of every level of at least
 ``--sp_min_tokens`` tokens split over the mesh's ``model`` axis (each rank
 runs its query rows against the all-gathered K/V on the kernels:
-``parallel/sequence.py``) while the batch is split over ``data``.  One
-process per rank; the mesh is ``world / model_parallel`` x
-``model_parallel``.
+``parallel/sequence.py``) and the parameters the partition rules name split
+over it too (FeedForward, ``proj``, the position embedding:
+``parallel/partition.py``, as the JAX mesh step splits them), while the
+batch is split over ``data``.  One process per rank; the mesh is
+``world / model_parallel`` x ``model_parallel``.
 
 On cards:    torchrun --nproc_per_node=2 -m \\
                  vit_unet_tpu_torch.cli.train_sp_longcontext --im_size 512
@@ -48,6 +50,7 @@ def main(argv=None) -> list[float]:
 
     from vit_unet_tpu_torch.models.vit_unet import ViTUNet, ViTUNetConfig
     from vit_unet_tpu_torch.parallel.mesh import create_mesh, initialize_distributed
+    from vit_unet_tpu_torch.parallel.partition import placements
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
     from vit_unet_tpu_torch.train.losses import mse
@@ -79,7 +82,12 @@ def main(argv=None) -> list[float]:
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
     batch = {"x": x, "y": x * 0.8}           # the whole batch on every rank
     state = TrainState.create(model=model, optimizer=opt, seed=1)
+    nbytes = lambda: sum(p.numel() * p.element_size() for p in model.parameters())
+    whole = nbytes()
     steps = build_step_functions(model, opt, mse, mesh=mesh)
+    if lead:
+        print(f"parameters on rank 0: {nbytes()} of {whole} bytes "
+              f"({len(placements(model))} tensors split over model)")
 
     losses = []
     for i in range(args.steps):

@@ -690,6 +690,8 @@ bool bad_shape(int batch, int heads, int nq, int nk, int dh) {
          heads > MAX_HEADS || dh <= 0 || dh > 384;
 }
 
+__global__ void set_head_base(uint32_t head_base) { vit::g_head_base = head_base; }
+
 }  // namespace
 
 extern "C" {
@@ -769,6 +771,15 @@ int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
   if (dtype == 1)
     return backward_dispatch<__nv_bfloat16>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv, batch, heads, nq, nk, dh, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dropout counter's head of every later launch's head 0 on the stream
+// (vit::g_head_base): one thread writes it, in stream order.
+int vit_train_set_head_base(int head_base, void* stream) {
+  if (head_base < 0) return static_cast<int>(cudaErrorInvalidValue);
+  set_head_base<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t>(head_base));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of the workspace a vit_train_bwd call on the route needs.

@@ -133,9 +133,16 @@ __global__ void __launch_bounds__(NT) lse_kernel(
 // key holds absolute indices, so every kernel that visits an entry, whatever
 // its tiling, draws the same bits, and the plain PyTorch version regenerates
 // them exactly.
+//
+// g_head_base is the counter's head of the launch's head 0: 0, or, where a
+// tensor-parallel rank runs heads head_base.. of a layer's heads only, that
+// first head, so that its entries draw the whole layer's bits.  The training
+// library sets it on the launch's stream (vit_train_set_head_base).
+__device__ uint32_t g_head_base = 0;
+
 __device__ __forceinline__ uint4 philox4(uint64_t seed, uint32_t b, uint32_t h,
                                          uint32_t row, uint32_t grp) {
-  uint32_t c0 = grp, c1 = row, c2 = h, c3 = b;
+  uint32_t c0 = grp, c1 = row, c2 = h + g_head_base, c3 = b;
   uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {

@@ -173,16 +173,18 @@ def _keep_scale(rate: float) -> float:
 
 
 def dropout_mask(seed, rate: float, batch: int, heads: int, n_q: int,
-                 n_k: int, device=None) -> torch.Tensor:
+                 n_k: int, device=None, head_base: int = 0) -> torch.Tensor:
     """The (B, H, Nq, Nk) f32 dropout scale, 0 or 1/(1 - rate).  ``seed``:
     an int, or the one-element int64 seed tensor the kernels take
     (``new_seed``), read on its device: drawing the mask then needs no
     value from the host, so the card runs it without a synchronisation.
-    ``device`` defaults to the seed tensor's."""
+    ``device`` defaults to the seed tensor's.  ``head_base``: the heads
+    are heads head_base.. of a wider layer (a tensor-parallel rank's), and
+    draw that layer's bits."""
     if device is None and torch.is_tensor(seed):
         device = seed.device
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    bits = dropout_bits(seed, ar(batch), ar(heads), ar(n_q), n_k)
+    bits = dropout_bits(seed, ar(batch), ar(heads) + head_base, ar(n_q), n_k)
     keep = (bits >> 8) >= keep_threshold(rate)
     return torch.where(keep, _keep_scale(rate), 0.0).to(torch.float32)
 
@@ -202,14 +204,14 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _probs_plain(q, k, seed, rate):
+def _probs_plain(q, k, seed, rate, head_base=0):
     """(p, A, lse): pre-dropout probabilities, masked ones, and the LSE, f32."""
     s = torch.einsum("bhnd,bhmd->bhnm", _wide(q), _wide(k))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     if rate > 0.0:
         b, h, n_q, n_k = p.shape
-        a = p * dropout_mask(seed, rate, b, h, n_q, n_k, p.device)
+        a = p * dropout_mask(seed, rate, b, h, n_q, n_k, p.device, head_base)
     else:
         a = p
     return p, a, lse
@@ -224,9 +226,10 @@ def _mix(onorm, m_eff, c_eff, vsum, dh: int):
             + (c[None, :] * _wide(vsum))[:, None, :])
 
 
-def train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float):
+def train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float,
+                    head_base: int = 0):
     """Plain version of ``train_fwd``: (out, lse, o_norm)."""
-    _, a, lse = _probs_plain(q, k, seed, rate)
+    _, a, lse = _probs_plain(q, k, seed, rate, head_base)
     onorm = torch.einsum("bhnm,bmj->bhnj", a, _wide(v_cat)).to(q.dtype)
     out = _mix(onorm, m_eff, c_eff, vsum, q.shape[-1]).to(q.dtype)
     return out, lse, onorm
@@ -242,7 +245,7 @@ def bn_fwd_plain(q, k, v_cat, seed, rate: float):
 
 
 def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
-                    bn_extra=None):
+                    bn_extra=None, head_base: int = 0):
     """Plain version of ``train_bwd``: (dq, dk, dv), f32, with the N x N
     maps materialised."""
     batch, heads, n_q, dh = q.shape
@@ -250,7 +253,7 @@ def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
     s = torch.einsum("bhnd,bhmd->bhnm", _wide(q), _wide(k))
     p = torch.exp(s - lse[..., None])
     mask = (dropout_mask(seed, rate, batch, heads, n_q, n_k,
-                         p.device) if rate > 0.0 else None)
+                         p.device, head_base) if rate > 0.0 else None)
     a = p * mask if mask is not None else p
     m32 = _wide(m_eff)
     gh = _wide(g).reshape(batch, n_q, heads, dh)
@@ -393,9 +396,11 @@ def _library():
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 7 + [p]
         lib.vit_bn_fwd.argtypes = [p] * 4 + [i, f] + [p] * 4 + [i] * 7 + [p]
         lib.vit_train_bwd.argtypes = [p] * 10 + [i, f] + [p] * 3 + [i] * 7 + [p, p]
+        lib.vit_train_set_head_base.argtypes = [i, p]
         lib.vit_train_bwd_workspace.argtypes = [i] * 6
         lib.vit_train_bwd_workspace.restype = ctypes.c_int64
-        for fn in (lib.vit_train_fwd, lib.vit_bn_fwd, lib.vit_train_bwd):
+        for fn in (lib.vit_train_fwd, lib.vit_bn_fwd, lib.vit_train_bwd,
+                   lib.vit_train_set_head_base):
             fn.restype = i
         lib.vit_train_error_string.argtypes = [i]
         lib.vit_train_error_string.restype = ctypes.c_char_p
@@ -410,14 +415,27 @@ def _launch(name: str, fn, *args) -> None:
                            + _library().vit_train_error_string(rc).decode())
 
 
-def _dropout_args(seed, rate: float, device):
-    """(seed pointer, threshold, scale) of a launch; no seed without dropout."""
+#: the dropout counter's first head last set on each (card, stream)
+_HEAD_BASE: dict = {}
+
+
+def _dropout_args(seed, rate: float, device, head_base: int = 0):
+    """(seed pointer, threshold, scale) of a launch; no seed without
+    dropout.  With dropout, the launch's stream gets ``head_base`` (the
+    kernels' ``g_head_base``) unless it holds that value already."""
     if rate <= 0.0:
         return None, 0, 1.0
     if not (torch.is_tensor(seed) and seed.device == device
             and seed.dtype == torch.int64 and seed.numel() == 1):
         raise ValueError("with dropout the kernels take the seed as a "
                          "one-element int64 tensor on the inputs' device")
+    stream = _stream(device)
+    if _HEAD_BASE.get((device.index, stream)) != head_base:
+        lib = _library()
+        with torch.cuda.device(device):
+            _launch("set_head_base", lib.vit_train_set_head_base, int(head_base),
+                    stream)
+        _HEAD_BASE[(device.index, stream)] = head_base
     return seed.data_ptr(), keep_threshold(rate), _keep_scale(rate)
 
 
@@ -434,7 +452,7 @@ def _require_aligned(route: str, **tensors) -> None:
 
 
 def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
-                     *, route: str):
+                     *, route: str, head_base: int = 0):
     """The frozen-BN forward's kernels on ``route``, on CUDA inputs that
     ``_check`` took: (out, lse, o_norm).  Only the measurements and the
     route-against-route tests name a route themselves; it counts no
@@ -446,7 +464,7 @@ def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     onorm = torch.empty((batch, heads, n_q, heads * dh), dtype=q.dtype, device=dev)
     vsum, m32, c32 = _f32(vsum, dev), _f32(m_eff, dev), _f32(c_eff, dev)
-    seed_ptr, thr, scale = _dropout_args(seed, rate, dev)
+    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
     lib = _library()
     with torch.cuda.device(dev):
         _launch(f"train_fwd ({route})", lib.vit_train_fwd, q.data_ptr(),
@@ -458,15 +476,19 @@ def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
     return out, lse, onorm
 
 
-def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0):
+def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
+              head_base: int = 0):
     """Frozen-BN training forward: (out (B, Nq, H*dh), lse (B, H, Nq) f32,
     o_norm (B, H, Nq, H*dh)).  ``vsum`` (B, H*dh) f32 is sum_m v_cat[:, m].
-    CUDA tensors take the route ``train_fwd_route`` names."""
+    CUDA tensors take the route ``train_fwd_route`` names.  ``head_base``
+    as ``dropout_mask`` takes it."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
-        return train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate)
+        return train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate,
+                               head_base)
     route = train_fwd_route(q.dtype, q.shape[1], q.shape[3])
-    out = launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate, route=route)
+    out = launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate,
+                           route=route, head_base=head_base)
     train_fwd.launches += 1
     train_fwd.route_launches[route] += 1
     return out
@@ -510,7 +532,7 @@ def bn_fwd(q, k, v_cat, seed, rate: float = 0.0):
 
 
 def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
-               bn_extra=None, *, route: str):
+               bn_extra=None, *, route: str, head_base: int = 0):
     """The backward's kernels on ``route``, on CUDA inputs that ``_check``
     took: (dq, dk, dv), f32.  Only the measurements and the route-against-
     route tests name a route themselves; it counts no launch."""
@@ -530,7 +552,7 @@ def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
         (batch, heads, n_q, dh), dtype=torch.float32, device=dev)
     dk = torch.zeros((batch, heads, n_k, dh), dtype=torch.float32, device=dev)
     dv = torch.empty((batch, n_k, heads * dh), dtype=torch.float32, device=dev)
-    seed_ptr, thr, scale = _dropout_args(seed, rate, dev)
+    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _library()
     r = ROUTES.index(route)
@@ -547,7 +569,7 @@ def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
 
 
 def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
-              bn_extra=None):
+              bn_extra=None, head_base: int = 0):
     """Backward: (dq (B, H, Nq, dh), dk (B, H, Nk, dh), dv (B, Nk, H*dh)),
     f32.  ``g`` is the cotangent of ``out``, ``d`` (B, H, Nq) the softmax-
     dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
@@ -556,9 +578,11 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     core route), so its last bits vary from run to run."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
-        return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra)
+        return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate,
+                               bn_extra, head_base)
     route = train_bwd_route(q.dtype, q.shape[1], q.shape[3])
-    out = launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra, route=route)
+    out = launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate, bn_extra,
+                     route=route, head_base=head_base)
     train_bwd.launches += 1
     train_bwd.route_launches[route] += 1
     return out
@@ -615,11 +639,12 @@ def _conv_matrix(conv_m):
 
 class _FlashTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v_cat, m_eff, c_eff, seed, rate):
+    def forward(ctx, q, k, v_cat, m_eff, c_eff, seed, rate, head_base):
         vsum = _wide(v_cat).sum(1)
-        out, lse, onorm = train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate)
+        out, lse, onorm = train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate,
+                                    head_base)
         ctx.save_for_backward(q, k, v_cat, m_eff, c_eff, lse, vsum, onorm)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.head_base = seed, rate, head_base
         return out
 
     @staticmethod
@@ -630,21 +655,26 @@ class _FlashTrain(torch.autograd.Function):
         m32 = _wide(m_eff)
         dm_eff = r.sum((0, 2)).t()                                # (Hp, H2)
         d = torch.einsum("ph,bhnp->bhn", m32, r)
-        dq, dk, dv = train_bwd(q, k, v_cat, lse, g, m32, d, ctx.seed, ctx.rate)
+        dq, dk, dv = train_bwd(q, k, v_cat, lse, g, m32, d, ctx.seed, ctx.rate,
+                               head_base=ctx.head_base)
         dc_eff, dv_c = _c_terms(g, vsum, c_eff, heads, dh)
         return (dq.to(q.dtype), dk.to(k.dtype), (dv + dv_c).to(v_cat.dtype),
-                dm_eff.to(m_eff.dtype), dc_eff.to(c_eff.dtype), None, None)
+                dm_eff.to(m_eff.dtype), dc_eff.to(c_eff.dtype), None, None, None)
 
 
 def flash_reattention_train(q, k, v_cat, m_eff, c_eff, seed=None, *,
-                            num_heads: int, rate: float = 0.0):
+                            num_heads: int, rate: float = 0.0,
+                            head_base: int = 0):
     """Frozen-BN training re-attention with dropout, differentiable in q, k,
     v_cat, m_eff (H, H) and c_eff (H,) (``fold_reattention_compact``).
     ``seed``: a one-element int64 tensor (``new_seed``), needed when
-    rate > 0.  Returns (B, Nq, H*dh) in q's dtype."""
+    rate > 0.  ``head_base``: the heads are heads head_base.. of a wider
+    layer and draw its dropout bits (``dropout_mask``).  Returns
+    (B, Nq, H*dh) in q's dtype."""
     if q.shape[1] != num_heads:
         raise ValueError(f"q has {q.shape[1]} heads, num_heads={num_heads}")
-    return _FlashTrain.apply(q, k, v_cat, m_eff, c_eff, seed, float(rate))
+    return _FlashTrain.apply(q, k, v_cat, m_eff, c_eff, seed, float(rate),
+                             int(head_base))
 
 
 class _FlashTrainBN(torch.autograd.Function):

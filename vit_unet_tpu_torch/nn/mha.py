@@ -14,6 +14,15 @@ kernels.  The plain path (einsum, softmax, dropout, einsum) draws the same
 mask for the same seed (``dropout_mask``), so the two paths agree with
 dropout on.  Query and key rows may differ (the skip connections'
 cross-attention).
+
+Split over a mesh's ``model`` axis (``tp_mesh``, set by
+``parallel/partition.py::shard_module``): each rank holds ``query``,
+``key`` and ``value`` for its own block of heads and the matching columns
+of ``out``; it projects and attends to those heads only (kernels 1-3 at
+heads / model heads), and ``out`` is row-parallel with one all-reduce, its
+bias added once after it.  This is exact only because the head mix here is
+the identity: no head reads another's map.  The rank's dropout is its
+heads' block of the whole layer's mask (the kernels' ``head_base``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import (
     dropout_mask, flash_reattention_train, new_seed,
 )
 from vit_unet_tpu_torch.nn.dropout import require_generator
+from vit_unet_tpu_torch.parallel.partition import copy_to_model, reduce_from_model
 
 
 class KerasMHA(nn.Module):
@@ -37,6 +47,8 @@ class KerasMHA(nn.Module):
     output.  ``use_flash=False`` runs the plain path on every device; a
     (heads, key_dim) beyond the kernels' limits (``kernel_takes``) does so
     whatever the flag says."""
+
+    tp_mesh = None
 
     def __init__(self, dim: int, num_heads: int, key_dim: int,
                  value_dim: Optional[int] = None, dropout: float = 0.0,
@@ -54,10 +66,20 @@ class KerasMHA(nn.Module):
         self.out = nn.Linear(num_heads * self.value_dim, dim)
 
     @property
+    def _heads(self) -> tuple[int, int]:
+        """(heads this rank attends to, the first one's index in the
+        layer): all of them, or under ``tp_mesh`` its block."""
+        mesh = self.tp_mesh
+        if mesh is None:
+            return self.num_heads, 0
+        local = self.num_heads // mesh.shape["model"]
+        return local, local * mesh.index("model")
+
+    @property
     def _kernels(self) -> bool:
         """Whether this layer's calls run the kernels."""
         return (self.use_flash and self.value_dim == self.key_dim
-                and kernel_takes(self.num_heads, self.key_dim))
+                and kernel_takes(self._heads[0], self.key_dim))
 
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -72,6 +94,16 @@ class KerasMHA(nn.Module):
         attention dropout on, drawn from ``generator``."""
         if key is None:
             key = value
+        mesh = self.tp_mesh
+        if mesh is not None:
+            # column-parallel inputs: each rank's part of their cotangents
+            # is summed over the line (a tensor fed to several projections
+            # once)
+            copies: dict = {}
+            for t in (query, key, value):
+                if id(t) not in copies:
+                    copies[id(t)] = copy_to_model(t, mesh)
+            query, key, value = (copies[id(t)] for t in (query, key, value))
         q = self._dense(self.query, query)
         k = self._dense(self.key, key)
         v = self._dense(self.value, value)
@@ -83,17 +115,21 @@ class KerasMHA(nn.Module):
             ctx = self._attend_kernels(q, k, v, deterministic, seed, rate)
         else:
             ctx = self._attend_plain(q, k, v, seed, rate)
-        return self._dense(self.out, ctx)
+        if mesh is None:
+            return self._dense(self.out, ctx)
+        dt = self.dtype
+        out = reduce_from_model(F.linear(ctx.to(dt), self.out.weight.to(dt)), mesh)
+        return out + self.out.bias.to(dt)
 
     def _heads_first(self, t: torch.Tensor, dh: int) -> torch.Tensor:
         b, n, _ = t.shape
-        return t.reshape(b, n, self.num_heads, dh).transpose(1, 2)
+        return t.reshape(b, n, self._heads[0], dh).transpose(1, 2)
 
     def _attend_plain(self, q, k, v, seed, rate):
         """Einsum, softmax, dropout with the kernels' mask, einsum, in
         float32 from q scaled in the model's dtype, as the kernels take it;
         (B, Nq, H*Dv) in the model's dtype."""
-        h = self.num_heads
+        h, base = self._heads
         qh = (self._heads_first(q, self.key_dim) * self.key_dim ** -0.5).float()
         kh = self._heads_first(k, self.key_dim).float()
         vh = self._heads_first(v, self.value_dim).float()
@@ -101,14 +137,14 @@ class KerasMHA(nn.Module):
         if rate > 0.0:
             b, _, n_q, n_k = probs.shape
             probs = probs * dropout_mask(seed, rate, b, h, n_q, n_k,
-                                         probs.device)
+                                         probs.device, base)
         ctx = torch.einsum("bhnm,bhmd->bnhd", probs, vh)
         return ctx.reshape(ctx.shape[0], ctx.shape[1], -1).to(self.dtype)
 
     def _attend_kernels(self, q, k, v, deterministic, seed, rate):
         """Kernel 1 in eval, kernels 2 and 3 in training, with the identity
         head mix; the scale goes onto q before the call."""
-        h, dk = self.num_heads, self.key_dim
+        (h, base), dk = self._heads, self.key_dim
         qh = (self._heads_first(q, dk) * dk ** -0.5).contiguous()
         kh = self._heads_first(k, dk).contiguous()
         v_cat = v.contiguous()
@@ -118,4 +154,4 @@ class KerasMHA(nn.Module):
             w, b = expand_reattention_affine(eye, zero, dh=dk)
             return flash_reattention(qh, kh, v_cat, w, b, num_heads=h)
         return flash_reattention_train(qh, kh, v_cat, eye, zero, seed,
-                                       num_heads=h, rate=rate)
+                                       num_heads=h, rate=rate, head_base=base)

@@ -5,7 +5,11 @@
   embedding over the fine tokens, then regroup fine patches into the coarse
   entry-level patches with one relayout.
 * ``PatchEncoderCL`` (TF flavour): patchify a channels-last image, then a
-  Dense projection and a learned position embedding."""
+  Dense projection and a learned position embedding.
+
+Split over a mesh's ``model`` axis (``tp_mesh``, set by
+``parallel/partition.py::shard_module``), each holds its block of the
+position embedding's tokens and all-gathers it before the add."""
 from __future__ import annotations
 
 import torch
@@ -15,9 +19,21 @@ from torch import nn
 from vit_unet_tpu_torch.ops.patches import (
     change_patch_size, flatten_patches, patchify, patchify_cl,
 )
+from vit_unet_tpu_torch.parallel.partition import gather_from_model
+
+
+def position_table(layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``layer.position_embedding``'s whole table in ``dtype``, gathered
+    over ``layer.tp_mesh`` where its tokens are split."""
+    table = layer.position_embedding.weight.to(dtype)
+    if layer.tp_mesh is not None:
+        table = gather_from_model(table, layer.tp_mesh, 0)
+    return table
 
 
 class PatchEncoder(nn.Module):
+    tp_mesh = None
+
     def __init__(self, depth: int, num_patches: int, patch_size: int,
                  num_channels: int = 3, preprocessing: str = "conv",
                  dtype: torch.dtype = torch.float32):
@@ -45,13 +61,15 @@ class PatchEncoder(nn.Module):
         elif self.preprocessing == "fourier":
             x = torch.fft.fft2(x.float()).real.to(dt)
         flat = flatten_patches(patchify(x, self.patch_size_final))
-        encoded = flat + self.position_embedding.weight.to(dt)
+        encoded = flat + position_table(self, dt)
         return change_patch_size(encoded, self.num_channels,
                                  up_factor=2 ** self.depth)
 
 
 class PatchEncoderCL(nn.Module):
     """(B, H, W, C) -> (B, N, projection_dim), N = (img_size / p)²."""
+
+    tp_mesh = None
 
     def __init__(self, img_size: int, patch_size: int, num_channels: int = 3,
                  projection_dim: int | None = None,
@@ -70,4 +88,4 @@ class PatchEncoderCL(nn.Module):
         flat = pats.reshape(pats.shape[0], pats.shape[1], -1)
         proj = F.linear(flat, self.projection.weight.to(dt),
                         self.projection.bias.to(dt))
-        return proj + self.position_embedding.weight.to(dt)
+        return proj + position_table(self, dt)

@@ -52,6 +52,7 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import (
 from vit_unet_tpu_torch.nn.dropout import dropout, require_generator
 from vit_unet_tpu_torch.ops.patches import unflatten, unflatten_cl
 from vit_unet_tpu_torch.parallel.mesh import current_layout
+from vit_unet_tpu_torch.parallel.partition import copy_to_model, gather_from_model
 
 BN_MOMENTUM = 0.9
 
@@ -184,7 +185,14 @@ class ReAttention(nn.Module):
     runs sequence-parallel (``_attend_sp``).  Only ``kernel_takes`` gates
     its kernels: the JAX package's floor of 128 rows a shard does not carry
     over.
+
+    ``tp_mesh`` (set by ``parallel/partition.py::shard_module``): ``proj``
+    is split over that mesh's ``model`` axis (column-parallel).  The heads
+    are not: the head mix really mixes them, and JAX's rules do not split
+    the Q/K/V convs either.
     """
+
+    tp_mesh = None
 
     def __init__(self, dim: int, num_channels: int = 3, num_heads: int = 8,
                  qkv_kernel: int = 3, attn_drop: float = 0.0,
@@ -447,8 +455,15 @@ class ReAttention(nn.Module):
         return out.to(q.dtype)
 
     def _project(self, out, deterministic: bool, generator):
-        dt = self.dtype
+        """``proj`` and its dropout; split over ``tp_mesh``, column-parallel
+        with its output features all-gathered before the dropout (whose
+        mask is then the whole tensor's)."""
+        dt, mesh = self.dtype, self.tp_mesh
+        if mesh is not None:
+            out = copy_to_model(out, mesh)
         out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
+        if mesh is not None:
+            out = gather_from_model(out, mesh, -1)
         return dropout(out, 0.0 if deterministic else self.proj_drop, generator)
 
     def forward(self, x, *, deterministic: bool = True,

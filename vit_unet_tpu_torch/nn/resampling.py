@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from einops import rearrange, reduce
 from torch import nn
 
+from vit_unet_tpu_torch.nn.patch_encoder import position_table
 from vit_unet_tpu_torch.ops.patches import change_patch_size_cl, unflatten_cl
 
 RESAMPLING_TYPES = ("max", "avg", "standard", "conv")
@@ -36,7 +37,11 @@ def _same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
 class Resampling(nn.Module):
     """(B, N_from, E_in) tokens at patch size ``patch_size[0]`` -> (B, N_to,
     dim) at ``patch_size[1]``.  E_in is ``projection_dim`` when given, else
-    C·p_from²; dim is ``projection_dim`` or C·p_to²."""
+    C·p_from²; dim is ``projection_dim`` or C·p_to².  Split over a mesh's
+    ``model`` axis (``tp_mesh``), it holds its block of the position
+    embedding's tokens (``patch_encoder.position_table``)."""
+
+    tp_mesh = None
 
     def __init__(self, img_size: int, patch_size: Sequence[int],
                  num_channels: int = 3, projection_dim: int | None = None,
@@ -95,7 +100,7 @@ class Resampling(nn.Module):
     def forward(self, encoded: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = encoded.to(dt)
-        pos = self.position_embedding.weight.to(dt)
+        pos = position_table(self, dt)
         if self.resampling_type in ("max", "avg"):
             g = self.img_size // self.p_from
             grid = x.reshape(x.shape[0], g, g, -1)

@@ -7,9 +7,9 @@ starts the process group; ``create_mesh`` lays the ranks out on a
 one process group per line of each axis.  ``data`` splits the batch (data
 parallelism, ``parallel/train_step.py``); ``model`` splits the token axis
 of long re-attention levels (sequence parallelism,
-``parallel/sequence.py``).  Parameters stay replicated over both axes: the
-JAX package's tensor-parallel rules (``parallel/partition.py``) are not
-ported, and replicating computes the same numbers.
+``parallel/sequence.py``) and the parameters a partition rule names
+(tensor parallelism, ``parallel/partition.py``, applied when the train
+steps are built on the mesh); every other parameter is replicated.
 
 Backends: NCCL between cards; gloo when the caller asks for the CPU, and
 gloo for CUDA tensors where two ranks share one card (NCCL refuses two

@@ -44,7 +44,7 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import (
 from vit_unet_tpu_torch.parallel.mesh import Mesh, has_reduce_scatter
 
 __all__ = ["gather_tokens", "scatter_tokens", "unshard_tokens",
-           "sequence_parallel_reattention",
+           "sum_grad_over_line", "sequence_parallel_reattention",
            "sequence_parallel_reattention_train", "SEED_STRIDE"]
 
 #: the dropout seed's stride between shards (``kseed + idx * 2^20``)
@@ -160,6 +160,12 @@ def unshard_tokens(x, mesh: Mesh, axis: str = "model", dim: int = 1) -> torch.Te
     return _UnshardTokens.apply(x, mesh, axis, dim)
 
 
+def sum_grad_over_line(x, mesh: Mesh, axis: str = "model") -> torch.Tensor:
+    """``x`` (alike on the line) as it is; its cotangents summed over the
+    line."""
+    return _SumGradOverLine.apply(x, mesh, axis)
+
+
 def _merge(v: torch.Tensor) -> torch.Tensor:
     b, h, n, dh = v.shape
     return v.transpose(1, 2).reshape(b, n, h * dh).contiguous()
@@ -233,7 +239,7 @@ def sequence_parallel_reattention_train(
     q_l, k_l, v_l = (scatter_tokens(t, mesh, axis) for t in (q, k, v))
     k_full = gather_tokens(k_l, mesh, axis)
     v_cat = _merge(gather_tokens(v_l, mesh, axis))
-    conv_m, conv_c, gamma, beta = (_SumGradOverLine.apply(t, mesh, axis)
+    conv_m, conv_c, gamma, beta = (sum_grad_over_line(t, mesh, axis)
                                    for t in (conv_m, conv_c, gamma, beta))
     shards = mesh.shards((axis,) if data_axis is None else (axis, data_axis))
     if running_stats is not None:

@@ -15,20 +15,44 @@ mean of k micro-batch gradients, clipped by its global norm, then one
 optimizer update.
 
 On a mesh (the JAX mesh path, :150-236): the batch is split over the
-``data`` axis, the parameters are replicated (broadcast from rank 0 when
-the steps are built), and the gradients are averaged over every rank before
-clipping and the update, so ``clip_norm`` and ``accum_steps`` mean what
-they mean on one device.  A whole batch (every rank holds all of it) that
-the data axis does not divide runs replicated (:214-220).  The layers see
-the mesh while the step runs (``use_mesh``): the exact-BN moments are the
-whole batch's, as in the JAX package's one program, and sequence-parallel
-layers split their tokens over ``model``.  Loss and metrics are averaged
-over the ranks (a weighted loss is normalised by the whole batch's weight).
-Each data index draws its own dropout; the ranks of one model line draw
-alike.  ``zero_sharding`` (ZeRO-1) holds the optimizer state sharded over
-``data`` (``torch.distributed.optim.ZeroRedundancyOptimizer`` around the
-given optimizer's class): each rank updates its share of the parameters and
-broadcasts it.
+``data`` axis, and the parameters are laid out by the partition rules
+(``parallel/partition.py``, as JAX's mesh step lays them out, :191): with a
+``model`` axis of more than one rank the steps split the model when they
+are built (``shard_module``: each rank keeps its block of every parameter a
+rule splits, with its gradient and optimizer state), and every other
+parameter is replicated.  Building the steps replicates rank (0, 0)'s
+replicated tensors to every rank and each split block from data index 0
+to its data line.  The gradients are averaged before clipping and the
+update, so ``clip_norm`` and ``accum_steps`` mean what they mean on one
+device:
+
+* every gradient is whole on its model line when the backward ends: the
+  split layers' collectives sum the partial input cotangents of a
+  column-parallel layer over the line (``copy_to_model``), and the
+  sequence-parallel re-attention sums its head-mix parameters' (the only
+  replicated parameters whose ranks see a part of the tokens) over the
+  line itself, so the replicated parameters' gradients are alike on the
+  line and each split one is the rank's block of the whole gradient;
+* so a replicated gradient is averaged over every rank (its model line's
+  copies are alike; the average also keeps them bit-identical where
+  per-rank rounding, such as the kernels' atomics, could part them), and a
+  split one over its data line only (``average_gradients``);
+* the clip takes the global norm (``global_grad_norm``): the squares of
+  the split gradients summed over the model line, the replicated ones
+  counted once, as ``optax.clip_by_global_norm`` takes it on global arrays.
+
+A whole batch (every rank holds all of it) that the data axis does not
+divide runs replicated (:214-220).  The layers see the mesh while the step
+runs (``use_mesh``): the exact-BN moments are the whole batch's, as in the
+JAX package's one program, and sequence-parallel layers split their tokens
+over ``model``.  Loss and metrics are averaged over the ranks (a weighted
+loss is normalised by the whole batch's weight).  Each data index draws its
+own dropout; the ranks of one model line draw alike.  ``zero_sharding``
+(ZeRO-1) holds the optimizer state sharded over ``data``
+(``torch.distributed.optim.ZeroRedundancyOptimizer`` around the given
+optimizer's class): each rank updates its share of the (split) parameters
+and broadcasts it over its data line, as JAX's ``_zero_shard`` puts
+``data`` on top of the split (:160-183).
 """
 from __future__ import annotations
 
@@ -43,6 +67,7 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from vit_unet_tpu_torch.parallel.mesh import Mesh, data_sharding, use_mesh
+from vit_unet_tpu_torch.parallel.partition import placements, shard_module
 
 
 def adamw(model: nn.Module, lr: float = 1e-4, *, weight_decay: float = 1e-4,
@@ -132,6 +157,66 @@ def _grad_buckets(params):
         yield bucket
 
 
+def _all_reduce_mean(params, mesh: Mesh, axis: Optional[str]) -> None:
+    """Average ``params``' gradients in place over this rank's line along
+    ``axis`` (None: every rank, even a world of one), in buckets."""
+    n = mesh.size if axis is None else mesh.shape[axis]
+    if not params or (axis is not None and n <= 1):
+        return
+    for bucket in _grad_buckets(params):
+        flat = _flatten_dense_tensors(bucket)
+        dist.all_reduce(flat, group=mesh.group(axis))
+        flat /= n
+        for g, piece in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+            g.copy_(piece)
+
+
+@torch.no_grad()
+def average_gradients(replicated, split, mesh: Mesh) -> None:
+    """The mesh's gradient average, in place (module docstring): the
+    replicated parameters' over every rank, the split ones' over their
+    data line."""
+    _all_reduce_mean(replicated, mesh, None)
+    _all_reduce_mean(split, mesh, "data")
+
+
+def _squares(params, device) -> torch.Tensor:
+    terms = [p.grad.float().square().sum() for p in params if p.grad is not None]
+    return torch.stack(terms).sum() if terms else torch.zeros((), device=device)
+
+
+@torch.no_grad()
+def global_grad_norm(replicated, split, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The gradient's global norm: the split gradients' squares summed
+    over the model line, the replicated ones counted once."""
+    device = (list(replicated) + list(split))[0].device
+    part = _squares(split, device)
+    if split and mesh is not None:
+        mesh.all_reduce(part, "model")
+    return torch.sqrt(_squares(replicated, device) + part)
+
+
+@torch.no_grad()
+def _lay_out(model: nn.Module, optimizer: torch.optim.Optimizer, mesh: Mesh) -> dict:
+    """The model laid out on ``mesh`` (module docstring): split by the
+    rules where the model axis holds several ranks, rank (0, 0)'s
+    replicated tensors on every rank, each split block from data index 0
+    on its data line.  Returns the placements."""
+    split = placements(model)
+    if not split and mesh.shape["model"] > 1:
+        if optimizer.state:
+            raise ValueError("splitting the model starts from an optimizer "
+                             "without state")
+        split = shard_module(model, mesh)
+    for name, t in model.state_dict().items():
+        if name not in split:
+            dist.broadcast(t, src=int(mesh.grid[0, 0]))
+        elif mesh.shape["data"] > 1:
+            dist.broadcast(t, src=int(mesh.grid[0, mesh.index("model")]),
+                           group=mesh.group("data"))
+    return split
+
+
 def build_step_functions(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -161,9 +246,10 @@ def build_step_functions(
     g · c / max(|g|, c), |g| the global norm over every parameter (optax's
     ``clip_by_global_norm``).  The optimizer counts only updates.
 
-    ``mesh``: the steps run on every rank of it (module docstring).  A
-    batch is the whole batch on every rank, or with ``local_batches`` each
-    rank's own equal block of it (a loader sharded over the data axis).
+    ``mesh``: the steps run on every rank of it (module docstring); a
+    model axis of more than one rank splits ``model`` in place.  A batch is
+    the whole batch on every rank, or with ``local_batches`` each rank's
+    own equal block of it (a loader sharded over the data axis).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
@@ -171,10 +257,7 @@ def build_step_functions(
         raise ValueError("zero_sharding shards over a mesh's data axis: pass mesh")
     metrics = metrics or {}
     distributed = mesh is not None and dist.is_available() and dist.is_initialized()
-    if distributed:
-        with torch.no_grad():           # replicate rank 0's model
-            for t in model.state_dict().values():
-                dist.broadcast(t, src=int(mesh.grid[0, 0]))
+    split_names = _lay_out(model, optimizer, mesh) if distributed else {}
     step_optimizer = zero_optimizer(optimizer, mesh) if zero_sharding else optimizer
 
     def _split(batch: dict):
@@ -217,33 +300,28 @@ def build_step_functions(
                              "the steps were built for (with zero_sharding: "
                              "steps.optimizer)")
 
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    split = [p for n, p in named if n in split_names]
+    replicated = [p for n, p in named if n not in split_names]
 
     # The gradients are averaged here, once an update, and not by
     # DistributedDataParallel: DDP averages at every backward, where
     # ``accum_steps`` averages once before the update and ``clip_norm``
-    # clips that average, and a sequence-parallel rank's gradient is only
-    # its token shard's part, so the average runs over every rank of the
-    # mesh, not over one data group.  It starts after the backward (no
-    # overlap with it), in buckets of one dtype that each gradient joins at
-    # its own size, so at most GRAD_BUCKET_BYTES are copied at a time.
+    # clips that average, and the split parameters average over their data
+    # line only.  It starts after the backward (no overlap with it), in
+    # buckets of one dtype that each gradient joins at its own size, so at
+    # most GRAD_BUCKET_BYTES are copied at a time.
     @torch.no_grad()
     def _average_grads():
-        """Every rank's gradient averaged over all ranks, in place."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        for bucket in _grad_buckets(params):
-            flat = _flatten_dense_tensors(bucket)
-            dist.all_reduce(flat, group=mesh.group(None))
-            flat /= mesh.size
-            for g, piece in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
-                g.copy_(piece)
+        average_gradients(replicated, split, mesh)
 
     @torch.no_grad()
     def _clip():
-        norm = torch.sqrt(sum(p.grad.float().square().sum()
-                              for p in params if p.grad is not None))
+        norm = global_grad_norm(replicated, split, mesh if distributed else None)
         scale = clip_norm / torch.clamp(norm, min=clip_norm)
         for p in params:
             if p.grad is not None:

@@ -16,7 +16,11 @@ the steps average gradients, losses and metrics over the ranks, so every
 rank logs the same history and takes the same decisions.  Rank 0 alone
 writes checkpoints, after ZeRO's shards of the optimizer state are gathered
 to it and a partly accumulated gradient is averaged over the ranks; every
-rank reads them to resume.
+rank reads them to resume.  A model split over the mesh's ``model`` axis
+(``parallel/partition.py``) is gathered whole first, parameters, optimizer
+state and gradient alike, so a checkpoint is the same file whatever the
+mesh; loading one splits it again on every rank, so a run can resume on
+another mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ from torch import nn
 
 from vit_unet_tpu_torch.nn.reattention import ReAttention
 from vit_unet_tpu_torch.parallel.mesh import replica_count
+from vit_unet_tpu_torch.parallel.partition import (
+    gather_tensor, model_block, placements,
+)
 from vit_unet_tpu_torch.parallel.train_step import (
     StepFunctions, TrainState, build_step_functions, zero_optimizer,
 )
@@ -246,26 +253,66 @@ class Fitter:
         """Whether this process writes checkpoints (rank 0 of a mesh)."""
         return not self._distributed or dist.get_rank() == 0
 
+    def _split_params(self) -> list:
+        """(placement or None) of each parameter, in ``parameters()`` order
+        (the optimizer's, too)."""
+        split = placements(self.model)
+        return [split.get(n) for n, _ in self.model.named_parameters()]
+
+    def _optimizer_params(self) -> list:
+        """The parameters in the order of the optimizer state's indices."""
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _map_optimizer_state(self, sd: dict, fn) -> dict:
+        """``sd`` with ``fn(tensor, split, param)`` applied to each state
+        tensor of a split parameter."""
+        by_id = {id(p): s for p, s in zip(self.model.parameters(), self._split_params())}
+        params = self._optimizer_params()
+        state = {}
+        for idx, entry in sd["state"].items():
+            p = params[idx]
+            split = by_id[id(p)]
+            state[idx] = entry if split is None else {
+                k: fn(v, split, p) if torch.is_tensor(v) and v.ndim == p.ndim else v
+                for k, v in entry.items()}
+        return {**sd, "state": state}
+
     @torch.no_grad()
     def _payload(self, extra: Optional[dict]) -> Optional[dict]:
         """The checkpoint's content on the writing rank (None on the
         others); on a mesh every rank takes part in gathering it."""
         st = self.state
+        splits = self._split_params()
         grads = ([None if p.grad is None else p.grad for p in self.model.parameters()]
                  if st.accum else None)
-        if self._distributed:
+        if not self._distributed:
+            optimizer = self.optimizer.state_dict()
+            model = self.model.state_dict()
+        else:
+            mesh = self.mesh
             if grads is not None:
-                # each rank's partial sum, averaged: adding the local rest
-                # and averaging at the update gives the same update
+                # each rank's partial sum, averaged (a split one over its
+                # data line) and gathered whole: adding the local rest and
+                # averaging at the update gives the same update
                 grads = [None if g is None else
-                         self.mesh.all_reduce(g.detach().clone()) / self.mesh.size
-                         for g in grads]
+                         mesh.all_reduce(g.detach().clone()) / mesh.size if s is None
+                         else gather_tensor(mesh.all_reduce(g.detach().clone(), "data")
+                                            / mesh.shape["data"], mesh, s)
+                         for g, s in zip(grads, splits)]
             if self.zero_sharding:
+                # to each data line's first rank: (0, m) for model index m
                 self.optimizer.consolidate_state_dict(to=0)
+            if mesh.index("data") != 0:
+                return None
+            split = placements(self.model)
+            model = {k: gather_tensor(v, mesh, split[k]) if k in split else v
+                     for k, v in self.model.state_dict().items()}
+            optimizer = self._map_optimizer_state(
+                self.optimizer.state_dict(),
+                lambda v, s, p: gather_tensor(v.to(p.device), mesh, s))
             if not self.writes_checkpoints:
                 return None
-        payload = {"model": self.model.state_dict(),
-                   "optimizer": self.optimizer.state_dict(),
+        payload = {"model": model, "optimizer": optimizer,
                    "step": st.step, "accum": st.accum, "grads": grads,
                    "seed": st.seed, "generator": st.generator.get_state()}
         if extra:
@@ -307,13 +354,23 @@ class Fitter:
         if self.state is None:
             self.init_state()
         ck = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(ck["model"])
-        self.optimizer.load_state_dict(ck["optimizer"])
+        split = placements(self.model)
+        mesh = self.mesh
+        block = lambda t, s: model_block(t, mesh, s).contiguous()
+        self.model.load_state_dict({k: block(v, split[k]) if k in split else v
+                                    for k, v in ck["model"].items()})
+        optimizer = ck["optimizer"]
+        if split:
+            optimizer = self._map_optimizer_state(optimizer,
+                                                  lambda v, s, p: block(v, s))
+        self.optimizer.load_state_dict(optimizer)
         st = self.state
         st.step, st.accum, st.seed = int(ck["step"]), int(ck["accum"]), int(ck["seed"])
         st.generator.set_state(ck["generator"])
-        for p, g in zip(self.model.parameters(), ck["grads"] or itertools.repeat(None)):
-            p.grad = None if g is None else g.to(p.device)
+        for p, s, g in zip(self.model.parameters(), self._split_params(),
+                           ck["grads"] or itertools.repeat(None)):
+            p.grad = (None if g is None else
+                      (g if s is None else block(g, s)).to(p.device))
         if with_extra:
             return st, ck.get("extra")
         return st
