@@ -23,12 +23,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    N x N forward with the same dropout mask; every kernel and Function also
    at 16 heads (``HEAD16_SHAPES``: dh 48, 12, 192 and 384, the
    classifier's N and a ragged case, on the CUDA-core routes but kernel
-   1's bf16 (16, 48) and (16, 12)); the backward and both forwards
+   1's bf16 (16, 48) and (16, 12)); every kernel also at HViTUNetTF's
+   keras class (``KERAS_SHAPES``: 8 heads x dh 192 at N 256 and ragged
+   100 x 130); the backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
-   cores), with ragged cases and the two routes held against each other
-   (the forwards also at batch 64, and their dropout bits read back
-   exactly), and at the main path's shapes both routes timed in turns;
+   cores, and the backward at (8, 192)), with ragged cases and the two
+   routes held against each other (the backward's classes without atomics
+   also run twice for the same bits; the forwards also at batch 64, and
+   their dropout bits read back exactly), and at the main path's shapes
+   both routes timed in turns;
 3. serving: the base preset at full width (224², bf16) served through
    ``Predictor(batch_size=64)`` with the eval kernel's launch counts by
    route, the kernel path held against the plain path in float32 and in
@@ -76,7 +80,9 @@ Phases, each of which raises (exit code != 0) when it fails:
 7. the TF-flavour model: (a) kernels 1-3 at the keras attention's level-0
    shape (B64, 8 heads x dh 192, N 256) with the identity head mix against
    their plain versions in f32 and bf16 (and ``scaled_dot_product_attention``,
-   the same function there), timed with their bounds; (b) ``HViTUNetTF`` at
+   the same function there), timed with their bounds, and the kernels whose
+   bf16 call takes the tensor-core route (1 and 3) timed against the
+   CUDA-core route in turns; (b) ``HViTUNetTF`` at
    its default width (128², 1,571,098,944 parameters, bf16, random weights
    from a seed) served at b64 through ``Predictor`` from channels-last numpy,
    kernel 1's launches by route, the kernel path against ``use_flash=False``;
@@ -84,7 +90,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``build_step_functions``, launches by route, step time, peak memory and a
    profiler breakdown, then a dropout-free f32 batch-4 step of the kernel
    path against the plain path; (d) 3 exact-BN steps of the re-attention
-   variant (``original_attn=False``), kernels 4 and 3 on the tensor cores;
+   variant (``original_attn=False``), kernels 4 and 3 on the tensor cores
+   (the level-0 skip's keras attention on kernel 2's CUDA-core route);
    (e) base b64 bf16 exact-BN steps with and without ``remat`` (the same
    loss, running statistics and generator state; on the kernel path every
    gradient equal bit for bit with the backward's launches replayed from a
@@ -216,6 +223,11 @@ HEAD16_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (2, 16, 192, 196, 196), (2, 16, 384, 49, 49),
 ]
 CHECK_SHAPES += HEAD16_SHAPES
+# HViTUNetTF's level-0 keras attention class (8 heads x dh 192) at its N and
+# a ragged case over more than one 64-key tile; bf16 on the tensor cores for
+# kernels 1 and 3 (kernel 2 on the CUDA cores)
+KERAS_SHAPES = [(4, 8, 192, 256, 256), (2, 8, 192, 100, 130)]
+CHECK_SHAPES += KERAS_SHAPES
 EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
     ("peaked", 4, 8, 96, 196, 196, 8.0),      # large lse, far from uniform maps
     ("few keys", 4, 8, 24, 100, 9, 1.0),      # Nk < 16
@@ -650,7 +662,7 @@ TRAIN_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 8, 384, 49, 49), (4, 8, 96, 196, 196), (4, 8, 24, 784, 784),      # base
     (2, 4, 12, 3136, 3136), (4, 4, 48, 784, 784), (4, 4, 192, 196, 196),   # lite
     (4, 8, 96, 96, 200),                                                  # rectangular
-] + HEAD16_SHAPES
+] + HEAD16_SHAPES + KERAS_SHAPES
 RATE = 0.2
 # the backward's tensor-core route at ragged and rectangular sizes: (batch,
 # heads, dh, n_q, n_k); a key tile with fewer valid keys than one MMA tile,
@@ -662,6 +674,9 @@ BWD_EDGE_CASES = [
 # the forwards also with more keys than the chunked form keeps A of (256),
 # so A is recomputed for every column chunk
 FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
+# (heads, dh) classes of the backward's tensor-core route in its maps +
+# products form: no atomics, so a call repeats bit for bit
+ATOMIC_FREE_BWD = {(8, 192), (8, 384)}
 
 
 def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0, identity=False):
@@ -794,6 +809,8 @@ def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
         raise AssertionError(f"the call did not take the {route} route")
     want = T.train_bwd_plain(*args)
     other = T.launch_bwd(*args, route="cuda_core") if route == "tensor_core" else None
+    repeat = (T.launch_bwd(*args, route=route)
+              if route == "tensor_core" and (heads, dh) in ATOMIC_FREE_BWD else None)
     torch.cuda.synchronize()
     tol = F32_OUT_TOL[torch.bfloat16]
     rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
@@ -801,6 +818,11 @@ def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
         require(f"bwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k}", r, tol)
     msg = (f"  bwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate} "
            f"bn {bn}: dq dk dv rel " + " ".join(f"{r:.2e}" for r in rels))
+    if repeat:
+        if not all(torch.equal(a, b) for a, b in zip(got, repeat)):
+            raise AssertionError(f"bwd [{route}] H{heads} dh{dh}: two calls on the same "
+                                 f"inputs differ, where the class has no atomics")
+        msg += " | repeat bit for bit"
     if other is not None:
         routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
         for r in routes:
@@ -984,7 +1006,8 @@ def phase_train_kernels():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
-    for shape in [s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES] + BWD_EDGE_CASES:
+    for shape in ([s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES]
+                  + BWD_EDGE_CASES + KERAS_SHAPES):
         for rate in (0.0, RATE):
             for bn in (False, True):
                 tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
@@ -2287,7 +2310,10 @@ def sdpa_ms(batch, heads, dh, n, dtype):
 
 def tf_kernels(shape=TF_SHAPE, tag="(a)"):
     """``tag`` kernels 1-3 at a keras attention class (heads, dh, N) with
-    the identity mix: the level-0 one by default."""
+    the identity mix: the level-0 one by default.  A kernel whose bf16 call
+    takes the tensor-core route is also timed against the CUDA-core route in
+    turns (``cuda_core_ms``: the faster of its two turns)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     heads, dh, n = shape
     print(f"  {tag} kernels 1-3 at B{BATCH} H{heads} dh{dh} N{n}, identity head mix:")
     res = {}
@@ -2301,17 +2327,26 @@ def tf_kernels(shape=TF_SHAPE, tag="(a)"):
         row = {"flash_reattention": dict(err=k1["err"], ms=k1["ms"],
                                          plain_ms=k1["plain_ms"],
                                          bound=bound_of(k1["t_bytes"], k1["t_ops"]),
-                                         library_ms=sdpa_ms(BATCH, heads, dh, n, dtype))}
+                                         library_ms=sdpa_ms(BATCH, heads, dh, n, dtype),
+                                         route=k1["route"])}
         # kernels 2 and 3 keep o_norm and lse for the backward and draw the
         # Philox mask: no single library call computes that
         for key, label in (("fwd", "train_fwd"), ("bwd", "train_bwd")):
             row[label] = dict(err=tk[key]["err"], ms=tk[key]["ms"],
                               plain_ms=tk[key]["plain_ms"], bound=bound_of(*bounds[key]),
-                              library_ms=None)
+                              library_ms=None, route={"fwd": T.train_fwd_route,
+                                                      "bwd": T.train_bwd_route}[key](
+                                                          dtype, heads, dh))
+        if row["flash_reattention"]["route"] == "tensor_core":
+            row["flash_reattention"]["cuda_core_ms"] = time_passes(BATCH, heads, dh, n)["old"]
+        if row["train_bwd"]["route"] == "tensor_core":
+            row["train_bwd"]["cuda_core_ms"] = time_bwd_routes(BATCH, heads, dh, n)[0]
         for label, r in row.items():
             lib = "" if r["library_ms"] is None else f", sdpa {r['library_ms']:.4f} ms"
-            print(f"    {name} {label} [{k1['route'] if label == 'flash_reattention' else 'cuda_core'}]: "
-                  f"{r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{lib}, bound "
+            old = (f", cuda_core route in turns {r['cuda_core_ms']:.4f} ms"
+                   if "cuda_core_ms" in r else "")
+            print(f"    {name} {label} [{r['route']}]: "
+                  f"{r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{lib}{old}, bound "
                   f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err {r['err']:.3e}")
         res[name] = row
     return res
@@ -2329,7 +2364,7 @@ def tf_serving():
     pred(x_np)                                        # warm-up
     launches, y = path_launches(lambda: pred(x_np))
     require_launches("(b) serving b64", launches,
-                     {"eval": TF_CALLS, "eval_cuda_core": TF_CALLS})
+                     {"eval": TF_CALLS, "eval_tensor_core": TF_CALLS})
     if y.shape != x_np.shape or not np.isfinite(y).all():
         raise AssertionError(f"bad served output: {y.shape}")
     card = card_line()
@@ -2386,7 +2421,7 @@ def tf_training():
         lambda: timed_steps(steps, state, batch, TF_STEPS))
     n = TF_STEPS * TF_CALLS
     require_launches(f"(c) {TF_STEPS} keras-attention train steps", launches,
-                     {"fwd": n, "fwd_cuda_core": n, "bwd": n, "bwd_cuda_core": n})
+                     {"fwd": n, "fwd_cuda_core": n, "bwd": n, "bwd_tensor_core": n})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     card = card_line()
     print(f"  (c) HViTUNetTF b{BATCH} bf16 train step (dropout 0.2/0.2/0.4): median "
@@ -2427,7 +2462,8 @@ def tf_training():
 def tf_variant():
     """(d) original_attn=False, flash_train=True, exact BN: kernels 4 and 3
     on the tensor cores at (8, 24/96/384); the level-0 skip's keras
-    attention on kernels 2 and 3's CUDA-core route."""
+    attention on kernel 2's CUDA-core route and kernel 3's tensor-core
+    route at (8, 192)."""
     from vit_unet_tpu_torch import get_hvit_unet_tf
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
@@ -2445,8 +2481,7 @@ def tf_variant():
     require_launches(f"(d) re-attention variant, {TF_VARIANT_STEPS} exact-BN steps",
                      launches,
                      {"bn_fwd": r, "bn_fwd_tensor_core": r, "bwd": r + n,
-                      "bwd_tensor_core": r, "bwd_cuda_core": n, "fwd": n,
-                      "fwd_cuda_core": n})
+                      "bwd_tensor_core": r + n, "fwd": n, "fwd_cuda_core": n})
     print(f"  (d) HViTUNetTF(original_attn=False) b{BATCH} bf16 exact-BN step: "
           f"median {step_ms:.3f} ms, {BATCH / step_ms * 1e3:.1f} img/s, losses "
           f"{losses[0]:.5f} .. {losses[-1]:.5f} [{card_line()}]")

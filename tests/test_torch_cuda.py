@@ -78,6 +78,7 @@ TC_CASES = [
     (2, 4, 12, 3136, 3136, 1.0), (2, 4, 48, 784, 784, 1.0), (2, 4, 192, 196, 196, 1.0),
     (2, 8, 96, 96, 200, 1.0), (2, 16, 12, 256, 256, 1.0), (2, 16, 48, 64, 64, 1.0),
     (2, 8, 96, 196, 196, 8.0), (2, 8, 24, 100, 9, 1.0), (2, 8, 384, 1, 49, 1.0),
+    (2, 8, 192, 256, 256, 1.0), (2, 8, 192, 100, 130, 1.0),   # HViTUNetTF's keras class
 ]
 
 
@@ -311,6 +312,9 @@ BWD_TC_CASES = [
     (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
     (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
 ]
+# the backward alone: HViTUNetTF's keras class (8, 192) at its N and ragged
+# over more than one 64-key tile (its forwards stay on the CUDA cores)
+KERAS_BWD_CASES = [(2, 8, 192, 256, 256), (2, 8, 192, 100, 130)]
 
 
 def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
@@ -325,7 +329,7 @@ def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
 
 @pytest.mark.parametrize("bn", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + KERAS_BWD_CASES)
 def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == "tensor_core"
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate, bn)
@@ -338,7 +342,7 @@ def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, r
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + KERAS_BWD_CASES)
 def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
     tc = TT.launch_bwd(*args, route="tensor_core")
@@ -346,6 +350,17 @@ def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n
     torch.cuda.synchronize()
     for a, b in zip(tc, cc):
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [(2, 8, 384, 70, 130)] + KERAS_BWD_CASES)
+def test_bwd_maps_form_repeats_bit_for_bit(cuda, batch, heads, dh, n_q, n_k):
+    """The classes with a workspace (maps, then products) use no atomics:
+    two calls on the same inputs give the same bits."""
+    args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
+    first = TT.launch_bwd(*args, route="tensor_core")
+    again = TT.launch_bwd(*args, route="tensor_core")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_bwd_float32_takes_the_cuda_core_route(cuda):

@@ -99,7 +99,10 @@ def _level_shapes():
         for level in range(cfg.depth + 1):
             dim = cfg.level_geometry(level)["projection_dim"]
             cases.append((name, cfg.num_heads, dim // cfg.num_heads))
-    return cases + [("16 heads", 16, 12), ("16 heads", 16, 48)]
+    from vit_unet_tpu_torch.models.hvit_unet_tf import HViTUNetTFConfig
+    tf = HViTUNetTFConfig()   # level 0's keras attention: key_dim C * p0^2
+    return cases + [("16 heads", 16, 12), ("16 heads", 16, 48),
+                    ("HViTUNetTF", tf.num_heads, tf.num_channels * tf.patch_size[0] ** 2)]
 
 
 @pytest.mark.parametrize("preset,heads,dh", _level_shapes())

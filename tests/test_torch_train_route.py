@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from vit_unet_tpu_torch.models import get_config
+from vit_unet_tpu_torch.models.hvit_unet_tf import HViTUNetTFConfig
 from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
@@ -29,19 +30,22 @@ TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train
 
 def _level_shapes():
     """(preset, level, heads, dh) of every re-attention level of lite, base
-    and large."""
+    and large, and of HViTUNetTF's level-0 keras attention (key_dim
+    C * p0^2; its wider levels do not take the kernels)."""
     out = []
     for preset in ("lite", "base", "large"):
         cfg = get_config(preset)
         for level in range(cfg.depth + 1):
             dh = cfg.level_geometry(level)["projection_dim"] // cfg.num_heads
             out.append((preset, level, cfg.num_heads, dh))
+    tf = HViTUNetTFConfig()
+    out.append(("HViTUNetTF", 0, tf.num_heads, tf.num_channels * tf.patch_size[0] ** 2))
     return out
 
 
-# base's and large's levels run on the tensor cores in bf16; lite's (4 heads)
-# stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384)}
+# base's and large's levels and HViTUNetTF's level 0 run on the tensor cores
+# in bf16; lite's (4 heads) stay on the CUDA cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 192), (8, 384)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
@@ -70,13 +74,18 @@ def test_train_bwd_on_cpu_is_the_plain_version():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dh", [24, 96])   # JAX: fused form, legacy form
-def test_train_bwd_matches_jax_bwd_at_base_heads(dh):
+@pytest.mark.parametrize("dh,keras", [
+    pytest.param(24, False, id="24"),    # JAX: fused form
+    pytest.param(96, False, id="96"),    # JAX: legacy form
+    pytest.param(192, True, id="192-identity"),   # HViTUNetTF's keras class
+])
+def test_train_bwd_matches_jax_bwd_at_base_heads(dh, keras):
     """The port's backward (its plain version here) against the TPU kernel
     it replaces, ``_bwd``, in interpret mode, with the exact-BN term on (G,
     kappa and the D addition), which covers every term of the frozen-BN
-    backward too.  The residuals lse and o_norm come from the port's plain
-    forward and go to both in the JAX kernel's blocked layout (one q
+    backward too.  ``keras``: as ``KerasMHA`` calls it, the identity head
+    mix and no BN term.  The residuals lse and o_norm come from the port's
+    plain forward and go to both in the JAX kernel's blocked layout (one q
     block).  Tolerance as ``test_frozen_function_matches_jax``'s gradients."""
     n, heads = 32, 8
     rng = np.random.default_rng(dh)
@@ -85,6 +94,9 @@ def test_train_bwd_matches_jax_bwd_at_base_heads(dh):
     v, g = f(1, n, heads * dh), f(1, n, heads * dh)
     m, c = f(heads, heads) * 0.4, f(heads) * 0.2
     g_mat, kappa, d_extra = f(heads, heads) * 0.1, f(heads) * 0.1, f(1, heads, n)
+    if keras:
+        m, c = np.eye(heads, dtype=np.float32), np.zeros(heads, np.float32)
+        d_extra = np.zeros_like(d_extra)
     t = torch.from_numpy
     _, lse, onorm = TT.train_fwd_plain(t(q), t(k), t(v), t(v).sum(1), t(m), t(c),
                                        None, 0.0)
@@ -94,10 +106,10 @@ def test_train_bwd_matches_jax_bwd_at_base_heads(dh):
                    jnp.asarray(lse.numpy()[:, None]),
                    jnp.asarray(onorm.numpy()[:, None]), jnp.asarray(g),
                    num_heads=heads, rate=0.0, block_q=n, block_k=n, interpret=True,
-                   d_extra=jnp.asarray(d_extra[:, None]),
-                   bn_extra=(jnp.asarray(g_mat), jnp.asarray(kappa)))[:3]
+                   d_extra=None if keras else jnp.asarray(d_extra[:, None]),
+                   bn_extra=None if keras else (jnp.asarray(g_mat), jnp.asarray(kappa)))[:3]
     got = TT.train_bwd(t(q), t(k), t(v), lse, t(g), t(m), d, None, 0.0,
-                       (t(g_mat), t(kappa)))
+                       None if keras else (t(g_mat), t(kappa)))
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4, atol=5e-4,
                                    err_msg=name)
@@ -109,7 +121,7 @@ def _round(x, pairs):
     return hi + (x - hi).bfloat16().float() if pairs else hi
 
 
-@pytest.mark.parametrize("dh,n", [(24, 128), (96, 64)])
+@pytest.mark.parametrize("dh,n", [(24, 128), (96, 64), (192, 130)])
 def test_bf16_pairs_keep_the_backward_within_its_tolerance(dh, n):
     """Why the tensor-core backward carries dS and the mixed map B as bf16
     pairs: emulated on the CPU with bf16 inputs, rate 0.2 and the BN term,

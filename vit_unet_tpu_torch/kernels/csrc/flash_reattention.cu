@@ -253,6 +253,7 @@ inline int dispatch(const void* q, const void* k, const void* v, const float* w,
     return launch<Cfg<H, DH, BQ, BK, HG, NSTAGE, MINB>, MMA_OUT>(q, k, v, w, b, lse, out, \
                                                                  batch, nq, nk, passes, stream);
   VIT_TC_CASE(8, 384, 16, 32, 1, 3, 1, false)
+  VIT_TC_CASE(8, 192, 16, 32, 4, 2, 1, false)
   VIT_TC_CASE(8, 96, 32, 32, 8, 2, 1, false)
   VIT_TC_CASE(8, 24, 32, 32, 8, 2, 2, true)
   VIT_TC_CASE(4, 192, 16, 32, 2, 2, 2, false)

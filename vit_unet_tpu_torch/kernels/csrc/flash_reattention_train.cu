@@ -54,7 +54,7 @@
 //
 // Shapes: f32 or bf16 storage, any Nq >= 1, Nk >= 1 with the ragged edges
 // masked in the kernel, Nq != Nk allowed, H <= 16, dh <= 384.  All tensors
-// are contiguous; the caller allocates every output (dq and dk zeroed).
+// are contiguous; the caller allocates every output (dk zeroed).
 //
 // Each function has a second route, chosen by the caller (train_fwd_route,
 // bn_fwd_route, train_bwd_route in kernels/flash_reattention_train.py): bf16
@@ -748,9 +748,10 @@ int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
 }
 
 // gmat and kappa: both null (frozen BN) or both set (exact-BN correction).
-// route: 0 the CUDA cores (dq written), 1 the tensor cores (bf16 at the
-// classes of reattention_bwd_tc.cuh only; dq must be zeroed; work: a device
-// buffer of vit_train_bwd_workspace bytes, null where that is 0).
+// route: 0 the CUDA cores (dq written, dk zeroed), 1 the tensor cores (bf16
+// at the classes of reattention_bwd_tc.cuh only; work: a device buffer of
+// vit_train_bwd_workspace bytes, null where that is 0; where it is 0, dq must
+// be zeroed, else every output is written once).
 int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* dvec, const float* m_eff,
                   const float* gmat, const float* kappa, const int64_t* seed,

@@ -1,6 +1,7 @@
 // Training backward of flash re-attention on the tensor cores: the bfloat16
 // route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
-// classes train_bwd_tc instantiates: the levels of base and large.
+// classes train_bwd_tc instantiates: the levels of base and large (8 heads,
+// dh 24, 96, 384) and HViTUNetTF's level-0 keras attention (8, 192).
 //
 // Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bwd (pallas_call body _bwd_dkv_kernel) there.  With A_h = P_h * mask_h:
@@ -416,19 +417,22 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 }
 
 // ---------------------------------------------------------------------------
-// dh 384 (base's N = 49 level): maps, then products
+// dh 192 and 384 (HViTUNetTF's level 0, base's N = 49 level): maps, then
+// products
 // ---------------------------------------------------------------------------
 //
 // At dh 384 one head's K and V rows of 16 keys take 25 KB, and dk, dv of a
-// 16-key tile 384 registers a thread, so the kernel above does not fit.  The
-// maps are small there instead (49 x 49 a head), so the function runs in
-// two kernels through a bf16 workspace of four planes (dS hi, dS lo, B hi,
-// B lo), each (B, H, Nq padded to 16, Nk padded to 64):
-//   maps_kernel, grid (q tiles of 16, B), warp w = head w: S_w and T_w of
-//     16 queries x 64 keys by mma.sync over depth chunks of 32 staged per
-//     warp (cp.async, __syncwarp only), through shared memory in f32 to one
-//     thread per (row, c) of the Philox groups, which draws the four keys
-//     c + 16 j of all heads, mixes dA and B as above and writes the planes;
+// 16-key tile 384 registers a thread (at dh 192, 192), so the kernel above
+// does not fit.  The function runs in two kernels through a bf16 workspace
+// of four planes (dS hi, dS lo, B hi, B lo), each (B, H, Nq padded to 16,
+// Nk padded to 64), small at base's 49 x 49 maps and 256 MiB at
+// HViTUNetTF's b64 N 256:
+//   maps_kernel, grid (q tiles of 16, B), warp w = head w, a loop over the
+//     key tiles of 64: S_w and T_w of 16 queries x 64 keys by mma.sync over
+//     depth chunks of 32 staged per warp (cp.async, __syncwarp only),
+//     through shared memory in f32 to one thread per (row, c) of the Philox
+//     groups, which draws the four keys c + 16 j of all heads, mixes dA and
+//     B as above and writes the planes;
 //   prods_kernel, grid (dh / 64 column chunks, H, B), 4 warps: dq = dS K,
 //     dk = dS^T q, dv = B^T g for 64 columns, each on hi and lo, every
 //     output written once (no atomics).
@@ -451,7 +455,7 @@ struct MapCfg {
 
 // bytes of the workspace (0 where the class needs none)
 inline size_t map_workspace(int batch, int heads, int nq, int nk, int dh) {
-  if (heads != 8 || dh != 384) return 0;
+  if (heads != 8 || (dh != 192 && dh != 384)) return 0;
   return sizeof(bf16) * 4 * (size_t)batch * heads * ((nq + 15) / 16 * 16) * ((nk + 63) / 64 * 64);
 }
 
@@ -744,7 +748,12 @@ int launch_maps(const void* q, const void* k, const void* v, const void* g, cons
 //   (8, 384): maps_kernel 8 warp tiles 102,400 + S, T 69,632 + 1,568 =
 //            173,600 B, 256 blocks at base b64; prods_kernel 27,648 B, 4 warps,
 //            3,072 blocks; the workspace (map_workspace) 4 x B x H x 64 x 64
-//            bf16 = 16.8 MB at base b64.
+//            bf16 = 16.8 MB at base b64;
+//   (8, 192): the same two kernels (their shared memory does not depend on
+//            dh): maps_kernel 1,024 blocks at HViTUNetTF's b64 N 256 (16 q
+//            tiles x 64 images), each looping over 4 key tiles of 6 depth
+//            chunks; prods_kernel grid (3, 8, 64); the workspace 4 x B x H x
+//            256 x 256 bf16 = 256 MiB there.
 // cudaErrorInvalidValue for any other shape.
 inline int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
                         const float* lse, const float* dvec, const float* m_eff,
@@ -757,9 +766,12 @@ inline int train_bwd_tc(const void* q, const void* k, const void* v, const void*
   if (heads == 8 && dh == 24) return VIT_BWD_TC(24, 64, 16);
   if (heads == 8 && dh == 96) return VIT_BWD_TC(96, 16, 32);
 #undef VIT_BWD_TC
-  if (heads == 8 && dh == 384)
-    return launch_maps<MapCfg<8, 384>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr,
-                                       scale, dq, dk, dv, work, batch, nq, nk, stream);
+#define VIT_BWD_MAPS(DH)                                                                \
+  launch_maps<MapCfg<8, DH>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, \
+                             dk, dv, work, batch, nq, nk, stream)
+  if (heads == 8 && dh == 192) return VIT_BWD_MAPS(192);
+  if (heads == 8 && dh == 384) return VIT_BWD_MAPS(384);
+#undef VIT_BWD_MAPS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -51,11 +51,13 @@
 // Shape classes (heads, dh) -> BQ, BK, HG, NSTAGE; dynamic shared memory of
 // the output pass (score region + q tile + ring + lse, M, c), blocks per SM,
 // accumulator registers per thread (H * BQ * dh_pad / 256).  Chosen among a
-// few variants each, timed on an H100 at the presets' level shapes: few fat
-// phases per key tile (all heads in a stage) and two blocks an SM where they
-// fit beat deeper rings of smaller stages.
+// few variants each, timed on an H100 at the presets' level shapes (and at
+// HViTUNetTF's level-0 keras attention, (8, 192) at N 256): few fat phases
+// per key tile (all heads in a stage) and two blocks an SM where they fit
+// beat deeper rings of smaller stages.
 //
 //   ( 8, 384)  16, 32, 1, 3   18,432 + 100,352 +  75,264 +   800 = 194,848   1   192
+//   ( 8, 192)  16, 32, 4, 2   18,432 +  51,200 + 102,400 +   800 = 172,832   1    96 (**)
 //   ( 8,  96)  32, 32, 8, 2   36,864 +  53,248 + 106,496 + 1,312 = 197,920   1    96
 //   ( 8,  24)  32, 32, 8, 2   36,864 +  20,480 +  40,960 + 1,312 =  99,616   2    32 (*)
 //   ( 4, 192)  16, 32, 2, 2    9,216 +  25,600 +  51,200 +   336 =  86,352   2    48
@@ -70,6 +72,13 @@
 // SM, 96 accumulator registers a thread): 0.472 against 0.682 ms at N = 784,
 // batch 64, on an H100 at 700 W, while a log-sum-exp pass in that form was
 // the slower one.
+//
+// (**) tools/torch_tc_tiling.py at b64 N 256 on an H100 at 700 W, ms a call:
+// 16, 32, 4, 2: 0.771 (every warp takes a score tile, two K stages a key
+// tile); 16, 64, 2, 2: 0.787; 16, 16, 8, 2: 0.834; 16, 16, 4, 2: 0.908
+// (0.920 at two blocks an SM, which spills); 16, 32, 2, 3: 0.927; 16, 32,
+// 2, 2: 0.998; the CUDA-core route 11.406.  BQ 32 would take 192
+// accumulator registers a thread.
 //
 // All under the 232,448 bytes a block may take.  At dh = 384 one head's K
 // tile of 64 keys is 50 KB, so stages hold one head and 32 keys there.

@@ -17,7 +17,9 @@ one.  It has two routes, and ``kernel_route`` names the one a call takes
 from the input dtype and (heads, dh), nothing else:
 
 * ``tensor_core`` (``csrc/reattention_tc.cuh``): bfloat16 inputs at the
-  shape classes of ``TENSOR_CORE_SHAPES``.  Both products are bf16 MMAs with
+  shape classes of ``TENSOR_CORE_SHAPES`` (every level of the presets, the
+  classifier's two 16-head levels and HViTUNetTF's level-0 keras attention,
+  8 heads x dh 192).  Both products are bf16 MMAs with
   f32 accumulators, tiles are staged over the whole head dim by asynchronous
   copies into two buffers, every score tile is computed once, and the mixed
   probabilities are rounded to bf16 once before the product with V, as the
@@ -47,9 +49,11 @@ MAX_HEADS = 16
 MAX_HEAD_DIM = 384
 ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
 #: (heads, dh) classes the tensor-core kernels are built for: the level
-#: shapes of the lite, base, large and notebook512 presets and two 16-head ones
+#: shapes of the lite, base, large and notebook512 presets, the classifier's
+#: two 16-head levels and HViTUNetTF's level-0 keras attention, (8, 192)
 TENSOR_CORE_SHAPES = frozenset({
-    (8, 384), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48), (16, 12)})
+    (8, 384), (8, 192), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48),
+    (16, 12)})
 
 
 def kernel_takes(heads: int, dh: int) -> bool:

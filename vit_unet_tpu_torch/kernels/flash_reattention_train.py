@@ -29,10 +29,13 @@ beside it and a launch counter:
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
   It has two routes, and ``train_bwd_route`` names the one a call takes from
   the input dtype and (heads, dh), nothing else: ``tensor_core``
-  (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``,
+  (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``
+  (base's and large's levels and HViTUNetTF's level-0 keras attention),
   every product a bf16 MMA with dS and the head-mixed map B carried as
-  bf16 pairs hi + lo; ``cuda_core`` (f32 FMAs) for float32 and every other
-  shape.
+  bf16 pairs hi + lo: one fused kernel at dh 24 and 96, and at dh 192 and
+  384 a kernel that writes dS and B to a bf16 workspace and one that forms
+  dq, dk and dv from it; ``cuda_core`` (f32 FMAs) for float32 and every
+  other shape.
 
 A_h = softmax(q_h k_h^T) * mask, where the dropout mask keeps an entry iff
 the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
@@ -73,10 +76,11 @@ from vit_unet_tpu_torch.kernels.flash_reattention import (
 )
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
-#: level shapes of base and large
+#: level shapes of base and large, and for the backward also HViTUNetTF's
+#: level-0 keras attention, (8, 192)
 TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
-TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 192), (8, 384)})
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
@@ -547,17 +551,20 @@ def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     g_mat = kappa = None
     if bn_extra is not None:
         g_mat, kappa = (_f32(t, dev) for t in bn_extra)
-    # the tensor-core route adds each key tile's dq into a zeroed dq
-    dq = (torch.zeros if route == "tensor_core" else torch.empty)(
-        (batch, heads, n_q, dh), dtype=torch.float32, device=dev)
-    dk = torch.zeros((batch, heads, n_k, dh), dtype=torch.float32, device=dev)
-    dv = torch.empty((batch, n_k, heads * dh), dtype=torch.float32, device=dev)
-    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
-    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _library()
     r = ROUTES.index(route)
     nbytes = lib.vit_train_bwd_workspace(batch, heads, n_q, n_k, dh, r)
     work = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    # the fused tensor-core form adds each key tile's dq into a zeroed dq, the
+    # CUDA-core route dk by atomics; the form with a workspace (maps, then
+    # products) writes every output once
+    dq = (torch.zeros if route == "tensor_core" and not nbytes else torch.empty)(
+        (batch, heads, n_q, dh), dtype=torch.float32, device=dev)
+    dk = (torch.empty if nbytes else torch.zeros)(
+        (batch, heads, n_k, dh), dtype=torch.float32, device=dev)
+    dv = torch.empty((batch, n_k, heads * dh), dtype=torch.float32, device=dev)
+    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         _launch(f"train_bwd ({route})", lib.vit_train_bwd, q.data_ptr(),
                 k.data_ptr(), v_cat.data_ptr(), g.data_ptr(), lse.data_ptr(),
@@ -575,7 +582,9 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
     CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
     summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
-    core route), so its last bits vary from run to run."""
+    core route at dh 24 and 96), so its last bits vary from run to run; the
+    tensor-core classes at dh 192 and 384 use no atomics and repeat bit for
+    bit."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
         return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate,
