@@ -22,13 +22,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    plus the autograd Functions' gradients against torch autograd of the
    N x N forward with the same dropout mask; every kernel and Function also
    at 16 heads (``HEAD16_SHAPES``: dh 48, 12, 192 and 384, the
-   classifier's N and a ragged case, on the CUDA-core routes but kernel
-   1's bf16 (16, 48) and (16, 12)); every kernel also at HViTUNetTF's
+   classifier's N and a ragged case, on the CUDA-core routes but kernels
+   1's and 3's bf16 (16, 48) and (16, 12)); every kernel also at HViTUNetTF's
    keras class (``KERAS_SHAPES``: 8 heads x dh 192 at N 256 and ragged
    100 x 130); the backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
-   cores, and the backward at (8, 192)), with ragged cases and the two
+   cores, and the backward at (8, 192), (16, 12) and (16, 48)), with
+   ragged cases and the two
    routes held against each other (the backward's classes without atomics
    also run twice for the same bits; the forwards also at batch 64, and
    their dropout bits read back exactly), and at the main path's shapes
@@ -101,7 +102,7 @@ Phases, each of which raises (exit code != 0) when it fails:
 8. the classifier: (a0) kernels 1-4 at its two 16-head level shapes
    ((16, 48) at N 196, (16, 12) at N 784; b64, f32 and bf16, rate 0.2)
    against their plain versions, timed with their bounds and SDPA beside
-   kernel 1; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
+   kernel 1, the bf16 backward also on both routes in turns; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
    heads, 5,975,984 parameters, bf16, b64, random weights from a seed): the
    forward, exact-BN and frozen-BN steps (Adam, label-smoothed CE) with
    their launches asserted by route, times, peak memory and profiler
@@ -217,7 +218,7 @@ CHECK_SHAPES = [  # (batch, heads, dh, n_q, n_k)
 # 16 heads: the classifier's two levels at its N, a ragged case, and the two
 # wider head dims ``kernel_takes`` admits at 16 heads (JAX's ``_flash_ok``
 # takes 16 heads only up to dh 48); kernels 1-4 on the CUDA-core routes
-# except kernel 1 in bf16 at (16, 48) and (16, 12)
+# except kernels 1 and 3 in bf16 at (16, 48) and (16, 12)
 HEAD16_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 16, 48, 196, 196), (4, 16, 12, 784, 784), (4, 16, 48, 100, 130),
     (2, 16, 192, 196, 196), (2, 16, 384, 49, 49),
@@ -671,6 +672,10 @@ BWD_EDGE_CASES = [
     (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
     (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
 ]
+# the backward's 16-head classes (the classifier's) at its N and ragged: more
+# keys than queries over 9 key tiles of 16, more queries than keys over 3
+# tiles of 32, and a single query
+BWD16_CASES = HEAD16_SHAPES[:3] + [(2, 16, 12, 200, 96), (2, 16, 12, 1, 49)]
 # the forwards also with more keys than the chunked form keeps A of (256),
 # so A is recomputed for every column chunk
 FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
@@ -1007,7 +1012,7 @@ def phase_train_kernels():
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
     for shape in ([s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES]
-                  + BWD_EDGE_CASES + KERAS_SHAPES):
+                  + BWD_EDGE_CASES + KERAS_SHAPES + BWD16_CASES):
         for rate in (0.0, RATE):
             for bn in (False, True):
                 tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
@@ -2722,8 +2727,8 @@ def phase_tf():
 # ViTClassifier at the CLI's default widths: 224², patch 16, 196 patches,
 # depth 2 x depth_te 4, hidden 128, 16 heads, head (64, 4); 5,975,984
 # parameters (the JAX model's eval_shape count).  Its levels are (16 heads,
-# dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernel 1 on its
-# tensor-core route in bf16, kernels 2-4 on their CUDA-core routes.
+# dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernels 1 and 3 on
+# their tensor-core routes in bf16, kernels 2 and 4 on their CUDA-core routes.
 CLS_CONFIG = dict(num_patches=196)
 CLS_BF16 = dict(CLS_CONFIG, dtype="bfloat16", param_dtype="bfloat16")
 CLS_PARAMS = 5_975_984
@@ -2772,7 +2777,7 @@ def cls_routes():
         raise AssertionError(f"the classifier's levels take mixed routes: {named}")
     named = {k: r.pop() for k, r in named.items()}
     if named != {"eval": "tensor_core", "fwd": "cuda_core", "bn_fwd": "cuda_core",
-                 "bwd": "cuda_core"}:
+                 "bwd": "tensor_core"}:
         raise AssertionError(f"unexpected routes for the classifier: {named}")
     return named
 
@@ -2780,7 +2785,9 @@ def cls_routes():
 def cls_kernels():
     """(a0) kernels 1-4 at the classifier's two level shapes, b64, rate 0.2,
     f32 and bf16: kernel / plain / bound ms per call; SDPA's time beside
-    kernel 1 as a reading (no head mix)."""
+    kernel 1 as a reading (no head mix); the backward in bf16 also on both
+    routes in turns."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     res = {}
     for heads, dh, n, _ in CLS_LEVELS:
         shape = f"H{heads} dh{dh} N{n}"
@@ -2794,10 +2801,14 @@ def cls_kernels():
                 err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
                 bound=bound_of(k1["t_bytes"], k1["t_ops"]), route=k1["route"],
                 sdpa_ms=sdpa_ms(BATCH, heads, dh, n, dtype))}
-            for key in ("fwd", "bn_fwd", "bwd"):
+            for key, route_of in (("fwd", T.train_fwd_route), ("bn_fwd", T.bn_fwd_route),
+                                  ("bwd", T.train_bwd_route)):
                 row[key] = dict(err=tk[key]["err"], ms=tk[key]["ms"],
                                 plain_ms=tk[key]["plain_ms"],
-                                bound=bound_of(*bounds[key]), route="cuda_core")
+                                bound=bound_of(*bounds[key]),
+                                route=route_of(dtype, heads, dh))
+            if row["bwd"]["route"] == "tensor_core":
+                row["bwd"]["cuda_core_ms"], _ = time_bwd_routes(BATCH, heads, dh, n)
             for label, r in row.items():
                 extra = f", sdpa {r['sdpa_ms']:.4f} ms" if "sdpa_ms" in r else ""
                 print(f"    {shape} {name} {label} [{r['route']}]: {r['ms']:.4f} ms a "

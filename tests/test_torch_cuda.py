@@ -315,6 +315,13 @@ BWD_TC_CASES = [
 # the backward alone: HViTUNetTF's keras class (8, 192) at its N and ragged
 # over more than one 64-key tile (its forwards stay on the CUDA cores)
 KERAS_BWD_CASES = [(2, 8, 192, 256, 256), (2, 8, 192, 100, 130)]
+# the classifier's 16-head classes at its N and ragged: more keys than
+# queries over 9 key tiles of 16, more queries than keys over 3 tiles of
+# 32, a single query
+HEAD16_BWD_CASES = [
+    (2, 16, 48, 196, 196), (2, 16, 12, 784, 784), (2, 16, 48, 100, 130),
+    (2, 16, 12, 200, 96), (2, 16, 12, 1, 49),
+]
 
 
 def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
@@ -329,7 +336,8 @@ def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
 
 @pytest.mark.parametrize("bn", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + KERAS_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k",
+                         BWD_TC_CASES + KERAS_BWD_CASES + HEAD16_BWD_CASES)
 def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == "tensor_core"
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate, bn)
@@ -342,7 +350,8 @@ def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, r
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + KERAS_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k",
+                         BWD_TC_CASES + KERAS_BWD_CASES + HEAD16_BWD_CASES)
 def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
     tc = TT.launch_bwd(*args, route="tensor_core")
@@ -361,6 +370,19 @@ def test_bwd_maps_form_repeats_bit_for_bit(cuda, batch, heads, dh, n_q, n_k):
     again = TT.launch_bwd(*args, route="tensor_core")
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", HEAD16_BWD_CASES[:2])
+def test_bwd_16_head_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k):
+    """The 16-head classes add dq by atomics but write dk and dv once from
+    a block's registers: two calls give the same dk and dv bits, and dq
+    within the tolerance."""
+    args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
+    first = TT.launch_bwd(*args, route="tensor_core")
+    again = TT.launch_bwd(*args, route="tensor_core")
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    assert _rel(first[0], again[0]) <= F32_TOL[torch.bfloat16]
 
 
 def test_bwd_float32_takes_the_cuda_core_route(cuda):

@@ -28,10 +28,28 @@ JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
 
 
+def _classifier_levels():
+    """(heads, dh) of ``ViTClassifier``'s re-attention levels at
+    ``run_classification``'s defaults (224², patch 16), built on the meta
+    device as the CLI builds it."""
+    from vit_unet_tpu_torch.cli.run_classification import build_parser
+    from vit_unet_tpu_torch.models.vit_classifier import get_vit_classifier
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    a = build_parser().parse_args(["--input_folder", "unused"])
+    side = a.im_size // a.patch_size
+    model = get_vit_classifier(
+        device="meta", depth=a.depth, depth_te=a.depth_te,
+        linear_list=(a.head_width, 4), num_patches=side * side,
+        patch_size=a.patch_size, hidden_dim=a.hidden_dim, num_heads=a.num_heads)
+    return sorted({(m.num_heads, m.dim // m.num_heads) for m in model.modules()
+                   if isinstance(m, ReAttention)})
+
+
 def _level_shapes():
     """(preset, level, heads, dh) of every re-attention level of lite, base
-    and large, and of HViTUNetTF's level-0 keras attention (key_dim
-    C * p0^2; its wider levels do not take the kernels)."""
+    and large, of HViTUNetTF's level-0 keras attention (key_dim C * p0^2;
+    its wider levels do not take the kernels) and of the classifier at the
+    CLI's defaults."""
     out = []
     for preset in ("lite", "base", "large"):
         cfg = get_config(preset)
@@ -40,12 +58,16 @@ def _level_shapes():
             out.append((preset, level, cfg.num_heads, dh))
     tf = HViTUNetTFConfig()
     out.append(("HViTUNetTF", 0, tf.num_heads, tf.num_channels * tf.patch_size[0] ** 2))
+    # sorted by dh: level 0 (N 196) has the wider heads
+    for level, (heads, dh) in enumerate(sorted(_classifier_levels(), key=lambda x: -x[1])):
+        out.append(("ViTClassifier", level, heads, dh))
     return out
 
 
-# base's and large's levels and HViTUNetTF's level 0 run on the tensor cores
-# in bf16; lite's (4 heads) stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 192), (8, 384)}
+# base's and large's levels, HViTUNetTF's level 0 and the classifier's two
+# levels run on the tensor cores in bf16; lite's (4 heads) stay on the CUDA
+# cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 192), (8, 384), (16, 12), (16, 48)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
@@ -53,6 +75,22 @@ def test_train_bwd_route_by_dtype_and_shape(preset, level, heads, dh):
     assert TT.train_bwd_route(torch.float32, heads, dh) == "cuda_core"
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == want
+
+
+def test_classifier_levels_at_the_cli_defaults():
+    assert _classifier_levels() == [(16, 12), (16, 48)]
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 192), (16, 384), (16, 24), (16, 96),
+                                      (8, 12), (8, 48)])
+def test_untaken_classes_stay_on_the_cuda_cores(heads, dh):
+    """The 16-head classes the classifier does not run, and the classifier's
+    head dims at 8 heads, have no tensor-core class: CUDA cores in bf16 too,
+    and the kernels still take them (``kernel_takes`` is unchanged)."""
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    assert TK.kernel_takes(heads, dh)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert TT.train_bwd_route(dtype, heads, dh) == "cuda_core"
 
 
 def test_train_bwd_on_cpu_is_the_plain_version():
@@ -121,14 +159,18 @@ def _round(x, pairs):
     return hi + (x - hi).bfloat16().float() if pairs else hi
 
 
-@pytest.mark.parametrize("dh,n", [(24, 128), (96, 64), (192, 130)])
-def test_bf16_pairs_keep_the_backward_within_its_tolerance(dh, n):
+@pytest.mark.parametrize("heads,dh,n", [
+    pytest.param(heads, dh, n, id=f"{dh}-{n}" if heads == 8 else f"h{heads}-{dh}-{n}")
+    for heads, dh, n in [(8, 24, 128), (8, 96, 64), (8, 192, 130), (16, 12, 200), (16, 48, 100)]])
+def test_bf16_pairs_keep_the_backward_within_its_tolerance(heads, dh, n):
     """Why the tensor-core backward carries dS and the mixed map B as bf16
     pairs: emulated on the CPU with bf16 inputs, rate 0.2 and the BN term,
     rounding both once to bf16 (as the TPU kernel does) puts dq, dk or dv
     more than 1e-3 (max|err| / max|plain|, the card's tolerance for these
-    f32 outputs) off the plain version; the pairs keep them under 1e-4."""
-    heads, rate = 8, 0.2
+    f32 outputs) off the plain version; the pairs keep them under 1e-4.
+    Every class rounds alike: the 16-head classes keep P and g.v in f32
+    (staged through shared memory) and round only dS and B, to pairs."""
+    rate = 0.2
     g = torch.Generator().manual_seed(dh)
     rnd = lambda *s: torch.randn(*s, generator=g)
     q = (rnd(1, heads, n, dh) * 3 * dh ** -0.5).bfloat16().float()

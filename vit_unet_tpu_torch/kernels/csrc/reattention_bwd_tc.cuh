@@ -1,7 +1,8 @@
 // Training backward of flash re-attention on the tensor cores: the bfloat16
 // route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
 // classes train_bwd_tc instantiates: the levels of base and large (8 heads,
-// dh 24, 96, 384) and HViTUNetTF's level-0 keras attention (8, 192).
+// dh 24, 96, 384), HViTUNetTF's level-0 keras attention (8, 192) and the
+// classifier's 16-head levels (16, 12) and (16, 48).
 //
 // Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bwd (pallas_call body _bwd_dkv_kernel) there.  With A_h = P_h * mask_h:
@@ -51,7 +52,8 @@
 // are small (dh 24: KS 2 k-steps; dh 96: 6), so the exp, the two H x H
 // mixes, the shared-memory round trip of dS and B and the dq atomics
 // weigh as much as the MMAs.  Shared memory and registers per class are in
-// train_bwd_tc; one block an SM.
+// train_bwd_tc; one block an SM.  At 16 heads the same steps run with P and
+// T staged through shared memory (staged_kernel, below).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -417,6 +419,400 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 }
 
 // ---------------------------------------------------------------------------
+// 16 heads (the classifier's (16, 12) and (16, 48)): P and T staged in f32
+// ---------------------------------------------------------------------------
+//
+// At 16 heads the kernel above would keep S and T of all heads for a
+// thread's 4 entries in registers (128 f32) beside dk and dv, and warp w
+// could not own head w.  So the same products and mixes run in four steps
+// a q tile, each one barrier apart:
+//   1. q and g rows of all heads by cp.async, lse and D;
+//   2a. per 16 x 8 sub-tile of one head, a warp: S and T by mma.sync, then
+//       P = exp(S - lse) on valid keys; P and T go to a shared f32 stage;
+//   2b. thread (rr, c) takes rows rr + 16 i and keys c + 16 jj of the block,
+//       all heads (EPT entries, 1 or 2): it reads P and T of those, draws
+//       the keep bits of all heads with one Philox call a (row, head) (keys
+//       c + 16 j of the 64-key window are its four words), mixes dA and B
+//       in f32 registers and writes dS and B as bf16 pairs hi + lo over the
+//       stage;
+//   3. warp w, heads w and w + 8: dk += dS^T q, dv += B^T g, dq = dS K by
+//      atomics, on hi and on lo, as above.
+// Each exp, each depth product and each mix is done once per map entry and
+// head.  The stage and the dS / B tiles share their bytes, so a block fits
+// one SM; the dk and dv accumulators of two heads stay in registers.
+//
+// What bounds it (tools/torch_bwd16_variants.py takes pieces out): at
+// (16, 12) the two mixes, the Philox draws (32 keys a block use half of
+// each call's words) and step 3 weigh about alike, the products little; as
+// much again is in none of them: the stage's round trip, the exp, the loads
+// and five barriers a q tile with 8 warps an SM.  At (16, 48) step 3's six
+// column tiles a head lead.
+template <int H_, int DH_, int BKEY_, int BQ_>
+struct StagedCfg {
+  static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_;
+  static constexpr int DP = (DH + 15) / 16 * 16;  // depth padded for the MMA
+  static constexpr int KS = DP / 16;              // k16 steps over the head dim
+  static constexpr int NV = (DH + 7) / 8;         // 8-column tiles of dq, dk, dv (dh 12: 2)
+  static constexpr int LD = DP + 8;               // bf16 pitch of the q, g, K, V tiles
+  static constexpr int LDS = BKEY + 8;            // bf16 pitch of the dS and B tiles
+  static constexpr int SLD = BKEY + 8;            // f32 pitch of the P and T stage
+  static constexpr int CH = DH % 8 == 0 ? 8 : 4;  // bf16 per cp.async
+  static constexpr int CPR = DH / CH;             // copies per row
+  static constexpr int MK = BKEY / 16;            // 16-key row tiles of dk, dv
+  static constexpr int HPW = H / NW;              // heads a warp in step 3
+  static constexpr int SUBS = (BQ / 16) * (BKEY / 8);   // 16 x 8 sub-tiles of a head
+  static constexpr int RPT = BQ / 16, JPT = BKEY / 16;  // step 2b: rows, key groups a thread
+  static constexpr int EPT = RPT * JPT;                 // step 2b: entries a thread
+  static constexpr int KV_ELEMS = H * BKEY * LD;
+  static constexpr int QG_ELEMS = H * BQ * LD;
+  static constexpr int DS_ELEMS = H * BQ * LDS;
+  static constexpr size_t TILE_BYTES = sizeof(bf16) * (2 * KV_ELEMS + 2 * QG_ELEMS);
+  static constexpr size_t P_BYTES = sizeof(float) * 2 * H * BQ * SLD;
+  static constexpr size_t DS_BYTES = sizeof(bf16) * 4 * DS_ELEMS;
+  static constexpr size_t STAGE_BYTES = P_BYTES > DS_BYTES ? P_BYTES : DS_BYTES;
+  static constexpr size_t SMEM =
+      TILE_BYTES + STAGE_BYTES + sizeof(float) * (2 * H * BQ + 3 * H * H + H);
+  static_assert(H % NW == 0 && H % 4 == 0 && H <= 32, "heads: a multiple of the warps, <= 32");
+  static_assert(EPT * NT == BQ * BKEY, "step 2b: every entry of the tile once");
+  static_assert(DH % 4 == 0 && BKEY % 16 == 0 && BQ % 16 == 0 && 64 % BKEY == 0, "shape");
+  static_assert(TILE_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0 && (2 * H * BQ) % 4 == 0,
+                "16-byte alignment of the stage and of M");
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+
+__device__ __forceinline__ uint32_t philox_word(const uint4& w, int j) {
+  return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+}
+
+// Grid (key tiles of BKEY, B).  dq must be zeroed; dk and dv are written.
+template <typename C>
+__global__ void __launch_bounds__(NT, 1) staged_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dvec,
+    const float* __restrict__ m_eff, const float* __restrict__ gmat,
+    const float* __restrict__ kappa, const int64_t* __restrict__ seed, int thr, float scale,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
+  constexpr int H = C::H, DH = C::DH, BQ = C::BQ, BKEY = C::BKEY, LD = C::LD, LDS = C::LDS;
+  constexpr int SLD = C::SLD, NV = C::NV, MK = C::MK, HPW = C::HPW, PROJ = H * DH;
+  constexpr int RPT = C::RPT, JPT = C::JPT, EPT = C::EPT;
+  extern __shared__ __align__(128) unsigned char stg_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(stg_smem);   // [H][BKEY][LD]
+  bf16* vs = ks + C::KV_ELEMS;                    // [H][BKEY][LD]
+  bf16* qs = vs + C::KV_ELEMS;                    // [H][BQ][LD]
+  bf16* gs = qs + C::QG_ELEMS;                    // [H][BQ][LD]
+  unsigned char* stage = stg_smem + C::TILE_BYTES;
+  float* p_s = reinterpret_cast<float*>(stage);   // [H][BQ][SLD] P, then T: steps 2a-2b
+  float* t_s = p_s + H * BQ * SLD;
+  bf16* ds_hi = reinterpret_cast<bf16*>(stage);   // [H][BQ][LDS] x 4 over the stage: 2b-3
+  bf16* ds_lo = ds_hi + C::DS_ELEMS;
+  bf16* b_hi = ds_lo + C::DS_ELEMS;
+  bf16* b_lo = b_hi + C::DS_ELEMS;
+  float* lse_s = reinterpret_cast<float*>(stage + C::STAGE_BYTES);  // [H][BQ] * log2(e), inf past Nq
+  float* d_s = lse_s + H * BQ;                    // [H][BQ]
+  float* m_s = d_s + H * BQ;                      // [H][H]: M[h1, h2] at h1 H + h2
+  float* mt_s = m_s + H * H;                      // [H][H]: M[h1, h2] at h2 H + h1
+  float* g_s = mt_s + H * H;                      // [H][H]: G[h3, h2] at h3 H + h2
+  float* kap_s = g_s + H * H;                     // [H]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int rr = tid / 16, c = tid % 16;          // step 2b's rows and keys
+  const int k0 = blockIdx.x * BKEY, b = blockIdx.y;
+  const bool bn = gmat != nullptr;
+  const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
+
+  // the copies never write the padding columns [dh, DP), which the MMAs read
+  vit_tile::zero_bf16<2 * C::KV_ELEMS + 2 * C::QG_ELEMS>(ks, tid);
+  for (int e = tid; e < H * H; e += NT) {
+    const float m = m_eff[e];
+    m_s[e] = m;
+    mt_s[(e % H) * H + e / H] = m;
+    g_s[e] = bn ? gmat[e] : 0.f;
+  }
+  if (tid < H) kap_s[tid] = bn ? kappa[tid] : 0.f;
+  __syncthreads();
+  load_rows<C, BKEY, H>(ks, k + (int64_t)b * H * nk * DH, (int64_t)nk * DH, DH, k0, nk, tid);
+  load_rows<C, BKEY, H>(vs, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
+  cp_async_commit();
+
+  float dk_acc[HPW][MK][NV][4], dv_acc[HPW][MK][NV][4];
+#pragma unroll
+  for (int hw = 0; hw < HPW; ++hw)
+#pragma unroll
+    for (int mt = 0; mt < MK; ++mt)
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[hw][mt][nv][e] = dv_acc[hw][mt][nv][e] = 0.f;
+
+  // the block's keys lie in one 64-key window: this thread's Philox group,
+  // and the word of its first key
+  const uint32_t grp = static_cast<uint32_t>(k0 >> 6) * 16 + c;
+  const int j0 = (k0 >> 4) & 3;
+  const uint32_t t = static_cast<uint32_t>(thr);
+  for (int q0 = 0; q0 < nq; q0 += BQ) {
+    // ---- 1. the q tile's rows, lse and D
+    __syncthreads();   // step 3 of the previous tile is done with q, g, dS, B
+    load_rows<C, BQ, H>(qs, q + (int64_t)b * H * nq * DH, (int64_t)nq * DH, DH, q0, nq, tid);
+    load_rows<C, BQ, H>(gs, g + (int64_t)b * nq * PROJ, DH, PROJ, q0, nq, tid);
+    cp_async_commit();
+    for (int e = tid; e < H * BQ; e += NT) {
+      const int h = e / BQ, row = q0 + e % BQ;
+      const int64_t i = ((int64_t)b * H + h) * nq + row;
+      lse_s[e] = row < nq ? lse[i] * LOG2E : INFINITY;
+      d_s[e] = row < nq ? dvec[i] : 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- 2a. P and T of every head, 16 queries x 8 keys a warp
+    for (int st = warp; st < H * C::SUBS; st += NW) {
+      const int h = st / C::SUBS, sub = st % C::SUBS;
+      const int r0 = (sub % (BQ / 16)) * 16, c0 = (sub / (BQ / 16)) * 8;
+      float s[4], tt[4];
+      prod_16x8<C, BQ>(qs, ks, h, r0, c0, lane, s);
+      prod_16x8<C, BQ>(gs, vs, h, r0, c0, lane, tt);
+      const int ra = r0 + gq, kk = c0 + 2 * t4;
+      const bool ok0 = k0 + kk < nk, ok1 = k0 + kk + 1 < nk;
+      const float la = lse_s[h * BQ + ra], lb = lse_s[h * BQ + ra + 8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fast_exp2(fmaf(s[e], LOG2E, -(e < 2 ? la : lb)));
+        s[e] = ((e & 1) ? ok1 : ok0) ? x : 0.f;
+      }
+      const int off = (h * BQ + ra) * SLD + kk;
+      *reinterpret_cast<float2*>(p_s + off) = make_float2(s[0], s[1]);
+      *reinterpret_cast<float2*>(p_s + off + 8 * SLD) = make_float2(s[2], s[3]);
+      *reinterpret_cast<float2*>(t_s + off) = make_float2(tt[0], tt[1]);
+      *reinterpret_cast<float2*>(t_s + off + 8 * SLD) = make_float2(tt[2], tt[3]);
+    }
+    __syncthreads();
+
+    // ---- 2b. entry e = i JPT + jj: row rr + 16 i, key c + 16 jj; all heads
+    float p[H][EPT], tv[H][EPT];
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < JPT; ++jj) {
+          const int off = (h * BQ + rr + 16 * i) * SLD + c + 16 * jj;
+          p[h][i * JPT + jj] = p_s[off];
+          tv[h][i * JPT + jj] = t_s[off];
+        }
+    uint32_t keep[EPT];   // bit h: the entry of head h is kept
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) keep[e] = 0xFFFFFFFFu;
+    if (thr > 0) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = q0 + rr + 16 * i;
+#pragma unroll
+        for (int jj = 0; jj < JPT; ++jj) keep[i * JPT + jj] = 0;
+        if (row >= nq) continue;   // P is 0 there
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const uint4 w = vit::philox4(sd, b, h, row, grp);
+#pragma unroll
+          for (int jj = 0; jj < JPT; ++jj)
+            keep[i * JPT + jj] |= ((philox_word(w, j0 + jj) >> 8) >= t ? 1u : 0u) << h;
+        }
+      }
+    }
+    auto msc = [&](int h, int e) { return (keep[e] >> h) & 1u ? scale : 0.f; };
+    __syncthreads();   // every thread holds its P and T: dS and B go over the stage
+
+    float acc[H][EPT];   // dA, then B
+#pragma unroll
+    for (int h2 = 0; h2 < H; ++h2)
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) acc[h2][e] = kap_s[h2];
+#pragma unroll
+    for (int h1 = 0; h1 < H; ++h1)
+#pragma unroll
+      for (int h2 = 0; h2 < H; h2 += 4) {
+        const float4 m4 = *reinterpret_cast<const float4*>(m_s + h1 * H + h2);
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+          acc[h2][e] = fmaf(m4.x, tv[h1][e], acc[h2][e]);
+          acc[h2 + 1][e] = fmaf(m4.y, tv[h1][e], acc[h2 + 1][e]);
+          acc[h2 + 2][e] = fmaf(m4.z, tv[h1][e], acc[h2 + 2][e]);
+          acc[h2 + 3][e] = fmaf(m4.w, tv[h1][e], acc[h2 + 3][e]);
+        }
+      }
+    if (bn) {
+#pragma unroll
+      for (int h3 = 0; h3 < H; ++h3) {
+        float a[EPT];   // A = P * mask
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) a[e] = p[h3][e] * msc(h3, e);
+#pragma unroll
+        for (int h2 = 0; h2 < H; h2 += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(g_s + h3 * H + h2);
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) {
+            acc[h2][e] = fmaf(g4.x, a[e], acc[h2][e]);
+            acc[h2 + 1][e] = fmaf(g4.y, a[e], acc[h2 + 1][e]);
+            acc[h2 + 2][e] = fmaf(g4.z, a[e], acc[h2 + 2][e]);
+            acc[h2 + 3][e] = fmaf(g4.w, a[e], acc[h2 + 3][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < H; ++h2)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float dr = d_s[h2 * BQ + rr + 16 * i];
+#pragma unroll
+        for (int jj = 0; jj < JPT; ++jj) {
+          const int e = i * JPT + jj;
+          const float x = p[h2][e] * (acc[h2][e] * msc(h2, e) - dr);
+          const bf16 hi = __float2bfloat16_rn(x);
+          const int off = (h2 * BQ + rr + 16 * i) * LDS + c + 16 * jj;
+          ds_hi[off] = hi;
+          ds_lo[off] = __float2bfloat16_rn(x - __bfloat162float(hi));
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        p[h][e] *= msc(h, e);   // A = P * mask
+        acc[h][e] = 0.f;
+      }
+#pragma unroll
+    for (int h2 = 0; h2 < H; ++h2)
+#pragma unroll
+      for (int h1 = 0; h1 < H; h1 += 4) {
+        const float4 m4 = *reinterpret_cast<const float4*>(mt_s + h2 * H + h1);
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+          acc[h1][e] = fmaf(m4.x, p[h2][e], acc[h1][e]);
+          acc[h1 + 1][e] = fmaf(m4.y, p[h2][e], acc[h1 + 1][e]);
+          acc[h1 + 2][e] = fmaf(m4.z, p[h2][e], acc[h1 + 2][e]);
+          acc[h1 + 3][e] = fmaf(m4.w, p[h2][e], acc[h1 + 3][e]);
+        }
+      }
+#pragma unroll
+    for (int h1 = 0; h1 < H; ++h1)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < JPT; ++jj) {
+          const float x = acc[h1][i * JPT + jj];
+          const bf16 hi = __float2bfloat16_rn(x);
+          const int off = (h1 * BQ + rr + 16 * i) * LDS + c + 16 * jj;
+          b_hi[off] = hi;
+          b_lo[off] = __float2bfloat16_rn(x - __bfloat162float(hi));
+        }
+    __syncthreads();
+
+    // ---- 3. warp w, heads w + NW hw: dk, dv, dq
+    // A operands dS^T, B^T (keys 16 mt.., queries kq..) of the [query][key]
+    // tiles, by ldmatrix.trans
+    const int a_t = (lane % 8) + 8 * (lane / 16), a_c = 8 * ((lane / 8) % 2);
+#pragma unroll
+    for (int hw = 0; hw < HPW; ++hw) {
+      const int h = warp + NW * hw;
+#pragma unroll
+      for (int kq = 0; kq < BQ; kq += 16) {
+        uint32_t qb[2 * NV], gb[2 * NV];
+        ldsm_b_trans<C>(qb, qs + (h * BQ + kq) * LD, lane);
+        ldsm_b_trans<C>(gb, gs + (h * BQ + kq) * LD, lane);
+#pragma unroll
+        for (int mt = 0; mt < MK; ++mt) {
+          const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+          uint32_t ah[4], al[4], bh[4], bl[4];
+          ldsm_x4_trans(ah, ds_hi + off);
+          ldsm_x4_trans(al, ds_lo + off);
+          ldsm_x4_trans(bh, b_hi + off);
+          ldsm_x4_trans(bl, b_lo + off);
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(dk_acc[hw][mt][nv], ah, qb[2 * nv], qb[2 * nv + 1]);
+            mma_bf16(dk_acc[hw][mt][nv], al, qb[2 * nv], qb[2 * nv + 1]);
+            mma_bf16(dv_acc[hw][mt][nv], bh, gb[2 * nv], gb[2 * nv + 1]);
+            mma_bf16(dv_acc[hw][mt][nv], bl, gb[2 * nv], gb[2 * nv + 1]);
+          }
+        }
+      }
+      // dq_h (queries mq.., all dh) = dS_h K_h over the block's keys
+      for (int mq = 0; mq < BQ && q0 + mq < nq; mq += 16) {
+        float dacc[NV][4];
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dacc[nv][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < BKEY; kc += 16) {
+          uint32_t kb[2 * NV], ah[4], al[4];
+          ldsm_b_trans<C>(kb, ks + (h * BKEY + kc) * LD, lane);
+          const int off = (h * BQ + mq + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + kc +
+                          8 * (lane / 16);
+          ldsm_x4(ah, ds_hi + off);
+          ldsm_x4(al, ds_lo + off);
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(dacc[nv], ah, kb[2 * nv], kb[2 * nv + 1]);
+            mma_bf16(dacc[nv], al, kb[2 * nv], kb[2 * nv + 1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + mq + gq + 8 * r;
+          if (row >= nq) continue;
+          float* dst = dq + (((int64_t)b * H + h) * nq + row) * DH + 2 * t4;
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            if (DH % 8 != 0 && 8 * nv + 2 * t4 >= DH) continue;   // dh 12: padding columns
+            atomicAdd(dst + 8 * nv, dacc[nv][2 * r]);
+            atomicAdd(dst + 8 * nv + 1, dacc[nv][2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();   // no q tile: the K / V copies are still in flight
+
+#pragma unroll
+  for (int hw = 0; hw < HPW; ++hw) {
+    const int h = warp + NW * hw;
+#pragma unroll
+    for (int mt = 0; mt < MK; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * mt + gq + 8 * r;
+        if (key >= nk) continue;
+        float* dkr = dk + (((int64_t)b * H + h) * nk + key) * DH + 2 * t4;
+        float* dvr = dv + ((int64_t)b * nk + key) * PROJ + h * DH + 2 * t4;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          if (DH % 8 != 0 && 8 * nv + 2 * t4 >= DH) continue;
+          *reinterpret_cast<float2*>(dkr + 8 * nv) =
+              make_float2(dk_acc[hw][mt][nv][2 * r], dk_acc[hw][mt][nv][2 * r + 1]);
+          *reinterpret_cast<float2*>(dvr + 8 * nv) =
+              make_float2(dv_acc[hw][mt][nv][2 * r], dv_acc[hw][mt][nv][2 * r + 1]);
+        }
+      }
+  }
+}
+
+template <typename C>
+int launch_staged(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                  const float* dvec, const float* m_eff, const float* gmat, const float* kappa,
+                  const int64_t* seed, int thr, float scale, float* dq, float* dk, float* dv,
+                  int batch, int nq, int nk, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      staged_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  staged_kernel<C><<<dim3((nk + C::BKEY - 1) / C::BKEY, batch), NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv,
+      nq, nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // dh 192 and 384 (HViTUNetTF's level 0, base's N = 49 level): maps, then
 // products
 // ---------------------------------------------------------------------------
@@ -753,7 +1149,15 @@ int launch_maps(const void* q, const void* k, const void* v, const void* g, cons
 //            dh): maps_kernel 1,024 blocks at HViTUNetTF's b64 N 256 (16 q
 //            tiles x 64 images), each looping over 4 key tiles of 6 depth
 //            chunks; prods_kernel grid (3, 8, 64); the workspace 4 x B x H x
-//            256 x 256 bf16 = 256 MiB there.
+//            256 x 256 bf16 = 256 MiB there;
+//   (16, 12): staged_kernel, BKEY 32, BQ 16: K, V 49,152 + q, g 24,576 +
+//            the P, T stage (= dS, B hi, lo) 81,920 + lse, D, M, M^T, G,
+//            kappa 5,184 = 160,832 B; 1,600 blocks at the classifier's b64
+//            N 784 (25 key tiles x 64 images), 49 q tiles each; dk and dv of
+//            two heads 64 f32 registers a thread;
+//   (16, 48): staged_kernel, BKEY 16, BQ 16: K, V 57,344 + q, g 57,344 +
+//            stage 49,152 + 5,184 = 169,024 B; 832 blocks at b64 N 196, 13 q
+//            tiles each; dk and dv of two heads 96 registers a thread.
 // cudaErrorInvalidValue for any other shape.
 inline int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
                         const float* lse, const float* dvec, const float* m_eff,
@@ -766,6 +1170,12 @@ inline int train_bwd_tc(const void* q, const void* k, const void* v, const void*
   if (heads == 8 && dh == 24) return VIT_BWD_TC(24, 64, 16);
   if (heads == 8 && dh == 96) return VIT_BWD_TC(96, 16, 32);
 #undef VIT_BWD_TC
+#define VIT_BWD_STAGED(DH, BKEY, BQ)                                                    \
+  launch_staged<StagedCfg<16, DH, BKEY, BQ>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, \
+                                             thr, scale, dq, dk, dv, batch, nq, nk, stream)
+  if (heads == 16 && dh == 12) return VIT_BWD_STAGED(12, 32, 16);
+  if (heads == 16 && dh == 48) return VIT_BWD_STAGED(48, 16, 16);
+#undef VIT_BWD_STAGED
 #define VIT_BWD_MAPS(DH)                                                                \
   launch_maps<MapCfg<8, DH>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, \
                              dk, dv, work, batch, nq, nk, stream)

@@ -30,12 +30,14 @@ beside it and a launch counter:
   It has two routes, and ``train_bwd_route`` names the one a call takes from
   the input dtype and (heads, dh), nothing else: ``tensor_core``
   (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``
-  (base's and large's levels and HViTUNetTF's level-0 keras attention),
-  every product a bf16 MMA with dS and the head-mixed map B carried as
-  bf16 pairs hi + lo: one fused kernel at dh 24 and 96, and at dh 192 and
-  384 a kernel that writes dS and B to a bf16 workspace and one that forms
-  dq, dk and dv from it; ``cuda_core`` (f32 FMAs) for float32 and every
-  other shape.
+  (base's and large's levels, HViTUNetTF's level-0 keras attention and the
+  classifier's 16-head levels (16, 12) and (16, 48)), every product a bf16
+  MMA with dS and the head-mixed map B carried as bf16 pairs hi + lo: one
+  fused kernel at (8, 24) and (8, 96), the same steps with the
+  probabilities and g.v staged through shared memory at 16 heads, and at
+  dh 192 and 384 a kernel that writes dS and B to a bf16 workspace and one
+  that forms dq, dk and dv from it; ``cuda_core`` (f32 FMAs) for float32
+  and every other shape.
 
 A_h = softmax(q_h k_h^T) * mask, where the dropout mask keeps an entry iff
 the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
@@ -77,10 +79,10 @@ from vit_unet_tpu_torch.kernels.flash_reattention import (
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
 #: level shapes of base and large, and for the backward also HViTUNetTF's
-#: level-0 keras attention, (8, 192)
+#: level-0 keras attention, (8, 192), and the classifier's 16-head levels
 TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
-TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 192), (8, 384)})
+TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 192), (8, 384), (16, 12), (16, 48)})
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
@@ -582,9 +584,9 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
     CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
     summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
-    core route at dh 24 and 96), so its last bits vary from run to run; the
-    tensor-core classes at dh 192 and 384 use no atomics and repeat bit for
-    bit."""
+    core route at dh 12, 24, 48 and 96), so its last bits vary from run to
+    run; the tensor-core classes at dh 192 and 384 use no atomics and
+    repeat bit for bit."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
         return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate,
