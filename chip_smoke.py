@@ -25,7 +25,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    classifier's N and a ragged case, on the CUDA-core routes but kernels
    1's and 3's bf16 (16, 48) and (16, 12)); every kernel also at HViTUNetTF's
    keras class (``KERAS_SHAPES``: 8 heads x dh 192 at N 256 and ragged
-   100 x 130); the backward and both forwards
+   100 x 130); kernel 1's one-pass identity route as ``KerasMHA`` calls it
+   (``IDENTITY_CASES``: (8, 192) and (4, 192) at N 256, 64 queries of 256
+   keys, ragged 100 x 130 and 1 x 49; at b64 against the two-pass
+   tensor-core route in turns and beside SDPA, the same function there);
+   the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
+   against plain and the CUDA-core route, its dropout bits read back); the
+   backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
    cores, and the backward at (8, 192), (16, 12) and (16, 48)), with
@@ -81,12 +87,14 @@ Phases, each of which raises (exit code != 0) when it fails:
 7. the TF-flavour model: (a) kernels 1-3 at the keras attention's level-0
    shape (B64, 8 heads x dh 192, N 256) with the identity head mix against
    their plain versions in f32 and bf16 (and ``scaled_dot_product_attention``,
-   the same function there), timed with their bounds, and the kernels whose
-   bf16 call takes the tensor-core route (1 and 3) timed against the
+   the same function there), timed with their bounds, kernel 1 called as
+   ``KerasMHA`` calls it (its identity route in bf16, timed against the
+   two-pass tensor-core route in turns) and kernel 3 timed against the
    CUDA-core route in turns; (b) ``HViTUNetTF`` at
    its default width (128², 1,571,098,944 parameters, bf16, random weights
    from a seed) served at b64 through ``Predictor`` from channels-last numpy,
-   kernel 1's launches by route, the kernel path against ``use_flash=False``;
+   every kernel-1 launch on the identity route, the kernel path against
+   ``use_flash=False``;
    (c) 10 AdamW steps at the config's dropout through
    ``build_step_functions``, launches by route, step time, peak memory and a
    profiler breakdown, then a dropout-free f32 batch-4 step of the kernel
@@ -102,7 +110,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 8. the classifier: (a0) kernels 1-4 at its two 16-head level shapes
    ((16, 48) at N 196, (16, 12) at N 784; b64, f32 and bf16, rate 0.2)
    against their plain versions, timed with their bounds and SDPA beside
-   kernel 1, the bf16 backward also on both routes in turns; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
+   kernel 1, the bf16 backward and the exact-BN forward at (16, 12) also on
+   both routes in turns; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
    heads, 5,975,984 parameters, bf16, b64, random weights from a seed): the
    forward, exact-BN and frozen-BN steps (Adam, label-smoothed CE) with
    their launches asserted by route, times, peak memory and profiler
@@ -229,6 +238,10 @@ CHECK_SHAPES += HEAD16_SHAPES
 # kernels 1 and 3 (kernel 2 on the CUDA cores)
 KERAS_SHAPES = [(4, 8, 192, 256, 256), (2, 8, 192, 100, 130)]
 CHECK_SHAPES += KERAS_SHAPES
+# kernel 1's identity-mix route (KerasMHA's calls, bf16): its two classes at
+# N 256, the level-0 skip's 64 queries of 256 keys, ragged, a single query
+IDENTITY_CASES = [(4, 8, 192, 256, 256), (4, 4, 192, 256, 256), (4, 8, 192, 64, 256),
+                  (2, 8, 192, 100, 130), (2, 8, 192, 1, 49)]
 EDGE_CASES = [  # (label, batch, heads, dh, n_q, n_k, q scale), bf16
     ("peaked", 4, 8, 96, 196, 196, 8.0),      # large lse, far from uniform maps
     ("few keys", 4, 8, 24, 100, 9, 1.0),      # Nk < 16
@@ -283,15 +296,16 @@ def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0,
             w.to(dev), b.to(dev))
 
 
-def bound_parts(batch, heads, dh, n_q, n_k, dtype) -> tuple[float, float]:
+def bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=True) -> tuple[float, float]:
     """Least time for one call: bytes (inputs read once, output written
     once) over HBM bandwidth vs operations (scores, head mix, product with
-    V) over the peak rate for the input type."""
+    V) over the peak rate for the input type.  ``mix=False``: the identity
+    mix, which the function does not need (no w, b, no mix operations)."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (item * (batch * heads * (n_q + n_k) * dh + batch * n_k * heads * dh
                       + batch * n_q * heads * dh)
-              + 4 * (heads * heads * dh + heads * dh))
-    ops = 2.0 * batch * heads * n_q * n_k * (2 * dh + heads)
+              + (4 * (heads * heads * dh + heads * dh) if mix else 0))
+    ops = 2.0 * batch * heads * n_q * n_k * (2 * dh + (heads if mix else 0))
     return nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
@@ -314,14 +328,17 @@ def pass_bounds(batch, heads, dh, n_q, n_k, dtype) -> dict:
 
 
 def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
-                 q_scale=1.0, label="", identity=False):
+                 q_scale=1.0, label="", identity=False, identity_mix=False):
+    """Kernel 1 against its plain version on the route ``kernel_route``
+    names; ``identity_mix``: called as KerasMHA calls it, with the identity
+    mix and the flag that says so (``identity`` inputs without the flag)."""
     from vit_unet_tpu_torch.kernels.flash_reattention import (
         flash_reattention, flash_reattention_plain, kernel_route)
     args = reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale,
-                              identity)
-    route = kernel_route(dtype, heads, dh)
+                              identity or identity_mix)
+    route = kernel_route(dtype, heads, dh, identity_mix)
     before = flash_reattention.route_launches[route]
-    got = flash_reattention(*args, num_heads=heads)
+    got = flash_reattention(*args, num_heads=heads, identity_mix=identity_mix)
     if flash_reattention.route_launches[route] != before + 1:
         raise AssertionError(f"the call did not take the {route} route")
     want = flash_reattention_plain(*args, num_heads=heads)
@@ -329,9 +346,10 @@ def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     rel = err / max(scale, 1e-30)
-    ms = time_ms(lambda: flash_reattention(*args, num_heads=heads), reps)
+    ms = time_ms(lambda: flash_reattention(*args, num_heads=heads,
+                                           identity_mix=identity_mix), reps)
     plain = time_ms(lambda: flash_reattention_plain(*args, num_heads=heads), reps)
-    t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype)
+    t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=not identity_mix)
     bound, by = bound_of(t_bytes, t_ops)
     name = str(dtype).replace("torch.", "")
     print(f"  B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} {name}"
@@ -388,6 +406,31 @@ def time_passes(batch, heads, dh, n, reps=10):
     return res
 
 
+def time_identity(batch, heads, dh, n, reps=10):
+    """At an identity-mix class in bf16: the two-pass tensor-core route and
+    the one-pass identity route on the same inputs in turns (old, new, new,
+    old), held against each other.  Returns dict(old=, new=) ms."""
+    from vit_unet_tpu_torch.kernels.flash_reattention import launch_passes
+    dtype = torch.bfloat16
+    q, k, v, w, b = reattention_inputs(batch, heads, dh, n, n, dtype, 0, identity=True)
+    routes = ("tensor_core", "identity_tc")
+    outs = {r: torch.empty(batch, n, heads * dh, dtype=dtype, device="cuda") for r in routes}
+    lses = {r: torch.empty(batch, heads, n, device="cuda") for r in routes}
+    run = lambda r: launch_passes(q, k, v, w, b, lses[r], outs[r], route=r)
+    turns = [(r, time_ms(lambda: run(r), reps)) for r in routes + routes[::-1]]
+    d_out = rel_err(outs["identity_tc"], outs["tensor_core"])[1]
+    d_lse = (lses["identity_tc"] - lses["tensor_core"]).abs().max().item()
+    old = min(t for r, t in turns if r == "tensor_core")
+    new = min(t for r, t in turns if r == "identity_tc")
+    print(f"    H{heads} dh{dh} N{n} identity mix in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; tensor_core / identity_tc {old / new:.2f}x; out rel {d_out:.3e}, "
+          f"lse abs {d_lse:.3e}")
+    if not (d_out <= TOL[dtype] and d_lse <= 1e-3):
+        raise AssertionError("the identity route disagrees with the two-pass route")
+    return dict(old=old, new=new)
+
+
 def phase_environment(sources):
     print("== phase 1: environment")
     print("card:", card_line())
@@ -427,6 +470,22 @@ def phase_kernels():
             total[f"{key}_ms"] += calls * passes[key]
     total["bound_ms"], total["bound_by"] = bound_of(total["t_bytes"],
                                                     total["t_ops"])
+    print("  the identity-mix route (KerasMHA's calls), bf16:")
+    ident = [check_kernel(*shape, torch.bfloat16, identity_mix=True, label="identity")
+             for shape in IDENTITY_CASES]
+    total["identity"] = dict(err=max(r["err"] for r in ident), classes={})
+    for heads in (8, 4):
+        r = check_kernel(BATCH, heads, 192, 256, 256, torch.bfloat16, identity_mix=True,
+                         label="identity")
+        ident.append(r)
+        r["tensor_core_ms"] = time_identity(BATCH, heads, 192, 256)["old"]
+        r["sdpa_ms"] = sdpa_ms(BATCH, heads, 192, 256, torch.bfloat16)
+        r["bound_ms"], r["bound_by"] = bound_of(r["t_bytes"], r["t_ops"])
+        print(f"    H{heads} dh192 N256 B{BATCH} identity_tc {r['ms']:.4f} ms a call, "
+              f"two-pass tensor_core {r['tensor_core_ms']:.4f}, sdpa {r['sdpa_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        total["identity"]["classes"][f"H{heads} dh192 N256"] = r
+    checks += ident
     print(f"  per base forward (12 calls): kernel {total['ms']:.4f} ms (lse passes "
           f"{total['lse_ms']:.4f}, output passes {total['out_ms']:.4f}), on the "
           f"CUDA-core route {total['old_ms']:.4f} ms, plain "
@@ -536,7 +595,7 @@ def phase_slice():
     if launches != 12 * forwards:
         raise AssertionError(f"expected 12 launches per forward "
                              f"({12 * forwards}), counted {launches}")
-    if by_route != {"cuda_core": 0, "tensor_core": 12 * forwards}:
+    if by_route != {**dict.fromkeys(TK.ROUTES, 0), "tensor_core": 12 * forwards}:
         raise AssertionError(f"a bf16 base forward takes the tensor-core route "
                              f"12 times, counted {by_route}")
     for x, y in zip(requests, outs):
@@ -679,6 +738,11 @@ BWD16_CASES = HEAD16_SHAPES[:3] + [(2, 16, 12, 200, 96), (2, 16, 12, 1, 49)]
 # the forwards also with more keys than the chunked form keeps A of (256),
 # so A is recomputed for every column chunk
 FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
+# the exact-BN forward's 16-head class on the tensor cores, (16, 12): the
+# classifier's N, ragged over three key tiles, more queries than keys, a
+# single query (its b64 call is phase 8's)
+BN16_CASES = [(4, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96),
+              (2, 16, 12, 1, 49)]
 # (heads, dh) classes of the backward's tensor-core route in its maps +
 # products form: no atomics, so a call repeats bit for bit
 ATOMIC_FREE_BWD = {(8, 192), (8, 384)}
@@ -1022,10 +1086,11 @@ def phase_train_kernels():
               f"route its route choice names:")
         fwd_err[key] = 0.0
         shapes = [s for s in TRAIN_SHAPES[:3] if s[1:3] in classes]
-        for shape in shapes + [(BATCH,) + s[1:] for s in shapes] + FWD_EDGE_CASES:
+        head16 = [s for s in BN16_CASES if s[1:3] in classes]
+        for shape in shapes + [(BATCH,) + s[1:] for s in shapes] + FWD_EDGE_CASES + head16:
             for rate in (0.0, RATE):
                 fwd_err[key] = max(fwd_err[key], fwd_turns(key, *shape, rate))
-        for batch, heads, dh, n, _ in shapes:
+        for batch, heads, dh, n, _ in shapes + head16[:1]:
             check_fwd_bits(key, batch, heads, dh, n)
     print(f"  main-path shapes (base, B{BATCH}, bf16, rate {RATE}), "
           f"calls per train step:")
@@ -2315,16 +2380,19 @@ def sdpa_ms(batch, heads, dh, n, dtype):
 
 def tf_kernels(shape=TF_SHAPE, tag="(a)"):
     """``tag`` kernels 1-3 at a keras attention class (heads, dh, N) with
-    the identity mix: the level-0 one by default.  A kernel whose bf16 call
-    takes the tensor-core route is also timed against the CUDA-core route in
-    turns (``cuda_core_ms``: the faster of its two turns)."""
+    the identity mix, kernel 1 called as KerasMHA calls it (the flag that
+    says so): the level-0 class by default.  A kernel whose bf16 call takes
+    the tensor-core route is also timed against the CUDA-core route in
+    turns (``cuda_core_ms``: the faster of its two turns), and kernel 1 on
+    its identity route against the two-pass tensor-core route
+    (``tensor_core_ms``)."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     heads, dh, n = shape
     print(f"  {tag} kernels 1-3 at B{BATCH} H{heads} dh{dh} N{n}, identity head mix:")
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        k1 = check_kernel(BATCH, heads, dh, n, n, dtype, reps=10, identity=True,
+        k1 = check_kernel(BATCH, heads, dh, n, n, dtype, reps=10, identity_mix=True,
                           label="identity")
         tk = check_train_kernels(BATCH, heads, dh, n, n, dtype, RATE, reps=5,
                                  identity=True)
@@ -2342,14 +2410,14 @@ def tf_kernels(shape=TF_SHAPE, tag="(a)"):
                               library_ms=None, route={"fwd": T.train_fwd_route,
                                                       "bwd": T.train_bwd_route}[key](
                                                           dtype, heads, dh))
-        if row["flash_reattention"]["route"] == "tensor_core":
-            row["flash_reattention"]["cuda_core_ms"] = time_passes(BATCH, heads, dh, n)["old"]
+        if row["flash_reattention"]["route"] == "identity_tc":
+            row["flash_reattention"]["tensor_core_ms"] = time_identity(BATCH, heads, dh, n)["old"]
         if row["train_bwd"]["route"] == "tensor_core":
             row["train_bwd"]["cuda_core_ms"] = time_bwd_routes(BATCH, heads, dh, n)[0]
         for label, r in row.items():
             lib = "" if r["library_ms"] is None else f", sdpa {r['library_ms']:.4f} ms"
-            old = (f", cuda_core route in turns {r['cuda_core_ms']:.4f} ms"
-                   if "cuda_core_ms" in r else "")
+            old = "".join(f", {key[:-3]} route in turns {r[key]:.4f} ms"
+                          for key in ("cuda_core_ms", "tensor_core_ms") if key in r)
             print(f"    {name} {label} [{r['route']}]: "
                   f"{r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms{lib}{old}, bound "
                   f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err {r['err']:.3e}")
@@ -2368,8 +2436,9 @@ def tf_serving():
     x_np = tf_batch(BATCH).cpu().numpy()
     pred(x_np)                                        # warm-up
     launches, y = path_launches(lambda: pred(x_np))
+    # every keras-attention eval call on kernel 1's identity route
     require_launches("(b) serving b64", launches,
-                     {"eval": TF_CALLS, "eval_tensor_core": TF_CALLS})
+                     {"eval": TF_CALLS, "eval_identity_tc": TF_CALLS})
     if y.shape != x_np.shape or not np.isfinite(y).all():
         raise AssertionError(f"bad served output: {y.shape}")
     card = card_line()
@@ -2728,7 +2797,8 @@ def phase_tf():
 # depth 2 x depth_te 4, hidden 128, 16 heads, head (64, 4); 5,975,984
 # parameters (the JAX model's eval_shape count).  Its levels are (16 heads,
 # dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernels 1 and 3 on
-# their tensor-core routes in bf16, kernels 2 and 4 on their CUDA-core routes.
+# their tensor-core routes in bf16, kernel 4 too at (16, 12) and on its
+# CUDA-core route at (16, 48), kernel 2 on its CUDA-core route.
 CLS_CONFIG = dict(num_patches=196)
 CLS_BF16 = dict(CLS_CONFIG, dtype="bfloat16", param_dtype="bfloat16")
 CLS_PARAMS = 5_975_984
@@ -2756,28 +2826,37 @@ def cls_loss(logits, target):
 
 
 def cls_expected(routes: dict, n: int) -> dict:
-    """{count: n * CLS_CALLS} for each kernel and its route in ``routes``."""
+    """{count: n * calls}: each kernel of ``routes`` (kernel -> {route:
+    calls a forward or step}) CLS_CALLS times a forward or step, and each of
+    its routes its calls."""
     want = {}
-    for key, route in routes.items():
-        want[key] = want[f"{key}_{route}"] = n * CLS_CALLS
+    for key, per_route in routes.items():
+        want[key] = n * CLS_CALLS
+        for route, calls in per_route.items():
+            want[f"{key}_{route}"] = n * calls
     return want
 
 
 def cls_routes():
     """The routes the route functions name for the classifier's levels in
-    bf16: one per kernel, or the phase fails."""
+    bf16, {kernel: {route: calls a forward or step}}, or the phase fails:
+    kernel 4 takes the tensor cores at (16, 12) and the CUDA cores at
+    (16, 48)."""
     import importlib
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
     routes = {"eval": TK.kernel_route, "fwd": T.train_fwd_route,
               "bn_fwd": T.bn_fwd_route, "bwd": T.train_bwd_route}
-    named = {k: {pick(torch.bfloat16, h, d) for h, d, _, _ in CLS_LEVELS}
-             for k, pick in routes.items()}
-    if any(len(r) != 1 for r in named.values()):
-        raise AssertionError(f"the classifier's levels take mixed routes: {named}")
-    named = {k: r.pop() for k, r in named.items()}
-    if named != {"eval": "tensor_core", "fwd": "cuda_core", "bn_fwd": "cuda_core",
-                 "bwd": "tensor_core"}:
+    named = {}
+    for key, pick in routes.items():
+        named[key] = collections.Counter()
+        for h, d, _, calls in CLS_LEVELS:
+            named[key][pick(torch.bfloat16, h, d)] += calls
+        named[key] = dict(named[key])
+    half = CLS_CALLS // 2
+    if named != {"eval": {"tensor_core": CLS_CALLS}, "fwd": {"cuda_core": CLS_CALLS},
+                 "bn_fwd": {"cuda_core": half, "tensor_core": half},
+                 "bwd": {"tensor_core": CLS_CALLS}}:
         raise AssertionError(f"unexpected routes for the classifier: {named}")
     return named
 
@@ -2785,8 +2864,8 @@ def cls_routes():
 def cls_kernels():
     """(a0) kernels 1-4 at the classifier's two level shapes, b64, rate 0.2,
     f32 and bf16: kernel / plain / bound ms per call; SDPA's time beside
-    kernel 1 as a reading (no head mix); the backward in bf16 also on both
-    routes in turns."""
+    kernel 1 as a reading (no head mix); the backward, and the exact-BN
+    forward at (16, 12), in bf16 also on both routes in turns."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     res = {}
     for heads, dh, n, _ in CLS_LEVELS:
@@ -2809,6 +2888,9 @@ def cls_kernels():
                                 route=route_of(dtype, heads, dh))
             if row["bwd"]["route"] == "tensor_core":
                 row["bwd"]["cuda_core_ms"], _ = time_bwd_routes(BATCH, heads, dh, n)
+            if row["bn_fwd"]["route"] == "tensor_core":
+                row["bn_fwd"]["cuda_core_ms"], _ = time_fwd_routes("bn_fwd", BATCH, heads,
+                                                                   dh, n)
             for label, r in row.items():
                 extra = f", sdpa {r['sdpa_ms']:.4f} ms" if "sdpa_ms" in r else ""
                 print(f"    {shape} {name} {label} [{r['route']}]: {r['ms']:.4f} ms a "
@@ -4520,6 +4602,29 @@ def main(argv=None) -> int:
         "tp_heads": {tp_shape: {dt: r["flash_reattention"]
                                 for dt, r in tp["kernels"].items()}},
     }]
+    # kernel 1's identity route: KerasMHA's eval calls (phases 7, 11; phase
+    # 10's tensor-parallel model runs in f32, on the CUDA cores)
+    ident = k["identity"]
+    i8 = ident["classes"]["H8 dh192 N256"]
+    kernels.append({
+        "name": "flash_reattention_identity",
+        "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/attention_identity_tc.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention.py:111",
+        "launches": sum(c.get("eval_identity_tc", 0) for c in model_paths.values()),
+        "launches_by_path": {p: c.get("eval_identity_tc", 0) for p, c in model_paths.items()},
+        "max_abs_err": ident["err"],
+        # HViTUNetTF's level 0, (8, 192) at N 256, b64 bf16 (phase 2a)
+        "ms": i8["ms"], "plain_ms": i8["plain_ms"],
+        "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"],
+        # with the identity mix scaled_dot_product_attention is the same function
+        "library_ms": i8["sdpa_ms"],
+        # the two-pass tensor-core route on the same inputs, in turns
+        "tensor_core_ms": i8["tensor_core_ms"],
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                     "sdpa_ms", "tensor_core_ms")}
+                    for shape, r in ident["classes"].items()},
+    })
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
         kernels.append({
@@ -4550,6 +4655,27 @@ def main(argv=None) -> int:
                                 + cli_launches[f"{key}_{r}"]
                                 + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
                                 for r in ("cuda_core", "tensor_core")})
+    # kernel 4's 16-head tensor-core class, (16, 12): the classifier's
+    # exact-BN steps and CLI (phase 8), the only paths at 16 heads; there
+    # (16, 48) takes the CUDA-core route, so these are all (16, 12) calls
+    b16 = cls["kernels"]["H16 dh12 N784"]["bfloat16"]["bn_fwd"]
+    cls_paths = ("classifier", "classifier_cli")
+    kernels.append({
+        "name": "flash_reattention_bn_fwd16",
+        "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd16_tc.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:741",
+        "launches": sum(model_paths[p].get("bn_fwd_tensor_core", 0) for p in cls_paths),
+        "launches_by_path": {p: model_paths[p].get("bn_fwd_tensor_core", 0)
+                             for p in cls_paths},
+        # (16, 12) at N 784, b64 bf16, rate 0.2 (phase 8a0)
+        "max_abs_err": b16["err"], "ms": b16["ms"], "plain_ms": b16["plain_ms"],
+        "bound_ms": b16["bound"][0], "bound_by": b16["bound"][1],
+        # no single PyTorch call computes the dropout map's BatchNorm moments
+        "library_ms": None,
+        # the CUDA-core route on the same inputs, in turns
+        "cuda_core_ms": b16["cuda_core_ms"],
+    })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

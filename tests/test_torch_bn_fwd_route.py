@@ -84,13 +84,14 @@ def test_attend_routes_wide_heads_to_the_plain_path(dh):
             torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
-# base's and large's levels run the exact-BN forward on the tensor cores in
-# bf16; lite's (4 heads) and every float32 call stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384)}
+# base's and large's levels and the classifier's (16, 12) level run the
+# exact-BN forward on the tensor cores in bf16; lite's (4 heads), the
+# classifier's (16, 48) and every float32 call stay on the CUDA cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (16, 12)}
 
 
 @pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384), (4, 12), (4, 48),
-                                      (4, 192), (16, 48), (8, 48)])
+                                      (4, 192), (16, 48), (8, 48), (16, 12)])
 def test_bn_fwd_route_by_dtype_and_shape(heads, dh):
     assert TT.bn_fwd_route(torch.float32, heads, dh) == "cuda_core"
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
@@ -155,3 +156,34 @@ def test_bn_fwd_tensor_core_rounding_stays_within_tolerance(dh, n, rate):
         worst[rounded] = max(_rel(s_rows, s_w), _rel(c_rows, c_w), _rel(mu, mu_w),
                              _rel(var, var_w))
     assert worst[False] <= 1e-4 and worst[True] > 1e-4, worst
+
+
+@pytest.mark.parametrize("n,rate", [(64, 0.0), (130, 0.2)])
+def test_bn_fwd16_pair_rounding_stays_within_tolerance(n, rate):
+    """The 16-head tensor-core class (16, 12) takes C by an MMA of A carried
+    as bf16 pairs hi = bf16(A), lo = bf16(A - hi): hi hi^T + hi lo^T +
+    lo hi^T, emulated here in f32 (each product of two bf16 exact).  C and
+    the BN variance it gives stay within 1e-4 of ``bn_fwd_plain``'s (the
+    card's tolerance for C is 1e-3); C from hi alone misses 1e-3: why the
+    kernel carries the pair."""
+    heads, dh, batch, seed = 16, 12, 2, 11
+    g = torch.Generator().manual_seed(n)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()
+    k = rnd(batch, heads, n, dh).bfloat16()
+    v = rnd(batch, n, heads * dh).bfloat16()
+    w, cb = rnd(heads, heads) * 0.4, rnd(heads) * 0.2
+    s_w, c_w, _, _ = TT.bn_fwd_plain(q, k, v, seed, rate)
+
+    s = q.float() @ k.float().transpose(-1, -2)
+    p = torch.exp(s - torch.logsumexp(s, -1)[..., None])
+    a = p * TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0 else p
+    hi = a.bfloat16().float()
+    lo = (a - hi).bfloat16().float()
+    prod = lambda x, y: torch.einsum("bgnm,bhnm->bghn", x, y)
+    cnt = batch * n * n
+    _, var_w, _, _ = TT._bn_moments(s_w, c_w, w, cb, cnt)
+    c_pair = prod(hi, hi) + prod(hi, lo) + prod(lo, hi)
+    _, var, _, _ = TT._bn_moments(a.sum(-1), c_pair, w, cb, cnt)
+    assert _rel(c_pair, c_w) <= 1e-4 and _rel(var, var_w) <= 1e-4
+    assert _rel(prod(hi, hi), c_w) > 1e-3

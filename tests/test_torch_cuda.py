@@ -91,7 +91,7 @@ def test_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, q_sca
     got = TK.flash_reattention(*args, num_heads=heads)
     torch.cuda.synchronize()
     assert TK.flash_reattention.route_launches == {
-        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+        **before, "tensor_core": before["tensor_core"] + 1}
     want = TK.flash_reattention_plain(*args, num_heads=heads)
     assert _rel(got, want) <= TOL[dtype]
 
@@ -102,7 +102,7 @@ def test_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k, 
     inputs: the log-sum-exp to f32 rounding, the output to bf16's."""
     q, k, v, w, b = _eval_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, q_scale)
     res = {}
-    for route in TK.ROUTES:
+    for route in ("cuda_core", "tensor_core"):
         out = torch.empty(batch, n_q, heads * dh, dtype=q.dtype, device=cuda)
         lse = torch.empty(batch, heads, n_q, device=cuda)
         TK.launch_passes(q, k, v, w, b, lse, out, route=route)
@@ -114,12 +114,13 @@ def test_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k, 
     assert _rel(res["tensor_core"][1], res["cuda_core"][1]) <= TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384)])
+@pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384), (8, 192)])
 def test_no_keys_gives_zeros_and_infinite_lse(cuda, heads, dh):
     """N_k = 0: the log-sum-exp is +inf and the output all zeros, on both
-    routes, as in the plain version."""
+    routes (and at dh 192 on the identity route), as in the plain version."""
     q, k, v, w, b = _eval_inputs(cuda, torch.bfloat16, 2, heads, dh, 40, 0)
-    for route in TK.ROUTES:
+    routes = ("cuda_core", "tensor_core") + (("identity_tc",) if dh == 192 else ())
+    for route in routes:
         out = torch.full((2, 40, heads * dh), 7.0, dtype=q.dtype, device=cuda)
         lse = torch.zeros(2, heads, 40, device=cuda)
         TK.launch_passes(q, k, v, w, b, lse, out, route=route)
@@ -135,11 +136,64 @@ def test_float32_takes_the_cuda_core_route(cuda):
     TK.flash_reattention(*args, num_heads=8)
     torch.cuda.synchronize()
     assert TK.flash_reattention.route_launches == {
-        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+        **before, "cuda_core": before["cuda_core"] + 1}
     out = torch.empty(2, 100, 192, device=cuda)
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TK.launch_passes(*args, torch.empty(2, 8, 100, device=cuda), out,
                          route="tensor_core")
+
+
+# kernel 1's identity route (KerasMHA's calls): its two classes at N 256,
+# the level-0 skip's 64 queries of 256 keys, ragged, a single query
+IDENTITY_CASES = [(2, 8, 192, 256, 256), (2, 4, 192, 256, 256), (2, 8, 192, 64, 256),
+                  (2, 8, 192, 100, 130), (2, 8, 192, 1, 49)]
+
+
+def _identity_inputs(cuda, batch, heads, dh, n_q, n_k):
+    q, k, v, _, _ = _eval_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
+    w, b = TK.expand_reattention_affine(torch.eye(heads), torch.zeros(heads), dh=dh)
+    return q, k, v, w.to(cuda), b.to(cuda)
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_CASES)
+def test_identity_route_matches_plain_and_the_two_pass_route(cuda, batch, heads, dh, n_q,
+                                                             n_k):
+    assert TK.kernel_route(torch.bfloat16, heads, dh, identity_mix=True) == "identity_tc"
+    q, k, v, w, b = _identity_inputs(cuda, batch, heads, dh, n_q, n_k)
+    before = dict(TK.flash_reattention.route_launches)
+    got = TK.flash_reattention(q, k, v, w, b, num_heads=heads, identity_mix=True)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.route_launches == {
+        **before, "identity_tc": before["identity_tc"] + 1}
+    assert _rel(got, TK.flash_reattention_plain(q, k, v, w, b, num_heads=heads)) <= TOL[
+        torch.bfloat16]
+    res = {}
+    for route in ("tensor_core", "identity_tc"):
+        out = torch.empty_like(got)
+        lse = torch.empty(batch, heads, n_q, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        res[route] = (lse, out)
+    torch.cuda.synchronize()
+    ref = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), dim=-1)
+    assert (res["identity_tc"][0] - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(res["identity_tc"][1], got)
+    assert _rel(res["identity_tc"][1], res["tensor_core"][1]) <= TOL[torch.bfloat16]
+
+
+def test_identity_route_takes_only_its_classes_in_bf16(cuda):
+    q, k, v, w, b = _identity_inputs(cuda, 2, 8, 96, 64, 64)
+    out = torch.empty(2, 64, 8 * 96, dtype=q.dtype, device=cuda)
+    lse = torch.empty(2, 8, 64, device=cuda)
+    with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
+        TK.launch_passes(q, k, v, w, b, lse, out, route="identity_tc")
+    with pytest.raises(ValueError, match="one pass"):
+        TK.launch_passes(q, k, v, w, b, lse, out, route="identity_tc", passes=1)
+    q, k, v, w, b = _identity_inputs(cuda, 2, 8, 192, 64, 64)
+    q, k, v = q.float(), k.float(), v.float()
+    with pytest.raises(RuntimeError):     # bfloat16 only
+        TK.launch_passes(q, k, v, w, b, torch.empty(2, 8, 64, device=cuda),
+                         torch.empty(2, 64, 8 * 192, device=cuda), route="identity_tc")
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -425,7 +479,7 @@ def test_bn_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q
         assert _rel(a, b) <= tol[torch.bfloat16]
 
 
-@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196)])
+@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (16, 12, 128)])
 def test_bn_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     """q = 0 makes every probability 1/Nk, and V_cat[m, j] = 1 where m = j
     (P >= Nk here) makes o_norm[..., m] Nk (1 - rate) the keep bit of key m."""
@@ -448,6 +502,32 @@ def test_bn_fwd_float32_takes_the_cuda_core_route(cuda):
         "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
+
+
+# the exact-BN forward's 16-head class on the tensor cores, (16, 12): the
+# classifier's N, ragged over three key tiles, more queries than keys, a
+# single query
+BN16_CASES = [(2, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96),
+              (2, 16, 12, 1, 49)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BN16_CASES)
+def test_bn_fwd16_tensor_core_route_matches_plain_and_cuda_core(cuda, batch, heads, dh, n_q,
+                                                                n_k, rate):
+    assert TT.bn_fwd_route(torch.bfloat16, heads, dh) == "tensor_core"
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
+    before = dict(TT.bn_fwd.route_launches)
+    got = TT.bn_fwd(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    assert TT.bn_fwd.route_launches == {**before, "tensor_core": before["tensor_core"] + 1}
+    other = TT.launch_bn_fwd(q, k, v, seed, rate, route="cuda_core")
+    want = TT.bn_fwd_plain(q, k, v, seed, rate)
+    for a, b, c, tol in zip(got, want, other, BN_FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+        assert _rel(a, c) <= tol[torch.bfloat16]
+    s_rows, c_rows = got[:2]
+    assert torch.equal(c_rows, c_rows.transpose(1, 2))    # C written as one symmetric sum
 
 
 # --- the frozen-BN forward's tensor-core route ----------------------------------
@@ -659,7 +739,8 @@ def _fitter(cuda, tmp_path, seed):
 
 
 def _want(frozen: bool, steps: int, val_steps: int) -> dict:
-    want = {k: {"cuda_core": 0, "tensor_core": 0} for k in ("eval", "fwd", "bn_fwd", "bwd")}
+    want = {k: {"cuda_core": 0, "tensor_core": 0} for k in ("fwd", "bn_fwd", "bwd")}
+    want["eval"] = dict.fromkeys(TK.ROUTES, 0)
     want["fwd" if frozen else "bn_fwd"]["tensor_core"] = FIT_CALLS * steps
     want["bwd"]["tensor_core"] = FIT_CALLS * steps
     want["eval"]["tensor_core"] = FIT_CALLS * val_steps
@@ -879,6 +960,32 @@ def test_hvit_unet_tf_serves_and_trains_on_the_card(cuda):
     assert _rel(served.to(cuda) - xc, ev1 - xc) <= 1e-5
     gmax = max(g.abs().max().item() for g in g0)
     assert max((a - b).abs().max().item() for a, b in zip(g1, g0)) <= 1e-4 * gmax
+
+
+def test_exported_hvit_unet_tf_takes_the_identity_route(cuda, tmp_path):
+    """A small bf16 HViTUNetTF (level 0 at (8, 192) on the kernels, level 1
+    wider than they take) exported and loaded onto the card: every kernel-1
+    launch of the loaded program is on the identity route, and its output
+    is Predictor's bit for bit."""
+    import numpy as np
+
+    from vit_unet_tpu_torch import Predictor, get_hvit_unet_tf
+    from vit_unet_tpu_torch.serving import export_predictor, load_predictor
+    cfg = dict(img_size=64, patch_size=(8, 16), transformer_layers=(1,),
+               size_bottleneck=1, dtype="bfloat16", param_dtype="bfloat16")
+    model = get_hvit_unet_tf(device=cuda, seed=0, **cfg)
+    x = np.random.default_rng(0).standard_normal((3, 64, 64, 3)).astype(np.float32)
+    want = Predictor(model, batch_size=2)(x)
+    export_predictor(model, str(tmp_path), batch_size=2)
+    loaded = load_predictor(str(tmp_path))
+    before = dict(TK.flash_reattention.route_launches)
+    got = loaded(x)
+    torch.cuda.synchronize()
+    after = dict(TK.flash_reattention.route_launches)
+    assert after["identity_tc"] > before["identity_tc"]
+    assert {r: after[r] - before[r] for r in ("cuda_core", "tensor_core")} == {
+        "cuda_core": 0, "tensor_core": 0}
+    np.testing.assert_array_equal(got, want)
 
 
 def test_remat_step_matches_no_remat_on_the_card(cuda):

@@ -12,9 +12,13 @@
 // M and c are read from the expanded epilogue form the public function
 // takes: M[h, h2] = w[h2, h*dh], c[h] = b[h*dh].
 //
-// Two routes, named by the caller (the Python wrapper's kernel_route picks
-// one from dtype and shape alone; nothing here falls back):
+// Three routes, named by the caller (the Python wrapper's kernel_route picks
+// one from dtype, shape and whether the caller's head mix is the identity;
+// nothing here falls back):
 //
+//   route 2, tensor cores, identity mix (M = I, c = 0, the keras attention's):
+//     bfloat16 at (8, 192) and (4, 192); one pass, w and b not read
+//     (attention_identity_tc.cuh).
 //   route 1, tensor cores: bfloat16 inputs at the shape classes listed in
 //     reattention_tc.cuh, which holds the kernels, what bounds them on this
 //     card and the shared-memory budget per class.
@@ -51,6 +55,7 @@
 // padding copies), Nq != Nk.  All tensors are contiguous; the caller
 // allocates every output and scratch buffer and passes the stream.
 
+#include "attention_identity_tc.cuh"
 #include "reattention_common.cuh"
 #include "reattention_tc.cuh"
 
@@ -270,10 +275,12 @@ inline int dispatch(const void* q, const void* k, const void* v, const float* w,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor cores
-// (bfloat16 at the shape classes of reattention_tc.cuh).  passes: bit 0 the
-// log-sum-exp pass (writes lse), bit 1 the output pass (reads lse); 3 is the
-// function.  Returns the first CUDA error of the launches (0 on success), or
-// cudaErrorInvalidValue for what the route does not take.
+// (bfloat16 at the shape classes of reattention_tc.cuh), 2 = tensor cores
+// with the identity mix (bfloat16 at (8, 192) and (4, 192); w and b are not
+// read, passes must be 3).  passes: bit 0 the log-sum-exp pass (writes lse),
+// bit 1 the output pass (reads lse); 3 is the function.  Returns the first
+// CUDA error of the launches (0 on success), or cudaErrorInvalidValue for
+// what the route does not take.
 int vit_flash_reattention(const void* q, const void* k, const void* v,
                           const float* w, const float* b, float* lse, void* out,
                           int batch, int heads, int nq, int nk, int dh,
@@ -283,6 +290,8 @@ int vit_flash_reattention(const void* q, const void* k, const void* v,
       passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2 && dtype == 1 && passes == 3)
+    return vit_id::launch(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 1 && dtype == 1)
     return vit_tc::dispatch(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, s);
   if (route == 0 && dtype == 0)

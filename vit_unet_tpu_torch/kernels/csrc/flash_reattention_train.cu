@@ -58,11 +58,13 @@
 //
 // Each function has a second route, chosen by the caller (train_fwd_route,
 // bn_fwd_route, train_bwd_route in kernels/flash_reattention_train.py): bf16
-// on the tensor cores at base's and large's level shapes, each piece
-// computed once (reattention_bnfwd_tc.cuh for both forwards,
-// reattention_bwd_tc.cuh).  The kernels here are the CUDA-core route, for
-// f32 and every other shape.
+// on the tensor cores at base's and large's level shapes (and further
+// classes for the backward and the exact-BN forward), each piece computed
+// once (reattention_bnfwd_tc.cuh for both forwards, reattention_bnfwd16_tc.cuh
+// for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The kernels
+// here are the CUDA-core route, for f32 and every other shape.
 
+#include "reattention_bnfwd16_tc.cuh"
 #include "reattention_bnfwd_tc.cuh"
 #include "reattention_bwd_tc.cuh"
 #include "reattention_common.cuh"
@@ -725,17 +727,20 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
 }
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh only).
+// reattention_bnfwd_tc.cuh and, at (16, 12), reattention_bnfwd16_tc.cuh).
 int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
                int thr, float scale, float* lse, void* onorm, float* srow,
                float* crow, int batch, int heads, int nq, int nk, int dh,
                int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 && heads == 16)
+    return vit_bnfwd16::bn_fwd16_tc(q, k, v, seed, thr, scale, lse, onorm, srow, crow, batch,
+                                    heads, nq, nk, dh, s);
   if (route == 1)
-    return dtype == 1 ? vit_bnfwd::bn_fwd_tc(q, k, v, seed, thr, scale, lse, onorm, srow, crow,
-                                             batch, heads, nq, nk, dh, s)
-                      : static_cast<int>(cudaErrorInvalidValue);
+    return vit_bnfwd::bn_fwd_tc(q, k, v, seed, thr, scale, lse, onorm, srow, crow, batch, heads,
+                                nq, nk, dh, s);
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool thin = dh <= 16;
   if (dtype == 0)

@@ -10,12 +10,20 @@ is ReAttention's eval contraction without the (N, N) map in device memory:
     out_h   = attn'_h @ v_h
 
 The kernel (``csrc/flash_reattention.cu``) replaces the Pallas TPU kernel
-``flash_reattention`` (body ``_kernel``).  It runs in two passes (per-row
-log-sum-exp, then the head-mixed probabilities @ V), which keeps a block's
-state to (rows x dh) accumulators instead of the TPU form's (H, bq, H*dh)
-one.  It has two routes, and ``kernel_route`` names the one a call takes
-from the input dtype and (heads, dh), nothing else:
+``flash_reattention`` (body ``_kernel``).  With a head mix it runs in two
+passes (per-row log-sum-exp, then the head-mixed probabilities @ V), which
+keeps a block's state to (rows x dh) accumulators instead of the TPU form's
+(H, bq, H*dh) one.  It has three routes, and ``kernel_route`` names the one a call takes
+from the input dtype, (heads, dh) and the caller's ``identity_mix`` flag,
+nothing else:
 
+* ``identity_tc`` (``csrc/attention_identity_tc.cuh``): bfloat16 inputs at
+  ``IDENTITY_TC_SHAPES`` (HViTUNetTF's level-0 keras attention, 8 heads x
+  dh 192, and a tensor-parallel rank's 4 of them) where the caller passes
+  ``identity_mix=True``, promising M = I and c = 0 (``KerasMHA`` does, by
+  construction).  The function is then plain attention of each head, and
+  the route runs it in one pass (online softmax, no log-sum-exp pass, no
+  mix), both products as bf16 MMAs; it does not read ``w`` and ``b``.
 * ``tensor_core`` (``csrc/reattention_tc.cuh``): bfloat16 inputs at the
   shape classes of ``TENSOR_CORE_SHAPES`` (every level of the presets, the
   classifier's two 16-head levels and HViTUNetTF's level-0 keras attention,
@@ -47,13 +55,16 @@ import torch
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 16
 MAX_HEAD_DIM = 384
-ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
+ROUTES = ("cuda_core", "tensor_core", "identity_tc")   # the C interface's route 0, 1, 2
 #: (heads, dh) classes the tensor-core kernels are built for: the level
 #: shapes of the lite, base, large and notebook512 presets, the classifier's
 #: two 16-head levels and HViTUNetTF's level-0 keras attention, (8, 192)
 TENSOR_CORE_SHAPES = frozenset({
     (8, 384), (8, 192), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48),
     (16, 12)})
+#: (heads, dh) classes of the identity-mix route: HViTUNetTF's level-0 keras
+#: attention and a rank's heads of it at model 2
+IDENTITY_TC_SHAPES = frozenset({(8, 192), (4, 192)})
 
 
 def kernel_takes(heads: int, dh: int) -> bool:
@@ -67,9 +78,13 @@ def kernel_takes(heads: int, dh: int) -> bool:
     return 1 <= heads <= MAX_HEADS and 1 <= dh <= MAX_HEAD_DIM
 
 
-def kernel_route(dtype: torch.dtype, heads: int, dh: int) -> str:
+def kernel_route(dtype: torch.dtype, heads: int, dh: int,
+                 identity_mix: bool = False) -> str:
     """The route a CUDA call with these inputs takes: the only place it is
-    chosen, and by dtype and shape alone."""
+    chosen, by dtype, shape and the caller's ``identity_mix`` flag alone
+    (never by reading the head mix)."""
+    if dtype == torch.bfloat16 and identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
+        return "identity_tc"
     if dtype == torch.bfloat16 and (heads, dh) in TENSOR_CORE_SHAPES:
         return "tensor_core"
     return "cuda_core"
@@ -170,11 +185,14 @@ def _library():
 def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
     """Launch the kernels of ``route`` on checked CUDA inputs, into the
     caller's ``lse`` (B, H, N_q) f32 and ``out``.  ``passes``: bit 0 the
-    log-sum-exp pass, bit 1 the output pass, which reads ``lse``.  Only the
-    measurements and the route-against-route tests name a route or a pass
-    themselves; it counts no launch."""
+    log-sum-exp pass, bit 1 the output pass, which reads ``lse``; the
+    identity route is one pass and takes 3 only, and does not read ``w`` and
+    ``b``.  Only the measurements and the route-against-route tests name a
+    route or a pass themselves; it counts no launch."""
     batch, heads, n_q, dh = q.shape
-    if route == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, out)):
+    if route == "identity_tc" and passes != 3:
+        raise ValueError("the identity route runs in one pass: passes=3")
+    if route != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, out)):
         raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
                          "k, v_cat and out must start at 16-byte aligned addresses")
     lib = _library()
@@ -190,7 +208,7 @@ def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
                            + lib.vit_cuda_error_string(rc).decode())
 
 
-def _launch(q, k, v_cat, w, b):
+def _launch(q, k, v_cat, w, b, identity_mix=False):
     """The kernel on checked CUDA inputs, on the route ``kernel_route``
     names, counted by route."""
     batch, heads, n_q, dh = q.shape
@@ -198,7 +216,7 @@ def _launch(q, k, v_cat, w, b):
     if batch == 0 or n_q == 0:
         return out
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=q.device)
-    route = kernel_route(q.dtype, heads, dh)
+    route = kernel_route(q.dtype, heads, dh, identity_mix)
     launch_passes(q, k, v_cat, w, b, lse, out, route=route)
     flash_reattention.launches += 1
     flash_reattention.route_launches[route] += 1
@@ -209,33 +227,39 @@ def _launch(q, k, v_cat, w, b):
                          mutates_args=(), device_types="cpu")
 def flash_reattention_op(q: torch.Tensor, k: torch.Tensor,
                          v_cat: torch.Tensor, w: torch.Tensor,
-                         b: torch.Tensor, num_heads: int) -> torch.Tensor:
+                         b: torch.Tensor, num_heads: int,
+                         identity_mix: bool = False) -> torch.Tensor:
     """Kernel 1 as a registered operator, so that an exported program
-    (``serving.export_predictor``) records it and runs it where it is
-    loaded: the kernel on CUDA tensors, the plain version on CPU ones."""
+    (``serving.export_predictor``) records it, with ``identity_mix``, and
+    runs it where it is loaded: the kernel on CUDA tensors, on the route
+    ``kernel_route`` names, the plain version on CPU ones."""
     return flash_reattention_plain(q, k, v_cat, w, b, num_heads=num_heads)
 
 
 @flash_reattention_op.register_kernel("cuda")
-def _(q, k, v_cat, w, b, num_heads):
+def _(q, k, v_cat, w, b, num_heads, identity_mix=False):
     _check(q, k, v_cat, w, b, num_heads)
-    return _launch(q, k, v_cat, w, b)
+    return _launch(q, k, v_cat, w, b, identity_mix)
 
 
 @flash_reattention_op.register_fake
-def _(q, k, v_cat, w, b, num_heads):
+def _(q, k, v_cat, w, b, num_heads, identity_mix=False):
     batch, heads, n_q, dh = q.shape
     return q.new_empty((batch, n_q, heads * dh))
 
 
-def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
+def flash_reattention(q, k, v_cat, w, b, *, num_heads: int,
+                      identity_mix: bool = False):
     """Eval re-attention, (B, N_q, H*dh) in q's dtype.
 
     q: (B, H, N_q, dh), pre-scaled; k: (B, H, N_k, dh); v_cat: (B, N_k, H*dh)
     with the heads concatenated; w: (H, H*dh) and b: (H*dh,) the expanded
     head-mix affine (``expand_reattention_affine``).  N_q may differ from
-    N_k.  CPU tensors take the plain version; CUDA tensors the kernel, on
-    the route ``kernel_route`` names.
+    N_k.  ``identity_mix``: the caller's promise that w and b are the
+    identity affine (M = I, c = 0); it lets ``kernel_route`` name the
+    one-pass identity route, which does not read them.  CPU tensors take the
+    plain version; CUDA tensors the kernel, on the route ``kernel_route``
+    names.
 
     An export records the call as ``flash_reattention_op``.  An eager call
     skips the operator's dispatch, which is host time (on the H100, 0.7-2.9
@@ -247,10 +271,10 @@ def flash_reattention(q, k, v_cat, w, b, *, num_heads: int):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash_reattention for device {q.device}")
     if torch.compiler.is_exporting():
-        return flash_reattention_op(q, k, v_cat, w, b, num_heads)
+        return flash_reattention_op(q, k, v_cat, w, b, num_heads, identity_mix)
     if q.device.type == "cpu":
         return flash_reattention_plain(q, k, v_cat, w, b, num_heads=num_heads)
-    return _launch(q, k, v_cat, w, b)
+    return _launch(q, k, v_cat, w, b, identity_mix)
 
 
 #: kernel launches since the last reset (the plain version does not count),

@@ -21,10 +21,12 @@ beside it and a launch counter:
   ``o_norm`` and the rows S (B, H, Nq) = sum_m A_h, C (B, H, H, Nq) =
   sum_m A_h2 A_h3, f32, with no head mix.  Two routes, named by
   ``bn_fwd_route`` from the input dtype and (heads, dh): ``tensor_core``
-  (``csrc/reattention_bnfwd_tc.cuh``) for bfloat16 at ``BN_FWD_TC_SHAPES``,
+  (``csrc/reattention_bnfwd_tc.cuh``; at the classifier's (16, 12),
+  ``csrc/reattention_bnfwd16_tc.cuh``) for bfloat16 at ``BN_FWD_TC_SHAPES``,
   the scores and A @ V_cat as bf16 MMAs, S and C from the f32
-  probabilities, A rounded to bf16 once for the product; ``cuda_core``
-  (f32 FMAs) for float32 and every other shape;
+  probabilities (at 16 heads C as an MMA of A carried as bf16 pairs
+  hi + lo), A rounded to bf16 once for the product; ``cuda_core`` (f32
+  FMAs) for float32 and every other shape;
 * ``train_bwd``  <- ``_bwd`` (:451): dq, dk, dv (f32) from the residuals,
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
   It has two routes, and ``train_bwd_route`` names the one a call takes from
@@ -74,14 +76,17 @@ import struct
 import torch
 
 from vit_unet_tpu_torch.kernels.flash_reattention import (
-    MAX_HEAD_DIM, MAX_HEADS, ROUTES, SUPPORTED_DTYPES, fold_reattention_compact,
+    MAX_HEAD_DIM, MAX_HEADS, SUPPORTED_DTYPES, fold_reattention_compact,
 )
 
+ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
+
 #: (heads, dh) classes of each training kernel's tensor-core route: the
-#: level shapes of base and large, and for the backward also HViTUNetTF's
+#: level shapes of base and large, for the exact-BN forward also the
+#: classifier's (16, 12) level, and for the backward also HViTUNetTF's
 #: level-0 keras attention, (8, 192), and the classifier's 16-head levels
 TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
-BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)})
 TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 192), (8, 384), (16, 12), (16, 48)})
 
 
