@@ -28,7 +28,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    100 x 130); kernel 1's one-pass identity route as ``KerasMHA`` calls it
    (``IDENTITY_CASES``: (8, 192) and (4, 192) at N 256, 64 queries of 256
    keys, ragged 100 x 130 and 1 x 49; at b64 against the two-pass
-   tensor-core route in turns and beside SDPA, the same function there);
+   tensor-core route in turns and beside SDPA, the same function there),
+   and its float32 form (split-precision MMAs, the same cases at f32's
+   tolerance, at b64 against the CUDA-core route in turns and beside SDPA
+   in f32); the frozen-BN forward's identity route (bf16, no o_norm,
+   ``IDENTITY_FWD_CASES`` at rates 0 and 0.2 against plain and the
+   CUDA-core route, its dropout bits read back exactly, with a rank's
+   ``head_base`` too, and at b64 timed against the CUDA-core route in turns);
    the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
    against plain and the CUDA-core route, its dropout bits read back); the
    backward and both forwards
@@ -94,13 +100,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    its default width (128², 1,571,098,944 parameters, bf16, random weights
    from a seed) served at b64 through ``Predictor`` from channels-last numpy,
    every kernel-1 launch on the identity route, the kernel path against
-   ``use_flash=False``;
+   ``use_flash=False``; (b2) the default config as it is, float32, b64:
+   every kernel-1 launch on the f32 identity route, timed in turns against
+   kernel 1 held on the CUDA-core route;
    (c) 10 AdamW steps at the config's dropout through
-   ``build_step_functions``, launches by route, step time, peak memory and a
+   ``build_step_functions``, launches by route (every kernel-2 launch on its
+   identity route), step time, peak memory and a
    profiler breakdown, then a dropout-free f32 batch-4 step of the kernel
    path against the plain path; (d) 3 exact-BN steps of the re-attention
    variant (``original_attn=False``), kernels 4 and 3 on the tensor cores
-   (the level-0 skip's keras attention on kernel 2's CUDA-core route);
+   (the level-0 skip's keras attention on kernel 2's identity route);
    (e) base b64 bf16 exact-BN steps with and without ``remat`` (the same
    loss, running statistics and generator state; on the kernel path every
    gradient equal bit for bit with the backward's launches replayed from a
@@ -156,7 +165,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    SDPA beside kernel 1, and kernels 2 and 3 at a rank's block of heads
    (``head_base``) with dropout against the whole layer's call; (b) a world
    of 2 on this card over gloo, 1 x 2 mesh: ``HViTUNetTF`` at its default
-   width (f32, dropout 0, b4) split by the partition rules, its eval
+   width (f32, dropout 0, b4) split by the partition rules (kernel 1 on its
+   f32 identity route, kernel 2 on the CUDA cores), its eval
    forward and one AdamW step against the single process (loss, output,
    every gradient gathered whole, by a fixed random projection and its
    norm), each rank's parameter bytes, launches by route, ms a step and the
@@ -172,7 +182,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    epoch or two of a few steps (the loss must fall: the mean of its last
    four steps below its first four's, over the warmup epoch for the hard
    flip and the tracking warmup, whose flips are the negative controls;
-   launches by route), the results file
+   launches by route, every kernel-2 launch of the ``HViTUNetTF`` SIDD runs
+   on its identity route), the results file
    written; ``convert_tfrecords`` on PNG pairs (the count read back from the
    names, a record read back exactly), ``train_denoising`` on those shards
    (lite 128², bf16, ``--flash``, one epoch, its PSNR probes) and
@@ -296,16 +307,22 @@ def reattention_inputs(batch, heads, dh, n_q, n_k, dtype, seed, q_scale=1.0,
             w.to(dev), b.to(dev))
 
 
-def bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=True) -> tuple[float, float]:
+def bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=True,
+                split=False) -> tuple[float, float]:
     """Least time for one call: bytes (inputs read once, output written
     once) over HBM bandwidth vs operations (scores, head mix, product with
     V) over the peak rate for the input type.  ``mix=False``: the identity
-    mix, which the function does not need (no w, b, no mix operations)."""
+    mix, which the function does not need (no w, b, no mix operations).
+    ``split``: the f32 identity route, whose products are issued as three
+    bf16 MMAs each on the tensor cores: its operations are those it issues,
+    3 x 4 A dh, over the bf16 peak."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (item * (batch * heads * (n_q + n_k) * dh + batch * n_k * heads * dh
                       + batch * n_q * heads * dh)
               + (4 * (heads * heads * dh + heads * dh) if mix else 0))
     ops = 2.0 * batch * heads * n_q * n_k * (2 * dh + (heads if mix else 0))
+    if split:
+        return nbytes / PEAK_BYTES * 1e3, 3 * ops / PEAK_FLOPS[torch.bfloat16] * 1e3
     return nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
 
 
@@ -349,7 +366,8 @@ def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
     ms = time_ms(lambda: flash_reattention(*args, num_heads=heads,
                                            identity_mix=identity_mix), reps)
     plain = time_ms(lambda: flash_reattention_plain(*args, num_heads=heads), reps)
-    t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=not identity_mix)
+    t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=not identity_mix,
+                                 split=route == "identity_f32")
     bound, by = bound_of(t_bytes, t_ops)
     name = str(dtype).replace("torch.", "")
     print(f"  B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} {name}"
@@ -406,28 +424,33 @@ def time_passes(batch, heads, dh, n, reps=10):
     return res
 
 
-def time_identity(batch, heads, dh, n, reps=10):
-    """At an identity-mix class in bf16: the two-pass tensor-core route and
-    the one-pass identity route on the same inputs in turns (old, new, new,
-    old), held against each other.  Returns dict(old=, new=) ms."""
-    from vit_unet_tpu_torch.kernels.flash_reattention import launch_passes
-    dtype = torch.bfloat16
+def time_identity(batch, heads, dh, n, dtype=torch.bfloat16, reps=10):
+    """At an identity-mix class: the route the call took before the
+    identity route (bf16: the two-pass tensor-core route; float32: the
+    CUDA cores) and the one-pass identity route on the same inputs in turns
+    (old, new, new, old), held against each other, each one's error
+    against the plain version printed.  Returns dict(old=, new=) ms."""
+    from vit_unet_tpu_torch.kernels.flash_reattention import (
+        flash_reattention_plain, kernel_route, launch_passes)
     q, k, v, w, b = reattention_inputs(batch, heads, dh, n, n, dtype, 0, identity=True)
-    routes = ("tensor_core", "identity_tc")
+    routes = (kernel_route(dtype, heads, dh), kernel_route(dtype, heads, dh, True))
     outs = {r: torch.empty(batch, n, heads * dh, dtype=dtype, device="cuda") for r in routes}
     lses = {r: torch.empty(batch, heads, n, device="cuda") for r in routes}
     run = lambda r: launch_passes(q, k, v, w, b, lses[r], outs[r], route=r)
     turns = [(r, time_ms(lambda: run(r), reps)) for r in routes + routes[::-1]]
-    d_out = rel_err(outs["identity_tc"], outs["tensor_core"])[1]
-    d_lse = (lses["identity_tc"] - lses["tensor_core"]).abs().max().item()
-    old = min(t for r, t in turns if r == "tensor_core")
-    new = min(t for r, t in turns if r == "identity_tc")
-    print(f"    H{heads} dh{dh} N{n} identity mix in turns: "
+    d_out = rel_err(outs[routes[1]], outs[routes[0]])[1]
+    d_lse = (lses[routes[1]] - lses[routes[0]]).abs().max().item()
+    old = min(t for r, t in turns if r == routes[0])
+    new = min(t for r, t in turns if r == routes[1])
+    want = flash_reattention_plain(q, k, v, w, b, num_heads=heads)
+    rels = {r: rel_err(outs[r], want)[1] for r in routes}
+    print(f"    H{heads} dh{dh} N{n} {str(dtype)[6:]} identity mix in turns: "
           + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
-          + f"; tensor_core / identity_tc {old / new:.2f}x; out rel {d_out:.3e}, "
-          f"lse abs {d_lse:.3e}")
-    if not (d_out <= TOL[dtype] and d_lse <= 1e-3):
-        raise AssertionError("the identity route disagrees with the two-pass route")
+          + f"; {routes[0]} / {routes[1]} {old / new:.2f}x; out rel {d_out:.3e}, "
+          f"lse abs {d_lse:.3e}; against plain: "
+          + ", ".join(f"{r} out rel {x:.3e}" for r, x in rels.items()))
+    if not (d_out <= TOL[dtype] and d_lse <= (1e-3 if dtype == torch.bfloat16 else 1e-4)):
+        raise AssertionError(f"the identity route disagrees with {routes[0]}")
     return dict(old=old, new=new)
 
 
@@ -486,6 +509,23 @@ def phase_kernels():
               f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
         total["identity"]["classes"][f"H{heads} dh192 N256"] = r
     checks += ident
+    print("  the float32 identity route (KerasMHA's f32 calls, split-precision MMAs):")
+    ident32 = [check_kernel(*shape, torch.float32, identity_mix=True, label="identity")
+               for shape in IDENTITY_CASES]
+    total["identity_f32"] = dict(err=max(r["err"] for r in ident32), classes={})
+    for heads in (8, 4):
+        r = check_kernel(BATCH, heads, 192, 256, 256, torch.float32, identity_mix=True,
+                         label="identity")
+        ident32.append(r)
+        r["cuda_core_ms"] = time_identity(BATCH, heads, 192, 256, torch.float32)["old"]
+        r["sdpa_ms"] = sdpa_ms(BATCH, heads, 192, 256, torch.float32)
+        r["bound_ms"], r["bound_by"] = bound_of(r["t_bytes"], r["t_ops"])
+        print(f"    H{heads} dh192 N256 B{BATCH} f32 identity_f32 {r['ms']:.4f} ms a call, "
+              f"cuda_core {r['cuda_core_ms']:.4f}, sdpa {r['sdpa_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"[{card_line()}]")
+        total["identity_f32"]["classes"][f"H{heads} dh192 N256"] = r
+    checks += ident32
     print(f"  per base forward (12 calls): kernel {total['ms']:.4f} ms (lse passes "
           f"{total['lse_ms']:.4f}, output passes {total['out_ms']:.4f}), on the "
           f"CUDA-core route {total['old_ms']:.4f} ms, plain "
@@ -746,6 +786,14 @@ BN16_CASES = [(4, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96)
 # (heads, dh) classes of the backward's tensor-core route in its maps +
 # products form: no atomics, so a call repeats bit for bit
 ATOMIC_FREE_BWD = {(8, 192), (8, 384)}
+# the frozen-BN forward's identity route (KerasMHA's training calls, bf16):
+# its two classes at N 256, the level-0 skip's 64 queries of 256 keys,
+# ragged over a partial dropout window, a single query
+IDENTITY_FWD_CASES = [(4, 8, 192, 256, 256), (4, 4, 192, 256, 256), (4, 8, 192, 64, 256),
+                      (2, 8, 192, 100, 130), (2, 8, 192, 1, 49)]
+# (batch, heads, N, head_base) of its dropout-bit read-back: every bit where
+# N <= dh, counts at N 256, a rank's block of heads
+IDENTITY_BITS = [(2, 8, 192, 0), (2, 4, 100, 4), (2, 8, 256, 0)]
 
 
 def train_inputs(batch, heads, dh, n_q, n_k, dtype, seed=0, identity=False):
@@ -783,6 +831,8 @@ def train_bounds(batch, heads, dh, n_q, n_k, dtype):
     fwd_ops = 2.0 * area * (dh + proj)
     parts = {
         "fwd": (qkv + item * batch * n_q * proj + onorm + lse, fwd_ops),
+        # the identity mix: no o_norm, the two products of each head
+        "fwd_identity": (qkv + item * batch * n_q * proj + lse, 4.0 * area * dh),
         "bn_fwd": (qkv + onorm + lse + 4 * batch * heads * (heads + 1) * n_q,
                    fwd_ops + area * (heads + 1)),
         "bwd": (qkv + item * batch * n_q * proj + 2 * lse
@@ -1017,6 +1067,92 @@ def time_fwd_routes(key, batch, heads, dh, n, reps=10):
     return old, new
 
 
+def fwd_identity_turns(batch, heads, dh, n_q, n_k, rate, seed=0):
+    """The bf16 frozen-BN forward with the identity mix, as KerasMHA calls
+    it (``train_fwd_identity``), on its identity route against its plain
+    version and against the CUDA-core route (the general forward with I and
+    0) on the same inputs: out at TRAIN_TOL, lse at F32_OUT_TOL.  Returns
+    the worst max_abs_err against the plain version."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    dtype = torch.bfloat16
+    q, k, v, eye, zero, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed,
+                                             identity=True)
+    route = T.train_fwd_route(dtype, heads, dh, identity_mix=True)
+    before = dict(T.train_fwd.route_launches)
+    got = T.train_fwd_identity(q, k, v, sd, rate)
+    if route != "identity_tc" or T.train_fwd.route_launches[route] != before[route] + 1:
+        raise AssertionError(f"the call did not take the identity route ({route})")
+    want = T.train_fwd_identity_plain(q, k, v, sd, rate)
+    other = T.launch_train_fwd(q, k, v, v.float().sum(1), eye, zero, sd, rate,
+                               route="cuda_core")[:2]
+    torch.cuda.synchronize()
+    label = f"fwd [identity_tc] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
+    for (_, rel), r, tol in zip(errs, routes, (TRAIN_TOL, F32_OUT_TOL)):
+        require(label, rel, tol[dtype])
+        require(f"{label} against the cuda_core route", r, tol[dtype])
+    print(f"  {label}: out lse rel " + " ".join(f"{r:.2e}" for _, r in errs)
+          + " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes))
+    return max(e for e, _ in errs)
+
+
+def check_fwd_identity_bits(batch, heads, n, head_base):
+    """The identity route's dropout bits, read back exactly: with q = 0
+    every probability is 1/Nk, and with V_h[m, d] = 1 where m = d mod dh,
+    out_h[n, d] Nk / scale counts the kept keys m = d mod dh of row n, which
+    must equal the count from ``dropout_mask`` of heads head_base.. (each
+    bit itself where Nk <= dh)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    dh = 192
+    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(batch, heads, n, dh, device="cuda").bfloat16()
+    vh = (torch.arange(n, device="cuda")[:, None] % dh
+          == torch.arange(dh, device="cuda")[None, :]).float()
+    v = vh.repeat(1, heads).expand(batch, n, heads * dh).to(torch.bfloat16).contiguous()
+    sd = torch.tensor([77], dtype=torch.int64, device="cuda")
+    out, _ = T.train_fwd_identity(q, k, v, sd, RATE, head_base)
+    mask = T.dropout_mask(77, RATE, batch, heads, n, n, "cuda", head_base) > 0
+    want = torch.einsum("bhnm,md->bnhd", mask.float(), vh).flatten(-2)
+    got = torch.round(out.float() * n * (1 - RATE))
+    if not torch.equal(got, want):
+        raise AssertionError(f"the identity forward's dropout bits differ from dropout_mask "
+                             f"(H{heads} N{n} head_base {head_base}): "
+                             f"{int((got != want).sum())} counts")
+    print(f"  fwd [identity_tc] dropout bits H{heads} dh{dh} N{n} B{batch} head_base "
+          f"{head_base}: all {mask.numel()} identical to dropout_mask "
+          f"({'each bit' if n <= dh else 'counts of keys m = d mod dh'})")
+
+
+def time_fwd_identity(batch, heads, dh, n, reps=10):
+    """At an identity class, bf16, rate 0.2: the frozen-BN forward through
+    its wrapper held against its plain version and the CUDA-core route
+    (``fwd_identity_turns``, out at TRAIN_TOL, lse at F32_OUT_TOL), then on
+    the CUDA-core route (the general forward with I and 0, which writes
+    o_norm) and on the identity route in turns (old, new, new, old), beside
+    its plain version and its bound.  Returns dict(err, ms, cuda_core_ms,
+    plain_ms, bound)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, eye, zero, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16,
+                                             identity=True)
+    vsum = v.float().sum(1)
+    calls = {"cuda_core": lambda: T.launch_train_fwd(q, k, v, vsum, eye, zero, sd, RATE,
+                                                     route="cuda_core"),
+             "identity_tc": lambda: T.launch_train_fwd_identity(q, k, v, sd, RATE)}
+    turns = [(r, time_ms(calls[r], reps))
+             for r in ("cuda_core", "identity_tc", "identity_tc", "cuda_core")]
+    old = min(t for r, t in turns if r == "cuda_core")
+    new = min(t for r, t in turns if r == "identity_tc")
+    plain = time_ms(lambda: T.train_fwd_identity_plain(q, k, v, sd, RATE), 2, warmup=1)
+    err = fwd_identity_turns(batch, heads, dh, n, n, RATE)
+    bound = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)["fwd_identity"])
+    print(f"    H{heads} dh{dh} N{n} B{batch} fwd identity mix in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; cuda_core / identity_tc {old / new:.2f}x; plain {plain:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) [{card_line()}]")
+    return dict(err=err, ms=new, cuda_core_ms=old, plain_ms=plain, bound=bound)
+
+
 def check_functions(batch, heads, dh, n, dtype, rate=RATE):
     """Both autograd Functions at ``rate`` against torch autograd of the
     N x N forward (``reattention_nxn``) with the same mask, in float64 on
@@ -1057,6 +1193,39 @@ def check_functions(batch, heads, dh, n, dtype, rate=RATE):
             require(f"{mode} Function gradients", r, GRAD_TOL[dtype])
         worst = max(worst, *rels)
     return worst
+
+
+def check_identity_function(batch, heads, n, rate):
+    """The identity-mix autograd Function as KerasMHA calls it
+    (``flash_reattention_train(..., identity_mix=True)``, bf16, dh 192): its
+    forward on the identity route, its backward (D from the saved out) on
+    the route ``train_bwd_route`` names; out and the gradients of q, k and
+    v against torch autograd of the N x N forward (``reattention_nxn`` with
+    I and 0) with the same mask, in float64 on the same inputs, at
+    GRAD_TOL."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    dtype = torch.bfloat16
+    q, k, v, eye, zero, g_out, seed = train_inputs(batch, heads, 192, n, n, dtype, 1,
+                                                   identity=True)
+    mask = T.dropout_mask(int(seed.item()), rate, batch, heads, n, n, "cuda")
+    kl = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    rl = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    before = dict(T.train_fwd.route_launches)
+    got = T.flash_reattention_train(*kl, eye, zero, seed, num_heads=heads, rate=rate,
+                                    identity_mix=True)
+    if T.train_fwd.route_launches["identity_tc"] != before["identity_tc"] + 1:
+        raise AssertionError("the identity Function's forward did not take the identity route")
+    want = T.reattention_nxn(*rl, eye.double(), zero.double(), mask)[0]
+    gk = torch.autograd.grad((got * g_out.to(got.dtype)).sum(), kl)
+    gr = torch.autograd.grad((want * g_out.to(want.dtype)).sum(), rl)
+    rels = [rel_err(a, b)[1] for a, b in zip((got, *gk), (want, *gr))]
+    label = (f"identity Function B{batch} H{heads} dh192 N{n} bf16 rate {rate} "
+             f"[fwd identity_tc, bwd {T.train_bwd_route(dtype, heads, 192)}]")
+    print(f"  {label}: out dq dk dv rel " + " ".join(f"{r:.1e}" for r in rels)
+          + f" (tol {GRAD_TOL[dtype]:.0e})")
+    for r in rels:
+        require(label, r, GRAD_TOL[dtype])
+    return max(rels)
 
 
 def phase_train_kernels():
@@ -1139,6 +1308,19 @@ def phase_train_kernels():
     for kname in ("fwd", "bn_fwd", "bwd"):
         print(f"  {kname} per train step with every call on the CUDA-core route: "
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
+    print("  the frozen-BN forward's identity route (KerasMHA's bf16 calls):")
+    ident_err = 0.0
+    for shape in IDENTITY_FWD_CASES:
+        for rate in (0.0, RATE):
+            ident_err = max(ident_err, fwd_identity_turns(*shape, rate))
+    for bits in IDENTITY_BITS:
+        check_fwd_identity_bits(*bits)
+    for heads in (8, 4):
+        for rate in (0.0, RATE):
+            check_identity_function(4, heads, 256, rate)
+    check_identity_function(BATCH, 8, 256, RATE)      # HViTUNetTF's level-0 step shape
+    total["fwd_identity"] = dict(err=ident_err, classes={
+        f"H{heads} dh192 N256": time_fwd_identity(BATCH, heads, 192, 256) for heads in (8, 4)})
     print(f"  phase 2b: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -1167,9 +1349,10 @@ def routes_per_step(expect) -> dict:
     ``train_bwd_route`` names for bf16."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     per = {}
-    for kname, pick in (("fwd", T.train_fwd_route), ("bn_fwd", T.bn_fwd_route),
-                        ("bwd", T.train_bwd_route)):
-        per.update({f"{kname}_{r}": 0 for r in T.ROUTES})
+    for kname, pick, counter in (("fwd", T.train_fwd_route, T.train_fwd),
+                                 ("bn_fwd", T.bn_fwd_route, T.bn_fwd),
+                                 ("bwd", T.train_bwd_route, T.train_bwd)):
+        per.update({f"{kname}_{r}": 0 for r in counter.route_launches})
         for heads, dh, _, calls in BASE_LEVELS:
             per[f"{kname}_{pick(torch.bfloat16, heads, dh)}"] += calls * expect[kname]
     return per
@@ -2402,16 +2585,30 @@ def tf_kernels(shape=TF_SHAPE, tag="(a)"):
                                          bound=bound_of(k1["t_bytes"], k1["t_ops"]),
                                          library_ms=sdpa_ms(BATCH, heads, dh, n, dtype),
                                          route=k1["route"])}
-        # kernels 2 and 3 keep o_norm and lse for the backward and draw the
-        # Philox mask: no single library call computes that
-        for key, label in (("fwd", "train_fwd"), ("bwd", "train_bwd")):
-            row[label] = dict(err=tk[key]["err"], ms=tk[key]["ms"],
-                              plain_ms=tk[key]["plain_ms"], bound=bound_of(*bounds[key]),
-                              library_ms=None, route={"fwd": T.train_fwd_route,
-                                                      "bwd": T.train_bwd_route}[key](
-                                                          dtype, heads, dh))
-        if row["flash_reattention"]["route"] == "identity_tc":
+        # kernels 2 and 3 keep lse (and o_norm, off the identity route) for
+        # the backward and draw the Philox mask: no single library call
+        # computes that.  Kernel 2 as KerasMHA calls it (identity_mix=True):
+        # on its identity route in bf16, timed in turns against the
+        # CUDA-core route; in f32 on the CUDA-core route (o_norm dropped).
+        route = T.train_fwd_route(dtype, heads, dh, identity_mix=True)
+        if route == "identity_tc":
+            fwd = time_fwd_identity(BATCH, heads, dh, n)
+            row["train_fwd"] = dict(err=fwd["err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+                                    bound=fwd["bound"], cuda_core_ms=fwd["cuda_core_ms"])
+        else:
+            row["train_fwd"] = dict(err=tk["fwd"]["err"], ms=tk["fwd"]["ms"],
+                                    plain_ms=tk["fwd"]["plain_ms"],
+                                    bound=bound_of(*bounds["fwd"]))
+        row["train_fwd"].update(library_ms=None, route=route)
+        row["train_bwd"] = dict(err=tk["bwd"]["err"], ms=tk["bwd"]["ms"],
+                                plain_ms=tk["bwd"]["plain_ms"], bound=bound_of(*bounds["bwd"]),
+                                library_ms=None, route=T.train_bwd_route(dtype, heads, dh))
+        k1_route = row["flash_reattention"]["route"]
+        if k1_route == "identity_tc":
             row["flash_reattention"]["tensor_core_ms"] = time_identity(BATCH, heads, dh, n)["old"]
+        if k1_route == "identity_f32":
+            row["flash_reattention"]["cuda_core_ms"] = time_identity(
+                BATCH, heads, dh, n, torch.float32)["old"]
         if row["train_bwd"]["route"] == "tensor_core":
             row["train_bwd"]["cuda_core_ms"] = time_bwd_routes(BATCH, heads, dh, n)[0]
         for label, r in row.items():
@@ -2494,8 +2691,9 @@ def tf_training():
     launches, (state, losses, step_ms) = path_launches(
         lambda: timed_steps(steps, state, batch, TF_STEPS))
     n = TF_STEPS * TF_CALLS
+    # every kernel-2 launch on its identity route, no o_norm written or kept
     require_launches(f"(c) {TF_STEPS} keras-attention train steps", launches,
-                     {"fwd": n, "fwd_cuda_core": n, "bwd": n, "bwd_tensor_core": n})
+                     {"fwd": n, "fwd_identity_tc": n, "bwd": n, "bwd_tensor_core": n})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     card = card_line()
     print(f"  (c) HViTUNetTF b{BATCH} bf16 train step (dropout 0.2/0.2/0.4): median "
@@ -2536,7 +2734,7 @@ def tf_training():
 def tf_variant():
     """(d) original_attn=False, flash_train=True, exact BN: kernels 4 and 3
     on the tensor cores at (8, 24/96/384); the level-0 skip's keras
-    attention on kernel 2's CUDA-core route and kernel 3's tensor-core
+    attention on kernel 2's identity route and kernel 3's tensor-core
     route at (8, 192)."""
     from vit_unet_tpu_torch import get_hvit_unet_tf
     from vit_unet_tpu_torch.parallel.train_step import (
@@ -2555,7 +2753,7 @@ def tf_variant():
     require_launches(f"(d) re-attention variant, {TF_VARIANT_STEPS} exact-BN steps",
                      launches,
                      {"bn_fwd": r, "bn_fwd_tensor_core": r, "bwd": r + n,
-                      "bwd_tensor_core": r + n, "fwd": n, "fwd_cuda_core": n})
+                      "bwd_tensor_core": r + n, "fwd": n, "fwd_identity_tc": n})
     print(f"  (d) HViTUNetTF(original_attn=False) b{BATCH} bf16 exact-BN step: "
           f"median {step_ms:.3f} ms, {BATCH / step_ms * 1e3:.1f} img/s, losses "
           f"{losses[0]:.5f} .. {losses[-1]:.5f} [{card_line()}]")
@@ -2564,6 +2762,44 @@ def tf_variant():
     del model, opt, state, steps
     torch.cuda.empty_cache()
     return launches
+
+
+def tf_f32_forward():
+    """(b2) the default config as it is (float32), b64 at 128²: the forward
+    with every kernel-1 launch on the f32 identity route, timed in turns
+    against the same forward with kernel 1 held on the CUDA-core route
+    (old, new, new, old), the two outputs held against each other."""
+    import importlib
+    from vit_unet_tpu_torch import get_hvit_unet_tf
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_CONFIG)
+    x = tf_batch(BATCH)
+    fwd = lambda: model(x)
+    with torch.inference_mode():
+        fwd()
+        launches, y_new = path_launches(fwd)
+        require_launches("(b2) f32 forward b64", launches,
+                         {"eval": TF_CALLS, "eval_identity_f32": TF_CALLS})
+        route = TK.kernel_route
+        held = mock.patch.object(TK, "kernel_route",
+                                 lambda dt, h, d, identity_mix=False: route(dt, h, d))
+        with held:
+            y_old = fwd()
+        turns = []
+        for name in ("cuda_core", "identity_f32", "identity_f32", "cuda_core"):
+            with held if name == "cuda_core" else contextlib.nullcontext():
+                turns.append((name, time_ms(fwd, reps=3, warmup=1)))
+    rel = rel_err(y_new - x, y_old - x)[1]
+    old = min(t for r, t in turns if r == "cuda_core")
+    new = min(t for r, t in turns if r == "identity_f32")
+    print(f"  (b2) HViTUNetTF default config (f32) b{BATCH} forward, kernel 1 in turns: "
+          + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+          + f"; {old - new:.3f} ms faster; output (y - x) rel {rel:.2e} (tol {MODEL_TOL:.0e}) "
+          f"[{card_line()}]")
+    require("the f32 forward on the identity route against route 0", rel, MODEL_TOL)
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(ms=new, cuda_core_ms=old)
 
 
 def base_step(remat, block_type="reattention", flash_train=True, timed=True,
@@ -2783,12 +3019,14 @@ def phase_tf():
     t_phase = time.perf_counter()
     kernels = tf_kernels()
     serve, serve_t = tf_serving()
+    f32_serve, f32_t = tf_f32_forward()
     train, train_t = tf_training()
     variant = tf_variant()
     remat = tf_remat_fourier()
     print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
     return dict(kernels=kernels, serving=serve, train=train, variant=variant,
-                serve_t=serve_t, train_t=train_t, remat=remat)
+                serve_t=serve_t, train_t=train_t, remat=remat, f32_serving=f32_serve,
+                f32_t=f32_t)
 
 
 # --- phase 8: the classifier ----------------------------------------------------
@@ -4278,6 +4516,11 @@ def phase_tensor_parallel():
                 if not counts.get(key):
                     raise AssertionError(f"rank {r} {path}: kernel {key} never launched")
             launches.update(counts)
+        # the f32 split model's keras calls at (4, 192): kernel 1 on its f32
+        # identity route, kernel 2 on the CUDA cores
+        ev, st = res["launches"]["tf_eval"], res["launches"]["tf_step"]
+        if not (ev["eval"] == ev["eval_identity_f32"] and st["fwd"] == st["fwd_cuda_core"]):
+            raise AssertionError(f"rank {r}: the split model's routes {ev} {st}")
         if r == 0:
             print(f"  launches by route, rank 0: " + "; ".join(
                 f"{path} {dict(c)}" for path, c in res["launches"].items()))
@@ -4300,6 +4543,7 @@ EX_SIDD = dict(N_TRAIN=640, N_VAL=128, WARMUP_STEPS=4,
 EX_PAIRS = 24                 # PNG pairs at 128² for convert_tfrecords
 EX_HEAD = 4                   # steps averaged at a run's start and end
 EX_WARMUP_ONLY = ("warmup", "track")   # the loss is held over the warmup phase
+EX_TF_RUNS = ("matched", "ours")       # the SIDD runs of HViTUNetTF (bf16)
 EX_KERNELS = {  # the kernels each run must launch
     "frozen": ("fwd", "bwd", "eval"), "exact": ("bn_fwd", "bwd", "eval"),
     "warmup": ("fwd", "bn_fwd", "bwd", "eval"), "track": ("fwd", "bn_fwd", "bwd", "eval"),
@@ -4376,6 +4620,10 @@ def ex_convergence(root):
             missing = [k for k in EX_KERNELS[key] if not launches[key].get(k)]
             if missing:
                 raise AssertionError(f"{script} {key}: kernels {missing} never launched")
+            # HViTUNetTF's bf16 runs: every kernel-2 launch on its identity route
+            if key in EX_TF_RUNS and launches[key]["fwd"] != launches[key]["fwd_identity_tc"]:
+                raise AssertionError(f"sidd {key}: kernel 2 off its identity route: "
+                                     f"{launches[key]}")
         with open(os.path.join(root, "conv.json")) as fh:
             written = json.load(fh)
     if not {"segmentation_demo", "runs", "denoise_beyond_identity"} <= set(written):
@@ -4551,8 +4799,8 @@ def main(argv=None) -> int:
     # the entry point (phase 6: the CLI's runs, the loaded programs), the
     # TF-flavour model (phase 7: serving, the keras-attention steps and the
     # re-attention variant's steps) and the classifier (phase 8)
-    model_paths = {"tf_serving": tf["serving"], "tf_train": tf["train"],
-                   "tf_variant": tf["variant"],
+    model_paths = {"tf_serving": tf["serving"], "tf_f32_serving": tf["f32_serving"],
+                   "tf_train": tf["train"], "tf_variant": tf["variant"],
                    # the classifier (phase 8): its forward and steps, the CLI
                    "classifier": cls["model"], "classifier_cli": cls["cli"]}
     # phase 9: both ranks' sequence- and data-parallel paths and the NCCL step
@@ -4602,8 +4850,7 @@ def main(argv=None) -> int:
         "tp_heads": {tp_shape: {dt: r["flash_reattention"]
                                 for dt, r in tp["kernels"].items()}},
     }]
-    # kernel 1's identity route: KerasMHA's eval calls (phases 7, 11; phase
-    # 10's tensor-parallel model runs in f32, on the CUDA cores)
+    # kernel 1's identity route: KerasMHA's bf16 eval calls (phases 7, 11)
     ident = k["identity"]
     i8 = ident["classes"]["H8 dh192 N256"]
     kernels.append({
@@ -4624,6 +4871,51 @@ def main(argv=None) -> int:
         "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
                                                      "sdpa_ms", "tensor_core_ms")}
                     for shape, r in ident["classes"].items()},
+    })
+    # kernel 1's float32 identity route: KerasMHA's f32 eval calls (phase 7's
+    # default-config forward, phase 10's split model at (4, 192))
+    ident32 = k["identity_f32"]
+    f8 = ident32["classes"]["H8 dh192 N256"]
+    kernels.append({
+        "name": "flash_reattention_identity_f32",
+        "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/attention_identity_f32.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention.py:111",
+        "launches": sum(c.get("eval_identity_f32", 0) for c in model_paths.values()),
+        "launches_by_path": {p: c.get("eval_identity_f32", 0) for p, c in model_paths.items()},
+        "max_abs_err": ident32["err"],
+        # (8, 192) at N 256, b64 f32 (phase 2a); the bound counts the bf16
+        # MMAs it issues, three a product
+        "ms": f8["ms"], "plain_ms": f8["plain_ms"],
+        "bound_ms": f8["bound_ms"], "bound_by": f8["bound_by"],
+        "library_ms": f8["sdpa_ms"],
+        # the CUDA-core route (route 0) on the same inputs, in turns
+        "cuda_core_ms": f8["cuda_core_ms"],
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                     "sdpa_ms", "cuda_core_ms")}
+                    for shape, r in ident32["classes"].items()},
+    })
+    # kernel 2's identity route: KerasMHA's bf16 training calls (phase 7's
+    # steps and variant, phase 11's SIDD runs)
+    fid = tk["fwd_identity"]
+    t8 = fid["classes"]["H8 dh192 N256"]
+    kernels.append({
+        "name": "flash_reattention_train_fwd_identity",
+        "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/attention_identity_tc.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:363",
+        "launches": sum(c.get("fwd_identity_tc", 0) for c in model_paths.values()),
+        "launches_by_path": {p: c.get("fwd_identity_tc", 0) for p, c in model_paths.items()},
+        "max_abs_err": fid["err"],
+        # (8, 192) at N 256, b64 bf16, rate 0.2 (phase 2b)
+        "ms": t8["ms"], "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound"][0], "bound_by": t8["bound"][1],
+        # no single PyTorch call draws the Philox mask inside the map
+        "library_ms": None,
+        # the CUDA-core route (the general forward with I and 0) in turns
+        "cuda_core_ms": t8["cuda_core_ms"],
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound")}
+                    for shape, r in fid["classes"].items()},
     })
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
@@ -4654,7 +4946,8 @@ def main(argv=None) -> int:
                 route_launches={r: train_launches_[f"{key}_{r}"] + fit_total[f"{key}_{r}"]
                                 + cli_launches[f"{key}_{r}"]
                                 + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
-                                for r in ("cuda_core", "tensor_core")})
+                                for r in [c[len(key) + 1:] for c in train_launches_
+                                          if c.startswith(key + "_")]})
     # kernel 4's 16-head tensor-core class, (16, 12): the classifier's
     # exact-BN steps and CLI (phase 8), the only paths at 16 heads; there
     # (16, 48) takes the CUDA-core route, so these are all (16, 12) calls

@@ -196,6 +196,50 @@ def test_identity_route_takes_only_its_classes_in_bf16(cuda):
                          torch.empty(2, 64, 8 * 192, device=cuda), route="identity_tc")
 
 
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_CASES)
+def test_identity_f32_route_matches_plain_and_the_cuda_core_route(cuda, batch, heads, dh,
+                                                                  n_q, n_k):
+    """Kernel 1's float32 identity route (split-precision MMAs) at f32's
+    tolerance against the plain version and route 0 on the same inputs."""
+    assert TK.kernel_route(torch.float32, heads, dh, identity_mix=True) == "identity_f32"
+    q, k, v, w, b = _identity_inputs(cuda, batch, heads, dh, n_q, n_k)
+    q, k, v = q.float(), k.float(), v.float()
+    before = dict(TK.flash_reattention.route_launches)
+    got = TK.flash_reattention(q, k, v, w, b, num_heads=heads, identity_mix=True)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.route_launches == {
+        **before, "identity_f32": before["identity_f32"] + 1}
+    assert got.dtype == torch.float32
+    assert _rel(got, TK.flash_reattention_plain(q, k, v, w, b, num_heads=heads)) <= TOL[
+        torch.float32]
+    res = {}
+    for route in ("cuda_core", "identity_f32"):
+        out = torch.empty_like(got)
+        lse = torch.empty(batch, heads, n_q, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        res[route] = (lse, out)
+    torch.cuda.synchronize()
+    ref = torch.logsumexp(q @ k.transpose(-1, -2), dim=-1)
+    assert (res["identity_f32"][0] - ref).abs().max().item() <= 1e-5 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(res["identity_f32"][1], got)
+    assert _rel(res["identity_f32"][1], res["cuda_core"][1]) <= TOL[torch.float32]
+
+
+def test_identity_f32_route_takes_only_its_classes_in_float32(cuda):
+    q, k, v, w, b = _identity_inputs(cuda, 2, 8, 96, 64, 64)
+    q, k, v = q.float(), k.float(), v.float()
+    with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
+        TK.launch_passes(q, k, v, w, b, torch.empty(2, 8, 64, device=cuda),
+                         torch.empty(2, 64, 8 * 96, device=cuda), route="identity_f32")
+    q, k, v, w, b = _identity_inputs(cuda, 2, 8, 192, 64, 64)
+    with pytest.raises(RuntimeError):     # float32 only
+        TK.launch_passes(q, k, v, w, b, torch.empty(2, 8, 64, device=cuda),
+                         torch.empty(2, 64, 8 * 192, dtype=q.dtype, device=cuda),
+                         route="identity_f32")
+    assert TK.kernel_route(torch.float32, 8, 192) == "cuda_core"   # without the flag
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 8, 8, device=cuda, dtype=torch.float16)
     w, b = TK.expand_reattention_affine(torch.eye(2), torch.zeros(2), dh=8)
@@ -553,7 +597,7 @@ def test_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, r
     torch.cuda.synchronize()
     assert TT.train_fwd.launches == before[0] + 1
     assert TT.train_fwd.route_launches == {
-        "cuda_core": before[1]["cuda_core"], "tensor_core": before[1]["tensor_core"] + 1}
+        **before[1], "tensor_core": before[1]["tensor_core"] + 1}
     for a, b, tol in zip(got, TT.train_fwd_plain(*args), FWD_TOLS):
         assert _rel(a, b) <= tol[torch.bfloat16]
 
@@ -591,10 +635,90 @@ def test_fwd_float32_takes_the_cuda_core_route(cuda):
     before = dict(TT.train_fwd.route_launches)
     TT.train_fwd(*args)
     torch.cuda.synchronize()
-    assert TT.train_fwd.route_launches == {
-        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    assert TT.train_fwd.route_launches == {**before, "cuda_core": before["cuda_core"] + 1}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TT.launch_train_fwd(*args, route="tensor_core")
+
+
+# --- the frozen-BN forward's identity route (KerasMHA's training calls) -----------
+
+# its two classes at N 256, the level-0 skip's 64 queries of 256 keys, ragged
+# (partial dropout windows), a single query
+IDENTITY_FWD_CASES = [(2, 8, 192, 256, 256), (2, 4, 192, 256, 256), (2, 8, 192, 64, 256),
+                      (2, 8, 192, 100, 130), (2, 8, 192, 1, 49)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_FWD_CASES)
+def test_fwd_identity_route_matches_plain_and_the_cuda_core_route(cuda, batch, heads, dh,
+                                                                  n_q, n_k, rate):
+    assert TT.train_fwd_route(torch.bfloat16, heads, dh, identity_mix=True) == "identity_tc"
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
+    before = TT.train_fwd.launches, dict(TT.train_fwd.route_launches)
+    out, lse = TT.train_fwd_identity(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    assert TT.train_fwd.launches == before[0] + 1
+    assert TT.train_fwd.route_launches == {
+        **before[1], "identity_tc": before[1]["identity_tc"] + 1}
+    want_out, want_lse = TT.train_fwd_identity_plain(q, k, v, seed, rate)
+    assert _rel(out, want_out) <= TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    eye, zero = torch.eye(heads, device=cuda), torch.zeros(heads, device=cuda)
+    cc_out, cc_lse, _ = TT.launch_train_fwd(q, k, v, v.float().sum(1), eye, zero, seed, rate,
+                                            route="cuda_core")
+    torch.cuda.synchronize()
+    assert _rel(out, cc_out) <= TOL[torch.bfloat16]
+    assert (lse - cc_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("heads,n,head_base", [(8, 192, 0), (4, 100, 4), (8, 256, 0)])
+def test_fwd_identity_dropout_bits_match_dropout_mask(cuda, heads, n, head_base):
+    """q = 0 makes every probability 1/Nk, and V_h[m, d] = 1 where
+    m = d mod dh, so out_h[n, d] Nk (1 - rate) counts the kept keys
+    m = d mod dh of row n: each keep bit itself where Nk <= dh, drawn for
+    heads head_base.. of the layer."""
+    rate, dh = 0.2, 192
+    q = torch.zeros(2, heads, n, dh, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(2, heads, n, dh, device=cuda).bfloat16()
+    vh = (torch.arange(n, device=cuda)[:, None] % dh
+          == torch.arange(dh, device=cuda)[None, :]).float()
+    v = vh.repeat(1, heads).expand(2, n, heads * dh).to(torch.bfloat16).contiguous()
+    seed = torch.tensor([31], device=cuda)
+    out, _ = TT.train_fwd_identity(q, k, v, seed, rate, head_base=head_base)
+    mask = TT.dropout_mask(31, rate, 2, heads, n, n, cuda, head_base) > 0
+    want = torch.einsum("bhnm,md->bnhd", mask.float(), vh).flatten(-2)
+    assert torch.equal(torch.round(out.float() * n * (1 - rate)), want)
+
+
+def test_fwd_identity_route_takes_only_its_classes_in_bf16(cuda):
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.float32, 2, 8, 192, 64, 64)
+    with pytest.raises(RuntimeError):     # bfloat16 only
+        TT.launch_train_fwd_identity(q, k, v, seed, 0.2)
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, 2, 8, 96, 64, 64)
+    with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
+        TT.launch_train_fwd_identity(q, k, v, seed, 0.2)
+    assert TT.train_fwd_route(torch.float32, 8, 192, identity_mix=True) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_identity_function_matches_the_general_function(cuda, dtype, tol):
+    """flash_reattention_train with identity_mix=True (bf16: the identity
+    route, no o_norm saved) against the general Function with I and 0, rate
+    0.2: out and the gradients of q, k, v."""
+    heads, dh, n = 8, 192, 256
+    q, k, v, _, _, g_out, seed = _train_inputs(cuda, dtype, 2, heads, dh, n, n)
+    eye, zero = torch.eye(heads, device=cuda), torch.zeros(heads, device=cuda)
+    res = []
+    for flag in (True, False):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = TT.flash_reattention_train(*leaves, eye, zero, seed, num_heads=heads, rate=0.2,
+                                         identity_mix=flag)
+        res.append((out.detach(), torch.autograd.grad((out.float() * g_out.float()).sum(),
+                                                      leaves)))
+    (out1, g1), (out0, g0) = res
+    assert _rel(out1, out0) <= tol
+    for a, b in zip(g1, g0):
+        assert _rel(a, b) <= tol
 
 
 # --- the shape gate: a model whose level 0 is wider than the kernels take ----------
@@ -739,7 +863,9 @@ def _fitter(cuda, tmp_path, seed):
 
 
 def _want(frozen: bool, steps: int, val_steps: int) -> dict:
-    want = {k: {"cuda_core": 0, "tensor_core": 0} for k in ("fwd", "bn_fwd", "bwd")}
+    want = {k: dict.fromkeys(counter.route_launches, 0)
+            for k, counter in (("fwd", TT.train_fwd), ("bn_fwd", TT.bn_fwd),
+                               ("bwd", TT.train_bwd))}
     want["eval"] = dict.fromkeys(TK.ROUTES, 0)
     want["fwd" if frozen else "bn_fwd"]["tensor_core"] = FIT_CALLS * steps
     want["bwd"]["tensor_core"] = FIT_CALLS * steps

@@ -1,10 +1,11 @@
-"""Kernel 1's identity-mix route: which calls take it, who asks for it, and
-its plain version against the JAX package's Pallas kernel (interpret mode)
-with the identity head mix.
+"""Kernel 1's identity-mix routes (bfloat16 and float32): which calls take
+them, who asks for them, and the plain version against the JAX package's
+Pallas kernel (interpret mode) with the identity head mix.
 
-The route's CUDA kernel (``csrc/attention_identity_tc.cuh``) runs only on
-the card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold it
-against the plain version there.
+The routes' CUDA kernels (``csrc/attention_identity_tc.cuh``,
+``csrc/attention_identity_f32.cuh``) run only on the card:
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold them against the
+plain version there.
 """
 import importlib
 
@@ -26,8 +27,9 @@ TOL = 1e-4
     (torch.bfloat16, 4, 192, True, "identity_tc"),     # a rank's heads at model 2
     (torch.bfloat16, 8, 192, False, "tensor_core"),    # without the flag: two passes
     (torch.bfloat16, 4, 192, False, "tensor_core"),
-    (torch.float32, 8, 192, True, "cuda_core"),        # f32: the CUDA cores
-    (torch.float32, 4, 192, True, "cuda_core"),
+    (torch.float32, 8, 192, True, "identity_f32"),     # f32: split precision
+    (torch.float32, 4, 192, True, "identity_f32"),
+    (torch.float32, 8, 192, False, "cuda_core"),       # f32 without the flag
     (torch.bfloat16, 8, 96, True, "tensor_core"),      # other classes keep theirs
     (torch.bfloat16, 16, 12, True, "tensor_core"),
     (torch.bfloat16, 2, 192, True, "cuda_core"),

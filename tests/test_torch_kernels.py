@@ -161,10 +161,11 @@ def test_each_library_hashes_its_own_headers():
     from vit_unet_tpu_torch.kernels import _build
     names = lambda src: [p.name for p in _build.source_closure(src)]
     assert names("flash_reattention.cu") == [
-        "flash_reattention.cu", "attention_identity_tc.cuh", "reattention_common.cuh",
-        "reattention_mma.cuh", "reattention_tc.cuh", "reattention_tiles.cuh"]
+        "flash_reattention.cu", "attention_identity_f32.cuh", "attention_identity_tc.cuh",
+        "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
+        "reattention_tiles.cuh"]
     assert names("flash_reattention_train.cu") == [
-        "flash_reattention_train.cu", "reattention_bnfwd16_tc.cuh", "reattention_bnfwd_tc.cuh",
-        "reattention_bwd_tc.cuh",
+        "flash_reattention_train.cu", "attention_identity_tc.cuh",
+        "reattention_bnfwd16_tc.cuh", "reattention_bnfwd_tc.cuh", "reattention_bwd_tc.cuh",
         "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
         "reattention_tiles.cuh"]

@@ -1,24 +1,31 @@
-// Eval flash re-attention with the identity head mix, on Hopper's tensor
-// cores in one pass: route 2 of vit_flash_reattention (flash_reattention.cu),
-// bfloat16, at the keras-attention classes (8, 192) and (4, 192).
+// Flash re-attention with the identity head mix, on Hopper's tensor cores in
+// one pass, bfloat16, at the keras-attention classes (8, 192) and (4, 192):
+// route 2 of vit_flash_reattention (flash_reattention.cu, eval) and route 2
+// of vit_train_fwd (flash_reattention_train.cu, the training forward, with
+// the in-map dropout).
 //
-// Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention.py
-// ::flash_reattention (body _kernel) at the calls of the keras attention
-// (vit_unet_tpu/nn/mha.py), whose head mix is M = I, c = 0.  There the
-// function is plain attention of each head,
+// Replaces the Pallas TPU kernels vit_unet_tpu/kernels/flash_reattention.py
+// ::flash_reattention (body _kernel) and vit_unet_tpu/kernels/
+// flash_reattention_train.py::_fwd (body _fwd_kernel) at the calls of the
+// keras attention (vit_unet_tpu/nn/mha.py), whose head mix is M = I, c = 0.
+// There the function is plain attention of each head,
 //
-//   out[b, n, h*dh:(h+1)*dh] = softmax(q_h[n] . k_h^T) V_h
-//   lse[b, h, n]             = log sum_m exp(q_h[n] . k_h[m])
+//   out[b, n, h*dh:(h+1)*dh] = sum_m A_h[n, m] V_h[m],  A_h = exp(s - lse) * mask
+//   lse[b, h, n]             = log sum_m exp(q_h[n] . k_h[m])   (before dropout)
 //
-// and the caller says so (flash_reattention(..., identity_mix=True)): this
-// kernel never reads w or b.  The two-pass routes take the log-sum-exp in a
-// pass of their own, because the mix needs every head's normalised map;
-// without a mix a row's running max and sum do.
+// (mask = 1 in eval; in training the dropout scale of vit::keep_scales'
+// rule, 0 or 1/(1 - rate)), and the caller says so (identity_mix=True): this
+// kernel never reads w, b, m_eff or c_eff and writes no o_norm.  The
+// two-pass routes take the log-sum-exp in a pass of their own, because the
+// mix needs every head's normalised map; without a mix a row's running max
+// and sum do.
 //
 // What bounds the function on this card.  Its bytes: q, k, v read once and
 // out written once, 4 B N H dh bf16 (0.060 ms at (8, 192), N 256, b64, at
 // 3.35 TB/s); its two products take 4 B H Nq Nk dh operations (0.026 ms at
-// the bf16 peak).  Per map entry one exp and a few f32 operations.
+// the bf16 peak).  Per map entry one exp and a few f32 operations, and in
+// training a quarter of a Philox-4x32-10 call (ten rounds of two 32-bit
+// multiplies): 8.4 M calls at (8, 192), N 256, b64.
 //
 // Design (the flash-attention forward):
 //   * grid (q tiles of BQ = 64 rows, H, B): a block of 4 warps owns 64 query
@@ -26,14 +33,19 @@
 //   * the q tile is staged once by cp.async, and each warp takes its A
 //     fragments (16 x dh bf16, dh / 4 registers a thread) into registers by
 //     ldmatrix;
-//   * K and V tiles of BK keys come through a two-buffer cp.async ring (the
-//     next tile loads while this one computes), one barrier a tile; rows past
-//     Nk and Nq are zero-filled by the copies (src-size 0);
+//   * K and V tiles of BK = 32 keys come through a two-buffer cp.async ring
+//     (the next tile loads while this one computes), one barrier a tile; rows
+//     past Nk and Nq are zero-filled by the copies (src-size 0);
 //   * S = q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate, K fragments by
 //     ldmatrix), scores of keys past Nk set to -inf;
 //   * online softmax in registers, in base 2: the tile's row max (a row's
 //     four lanes reduce by shuffles), the accumulator and the lane's part of
-//     the row sum scaled by exp(m_old - m_new), P = exp(s - m_new);
+//     the row sum scaled by exp(m_old - m_new), P = exp(s - m_new), the row
+//     sum taken before the dropout;
+//   * with the dropout, at a 64-key window's first tile a lane draws the four
+//     Philox calls of each of its two rows (window_keep) and keeps the
+//     window's 32 keep bits of its entries in one register for both 32-key
+//     tiles; a dropped entry of P is 0, a kept one is scaled by 1/(1 - rate);
 //   * P is rounded to bf16 once, as kernel 1 rounds its probabilities
 //     (p.astype(v.dtype)), and used in registers as the A operand of
 //     acc += P V (V fragments by ldmatrix.trans): the C fragments of two
@@ -56,6 +68,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "reattention_common.cuh"
 #include "reattention_mma.cuh"
 #include "reattention_tiles.cuh"
 
@@ -88,9 +101,36 @@ struct Cfg {
   static constexpr int KV_ELEMS = BK * LD;
   static constexpr int STAGE_ELEMS = 2 * KV_ELEMS;   // K rows, then V rows
   static constexpr size_t SMEM = sizeof(bf16) * (Q_ELEMS + 2 * STAGE_ELEMS);
-  static_assert(DH % 16 == 0 && KS % 2 == 0 && NV % 2 == 0 && BK % 16 == 0, "shape");
+  static_assert(DH % 16 == 0 && KS % 2 == 0 && NV % 2 == 0, "shape");
+  static_assert(BK == 32, "a tile is half a 64-key dropout window");
   static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
 };
+
+// The keep bits of lane (g, t)'s 32 entries of 64-key window w, rows r0 and
+// r0 + 8 (a row at or past nq draws nothing): bit 16 ri + 2 j + p for row
+// r0 + 8 ri, column 64 w + 8 j + 2 t + p.  Column c of the window takes word
+// (c >> 4) & 3 = j >> 1 of group 16 w + (c & 15) = 16 w + 8 (j & 1) + 2 t + p.
+__device__ __forceinline__ uint32_t window_keep(uint64_t seed, uint32_t thr, int b, int h,
+                                                int r0, int nq, int w, int t4) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = r0 + 8 * ri;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint4 wd = vit::philox4(seed, b, h, row, 16 * w + 8 * odd + 2 * t4 + p);
+        const uint32_t words[4] = {wd.x, wd.y, wd.z, wd.w};
+#pragma unroll
+        for (int wi = 0; wi < 4; ++wi)
+          keep |= static_cast<uint32_t>((words[wi] >> 8) >= thr)
+                  << (16 * ri + 2 * (2 * wi + odd) + p);
+      }
+  }
+  return keep;
+}
 
 // dst[r][0 .. DH) <- src[(row0 + r) * row_stride + 0 .. DH) for r < ROWS, by
 // 16-byte copies; rows at or past n are zero-filled.
@@ -106,11 +146,13 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t ro
 }
 
 // Grid (q tiles, H, B).  q (B, H, Nq, dh) pre-scaled, k (B, H, Nk, dh),
-// v (B, Nk, H dh); out (B, Nq, H dh) bf16, lse (B, H, Nq) f32.
-template <typename C>
+// v (B, Nk, H dh); out (B, Nq, H dh) bf16, lse (B, H, Nq) f32.  DROP: the
+// dropout of seed[0], keep iff bits >> 8 >= thr, kept entries times scale.
+template <typename C, bool DROP>
 __global__ void __launch_bounds__(NT, 2) attend_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    float* __restrict__ lse, bf16* __restrict__ out, int heads, int nq, int nk) {
+    float* __restrict__ lse, bf16* __restrict__ out, int heads, int nq, int nk,
+    const int64_t* __restrict__ seed, uint32_t thr, float scale) {
   extern __shared__ __align__(128) unsigned char id_smem[];
   bf16* qs = reinterpret_cast<bf16*>(id_smem);   // [BQ][LD]
   bf16* ring = qs + C::Q_ELEMS;                   // [2][K, V][BK][LD]
@@ -140,6 +182,9 @@ __global__ void __launch_bounds__(NT, 2) attend_kernel(
   // log2 e) and this lane's part of the running sum
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   uint32_t qa[C::KS][4];
+  uint64_t sd = 0;
+  uint32_t keep = 0;   // this lane's keep bits of the current 64-key window
+  if constexpr (DROP) sd = static_cast<uint64_t>(seed[0]);
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
@@ -203,6 +248,16 @@ __global__ void __launch_bounds__(NT, 2) attend_kernel(
         s[nt][e] = fast_exp2(s[nt][e] - m_run[e / 2]);   // 0 past Nk
         l_run[e / 2] += s[nt][e];
       }
+    if constexpr (DROP) {
+      if ((k0 & 63) == 0) keep = window_keep(sd, thr, b, h, q0 + 16 * warp + g, nq, k0 >> 6, t4);
+      const int j0 = (k0 & 63) >> 3;   // 8-key tiles of the window before this one
+#pragma unroll
+      for (int nt = 0; nt < C::NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = (keep >> (16 * (e / 2) + 2 * (j0 + nt) + e % 2)) & 1u ? s[nt][e] * scale
+                                                                           : 0.f;
+    }
 
     // acc += P V, 16 keys a step
 #pragma unroll
@@ -252,19 +307,29 @@ __global__ void __launch_bounds__(NT, 2) attend_kernel(
   }
 }
 
-// The route's classes: (8, 192) and (4, 192), bf16; the kernel depends on
-// dh alone.  cudaErrorInvalidValue for any other shape.
-inline int launch(const void* q, const void* k, const void* v, float* lse, void* out, int batch,
-                  int heads, int nq, int nk, int dh, cudaStream_t stream) {
+// The routes' classes: (8, 192) and (4, 192), bf16; the kernel depends on
+// dh alone.  cudaErrorInvalidValue for any other shape.  seed: a device
+// int64, read only with DROP (thr > 0).
+template <bool DROP>
+int launch(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+           float scale, float* lse, void* out, int batch, int heads, int nq, int nk, int dh,
+           cudaStream_t stream) {
   if (dh != 192 || (heads != 8 && heads != 4)) return static_cast<int>(cudaErrorInvalidValue);
   using C = Cfg<192, 32>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attend_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+  cudaError_t err = cudaFuncSetAttribute(attend_kernel<C, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attend_kernel<C><<<dim3((nq + BQ - 1) / BQ, heads, batch), NT, C::SMEM, stream>>>(
+  attend_kernel<C, DROP><<<dim3((nq + BQ - 1) / BQ, heads, batch), NT, C::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), lse,
-      static_cast<bf16*>(out), heads, nq, nk);
+      static_cast<bf16*>(out), heads, nq, nk, seed, static_cast<uint32_t>(thr), scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 1's route: no dropout.
+inline int launch_eval(const void* q, const void* k, const void* v, float* lse, void* out,
+                       int batch, int heads, int nq, int nk, int dh, cudaStream_t stream) {
+  return launch<false>(q, k, v, nullptr, 0, 1.f, lse, out, batch, heads, nq, nk, dh, stream);
 }
 
 }  // namespace vit_id

@@ -12,10 +12,13 @@
 // M and c are read from the expanded epilogue form the public function
 // takes: M[h, h2] = w[h2, h*dh], c[h] = b[h*dh].
 //
-// Three routes, named by the caller (the Python wrapper's kernel_route picks
+// Four routes, named by the caller (the Python wrapper's kernel_route picks
 // one from dtype, shape and whether the caller's head mix is the identity;
 // nothing here falls back):
 //
+//   route 3, tensor cores in split precision, identity mix: float32 at
+//     (8, 192) and (4, 192); one pass, each f32 product as three bf16 MMAs of
+//     hi + lo pairs, w and b not read (attention_identity_f32.cuh).
 //   route 2, tensor cores, identity mix (M = I, c = 0, the keras attention's):
 //     bfloat16 at (8, 192) and (4, 192); one pass, w and b not read
 //     (attention_identity_tc.cuh).
@@ -55,6 +58,7 @@
 // padding copies), Nq != Nk.  All tensors are contiguous; the caller
 // allocates every output and scratch buffer and passes the stream.
 
+#include "attention_identity_f32.cuh"
 #include "attention_identity_tc.cuh"
 #include "reattention_common.cuh"
 #include "reattention_tc.cuh"
@@ -277,7 +281,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor cores
 // (bfloat16 at the shape classes of reattention_tc.cuh), 2 = tensor cores
 // with the identity mix (bfloat16 at (8, 192) and (4, 192); w and b are not
-// read, passes must be 3).  passes: bit 0 the log-sum-exp pass (writes lse),
+// read, passes must be 3), 3 = the same in float32 (split precision).  passes: bit 0 the log-sum-exp pass (writes lse),
 // bit 1 the output pass (reads lse); 3 is the function.  Returns the first
 // CUDA error of the launches (0 on success), or cudaErrorInvalidValue for
 // what the route does not take.
@@ -290,8 +294,10 @@ int vit_flash_reattention(const void* q, const void* k, const void* v,
       passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 3 && dtype == 0 && passes == 3)
+    return vit_idf::launch(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 2 && dtype == 1 && passes == 3)
-    return vit_id::launch(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
+    return vit_id::launch_eval(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 1 && dtype == 1)
     return vit_tc::dispatch(q, k, v, w, b, lse, out, batch, heads, nq, nk, dh, passes, s);
   if (route == 0 && dtype == 0)

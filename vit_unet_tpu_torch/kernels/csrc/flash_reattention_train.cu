@@ -61,9 +61,13 @@
 // on the tensor cores at base's and large's level shapes (and further
 // classes for the backward and the exact-BN forward), each piece computed
 // once (reattention_bnfwd_tc.cuh for both forwards, reattention_bnfwd16_tc.cuh
-// for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The kernels
-// here are the CUDA-core route, for f32 and every other shape.
+// for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The frozen
+// forward has a third, for the keras attention's identity mix (M = I, c = 0)
+// in bf16 at (8, 192) and (4, 192): attention_identity_tc.cuh in one pass
+// with the dropout, writing out and lse and no o_norm.  The kernels here are
+// the CUDA-core route, for f32 and every other shape.
 
+#include "attention_identity_tc.cuh"
 #include "reattention_bnfwd16_tc.cuh"
 #include "reattention_bnfwd_tc.cuh"
 #include "reattention_bwd_tc.cuh"
@@ -703,7 +707,9 @@ extern "C" {
 // (0 on success), or cudaErrorInvalidValue for shapes it does not take.
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh only).
+// reattention_bnfwd_tc.cuh only), 2 the identity mix (bf16 at (8, 192) and
+// (4, 192) only: vsum, m_eff, c_eff and onorm are not touched and may be
+// null, the mix is M = I, c = 0).
 int vit_train_fwd(const void* q, const void* k, const void* v,
                   const float* vsum, const float* m_eff, const float* c_eff,
                   const int64_t* seed, int thr, float scale, float* lse,
@@ -711,6 +717,12 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
                   int dh, int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2)
+    return thr > 0 ? vit_id::launch<true>(q, k, v, seed, thr, scale, lse, out, batch, heads,
+                                          nq, nk, dh, s)
+                   : vit_id::launch<false>(q, k, v, seed, thr, scale, lse, out, batch, heads,
+                                           nq, nk, dh, s);
   if (route == 1)
     return dtype == 1 ? vit_bnfwd::train_fwd_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale,
                                                 lse, onorm, out, batch, heads, nq, nk, dh, s)

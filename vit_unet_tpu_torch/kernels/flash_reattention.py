@@ -13,7 +13,7 @@ The kernel (``csrc/flash_reattention.cu``) replaces the Pallas TPU kernel
 ``flash_reattention`` (body ``_kernel``).  With a head mix it runs in two
 passes (per-row log-sum-exp, then the head-mixed probabilities @ V), which
 keeps a block's state to (rows x dh) accumulators instead of the TPU form's
-(H, bq, H*dh) one.  It has three routes, and ``kernel_route`` names the one a call takes
+(H, bq, H*dh) one.  It has four routes, and ``kernel_route`` names the one a call takes
 from the input dtype, (heads, dh) and the caller's ``identity_mix`` flag,
 nothing else:
 
@@ -24,6 +24,13 @@ nothing else:
   construction).  The function is then plain attention of each head, and
   the route runs it in one pass (online softmax, no log-sum-exp pass, no
   mix), both products as bf16 MMAs; it does not read ``w`` and ``b``.
+* ``identity_f32`` (``csrc/attention_identity_f32.cuh``): the same calls in
+  float32, the same one pass with output and lse in f32.  Each f32 operand
+  is carried as a pair of bf16 values hi + lo, and each product takes three
+  bf16 MMAs (lo hi, hi lo, hi hi; lo lo is left out): the products are good
+  to about 2^-16 of their size, the precision of three bf16 passes rather
+  than f32's 2^-24, inside the f32 tolerance of 1e-4 of max|plain|.  No
+  single TF32 or bf16 product is issued.
 * ``tensor_core`` (``csrc/reattention_tc.cuh``): bfloat16 inputs at the
   shape classes of ``TENSOR_CORE_SHAPES`` (every level of the presets, the
   classifier's two 16-head levels and HViTUNetTF's level-0 keras attention,
@@ -34,8 +41,8 @@ nothing else:
   TPU kernel rounds them.  What bounds it on the H100 is the per-entry work
   between the products (exp, the H x H mix, shared-memory trips), not the
   MMAs or the bytes; the header of the source has the budget per class.
-* ``cuda_core`` (``csrc/flash_reattention.cu``): float32 inputs, and
-  bfloat16 at any other shape.  Every product is an f32 FMA, so float32 is
+* ``cuda_core`` (``csrc/flash_reattention.cu``): float32 inputs without
+  the identity flag or at other shapes, and bfloat16 at any other shape.  Every product is an f32 FMA, so float32 is
   computed in full float32; shared-memory loads and barrier
   round trips bound it, far above its operation count.
 
@@ -55,15 +62,16 @@ import torch
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 16
 MAX_HEAD_DIM = 384
-ROUTES = ("cuda_core", "tensor_core", "identity_tc")   # the C interface's route 0, 1, 2
+# the C interface's route 0, 1, 2, 3
+ROUTES = ("cuda_core", "tensor_core", "identity_tc", "identity_f32")
 #: (heads, dh) classes the tensor-core kernels are built for: the level
 #: shapes of the lite, base, large and notebook512 presets, the classifier's
 #: two 16-head levels and HViTUNetTF's level-0 keras attention, (8, 192)
 TENSOR_CORE_SHAPES = frozenset({
     (8, 384), (8, 192), (8, 96), (8, 24), (4, 192), (4, 48), (4, 12), (16, 48),
     (16, 12)})
-#: (heads, dh) classes of the identity-mix route: HViTUNetTF's level-0 keras
-#: attention and a rank's heads of it at model 2
+#: (heads, dh) classes of the identity-mix routes (bfloat16 and float32):
+#: HViTUNetTF's level-0 keras attention and a rank's heads of it at model 2
 IDENTITY_TC_SHAPES = frozenset({(8, 192), (4, 192)})
 
 
@@ -83,8 +91,11 @@ def kernel_route(dtype: torch.dtype, heads: int, dh: int,
     """The route a CUDA call with these inputs takes: the only place it is
     chosen, by dtype, shape and the caller's ``identity_mix`` flag alone
     (never by reading the head mix)."""
-    if dtype == torch.bfloat16 and identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
-        return "identity_tc"
+    if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
+        if dtype == torch.bfloat16:
+            return "identity_tc"
+        if dtype == torch.float32:
+            return "identity_f32"
     if dtype == torch.bfloat16 and (heads, dh) in TENSOR_CORE_SHAPES:
         return "tensor_core"
     return "cuda_core"
@@ -186,14 +197,14 @@ def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
     """Launch the kernels of ``route`` on checked CUDA inputs, into the
     caller's ``lse`` (B, H, N_q) f32 and ``out``.  ``passes``: bit 0 the
     log-sum-exp pass, bit 1 the output pass, which reads ``lse``; the
-    identity route is one pass and takes 3 only, and does not read ``w`` and
+    identity routes are one pass and take 3 only, and do not read ``w`` and
     ``b``.  Only the measurements and the route-against-route tests name a
     route or a pass themselves; it counts no launch."""
     batch, heads, n_q, dh = q.shape
-    if route == "identity_tc" and passes != 3:
-        raise ValueError("the identity route runs in one pass: passes=3")
+    if route.startswith("identity") and passes != 3:
+        raise ValueError("the identity routes run in one pass: passes=3")
     if route != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, out)):
-        raise ValueError("the tensor-core route copies 16 bytes at a time: q, "
+        raise ValueError("the tensor-core routes copy 16 bytes at a time: q, "
                          "k, v_cat and out must start at 16-byte aligned addresses")
     lib = _library()
     with torch.cuda.device(q.device):
@@ -256,7 +267,7 @@ def flash_reattention(q, k, v_cat, w, b, *, num_heads: int,
     with the heads concatenated; w: (H, H*dh) and b: (H*dh,) the expanded
     head-mix affine (``expand_reattention_affine``).  N_q may differ from
     N_k.  ``identity_mix``: the caller's promise that w and b are the
-    identity affine (M = I, c = 0); it lets ``kernel_route`` name the
+    identity affine (M = I, c = 0); it lets ``kernel_route`` name a
     one-pass identity route, which does not read them.  CPU tensors take the
     plain version; CUDA tensors the kernel, on the route ``kernel_route``
     names.

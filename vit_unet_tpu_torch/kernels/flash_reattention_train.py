@@ -10,8 +10,13 @@ beside it and a launch counter:
 
 * ``train_fwd``  <- ``_fwd`` (:363): frozen-BN forward, writes the mixed
   ``out``, the pre-dropout ``lse`` (B, H, Nq) f32 and ``o_norm``
-  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Two
-  routes, named by ``train_fwd_route``: ``tensor_core``
+  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Three
+  routes, named by ``train_fwd_route``: ``identity_tc``
+  (``csrc/attention_identity_tc.cuh``, one pass, the flash-attention
+  forward with the dropout) for the identity head mix (M = I, c = 0, the
+  keras attention's, where the caller says so with ``identity_mix=True``)
+  in bfloat16 at ``IDENTITY_TC_SHAPES``: it writes out and lse and no
+  o_norm (``train_fwd_identity``); ``tensor_core``
   (``csrc/reattention_bnfwd_tc.cuh``, the exact-BN sweep below without S
   and C, with the head mix as its epilogue, taken from the f32 o_norm as
   the TPU epilogue takes it) for bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
@@ -76,10 +81,13 @@ import struct
 import torch
 
 from vit_unet_tpu_torch.kernels.flash_reattention import (
-    MAX_HEAD_DIM, MAX_HEADS, SUPPORTED_DTYPES, fold_reattention_compact,
+    IDENTITY_TC_SHAPES, MAX_HEAD_DIM, MAX_HEADS, SUPPORTED_DTYPES,
+    fold_reattention_compact,
 )
 
 ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
+#: the frozen-BN forward's routes: also route 2, the identity mix
+FWD_ROUTES = ROUTES + ("identity_tc",)
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
 #: level shapes of base and large, for the exact-BN forward also the
@@ -95,9 +103,13 @@ def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
             else "cuda_core")
 
 
-def train_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
-    """The route a CUDA ``train_fwd`` call with these inputs takes: the only
-    place it is chosen, and by dtype and shape alone."""
+def train_fwd_route(dtype: torch.dtype, heads: int, dh: int,
+                    identity_mix: bool = False) -> str:
+    """The route a CUDA frozen-BN forward with these inputs takes: the only
+    place it is chosen, by dtype, shape and the caller's ``identity_mix``
+    flag alone (never by reading the head mix)."""
+    if identity_mix and dtype == torch.bfloat16 and (heads, dh) in IDENTITY_TC_SHAPES:
+        return "identity_tc"
     return _route(TRAIN_FWD_TC_SHAPES, dtype, heads, dh)
 
 
@@ -244,6 +256,17 @@ def train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float,
     onorm = torch.einsum("bhnm,bmj->bhnj", a, _wide(v_cat)).to(q.dtype)
     out = _mix(onorm, m_eff, c_eff, vsum, q.shape[-1]).to(q.dtype)
     return out, lse, onorm
+
+
+def train_fwd_identity_plain(q, k, v_cat, seed, rate: float, head_base: int = 0):
+    """Plain version of ``train_fwd_identity``: (out, lse), each head's
+    attention A_h @ V_h with A_h = softmax(q_h k_h^T) * mask, the head mix
+    the identity."""
+    batch, heads, n_q, dh = q.shape
+    _, a, lse = _probs_plain(q, k, seed, rate, head_base)
+    vh = _wide(v_cat).reshape(batch, -1, heads, dh)
+    out = torch.einsum("bhnm,bmhd->bnhd", a, vh).reshape(batch, n_q, heads * dh)
+    return out.to(q.dtype), lse
 
 
 def bn_fwd_plain(q, k, v_cat, seed, rate: float):
@@ -456,8 +479,8 @@ def _stream(device):
 
 def _require_aligned(route: str, **tensors) -> None:
     """The tensor-core routes copy 16 bytes at a time."""
-    if route == "tensor_core" and any(t.data_ptr() % 16 for t in tensors.values()):
-        raise ValueError("the tensor-core route copies 16 bytes at a time: "
+    if route != "cuda_core" and any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError(f"the {route} route copies 16 bytes at a time: "
                          + ", ".join(tensors) + " must start at 16-byte aligned "
                          "addresses")
 
@@ -487,6 +510,28 @@ def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
     return out, lse, onorm
 
 
+def launch_train_fwd_identity(q, k, v_cat, seed, rate: float = 0.0, *,
+                              head_base: int = 0):
+    """The identity route's kernel (route 2 of ``vit_train_fwd``) on CUDA
+    inputs that ``_check`` took: (out, lse), no o_norm.  Only the
+    measurements and the route-against-route tests call it themselves; it
+    counts no launch."""
+    batch, heads, n_q, dh = q.shape
+    dev = q.device
+    _require_aligned("identity_tc", q=q, k=k, v_cat=v_cat)
+    out = torch.empty((batch, n_q, heads * dh), dtype=q.dtype, device=dev)
+    lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
+    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
+    lib = _library()
+    with torch.cuda.device(dev):
+        _launch("train_fwd (identity_tc)", lib.vit_train_fwd, q.data_ptr(),
+                k.data_ptr(), v_cat.data_ptr(), None, None, None, seed_ptr, thr,
+                scale, lse.data_ptr(), None, out.data_ptr(), batch, heads, n_q,
+                k.shape[2], dh, SUPPORTED_DTYPES[q.dtype],
+                FWD_ROUTES.index("identity_tc"), _stream(dev))
+    return out, lse
+
+
 def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
               head_base: int = 0):
     """Frozen-BN training forward: (out (B, Nq, H*dh), lse (B, H, Nq) f32,
@@ -503,6 +548,31 @@ def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
     train_fwd.launches += 1
     train_fwd.route_launches[route] += 1
     return out
+
+
+def train_fwd_identity(q, k, v_cat, seed, rate: float = 0.0, head_base: int = 0):
+    """The frozen-BN forward with the identity head mix (M = I, c = 0):
+    (out (B, Nq, H*dh), lse (B, H, Nq) f32), no o_norm.  CUDA tensors take
+    the route ``train_fwd_route(..., identity_mix=True)`` names: the
+    one-pass identity route, or another route of ``train_fwd`` with I and 0
+    as the mix, its o_norm dropped.  Counted as a ``train_fwd`` launch."""
+    _check(q, k, v_cat)
+    if q.device.type == "cpu":
+        return train_fwd_identity_plain(q, k, v_cat, seed, rate, head_base)
+    batch, heads, _, dh = q.shape
+    route = train_fwd_route(q.dtype, heads, dh, identity_mix=True)
+    if route == "identity_tc":
+        out, lse = launch_train_fwd_identity(q, k, v_cat, seed, rate,
+                                             head_base=head_base)
+    else:
+        zero = torch.zeros(heads, device=q.device)
+        out, lse, _ = launch_train_fwd(
+            q, k, v_cat, torch.zeros(batch, heads * dh, device=q.device),
+            torch.eye(heads, device=q.device), zero, seed, rate, route=route,
+            head_base=head_base)
+    train_fwd.launches += 1
+    train_fwd.route_launches[route] += 1
+    return out, lse
 
 
 def launch_bn_fwd(q, k, v_cat, seed, rate: float = 0.0, *, route: str):
@@ -607,7 +677,7 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
 #: kernel launches since the last reset (the plain versions do not count),
 #: also by route
 train_fwd.launches = 0
-train_fwd.route_launches = dict.fromkeys(ROUTES, 0)
+train_fwd.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 bn_fwd.launches = 0
 bn_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 train_bwd.launches = 0
@@ -678,17 +748,49 @@ class _FlashTrain(torch.autograd.Function):
                 dm_eff.to(m_eff.dtype), dc_eff.to(c_eff.dtype), None, None, None)
 
 
+class _FlashTrainIdentity(torch.autograd.Function):
+    """``_FlashTrain`` with the identity head mix: out is saved in place of
+    o_norm, there is no vsum, and the softmax-dot term is
+    D[b, h, n] = sum_d g_h * out_h, which equals ``_FlashTrain``'s
+    sum_d g_h * o_norm_h up to the summation order (out is o_norm's own
+    head, rounded once).  No gradient for the mix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v_cat, seed, rate, head_base):
+        out, lse = train_fwd_identity(q, k, v_cat, seed, rate, head_base)
+        ctx.save_for_backward(q, k, v_cat, lse, out)
+        ctx.seed, ctx.rate, ctx.head_base = seed, rate, head_base
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v_cat, lse, out = ctx.saved_tensors
+        batch, heads, n_q, dh = q.shape
+        d = (_wide(g) * _wide(out)).reshape(batch, n_q, heads, dh).sum(-1).transpose(1, 2)
+        eye = torch.eye(heads, dtype=d.dtype, device=q.device)
+        dq, dk, dv = train_bwd(q, k, v_cat, lse, g, eye, d, ctx.seed, ctx.rate,
+                               head_base=ctx.head_base)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v_cat.dtype), None, None, None
+
+
 def flash_reattention_train(q, k, v_cat, m_eff, c_eff, seed=None, *,
                             num_heads: int, rate: float = 0.0,
-                            head_base: int = 0):
+                            head_base: int = 0, identity_mix: bool = False):
     """Frozen-BN training re-attention with dropout, differentiable in q, k,
     v_cat, m_eff (H, H) and c_eff (H,) (``fold_reattention_compact``).
     ``seed``: a one-element int64 tensor (``new_seed``), needed when
     rate > 0.  ``head_base``: the heads are heads head_base.. of a wider
-    layer and draw its dropout bits (``dropout_mask``).  Returns
-    (B, Nq, H*dh) in q's dtype."""
+    layer and draw its dropout bits (``dropout_mask``).  ``identity_mix``:
+    the caller's promise that m_eff = I and c_eff = 0, which need no
+    gradient; the forward then writes no o_norm (``train_fwd_identity``).
+    Returns (B, Nq, H*dh) in q's dtype."""
     if q.shape[1] != num_heads:
         raise ValueError(f"q has {q.shape[1]} heads, num_heads={num_heads}")
+    if identity_mix:
+        if m_eff.requires_grad or c_eff.requires_grad:
+            raise ValueError("identity_mix=True takes a fixed mix: m_eff and c_eff "
+                             "must not require a gradient")
+        return _FlashTrainIdentity.apply(q, k, v_cat, seed, float(rate), int(head_base))
     return _FlashTrain.apply(q, k, v_cat, m_eff, c_eff, seed, float(rate),
                              int(head_base))
 

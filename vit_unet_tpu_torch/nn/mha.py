@@ -142,10 +142,10 @@ class KerasMHA(nn.Module):
         return ctx.reshape(ctx.shape[0], ctx.shape[1], -1).to(self.dtype)
 
     def _attend_kernels(self, q, k, v, deterministic, seed, rate):
-        """Kernel 1 in eval (told that its head mix is the identity, so that
-        it may take the one-pass identity route), kernels 2 and 3 in
-        training, with the identity head mix; the scale goes onto q before
-        the call."""
+        """Kernel 1 in eval, kernels 2 and 3 in training, each told that its
+        head mix is the identity (so that kernels 1 and 2 may take their
+        one-pass identity routes, and the training forward keeps no
+        o_norm); the scale goes onto q before the call."""
         (h, base), dk = self._heads, self.key_dim
         qh = (self._heads_first(q, dk) * dk ** -0.5).contiguous()
         kh = self._heads_first(k, dk).contiguous()
@@ -157,4 +157,5 @@ class KerasMHA(nn.Module):
             return flash_reattention(qh, kh, v_cat, w, b, num_heads=h,
                                      identity_mix=True)
         return flash_reattention_train(qh, kh, v_cat, eye, zero, seed,
-                                       num_heads=h, rate=rate, head_base=base)
+                                       num_heads=h, rate=rate, head_base=base,
+                                       identity_mix=True)
