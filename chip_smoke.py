@@ -34,13 +34,20 @@ Phases, each of which raises (exit code != 0) when it fails:
    in f32); the frozen-BN forward's identity route (bf16, no o_norm,
    ``IDENTITY_FWD_CASES`` at rates 0 and 0.2 against plain and the
    CUDA-core route, its dropout bits read back exactly, with a rank's
-   ``head_base`` too, and at b64 timed against the CUDA-core route in turns);
+   ``head_base`` too, and at b64 timed against the CUDA-core route in turns)
+   and its float32 form (split-precision MMAs, the same checks at f32's
+   tolerance); the backward's identity routes in bf16 and f32
+   (``IDENTITY_BWD_CASES``: both classes, 64 queries of 256 keys, ragged
+   70 x 130, 1 x 49; rates 0 and 0.2, ``head_base`` 0 and 4; dq, dk, dv
+   against plain and the general route with I, twice for the same bits;
+   the identity Function against float64 autograd; at b64 timed in turns
+   against the route each call took before, beside SDPA's backward);
    the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
    against plain and the CUDA-core route, its dropout bits read back); the
    backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
-   cores, and the backward at (8, 192), (16, 12) and (16, 48)), with
+   cores, and the backward at (16, 12) and (16, 48)), with
    ragged cases and the two
    routes held against each other (the backward's classes without atomics
    also run twice for the same bits; the forwards also at batch 64, and
@@ -104,12 +111,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    every kernel-1 launch on the f32 identity route, timed in turns against
    kernel 1 held on the CUDA-core route;
    (c) 10 AdamW steps at the config's dropout through
-   ``build_step_functions``, launches by route (every kernel-2 launch on its
-   identity route), step time, peak memory and a
+   ``build_step_functions``, launches by route (every kernel-2 and
+   kernel-3 launch on its identity route), step time, peak memory and a
    profiler breakdown, then a dropout-free f32 batch-4 step of the kernel
-   path against the plain path; (d) 3 exact-BN steps of the re-attention
+   path against the plain path; (c2) the default config as it is (f32) at
+   b64 (or the largest batch that fits), 3 AdamW steps with every kernel-2
+   and kernel-3 launch on its f32 identity route, then with both held on
+   their old routes in turns, step time, peak memory and a profiler
+   breakdown; (d) 3 exact-BN steps of the re-attention
    variant (``original_attn=False``), kernels 4 and 3 on the tensor cores
-   (the level-0 skip's keras attention on kernel 2's identity route);
+   (the level-0 skip's keras attention on kernels 2's and 3's identity
+   routes);
    (e) base b64 bf16 exact-BN steps with and without ``remat`` (the same
    loss, running statistics and generator state; on the kernel path every
    gradient equal bit for bit with the backward's launches replayed from a
@@ -165,8 +177,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    SDPA beside kernel 1, and kernels 2 and 3 at a rank's block of heads
    (``head_base``) with dropout against the whole layer's call; (b) a world
    of 2 on this card over gloo, 1 x 2 mesh: ``HViTUNetTF`` at its default
-   width (f32, dropout 0, b4) split by the partition rules (kernel 1 on its
-   f32 identity route, kernel 2 on the CUDA cores), its eval
+   width (f32, dropout 0, b4) split by the partition rules (kernels 1-3 on
+   their f32 identity routes), its eval
    forward and one AdamW step against the single process (loss, output,
    every gradient gathered whole, by a fixed random projection and its
    norm), each rank's parameter bytes, launches by route, ms a step and the
@@ -182,14 +194,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    epoch or two of a few steps (the loss must fall: the mean of its last
    four steps below its first four's, over the warmup epoch for the hard
    flip and the tracking warmup, whose flips are the negative controls;
-   launches by route, every kernel-2 launch of the ``HViTUNetTF`` SIDD runs
-   on its identity route), the results file
+   launches by route, every kernel-2 and kernel-3 launch of the
+   ``HViTUNetTF`` SIDD runs on its identity route), the results file
    written; ``convert_tfrecords`` on PNG pairs (the count read back from the
    names, a record read back exactly), ``train_denoising`` on those shards
    (lite 128², bf16, ``--flash``, one epoch, its PSNR probes) and
    ``serve_model`` from a ``Fitter`` checkpoint;
-12. a ``{"kernels": [...]}`` line, then the card's name and power limit,
-   then ``{"ok": true, "device": {...}}`` as the last line.
+12. a ``{"kernels": [...]}`` line (it fails if a kernel of the list was
+   launched no time on the main paths), then the card's name and power
+   limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX.  Without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -785,7 +798,7 @@ BN16_CASES = [(4, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96)
               (2, 16, 12, 1, 49)]
 # (heads, dh) classes of the backward's tensor-core route in its maps +
 # products form: no atomics, so a call repeats bit for bit
-ATOMIC_FREE_BWD = {(8, 192), (8, 384)}
+ATOMIC_FREE_BWD = {(8, 384)}
 # the frozen-BN forward's identity route (KerasMHA's training calls, bf16):
 # its two classes at N 256, the level-0 skip's 64 queries of 256 keys,
 # ragged over a partial dropout window, a single query
@@ -839,8 +852,15 @@ def train_bounds(batch, heads, dh, n_q, n_k, dtype):
                 + 4 * (batch * heads * (n_q + n_k) * dh + batch * n_k * proj),
                 2.0 * area * (5 * dh + 2 * heads) + 2.0 * area * heads),
     }
-    return {k: (b / PEAK_BYTES * 1e3, o / PEAK_FLOPS[dtype] * 1e3)
-            for k, (b, o) in parts.items()}
+    # the identity mix's backward: no head mix or BN term, five products
+    parts["bwd_identity"] = (parts["bwd"][0], 10.0 * area * dh)
+    bounds = {k: (b / PEAK_BYTES * 1e3, o / PEAK_FLOPS[dtype] * 1e3)
+              for k, (b, o) in parts.items()}
+    if dtype == torch.float32:
+        # the f32 identity routes: the bf16 MMAs they issue, three a product
+        for key in ("fwd_identity", "bwd_identity"):
+            bounds[key] = (bounds[key][0], 3 * parts[key][1] / PEAK_FLOPS[torch.bfloat16] * 1e3)
+    return bounds
 
 
 def rel_err(got, want):
@@ -1067,26 +1087,26 @@ def time_fwd_routes(key, batch, heads, dh, n, reps=10):
     return old, new
 
 
-def fwd_identity_turns(batch, heads, dh, n_q, n_k, rate, seed=0):
-    """The bf16 frozen-BN forward with the identity mix, as KerasMHA calls
-    it (``train_fwd_identity``), on its identity route against its plain
-    version and against the CUDA-core route (the general forward with I and
-    0) on the same inputs: out at TRAIN_TOL, lse at F32_OUT_TOL.  Returns
-    the worst max_abs_err against the plain version."""
+def fwd_identity_turns(batch, heads, dh, n_q, n_k, rate, seed=0, dtype=torch.bfloat16):
+    """The frozen-BN forward with the identity mix, as KerasMHA calls it
+    (``train_fwd_identity``), on its identity route for ``dtype`` against
+    its plain version and against the CUDA-core route (the general forward
+    with I and 0) on the same inputs: out at TRAIN_TOL, lse at F32_OUT_TOL.
+    Returns the worst max_abs_err against the plain version."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    dtype = torch.bfloat16
     q, k, v, eye, zero, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed,
                                              identity=True)
     route = T.train_fwd_route(dtype, heads, dh, identity_mix=True)
     before = dict(T.train_fwd.route_launches)
     got = T.train_fwd_identity(q, k, v, sd, rate)
-    if route != "identity_tc" or T.train_fwd.route_launches[route] != before[route] + 1:
-        raise AssertionError(f"the call did not take the identity route ({route})")
+    if (route not in T.IDENTITY_ROUTES
+            or T.train_fwd.route_launches[route] != before[route] + 1):
+        raise AssertionError(f"the call did not take an identity route ({route})")
     want = T.train_fwd_identity_plain(q, k, v, sd, rate)
     other = T.launch_train_fwd(q, k, v, v.float().sum(1), eye, zero, sd, rate,
                                route="cuda_core")[:2]
     torch.cuda.synchronize()
-    label = f"fwd [identity_tc] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
+    label = f"fwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
     for (_, rel), r, tol in zip(errs, routes, (TRAIN_TOL, F32_OUT_TOL)):
@@ -1097,19 +1117,19 @@ def fwd_identity_turns(batch, heads, dh, n_q, n_k, rate, seed=0):
     return max(e for e, _ in errs)
 
 
-def check_fwd_identity_bits(batch, heads, n, head_base):
-    """The identity route's dropout bits, read back exactly: with q = 0
+def check_fwd_identity_bits(batch, heads, n, head_base, dtype=torch.bfloat16):
+    """An identity route's dropout bits, read back exactly: with q = 0
     every probability is 1/Nk, and with V_h[m, d] = 1 where m = d mod dh,
     out_h[n, d] Nk / scale counts the kept keys m = d mod dh of row n, which
     must equal the count from ``dropout_mask`` of heads head_base.. (each
     bit itself where Nk <= dh)."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     dh = 192
-    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn(batch, heads, n, dh, device="cuda").bfloat16()
+    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=dtype)
+    k = torch.randn(batch, heads, n, dh, device="cuda").to(dtype)
     vh = (torch.arange(n, device="cuda")[:, None] % dh
           == torch.arange(dh, device="cuda")[None, :]).float()
-    v = vh.repeat(1, heads).expand(batch, n, heads * dh).to(torch.bfloat16).contiguous()
+    v = vh.repeat(1, heads).expand(batch, n, heads * dh).to(dtype).contiguous()
     sd = torch.tensor([77], dtype=torch.int64, device="cuda")
     out, _ = T.train_fwd_identity(q, k, v, sd, RATE, head_base)
     mask = T.dropout_mask(77, RATE, batch, heads, n, n, "cuda", head_base) > 0
@@ -1119,38 +1139,158 @@ def check_fwd_identity_bits(batch, heads, n, head_base):
         raise AssertionError(f"the identity forward's dropout bits differ from dropout_mask "
                              f"(H{heads} N{n} head_base {head_base}): "
                              f"{int((got != want).sum())} counts")
-    print(f"  fwd [identity_tc] dropout bits H{heads} dh{dh} N{n} B{batch} head_base "
+    print(f"  fwd [{T.train_fwd_route(dtype, heads, dh, True)}] dropout bits H{heads} dh{dh} "
+          f"N{n} B{batch} head_base "
           f"{head_base}: all {mask.numel()} identical to dropout_mask "
           f"({'each bit' if n <= dh else 'counts of keys m = d mod dh'})")
 
 
-def time_fwd_identity(batch, heads, dh, n, reps=10):
-    """At an identity class, bf16, rate 0.2: the frozen-BN forward through
-    its wrapper held against its plain version and the CUDA-core route
+def time_fwd_identity(batch, heads, dh, n, reps=10, dtype=torch.bfloat16):
+    """At an identity class, rate 0.2: the frozen-BN forward through its
+    wrapper held against its plain version and the CUDA-core route
     (``fwd_identity_turns``, out at TRAIN_TOL, lse at F32_OUT_TOL), then on
     the CUDA-core route (the general forward with I and 0, which writes
-    o_norm) and on the identity route in turns (old, new, new, old), beside
-    its plain version and its bound.  Returns dict(err, ms, cuda_core_ms,
-    plain_ms, bound)."""
+    o_norm) and on the identity route for ``dtype`` in turns (old, new, new,
+    old), beside its plain version and its bound.  Returns dict(err, ms,
+    cuda_core_ms, plain_ms, bound)."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    q, k, v, eye, zero, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16,
-                                             identity=True)
+    q, k, v, eye, zero, _, sd = train_inputs(batch, heads, dh, n, n, dtype, identity=True)
     vsum = v.float().sum(1)
+    route = T.train_fwd_route(dtype, heads, dh, identity_mix=True)
     calls = {"cuda_core": lambda: T.launch_train_fwd(q, k, v, vsum, eye, zero, sd, RATE,
                                                      route="cuda_core"),
-             "identity_tc": lambda: T.launch_train_fwd_identity(q, k, v, sd, RATE)}
-    turns = [(r, time_ms(calls[r], reps))
-             for r in ("cuda_core", "identity_tc", "identity_tc", "cuda_core")]
+             route: lambda: T.launch_train_fwd_identity(q, k, v, sd, RATE)}
+    turns = [(r, time_ms(calls[r], reps)) for r in ("cuda_core", route, route, "cuda_core")]
     old = min(t for r, t in turns if r == "cuda_core")
-    new = min(t for r, t in turns if r == "identity_tc")
+    new = min(t for r, t in turns if r == route)
     plain = time_ms(lambda: T.train_fwd_identity_plain(q, k, v, sd, RATE), 2, warmup=1)
-    err = fwd_identity_turns(batch, heads, dh, n, n, RATE)
-    bound = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)["fwd_identity"])
-    print(f"    H{heads} dh{dh} N{n} B{batch} fwd identity mix in turns: "
+    err = fwd_identity_turns(batch, heads, dh, n, n, RATE, dtype=dtype)
+    bound = bound_of(*train_bounds(batch, heads, dh, n, n, dtype)["fwd_identity"])
+    print(f"    H{heads} dh{dh} N{n} B{batch} {str(dtype)[6:]} fwd identity mix in turns: "
           + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
-          + f"; cuda_core / identity_tc {old / new:.2f}x; plain {plain:.4f} ms; bound "
+          + f"; cuda_core / {route} {old / new:.2f}x; plain {plain:.4f} ms; bound "
           f"{bound[0]:.4f} ms ({bound[1]}) [{card_line()}]")
     return dict(err=err, ms=new, cuda_core_ms=old, plain_ms=plain, bound=bound)
+
+
+# the backward's identity routes (KerasMHA's calls, bf16 and f32): its two
+# classes at N 256, the level-0 skip's 64 queries of 256 keys, ragged 70
+# queries of 130 keys (partial query and key tiles and dropout windows), a
+# single query
+IDENTITY_BWD_CASES = [(4, 8, 192, 256, 256), (4, 4, 192, 256, 256), (4, 8, 192, 64, 256),
+                      (2, 8, 192, 70, 130), (2, 4, 192, 1, 49)]
+
+
+def identity_bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate, seed=0):
+    """The identity backward's arguments on the card as KerasMHA's Function
+    forms them: lse and D = sum g * out from the plain forward at ``rate``.
+    Returns (q, k, v, lse, g, d, seed tensor)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, _, _, g_out, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed,
+                                            identity=True)
+    out, lse = T.train_fwd_identity_plain(q, k, v, sd, rate)
+    d = (g_out.float() * out.float()).reshape(batch, n_q, heads, dh).sum(-1).transpose(1, 2)
+    return q, k, v, lse, g_out, d.contiguous(), sd
+
+
+def check_bwd_identity(batch, heads, dh, n_q, n_k, dtype, rate, head_base=0):
+    """The backward as KerasMHA's Function calls it (``train_bwd_identity``,
+    counted on the route ``train_bwd_route(..., identity_mix=True)`` names)
+    and the identity route for ``dtype`` called by name, against the plain
+    version and the general route with I (dq, dk, dv at F32_OUT_TOL); the
+    identity route twice on the same inputs, for the same bits (it writes
+    every output once)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, lse, g, d, sd = identity_bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate)
+    args = (q, k, v, lse, g, d, sd, rate)
+    route = T.train_bwd_route(dtype, heads, dh, identity_mix=True)
+    before = dict(T.train_bwd.route_launches)
+    got = T.train_bwd_identity(*args, head_base)
+    if T.train_bwd.route_launches[route] != before[route] + 1:
+        raise AssertionError(f"the call did not take the {route} route")
+    ident = T.launch_bwd_identity(*args, head_base=head_base)
+    again = T.launch_bwd_identity(*args, head_base=head_base)
+    want = T.train_bwd_identity_plain(*args, head_base)
+    general = T.train_bwd_route(dtype, heads, dh)
+    other = T.launch_bwd(q, k, v, lse, g, torch.eye(heads, device="cuda"), d, sd, rate,
+                         route=general, head_base=head_base)
+    torch.cuda.synchronize()
+    tol = F32_OUT_TOL[dtype]
+    label = (f"bwd [{T.IDENTITY_ROUTES[dtype == torch.float32]}] B{batch} H{heads} dh{dh} "
+             f"Nq{n_q} Nk{n_k} rate {rate} head_base {head_base}")
+    errs = [rel_err(a, b) for a, b in zip(ident, want)]
+    checks = [r for _, r in errs] + [rel_err(a, b)[1] for a, b in zip(got, want)]
+    against = [rel_err(a, b)[1] for a, b in zip(ident, other)]
+    for r in checks + against:
+        require(label, r, tol)
+    if not all(torch.equal(a, b) for a, b in zip(ident, again)):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+    print(f"  {label}: dq dk dv rel " + " ".join(f"{r:.2e}" for _, r in errs)
+          + f" | vs {general} " + " ".join(f"{r:.2e}" for r in against)
+          + f" | repeat bit for bit | wrapper on {route}")
+    return max(e for e, _ in errs)
+
+
+def sdpa_bwd_ms(batch, heads, dh, n, dtype, reps=10):
+    """``scaled_dot_product_attention``'s backward at an identity class, rate
+    0 (forward and backward minus forward): autograd of the same function as
+    the identity backward, its dq, dk, dv held against the plain version at
+    GRAD_TOL.  A reading beside the kernel; the port never calls it."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, lse, g, d, sd = identity_bwd_inputs(batch, heads, dh, n, n, dtype, 0.0)
+    heads_view = lambda t: t.view(batch, n, heads, dh).transpose(1, 2)
+    leaves = [q.clone().requires_grad_(), k.clone().requires_grad_(),
+              heads_view(v).contiguous().requires_grad_()]
+    g_h = heads_view(g).contiguous()
+    fwd = lambda: torch.nn.functional.scaled_dot_product_attention(*leaves, scale=1.0)
+    both = lambda: torch.autograd.grad(fwd(), leaves, g_h)
+    dq, dk, dvh = both()
+    want = T.train_bwd_identity_plain(q, k, v, lse, g, d, sd, 0.0)
+    got = (dq, dk, dvh.transpose(1, 2).reshape(batch, n, heads * dh))
+    rel = max(rel_err(a, b)[1] for a, b in zip(got, want))
+    require("scaled_dot_product_attention's backward (identity mix)", rel, GRAD_TOL[dtype])
+    return time_ms(both, reps) - time_ms(fwd, reps)
+
+
+def time_bwd_identity(batch, heads, dh, n, dtype, reps=10):
+    """At an identity class, rate 0.2: the identity route for ``dtype`` and
+    the route the call took before it (``train_bwd_route`` without the
+    flag, with I) in turns (old, new, new, old); the wrapper
+    ``train_bwd_identity``'s b64 outputs, counted on the identity route,
+    against the plain version at F32_OUT_TOL; beside its plain version, its
+    bound and SDPA's backward (rate 0).  Returns dict(err, ms, old_ms,
+    old_route, plain_ms, bound, sdpa_ms)."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    q, k, v, lse, g, d, sd = identity_bwd_inputs(batch, heads, dh, n, n, dtype, RATE)
+    args = (q, k, v, lse, g, d, sd, RATE)
+    route, old_route = T.IDENTITY_ROUTES[dtype == torch.float32], T.train_bwd_route(dtype, heads, dh)
+    eye = torch.eye(heads, device="cuda")
+    calls = {old_route: lambda: T.launch_bwd(q, k, v, lse, g, eye, d, sd, RATE, route=old_route),
+             route: lambda: T.launch_bwd_identity(*args)}
+    turns = [(r, time_ms(calls[r], reps)) for r in (old_route, route, route, old_route)]
+    old = min(t for r, t in turns if r == old_route)
+    new = min(t for r, t in turns if r == route)
+    want = T.train_bwd_identity_plain(*args)
+    before = T.train_bwd.route_launches[route]
+    got = T.train_bwd_identity(*args)
+    torch.cuda.synchronize()
+    if T.train_bwd.route_launches[route] != before + 1:
+        raise AssertionError(f"train_bwd_identity B{batch} H{heads} did not take {route}")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    for _, r in errs:
+        require(f"bwd [{route}] B{batch} H{heads} dh{dh} N{n}", r, F32_OUT_TOL[dtype])
+    del got, want
+    plain = time_ms(lambda: T.train_bwd_identity_plain(*args), 2, warmup=1)
+    bound = bound_of(*train_bounds(batch, heads, dh, n, n, dtype)["bwd_identity"])
+    sdpa = sdpa_bwd_ms(batch, heads, dh, n, dtype)
+    print(f"    H{heads} dh{dh} N{n} B{batch} {str(dtype)[6:]} bwd identity mix in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; {old_route} / {route} {old / new:.2f}x; dq dk dv rel "
+          + " ".join(f"{r:.2e}" for _, r in errs)
+          + f"; plain {plain:.4f} ms; sdpa backward (rate 0) {sdpa:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) [{card_line()}]")
+    return dict(err=max(e for e, _ in errs), ms=new, old_ms=old, old_route=old_route,
+                plain_ms=plain, bound=bound, sdpa_ms=sdpa)
 
 
 def check_functions(batch, heads, dh, n, dtype, rate=RATE):
@@ -1195,32 +1335,34 @@ def check_functions(batch, heads, dh, n, dtype, rate=RATE):
     return worst
 
 
-def check_identity_function(batch, heads, n, rate):
+def check_identity_function(batch, heads, n, rate, dtype=torch.bfloat16):
     """The identity-mix autograd Function as KerasMHA calls it
-    (``flash_reattention_train(..., identity_mix=True)``, bf16, dh 192): its
-    forward on the identity route, its backward (D from the saved out) on
-    the route ``train_bwd_route`` names; out and the gradients of q, k and
-    v against torch autograd of the N x N forward (``reattention_nxn`` with
-    I and 0) with the same mask, in float64 on the same inputs, at
-    GRAD_TOL."""
+    (``flash_reattention_train(..., identity_mix=True)``, dh 192): its
+    forward and its backward (D from the saved out) each on the route its
+    route choice names with the flag, each launch counted there; out and
+    the gradients of q, k and v against torch autograd of the N x N forward
+    (``reattention_nxn`` with I and 0) with the same mask, in float64 on the
+    same inputs, at GRAD_TOL."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    dtype = torch.bfloat16
     q, k, v, eye, zero, g_out, seed = train_inputs(batch, heads, 192, n, n, dtype, 1,
                                                    identity=True)
     mask = T.dropout_mask(int(seed.item()), rate, batch, heads, n, n, "cuda")
     kl = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     rl = [t.detach().double().requires_grad_() for t in (q, k, v)]
-    before = dict(T.train_fwd.route_launches)
+    fwd_route = T.train_fwd_route(dtype, heads, 192, identity_mix=True)
+    bwd_route = T.train_bwd_route(dtype, heads, 192, identity_mix=True)
+    before = dict(T.train_fwd.route_launches), dict(T.train_bwd.route_launches)
     got = T.flash_reattention_train(*kl, eye, zero, seed, num_heads=heads, rate=rate,
                                     identity_mix=True)
-    if T.train_fwd.route_launches["identity_tc"] != before["identity_tc"] + 1:
-        raise AssertionError("the identity Function's forward did not take the identity route")
     want = T.reattention_nxn(*rl, eye.double(), zero.double(), mask)[0]
     gk = torch.autograd.grad((got * g_out.to(got.dtype)).sum(), kl)
     gr = torch.autograd.grad((want * g_out.to(want.dtype)).sum(), rl)
+    if (T.train_fwd.route_launches[fwd_route] != before[0][fwd_route] + 1
+            or T.train_bwd.route_launches[bwd_route] != before[1][bwd_route] + 1):
+        raise AssertionError(f"the identity Function did not take {fwd_route} / {bwd_route}")
     rels = [rel_err(a, b)[1] for a, b in zip((got, *gk), (want, *gr))]
-    label = (f"identity Function B{batch} H{heads} dh192 N{n} bf16 rate {rate} "
-             f"[fwd identity_tc, bwd {T.train_bwd_route(dtype, heads, 192)}]")
+    label = (f"identity Function B{batch} H{heads} dh192 N{n} {str(dtype)[6:]} rate {rate} "
+             f"[fwd {fwd_route}, bwd {bwd_route}]")
     print(f"  {label}: out dq dk dv rel " + " ".join(f"{r:.1e}" for r in rels)
           + f" (tol {GRAD_TOL[dtype]:.0e})")
     for r in rels:
@@ -1315,12 +1457,33 @@ def phase_train_kernels():
             ident_err = max(ident_err, fwd_identity_turns(*shape, rate))
     for bits in IDENTITY_BITS:
         check_fwd_identity_bits(*bits)
-    for heads in (8, 4):
-        for rate in (0.0, RATE):
-            check_identity_function(4, heads, 256, rate)
-    check_identity_function(BATCH, 8, 256, RATE)      # HViTUNetTF's level-0 step shape
     total["fwd_identity"] = dict(err=ident_err, classes={
         f"H{heads} dh192 N256": time_fwd_identity(BATCH, heads, 192, 256) for heads in (8, 4)})
+    print("  the frozen-BN forward's f32 identity route (KerasMHA's f32 calls, split "
+          "precision):")
+    ident_err = 0.0
+    for shape in IDENTITY_FWD_CASES:
+        for rate in (0.0, RATE):
+            ident_err = max(ident_err, fwd_identity_turns(*shape, rate, dtype=torch.float32))
+    for bits in IDENTITY_BITS:
+        check_fwd_identity_bits(*bits, dtype=torch.float32)
+    total["fwd_identity_f32"] = dict(err=ident_err, classes={
+        f"H{heads} dh192 N256": time_fwd_identity(BATCH, heads, 192, 256, dtype=torch.float32)
+        for heads in (8, 4)})
+    print("  the backward's identity routes (KerasMHA's calls), bf16 and f32:")
+    for dtype in (torch.bfloat16, torch.float32):
+        ident_err = 0.0
+        for shape in IDENTITY_BWD_CASES:
+            for rate, head_base in ((0.0, 0), (RATE, 0), (RATE, 4)):
+                ident_err = max(ident_err, check_bwd_identity(*shape, dtype, rate, head_base))
+        for heads in (8, 4):
+            for rate in (0.0, RATE):
+                check_identity_function(4, heads, 256, rate, dtype)
+        total[f"bwd_identity_{str(dtype)[6:]}"] = dict(err=ident_err, classes={
+            f"H{heads} dh192 N256": time_bwd_identity(BATCH, heads, 192, 256, dtype)
+            for heads in (8, 4)})
+    for dtype in (torch.bfloat16, torch.float32):     # HViTUNetTF's level-0 step shape
+        check_identity_function(BATCH, 8, 256, RATE, dtype)
     print(f"  phase 2b: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -1440,7 +1603,7 @@ def phase_train():
     # both steps with the backward held on the CUDA-core route (the earlier
     # kernels) before and after: old, new, new, old, each the median of 5
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    held = mock.patch.object(T, "train_bwd_route", lambda *a: "cuda_core")
+    held = mock.patch.object(T, "train_bwd_route", lambda *a, **k: "cuda_core")
     for label, steps in (("exact-BN", exact), ("frozen-BN", frozen)):
         turns = []
         for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
@@ -1460,7 +1623,7 @@ def phase_train():
     # kernels) before and after: old, new, new, old
     for pick, label, steps in (("bn_fwd_route", "exact-BN", exact),
                                ("train_fwd_route", "frozen-BN", frozen)):
-        held = mock.patch.object(T, pick, lambda *a: "cuda_core")
+        held = mock.patch.object(T, pick, lambda *a, **k: "cuda_core")
         turns = []
         for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
             with held if route == "cuda_core" else contextlib.nullcontext():
@@ -2508,6 +2671,7 @@ TF_CALLS = 9
 TF_RS_CALLS = 20
 TF_RS_SKIPS = 1
 TF_VARIANT_STEPS = 3
+TF_F32_STEPS = 3              # (c2): steps a window of the default (f32) config
 
 
 def tf_batch(n, seed=2):
@@ -2563,12 +2727,12 @@ def sdpa_ms(batch, heads, dh, n, dtype):
 
 def tf_kernels(shape=TF_SHAPE, tag="(a)"):
     """``tag`` kernels 1-3 at a keras attention class (heads, dh, N) with
-    the identity mix, kernel 1 called as KerasMHA calls it (the flag that
-    says so): the level-0 class by default.  A kernel whose bf16 call takes
-    the tensor-core route is also timed against the CUDA-core route in
-    turns (``cuda_core_ms``: the faster of its two turns), and kernel 1 on
-    its identity route against the two-pass tensor-core route
-    (``tensor_core_ms``)."""
+    the identity mix, each called as KerasMHA calls it (the flag that says
+    so), on its identity route for the dtype: the level-0 class by default.
+    Each is timed against the route it took before its identity route in
+    turns (``cuda_core_ms`` / ``tensor_core_ms``: the faster of its two
+    turns); kernels 2-4 on their general routes with I and 0 are held
+    against their plain versions too."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     heads, dh, n = shape
     print(f"  {tag} kernels 1-3 at B{BATCH} H{heads} dh{dh} N{n}, identity head mix:")
@@ -2577,40 +2741,31 @@ def tf_kernels(shape=TF_SHAPE, tag="(a)"):
         name = str(dtype).replace("torch.", "")
         k1 = check_kernel(BATCH, heads, dh, n, n, dtype, reps=10, identity_mix=True,
                           label="identity")
-        tk = check_train_kernels(BATCH, heads, dh, n, n, dtype, RATE, reps=5,
-                                 identity=True)
-        bounds = train_bounds(BATCH, heads, dh, n, n, dtype)
+        check_train_kernels(BATCH, heads, dh, n, n, dtype, RATE, identity=True)
         row = {"flash_reattention": dict(err=k1["err"], ms=k1["ms"],
                                          plain_ms=k1["plain_ms"],
                                          bound=bound_of(k1["t_bytes"], k1["t_ops"]),
                                          library_ms=sdpa_ms(BATCH, heads, dh, n, dtype),
                                          route=k1["route"])}
-        # kernels 2 and 3 keep lse (and o_norm, off the identity route) for
-        # the backward and draw the Philox mask: no single library call
-        # computes that.  Kernel 2 as KerasMHA calls it (identity_mix=True):
-        # on its identity route in bf16, timed in turns against the
-        # CUDA-core route; in f32 on the CUDA-core route (o_norm dropped).
-        route = T.train_fwd_route(dtype, heads, dh, identity_mix=True)
-        if route == "identity_tc":
-            fwd = time_fwd_identity(BATCH, heads, dh, n)
-            row["train_fwd"] = dict(err=fwd["err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"],
-                                    bound=fwd["bound"], cuda_core_ms=fwd["cuda_core_ms"])
-        else:
-            row["train_fwd"] = dict(err=tk["fwd"]["err"], ms=tk["fwd"]["ms"],
-                                    plain_ms=tk["fwd"]["plain_ms"],
-                                    bound=bound_of(*bounds["fwd"]))
-        row["train_fwd"].update(library_ms=None, route=route)
-        row["train_bwd"] = dict(err=tk["bwd"]["err"], ms=tk["bwd"]["ms"],
-                                plain_ms=tk["bwd"]["plain_ms"], bound=bound_of(*bounds["bwd"]),
-                                library_ms=None, route=T.train_bwd_route(dtype, heads, dh))
+        # kernel 2 keeps lse for the backward and draws the Philox mask: no
+        # single library call computes that.  Kernel 3 at rate 0 is the
+        # backward of scaled_dot_product_attention, timed beside it.
+        fwd = time_fwd_identity(BATCH, heads, dh, n, dtype=dtype)
+        row["train_fwd"] = dict(err=fwd["err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+                                bound=fwd["bound"], cuda_core_ms=fwd["cuda_core_ms"],
+                                library_ms=None,
+                                route=T.train_fwd_route(dtype, heads, dh, identity_mix=True))
+        bwd = time_bwd_identity(BATCH, heads, dh, n, dtype)
+        row["train_bwd"] = {"err": bwd["err"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                            "bound": bwd["bound"], f"{bwd['old_route']}_ms": bwd["old_ms"],
+                            "library_ms": bwd["sdpa_ms"],
+                            "route": T.train_bwd_route(dtype, heads, dh, identity_mix=True)}
         k1_route = row["flash_reattention"]["route"]
         if k1_route == "identity_tc":
             row["flash_reattention"]["tensor_core_ms"] = time_identity(BATCH, heads, dh, n)["old"]
         if k1_route == "identity_f32":
             row["flash_reattention"]["cuda_core_ms"] = time_identity(
                 BATCH, heads, dh, n, torch.float32)["old"]
-        if row["train_bwd"]["route"] == "tensor_core":
-            row["train_bwd"]["cuda_core_ms"] = time_bwd_routes(BATCH, heads, dh, n)[0]
         for label, r in row.items():
             lib = "" if r["library_ms"] is None else f", sdpa {r['library_ms']:.4f} ms"
             old = "".join(f", {key[:-3]} route in turns {r[key]:.4f} ms"
@@ -2691,9 +2846,10 @@ def tf_training():
     launches, (state, losses, step_ms) = path_launches(
         lambda: timed_steps(steps, state, batch, TF_STEPS))
     n = TF_STEPS * TF_CALLS
-    # every kernel-2 launch on its identity route, no o_norm written or kept
+    # every kernel-2 and kernel-3 launch on its identity route, no o_norm
+    # written or kept, no map workspace
     require_launches(f"(c) {TF_STEPS} keras-attention train steps", launches,
-                     {"fwd": n, "fwd_identity_tc": n, "bwd": n, "bwd_tensor_core": n})
+                     {"fwd": n, "fwd_identity_tc": n, "bwd": n, "bwd_identity_tc": n})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     card = card_line()
     print(f"  (c) HViTUNetTF b{BATCH} bf16 train step (dropout 0.2/0.2/0.4): median "
@@ -2734,8 +2890,7 @@ def tf_training():
 def tf_variant():
     """(d) original_attn=False, flash_train=True, exact BN: kernels 4 and 3
     on the tensor cores at (8, 24/96/384); the level-0 skip's keras
-    attention on kernel 2's identity route and kernel 3's tensor-core
-    route at (8, 192)."""
+    attention on kernel 2's and kernel 3's identity routes at (8, 192)."""
     from vit_unet_tpu_torch import get_hvit_unet_tf
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
@@ -2753,7 +2908,8 @@ def tf_variant():
     require_launches(f"(d) re-attention variant, {TF_VARIANT_STEPS} exact-BN steps",
                      launches,
                      {"bn_fwd": r, "bn_fwd_tensor_core": r, "bwd": r + n,
-                      "bwd_tensor_core": r + n, "fwd": n, "fwd_identity_tc": n})
+                      "bwd_tensor_core": r, "bwd_identity_tc": n, "fwd": n,
+                      "fwd_identity_tc": n})
     print(f"  (d) HViTUNetTF(original_attn=False) b{BATCH} bf16 exact-BN step: "
           f"median {step_ms:.3f} ms, {BATCH / step_ms * 1e3:.1f} img/s, losses "
           f"{losses[0]:.5f} .. {losses[-1]:.5f} [{card_line()}]")
@@ -2800,6 +2956,75 @@ def tf_f32_forward():
     del model
     torch.cuda.empty_cache()
     return launches, dict(ms=new, cuda_core_ms=old)
+
+
+@contextlib.contextmanager
+def old_identity_routes():
+    """Kernels 2 and 3 held on the routes they took before their identity
+    routes: their route choices with the caller's flag ignored."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    fwd, bwd = T.train_fwd_route, T.train_bwd_route
+    with mock.patch.object(T, "train_fwd_route",
+                           lambda dt, h, d, identity_mix=False: fwd(dt, h, d)), \
+            mock.patch.object(T, "train_bwd_route",
+                              lambda dt, h, d, identity_mix=False: bwd(dt, h, d)):
+        yield
+
+
+def tf_f32_training():
+    """(c2) the default config as it is (float32, the config's dropout),
+    TF_F32_STEPS AdamW steps at b64, or the largest power-of-two batch that
+    fits: every kernel-2 and kernel-3 launch on its f32 identity route;
+    median ms, img/s and peak memory; then steps with kernels 2 and 3 held
+    on their old routes (the CUDA cores) and on the identity routes in
+    turns (old, new, new, old)."""
+    from vit_unet_tpu_torch import get_hvit_unet_tf
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model = get_hvit_unet_tf(device="cuda", seed=0, **TF_CONFIG).train()
+    opt = adamw(model, 1e-4)
+    state = TrainState.create(model=model, optimizer=opt, seed=1)
+    steps = build_step_functions(model, opt, mse)
+    n_img = BATCH
+    while True:
+        x = tf_batch(n_img)
+        batch = {"x": x, "y": 0.9 * x}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, _, _ = timed_steps(steps, state, batch, 1)       # warm-up
+            break
+        except torch.cuda.OutOfMemoryError:
+            model.zero_grad(set_to_none=True)
+            del x, batch
+            torch.cuda.empty_cache()
+            if n_img <= 8:
+                raise
+            print(f"  (c2) b{n_img} does not fit; halving the batch")
+            n_img //= 2
+    launches, (state, losses, step_ms) = path_launches(
+        lambda: timed_steps(steps, state, batch, TF_F32_STEPS))
+    n = TF_F32_STEPS * TF_CALLS
+    require_launches(f"(c2) {TF_F32_STEPS} f32 train steps", launches,
+                     {"fwd": n, "fwd_identity_f32": n, "bwd": n, "bwd_identity_f32": n})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    turns = []
+    for name in ("old", "new", "new", "old"):
+        with old_identity_routes() if name == "old" else contextlib.nullcontext():
+            state, _, ms = timed_steps(steps, state, batch, TF_F32_STEPS)
+        turns.append((name, ms))
+    old = min(t for r, t in turns if r == "old")
+    new = min(t for r, t in turns if r == "new")
+    print(f"  (c2) HViTUNetTF default config (f32) b{n_img} train step (dropout 0.2/0.2/0.4): "
+          f"median {step_ms:.3f} ms, {n_img / step_ms * 1e3:.1f} img/s, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f}, peak memory {peak:.2f} GiB; kernels 2 and 3 "
+          "in turns: " + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+          + f"; {old - new:.3f} ms faster [{card_line()}]")
+    device_breakdown(lambda: steps.train_step(state, batch), step_ms,
+                     "HViTUNetTF f32 train step", reps=1, top=12)
+    del model, opt, state, steps
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, peak_gib=peak, batch=n_img, ms=new, old_ms=old)
 
 
 def base_step(remat, block_type="reattention", flash_train=True, timed=True,
@@ -3021,12 +3246,13 @@ def phase_tf():
     serve, serve_t = tf_serving()
     f32_serve, f32_t = tf_f32_forward()
     train, train_t = tf_training()
+    f32_train, f32_train_t = tf_f32_training()
     variant = tf_variant()
     remat = tf_remat_fourier()
     print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
     return dict(kernels=kernels, serving=serve, train=train, variant=variant,
                 serve_t=serve_t, train_t=train_t, remat=remat, f32_serving=f32_serve,
-                f32_t=f32_t)
+                f32_t=f32_t, f32_train=f32_train, f32_train_t=f32_train_t)
 
 
 # --- phase 8: the classifier ----------------------------------------------------
@@ -4516,10 +4742,11 @@ def phase_tensor_parallel():
                 if not counts.get(key):
                     raise AssertionError(f"rank {r} {path}: kernel {key} never launched")
             launches.update(counts)
-        # the f32 split model's keras calls at (4, 192): kernel 1 on its f32
-        # identity route, kernel 2 on the CUDA cores
+        # the f32 split model's keras calls at (4, 192): kernels 1-3 on
+        # their f32 identity routes
         ev, st = res["launches"]["tf_eval"], res["launches"]["tf_step"]
-        if not (ev["eval"] == ev["eval_identity_f32"] and st["fwd"] == st["fwd_cuda_core"]):
+        if not (ev["eval"] == ev["eval_identity_f32"] and st["fwd"] == st["fwd_identity_f32"]
+                and st["bwd"] == st["bwd_identity_f32"]):
             raise AssertionError(f"rank {r}: the split model's routes {ev} {st}")
         if r == 0:
             print(f"  launches by route, rank 0: " + "; ".join(
@@ -4620,9 +4847,12 @@ def ex_convergence(root):
             missing = [k for k in EX_KERNELS[key] if not launches[key].get(k)]
             if missing:
                 raise AssertionError(f"{script} {key}: kernels {missing} never launched")
-            # HViTUNetTF's bf16 runs: every kernel-2 launch on its identity route
-            if key in EX_TF_RUNS and launches[key]["fwd"] != launches[key]["fwd_identity_tc"]:
-                raise AssertionError(f"sidd {key}: kernel 2 off its identity route: "
+            # HViTUNetTF's bf16 runs: every kernel-2 and kernel-3 launch on
+            # its identity route
+            if key in EX_TF_RUNS and (
+                    launches[key]["fwd"] != launches[key]["fwd_identity_tc"]
+                    or launches[key]["bwd"] != launches[key]["bwd_identity_tc"]):
+                raise AssertionError(f"sidd {key}: kernels 2-3 off their identity routes: "
                                      f"{launches[key]}")
         with open(os.path.join(root, "conv.json")) as fh:
             written = json.load(fh)
@@ -4800,7 +5030,8 @@ def main(argv=None) -> int:
     # TF-flavour model (phase 7: serving, the keras-attention steps and the
     # re-attention variant's steps) and the classifier (phase 8)
     model_paths = {"tf_serving": tf["serving"], "tf_f32_serving": tf["f32_serving"],
-                   "tf_train": tf["train"], "tf_variant": tf["variant"],
+                   "tf_train": tf["train"], "tf_f32_train": tf["f32_train"],
+                   "tf_variant": tf["variant"],
                    # the classifier (phase 8): its forward and steps, the CLI
                    "classifier": cls["model"], "classifier_cli": cls["cli"]}
     # phase 9: both ranks' sequence- and data-parallel paths and the NCCL step
@@ -4917,6 +5148,54 @@ def main(argv=None) -> int:
         "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound")}
                     for shape, r in fid["classes"].items()},
     })
+    # kernel 2's f32 identity route: KerasMHA's f32 training calls (phase 7's
+    # default-config steps, phase 10's split model)
+    fid32 = tk["fwd_identity_f32"]
+    t8 = fid32["classes"]["H8 dh192 N256"]
+    kernels.append({
+        "name": "flash_reattention_train_fwd_identity_f32",
+        "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/attention_identity_f32.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:363",
+        "launches": sum(c.get("fwd_identity_f32", 0) for c in model_paths.values()),
+        "launches_by_path": {p: c.get("fwd_identity_f32", 0) for p, c in model_paths.items()},
+        "max_abs_err": fid32["err"],
+        # (8, 192) at N 256, b64 f32, rate 0.2 (phase 2b); the bound counts
+        # the bf16 MMAs it issues, three a product
+        "ms": t8["ms"], "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound"][0], "bound_by": t8["bound"][1],
+        "library_ms": None,
+        "cuda_core_ms": t8["cuda_core_ms"],
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound")}
+                    for shape, r in fid32["classes"].items()},
+    })
+    # kernel 3's identity routes: KerasMHA's training calls, bf16 (phase 7's
+    # steps and variant, phase 11's SIDD runs) and f32 (phase 7's
+    # default-config steps, phase 10's split model)
+    for dt, route in (("bfloat16", "identity_tc"), ("float32", "identity_f32")):
+        bid = tk[f"bwd_identity_{dt}"]
+        b8 = bid["classes"]["H8 dh192 N256"]
+        kernels.append({
+            "name": "flash_reattention_train_bwd_identity" + ("_f32" if dt == "float32" else ""),
+            "route": "cuda",
+            "source": "vit_unet_tpu_torch/kernels/csrc/attention_identity_bwd.cuh",
+            "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:451",
+            "launches": sum(c.get(f"bwd_{route}", 0) for c in model_paths.values()),
+            "launches_by_path": {p: c.get(f"bwd_{route}", 0) for p, c in model_paths.items()},
+            "max_abs_err": bid["err"],
+            # (8, 192) at N 256, b64, rate 0.2 (phase 2b); f32: the bound
+            # counts the bf16 MMAs it issues, three a product
+            "ms": b8["ms"], "plain_ms": b8["plain_ms"],
+            "bound_ms": b8["bound"][0], "bound_by": b8["bound"][1],
+            # with the identity mix, at rate 0, the backward of
+            # scaled_dot_product_attention computes the same gradients
+            "library_ms": b8["sdpa_ms"],
+            # the route the call took before, on the same inputs, in turns
+            "old_route": b8["old_route"], "old_ms": b8["old_ms"],
+            "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "old_route", "old_ms",
+                                                         "bound", "sdpa_ms")}
+                        for shape, r in bid["classes"].items()},
+        })
     for key, name, replaces in TRAIN_KERNELS:
         t = tk[key]
         kernels.append({
@@ -4969,6 +5248,9 @@ def main(argv=None) -> int:
         # the CUDA-core route on the same inputs, in turns
         "cuda_core_ms": b16["cuda_core_ms"],
     })
+    idle = [kern["name"] for kern in kernels if not kern["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on a main path: {idle}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

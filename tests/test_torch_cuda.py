@@ -410,9 +410,6 @@ BWD_TC_CASES = [
     (4, 8, 24, 100, 9), (4, 8, 24, 1, 49), (4, 8, 96, 1, 49), (4, 8, 384, 1, 49),
     (4, 8, 96, 96, 200), (4, 8, 24, 200, 96), (2, 8, 384, 70, 130),
 ]
-# the backward alone: HViTUNetTF's keras class (8, 192) at its N and ragged
-# over more than one 64-key tile (its forwards stay on the CUDA cores)
-KERAS_BWD_CASES = [(2, 8, 192, 256, 256), (2, 8, 192, 100, 130)]
 # the classifier's 16-head classes at its N and ragged: more keys than
 # queries over 9 key tiles of 16, more queries than keys over 3 tiles of
 # 32, a single query
@@ -434,8 +431,7 @@ def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
 
 @pytest.mark.parametrize("bn", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k",
-                         BWD_TC_CASES + KERAS_BWD_CASES + HEAD16_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES)
 def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == "tensor_core"
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate, bn)
@@ -443,13 +439,12 @@ def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, r
     got = TT.train_bwd(*args)
     torch.cuda.synchronize()
     assert TT.train_bwd.route_launches == {
-        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+        **before, "tensor_core": before["tensor_core"] + 1}
     for a, b in zip(got, TT.train_bwd_plain(*args)):
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k",
-                         BWD_TC_CASES + KERAS_BWD_CASES + HEAD16_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES)
 def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
     tc = TT.launch_bwd(*args, route="tensor_core")
@@ -459,9 +454,9 @@ def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [(2, 8, 384, 70, 130)] + KERAS_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", [(2, 8, 384, 70, 130), (2, 8, 384, 49, 49)])
 def test_bwd_maps_form_repeats_bit_for_bit(cuda, batch, heads, dh, n_q, n_k):
-    """The classes with a workspace (maps, then products) use no atomics:
+    """The class with a workspace (maps, then products) uses no atomics:
     two calls on the same inputs give the same bits."""
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
     first = TT.launch_bwd(*args, route="tensor_core")
@@ -489,8 +484,24 @@ def test_bwd_float32_takes_the_cuda_core_route(cuda):
     TT.train_bwd(*args)
     torch.cuda.synchronize()
     assert TT.train_bwd.route_launches == {
-        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+        **before, "cuda_core": before["cuda_core"] + 1}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
+        TT.launch_bwd(*args, route="tensor_core")
+
+
+def test_bwd_general_mix_at_the_keras_class_takes_the_cuda_core_route(cuda):
+    """(8, 192) has no tensor-core class: a general-mix bf16 call there
+    takes the CUDA cores (the keras attention's calls take the identity
+    route)."""
+    args = _bwd_args(cuda, torch.bfloat16, 2, 8, 192, 100, 130, 0.2, True)
+    before = dict(TT.train_bwd.route_launches)
+    got = TT.train_bwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_bwd.route_launches == {
+        **before, "cuda_core": before["cuda_core"] + 1}
+    for a, b in zip(got, TT.train_bwd_plain(*args)):
+        assert _rel(a, b) <= F32_TOL[torch.bfloat16]
+    with pytest.raises(RuntimeError):
         TT.launch_bwd(*args, route="tensor_core")
 
 
@@ -691,13 +702,140 @@ def test_fwd_identity_dropout_bits_match_dropout_mask(cuda, heads, n, head_base)
 
 
 def test_fwd_identity_route_takes_only_its_classes_in_bf16(cuda):
-    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.float32, 2, 8, 192, 64, 64)
-    with pytest.raises(RuntimeError):     # bfloat16 only
-        TT.launch_train_fwd_identity(q, k, v, seed, 0.2)
-    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, 2, 8, 96, 64, 64)
-    with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
-        TT.launch_train_fwd_identity(q, k, v, seed, 0.2)
-    assert TT.train_fwd_route(torch.float32, 8, 192, identity_mix=True) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, _, _, seed = _train_inputs(cuda, dtype, 2, 8, 96, 64, 64)
+        with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
+            TT.launch_train_fwd_identity(q, k, v, seed, 0.2)
+    assert TT.train_fwd_route(torch.float32, 8, 192, identity_mix=True) == "identity_f32"
+    assert TT.train_fwd_route(torch.float32, 8, 192) == "cuda_core"
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_FWD_CASES)
+def test_fwd_identity_f32_route_matches_plain_and_the_cuda_core_route(cuda, batch, heads, dh,
+                                                                      n_q, n_k, rate):
+    """Kernel 2's float32 identity route (split-precision MMAs, the
+    dropout) at f32's tolerance against its plain version and route 0."""
+    assert TT.train_fwd_route(torch.float32, heads, dh, identity_mix=True) == "identity_f32"
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.float32, batch, heads, dh, n_q, n_k)
+    before = dict(TT.train_fwd.route_launches)
+    out, lse = TT.train_fwd_identity(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    assert TT.train_fwd.route_launches == {
+        **before, "identity_f32": before["identity_f32"] + 1}
+    want_out, want_lse = TT.train_fwd_identity_plain(q, k, v, seed, rate)
+    assert out.dtype == torch.float32
+    assert _rel(out, want_out) <= TOL[torch.float32]
+    assert _rel(lse, want_lse) <= F32_TOL[torch.float32]
+    eye, zero = torch.eye(heads, device=cuda), torch.zeros(heads, device=cuda)
+    cc_out, cc_lse, _ = TT.launch_train_fwd(q, k, v, v.sum(1), eye, zero, seed, rate,
+                                            route="cuda_core")
+    torch.cuda.synchronize()
+    assert _rel(out, cc_out) <= TOL[torch.float32]
+    assert _rel(lse, cc_lse) <= F32_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("heads,n,head_base", [(8, 192, 0), (4, 100, 4)])
+def test_fwd_identity_f32_dropout_bits_match_dropout_mask(cuda, heads, n, head_base):
+    """As the bf16 route's read-back, in float32."""
+    rate, dh = 0.2, 192
+    q = torch.zeros(2, heads, n, dh, device=cuda)
+    k = torch.randn(2, heads, n, dh, device=cuda)
+    vh = (torch.arange(n, device=cuda)[:, None] % dh
+          == torch.arange(dh, device=cuda)[None, :]).float()
+    v = vh.repeat(1, heads).expand(2, n, heads * dh).contiguous()
+    seed = torch.tensor([31], device=cuda)
+    out, _ = TT.train_fwd_identity(q, k, v, seed, rate, head_base=head_base)
+    mask = TT.dropout_mask(31, rate, 2, heads, n, n, cuda, head_base) > 0
+    want = torch.einsum("bhnm,md->bnhd", mask.float(), vh).flatten(-2)
+    assert torch.equal(torch.round(out * n * (1 - rate)), want)
+
+
+# --- the backward's identity routes (KerasMHA's training calls) ---------------------
+
+# its two classes at N 256, the level-0 skip's 64 queries of 256 keys, ragged
+# (partial query and key tiles, partial dropout windows), a single query
+IDENTITY_BWD_CASES = [(2, 8, 192, 256, 256), (2, 4, 192, 256, 256), (2, 8, 192, 64, 256),
+                      (2, 8, 192, 70, 130), (2, 4, 192, 1, 49)]
+
+
+def _identity_bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate):
+    """(q, k, v, lse, g, d, seed) as the identity Function forms them."""
+    q, k, v, _, _, gout, seed = _train_inputs(cuda, dtype, batch, heads, dh, n_q, n_k)
+    out, lse = TT.train_fwd_identity_plain(q, k, v, seed, rate)
+    d = (gout.float() * out.float()).reshape(batch, n_q, heads, dh).sum(-1).transpose(1, 2)
+    return q, k, v, lse, gout, d.contiguous(), seed
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate,head_base", [(0.0, 0), (0.2, 0), (0.2, 4)])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_BWD_CASES)
+def test_bwd_identity_routes_match_plain(cuda, dtype, rate, head_base, batch, heads, dh, n_q,
+                                         n_k):
+    """``train_bwd_identity`` on its identity route against its plain
+    version (``train_bwd_plain`` with I), dq, dk, dv at the f32 outputs'
+    tolerance, and against the general route with I."""
+    route = TT.train_bwd_route(dtype, heads, dh, identity_mix=True)
+    assert route == ("identity_f32" if dtype == torch.float32 else "identity_tc")
+    q, k, v, lse, g, d, seed = _identity_bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate)
+    before = TT.train_bwd.launches, dict(TT.train_bwd.route_launches)
+    got = TT.train_bwd_identity(q, k, v, lse, g, d, seed, rate, head_base)
+    torch.cuda.synchronize()
+    assert TT.train_bwd.launches == before[0] + 1
+    assert TT.train_bwd.route_launches == {**before[1], route: before[1][route] + 1}
+    want = TT.train_bwd_identity_plain(q, k, v, lse, g, d, seed, rate, head_base)
+    other = TT.launch_bwd(q, k, v, lse, g, torch.eye(heads, device=cuda), d, seed, rate,
+                          route=TT.train_bwd_route(dtype, heads, dh), head_base=head_base)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, other):
+        assert a.dtype == torch.float32
+        assert _rel(a, b) <= F32_TOL[dtype]
+        assert _rel(a, c) <= F32_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [8, 4])
+def test_identity_function_gradients_match_float64_autograd(cuda, dtype, heads):
+    """The identity Function on both identity routes (forward and
+    backward), rate 0.2: out and the gradients of q, k, v against torch
+    autograd of the N x N forward with I and 0 and the same mask, in
+    float64 (f32 1e-3, bf16 3e-2 of the largest entry)."""
+    n, dh, rate = 256, 192, 0.2
+    q, k, v, _, _, gout, seed = _train_inputs(cuda, dtype, 2, heads, dh, n, n)
+    eye, zero = torch.eye(heads, device=cuda), torch.zeros(heads, device=cuda)
+    mask = TT.dropout_mask(99, rate, 2, heads, n, n, cuda)
+    kl = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    rl = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    before = dict(TT.train_bwd.route_launches)
+    got = TT.flash_reattention_train(*kl, eye, zero, seed, num_heads=heads, rate=rate,
+                                     identity_mix=True)
+    gk = torch.autograd.grad((got * gout).sum(), kl)
+    route = TT.train_bwd_route(dtype, heads, dh, identity_mix=True)
+    assert TT.train_bwd.route_launches[route] == before[route] + 1
+    want = TT.reattention_nxn(*rl, eye.double(), zero.double(), mask)[0]
+    gr = torch.autograd.grad((want * gout.double()).sum(), rl)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for a, b in zip((got, *gk), (want, *gr)):
+        assert _rel(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", IDENTITY_BWD_CASES[::3])
+def test_bwd_identity_routes_repeat_bit_for_bit(cuda, dtype, batch, heads, dh, n_q, n_k):
+    """The identity routes write dq, dk and dv once each (no atomics): two
+    calls on the same inputs give the same bits."""
+    args = _identity_bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, 0.2)
+    first = TT.launch_bwd_identity(*args, 0.2)
+    again = TT.launch_bwd_identity(*args, 0.2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bwd_identity_routes_take_only_their_classes(cuda):
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _identity_bwd_args(cuda, dtype, 2, 8, 96, 64, 64, 0.2)
+        with pytest.raises(RuntimeError):     # (8, 96) is not an identity class
+            TT.launch_bwd_identity(*args, 0.2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])

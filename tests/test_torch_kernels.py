@@ -165,7 +165,8 @@ def test_each_library_hashes_its_own_headers():
         "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
         "reattention_tiles.cuh"]
     assert names("flash_reattention_train.cu") == [
-        "flash_reattention_train.cu", "attention_identity_tc.cuh",
+        "flash_reattention_train.cu", "attention_identity_bwd.cuh",
+        "attention_identity_f32.cuh", "attention_identity_tc.cuh",
         "reattention_bnfwd16_tc.cuh", "reattention_bnfwd_tc.cuh", "reattention_bwd_tc.cuh",
         "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
         "reattention_tiles.cuh"]

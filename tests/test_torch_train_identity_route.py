@@ -32,8 +32,9 @@ TOL = 1e-4
     (torch.bfloat16, 4, 192, True, "identity_tc"),     # a rank's heads at model 2
     (torch.bfloat16, 8, 192, False, "cuda_core"),      # without the flag
     (torch.bfloat16, 4, 192, False, "cuda_core"),
-    (torch.float32, 8, 192, True, "cuda_core"),        # f32: the CUDA cores
-    (torch.float32, 4, 192, True, "cuda_core"),
+    (torch.float32, 8, 192, True, "identity_f32"),     # f32: split precision
+    (torch.float32, 4, 192, True, "identity_f32"),
+    (torch.float32, 8, 192, False, "cuda_core"),       # without the flag
     (torch.bfloat16, 8, 96, True, "tensor_core"),      # other classes keep theirs
     (torch.bfloat16, 8, 24, True, "tensor_core"),
     (torch.bfloat16, 2, 192, True, "cuda_core"),

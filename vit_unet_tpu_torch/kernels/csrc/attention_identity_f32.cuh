@@ -1,17 +1,23 @@
-// Eval flash re-attention with the identity head mix in float32, on
-// Hopper's tensor cores in split precision: route 3 of vit_flash_reattention
-// (flash_reattention.cu), at the keras-attention classes (8, 192) and
-// (4, 192).
+// Flash re-attention with the identity head mix in float32, on Hopper's
+// tensor cores in split precision, at the keras-attention classes (8, 192)
+// and (4, 192): route 3 of vit_flash_reattention (flash_reattention.cu, eval)
+// and route 3 of vit_train_fwd (flash_reattention_train.cu, the training
+// forward, with the in-map dropout).
 //
-// Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention.py
-// ::flash_reattention (body _kernel) at the float32 calls of the keras
-// attention (vit_unet_tpu/nn/mha.py; HViTUNetTFConfig's default dtype),
-// whose head mix is M = I, c = 0.  The function is attention_identity_tc.cuh's,
+// Replaces the Pallas TPU kernels vit_unet_tpu/kernels/flash_reattention.py
+// ::flash_reattention (body _kernel) and vit_unet_tpu/kernels/
+// flash_reattention_train.py::_fwd (body _fwd_kernel) at the float32 calls
+// of the keras attention (vit_unet_tpu/nn/mha.py; HViTUNetTFConfig's default
+// dtype), whose head mix is M = I, c = 0.  The function is
+// attention_identity_tc.cuh's,
 //
-//   out[b, n, h*dh:(h+1)*dh] = softmax(q_h[n] . k_h^T) V_h     (f32)
-//   lse[b, h, n]             = log sum_m exp(q_h[n] . k_h[m])   (f32)
+//   out[b, n, h*dh:(h+1)*dh] = sum_m A_h[n, m] V_h[m]            (f32)
+//   lse[b, h, n]             = log sum_m exp(q_h[n] . k_h[m])   (f32, before dropout)
 //
-// and w and b are not read.
+// with A_h = softmax(q_h k_h^T) * mask (mask = 1 in eval; in training the
+// dropout scale of vit::keep_scales' rule, drawn as attention_identity_tc.cuh
+// draws it: a lane's Philox calls once a 64-key window, its keep bits in a
+// register for both 32-key tiles), and w, b, m_eff, c_eff are not read.
 //
 // The precision of three bf16 passes, not f32's.  Every f32 operand x is
 // carried as the pair hi = bf16(x), lo = bf16(x - hi): hi + lo is x to about
@@ -44,6 +50,8 @@
 //   * S = q K^T and acc += P V by mma.sync m16n8k16 (three a product),
 //     online softmax in registers in base 2, as in the bf16 route; P is
 //     split in registers into the A fragments of the P V product;
+//   * with the dropout, P's dropped entries are 0 and its kept ones scaled
+//     by 1/(1 - rate) after the row sum is taken, before the split;
 //   * out = acc / l goes to device memory as 8-byte stores from the C
 //     fragments (each row's 32 bytes a quad of lanes), lse = m + log l.
 //     Without keys the output is 0 and lse +inf, as on the other routes.
@@ -58,6 +66,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_identity_tc.cuh"
 #include "reattention_mma.cuh"
 #include "reattention_tiles.cuh"
 
@@ -121,10 +130,13 @@ __device__ __forceinline__ void mma3(float* c, const uint32_t* a_hi, const uint3
 
 // Grid (q tiles, H, B).  q (B, H, Nq, dh) pre-scaled, k (B, H, Nk, dh),
 // v (B, Nk, H dh), all f32; out (B, Nq, H dh) f32, lse (B, H, Nq) f32.
-template <typename C>
+// DROP: the dropout of seed[0], keep iff bits >> 8 >= thr, kept entries
+// times scale.
+template <typename C, bool DROP>
 __global__ void __launch_bounds__(C::NT, 1) attend_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk) {
+    float* __restrict__ lse, float* __restrict__ out, int heads, int nq, int nk,
+    const int64_t* __restrict__ seed, uint32_t thr, float scale) {
   extern __shared__ __align__(128) unsigned char idf_smem[];
   bf16* q_hi = reinterpret_cast<bf16*>(idf_smem);   // [BQ][LD]
   bf16* q_lo = q_hi + C::Q_ELEMS;
@@ -173,6 +185,9 @@ __global__ void __launch_bounds__(C::NT, 1) attend_f32_kernel(
   // log2 e) and this lane's part of the running sum
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   const int a_off = (16 * warp + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LD + 8 * (lane / 16);
+  uint64_t sd = 0;
+  uint32_t keep = 0;   // this lane's keep bits of the current 64-key window
+  if constexpr (DROP) sd = static_cast<uint64_t>(seed[0]);
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
@@ -244,6 +259,18 @@ __global__ void __launch_bounds__(C::NT, 1) attend_f32_kernel(
         s[nt][e] = fast_exp2(s[nt][e] - m_run[e / 2]);   // 0 past Nk
         l_run[e / 2] += s[nt][e];
       }
+    if constexpr (DROP) {
+      static_assert(C::BK == 32, "a tile is half a 64-key dropout window");
+      if ((k0 & 63) == 0)
+        keep = vit_id::window_keep(sd, thr, b, h, q0 + 16 * warp + g, nq, k0 >> 6, t4);
+      const int j0 = (k0 & 63) >> 3;   // 8-key tiles of the window before this one
+#pragma unroll
+      for (int nt = 0; nt < C::NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = (keep >> (16 * (e / 2) + 2 * (j0 + nt) + e % 2)) & 1u ? s[nt][e] * scale
+                                                                           : 0.f;
+    }
 
     // acc += P V, 16 keys a step, P split in registers
 #pragma unroll
@@ -284,19 +311,40 @@ __global__ void __launch_bounds__(C::NT, 1) attend_f32_kernel(
   }
 }
 
-// The route's classes: (8, 192) and (4, 192), float32; the kernel depends on
-// dh alone.  cudaErrorInvalidValue for any other shape.
-inline int launch(const void* q, const void* k, const void* v, float* lse, void* out, int batch,
-                  int heads, int nq, int nk, int dh, cudaStream_t stream) {
+// The routes' classes: (8, 192) and (4, 192), float32; the kernel depends on
+// dh alone.  cudaErrorInvalidValue for any other shape.  seed: a device
+// int64, read only with DROP (thr > 0).
+template <bool DROP>
+int launch(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+           float scale, float* lse, void* out, int batch, int heads, int nq, int nk, int dh,
+           cudaStream_t stream) {
   if (dh != 192 || (heads != 8 && heads != 4)) return static_cast<int>(cudaErrorInvalidValue);
   using C = Cfg<192, 32, 8>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attend_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+  cudaError_t err = cudaFuncSetAttribute(attend_f32_kernel<C, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attend_f32_kernel<C><<<dim3((nq + C::BQ - 1) / C::BQ, heads, batch), C::NT, C::SMEM, stream>>>(
+  attend_f32_kernel<C, DROP><<<dim3((nq + C::BQ - 1) / C::BQ, heads, batch), C::NT, C::SMEM,
+                               stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      lse, static_cast<float*>(out), heads, nq, nk);
+      lse, static_cast<float*>(out), heads, nq, nk, seed, static_cast<uint32_t>(thr), scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 1's route: no dropout.
+inline int launch_eval(const void* q, const void* k, const void* v, float* lse, void* out,
+                       int batch, int heads, int nq, int nk, int dh, cudaStream_t stream) {
+  return launch<false>(q, k, v, nullptr, 0, 1.f, lse, out, batch, heads, nq, nk, dh, stream);
+}
+
+// Kernel 2's route: the training forward, with the dropout where thr > 0.
+inline int launch_train(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+                        float scale, float* lse, void* out, int batch, int heads, int nq, int nk,
+                        int dh, cudaStream_t stream) {
+  return thr > 0 ? launch<true>(q, k, v, seed, thr, scale, lse, out, batch, heads, nq, nk, dh,
+                                stream)
+                 : launch<false>(q, k, v, seed, thr, scale, lse, out, batch, heads, nq, nk, dh,
+                                 stream);
 }
 
 }  // namespace vit_idf

@@ -295,7 +295,7 @@ int vit_flash_reattention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 3 && dtype == 0 && passes == 3)
-    return vit_idf::launch(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
+    return vit_idf::launch_eval(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 2 && dtype == 1 && passes == 3)
     return vit_id::launch_eval(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 1 && dtype == 1)

@@ -62,11 +62,15 @@
 // classes for the backward and the exact-BN forward), each piece computed
 // once (reattention_bnfwd_tc.cuh for both forwards, reattention_bnfwd16_tc.cuh
 // for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The frozen
-// forward has a third, for the keras attention's identity mix (M = I, c = 0)
-// in bf16 at (8, 192) and (4, 192): attention_identity_tc.cuh in one pass
-// with the dropout, writing out and lse and no o_norm.  The kernels here are
-// the CUDA-core route, for f32 and every other shape.
+// forward has two more for the keras attention's identity mix (M = I, c = 0)
+// at (8, 192) and (4, 192), one pass with the dropout writing out and lse and
+// no o_norm: attention_identity_tc.cuh in bf16, attention_identity_f32.cuh in
+// f32 (split precision); and so has the backward, with no head-mix or BN
+// term and no workspace: attention_identity_bwd.cuh in both.  The kernels
+// here are the CUDA-core route, for f32 and every other shape.
 
+#include "attention_identity_bwd.cuh"
+#include "attention_identity_f32.cuh"
 #include "attention_identity_tc.cuh"
 #include "reattention_bnfwd16_tc.cuh"
 #include "reattention_bnfwd_tc.cuh"
@@ -707,9 +711,9 @@ extern "C" {
 // (0 on success), or cudaErrorInvalidValue for shapes it does not take.
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh only), 2 the identity mix (bf16 at (8, 192) and
-// (4, 192) only: vsum, m_eff, c_eff and onorm are not touched and may be
-// null, the mix is M = I, c = 0).
+// reattention_bnfwd_tc.cuh only), 2 and 3 the identity mix at (8, 192) and
+// (4, 192) only, 2 in bf16, 3 in f32 (vsum, m_eff, c_eff and onorm are not
+// touched and may be null, the mix is M = I, c = 0).
 int vit_train_fwd(const void* q, const void* k, const void* v,
                   const float* vsum, const float* m_eff, const float* c_eff,
                   const int64_t* seed, int thr, float scale, float* lse,
@@ -717,12 +721,15 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
                   int dh, int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 2 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((route == 2 && dtype != 1) || (route == 3 && dtype != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == 2)
     return thr > 0 ? vit_id::launch<true>(q, k, v, seed, thr, scale, lse, out, batch, heads,
                                           nq, nk, dh, s)
                    : vit_id::launch<false>(q, k, v, seed, thr, scale, lse, out, batch, heads,
                                            nq, nk, dh, s);
+  if (route == 3)
+    return vit_idf::launch_train(q, k, v, seed, thr, scale, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 1)
     return dtype == 1 ? vit_bnfwd::train_fwd_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale,
                                                 lse, onorm, out, batch, heads, nq, nk, dh, s)
@@ -768,7 +775,10 @@ int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
 // route: 0 the CUDA cores (dq written, dk zeroed), 1 the tensor cores (bf16
 // at the classes of reattention_bwd_tc.cuh only; work: a device buffer of
 // vit_train_bwd_workspace bytes, null where that is 0; where it is 0, dq must
-// be zeroed, else every output is written once).
+// be zeroed, else every output is written once), 2 and 3 the identity mix at
+// (8, 192) and (4, 192) only, 2 in bf16, 3 in f32 (attention_identity_bwd.cuh:
+// m_eff is not read, gmat and kappa must be null, every output is written
+// once).
 int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* dvec, const float* m_eff,
                   const float* gmat, const float* kappa, const int64_t* seed,
@@ -778,6 +788,11 @@ int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
   if (bad_shape(batch, heads, nq, nk, dh) || (gmat == nullptr) != (kappa == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2 || route == 3)
+    return gmat == nullptr && dtype == 3 - route
+               ? vit_idb::train_bwd_identity(q, k, v, g, lse, dvec, seed, thr, scale, dq, dk, dv,
+                                             batch, heads, nq, nk, dh, dtype, s)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (route == 1)
     return dtype == 1 ? vit_bwd::train_bwd_tc(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed,
                                               thr, scale, dq, dk, dv, work, batch, heads, nq,

@@ -1,8 +1,9 @@
 // Training backward of flash re-attention on the tensor cores: the bfloat16
 // route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
 // classes train_bwd_tc instantiates: the levels of base and large (8 heads,
-// dh 24, 96, 384), HViTUNetTF's level-0 keras attention (8, 192) and the
-// classifier's 16-head levels (16, 12) and (16, 48).
+// dh 24, 96, 384) and the classifier's 16-head levels (16, 12) and (16, 48).
+// The keras attention's identity-mix calls at (8, 192) take
+// attention_identity_bwd.cuh.
 //
 // Replaces the Pallas TPU kernel vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bwd (pallas_call body _bwd_dkv_kernel) there.  With A_h = P_h * mask_h:
@@ -813,16 +814,14 @@ int launch_staged(const void* q, const void* k, const void* v, const void* g, co
 }
 
 // ---------------------------------------------------------------------------
-// dh 192 and 384 (HViTUNetTF's level 0, base's N = 49 level): maps, then
-// products
+// dh 384 (base's N = 49 level): maps, then products
 // ---------------------------------------------------------------------------
 //
 // At dh 384 one head's K and V rows of 16 keys take 25 KB, and dk, dv of a
-// 16-key tile 384 registers a thread (at dh 192, 192), so the kernel above
-// does not fit.  The function runs in two kernels through a bf16 workspace
-// of four planes (dS hi, dS lo, B hi, B lo), each (B, H, Nq padded to 16,
-// Nk padded to 64), small at base's 49 x 49 maps and 256 MiB at
-// HViTUNetTF's b64 N 256:
+// 16-key tile 384 registers a thread, so the kernel above does not fit.
+// The function runs in two kernels through a bf16 workspace of four planes
+// (dS hi, dS lo, B hi, B lo), each (B, H, Nq padded to 16, Nk padded to 64),
+// small at base's 49 x 49 maps:
 //   maps_kernel, grid (q tiles of 16, B), warp w = head w, a loop over the
 //     key tiles of 64: S_w and T_w of 16 queries x 64 keys by mma.sync over
 //     depth chunks of 32 staged per warp (cp.async, __syncwarp only),
@@ -851,7 +850,7 @@ struct MapCfg {
 
 // bytes of the workspace (0 where the class needs none)
 inline size_t map_workspace(int batch, int heads, int nq, int nk, int dh) {
-  if (heads != 8 || (dh != 192 && dh != 384)) return 0;
+  if (heads != 8 || dh != 384) return 0;
   return sizeof(bf16) * 4 * (size_t)batch * heads * ((nq + 15) / 16 * 16) * ((nk + 63) / 64 * 64);
 }
 
@@ -1145,11 +1144,6 @@ int launch_maps(const void* q, const void* k, const void* v, const void* g, cons
 //            173,600 B, 256 blocks at base b64; prods_kernel 27,648 B, 4 warps,
 //            3,072 blocks; the workspace (map_workspace) 4 x B x H x 64 x 64
 //            bf16 = 16.8 MB at base b64;
-//   (8, 192): the same two kernels (their shared memory does not depend on
-//            dh): maps_kernel 1,024 blocks at HViTUNetTF's b64 N 256 (16 q
-//            tiles x 64 images), each looping over 4 key tiles of 6 depth
-//            chunks; prods_kernel grid (3, 8, 64); the workspace 4 x B x H x
-//            256 x 256 bf16 = 256 MiB there;
 //   (16, 12): staged_kernel, BKEY 32, BQ 16: K, V 49,152 + q, g 24,576 +
 //            the P, T stage (= dS, B hi, lo) 81,920 + lse, D, M, M^T, G,
 //            kappa 5,184 = 160,832 B; 1,600 blocks at the classifier's b64
@@ -1179,7 +1173,6 @@ inline int train_bwd_tc(const void* q, const void* k, const void* v, const void*
 #define VIT_BWD_MAPS(DH)                                                                \
   launch_maps<MapCfg<8, DH>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, \
                              dk, dv, work, batch, nq, nk, stream)
-  if (heads == 8 && dh == 192) return VIT_BWD_MAPS(192);
   if (heads == 8 && dh == 384) return VIT_BWD_MAPS(384);
 #undef VIT_BWD_MAPS
   return static_cast<int>(cudaErrorInvalidValue);

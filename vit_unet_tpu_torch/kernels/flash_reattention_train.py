@@ -10,13 +10,15 @@ beside it and a launch counter:
 
 * ``train_fwd``  <- ``_fwd`` (:363): frozen-BN forward, writes the mixed
   ``out``, the pre-dropout ``lse`` (B, H, Nq) f32 and ``o_norm``
-  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Three
-  routes, named by ``train_fwd_route``: ``identity_tc``
+  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Four
+  routes, named by ``train_fwd_route``: for the identity head mix (M = I,
+  c = 0, the keras attention's, where the caller says so with
+  ``identity_mix=True``) at ``IDENTITY_TC_SHAPES``, ``identity_tc``
   (``csrc/attention_identity_tc.cuh``, one pass, the flash-attention
-  forward with the dropout) for the identity head mix (M = I, c = 0, the
-  keras attention's, where the caller says so with ``identity_mix=True``)
-  in bfloat16 at ``IDENTITY_TC_SHAPES``: it writes out and lse and no
-  o_norm (``train_fwd_identity``); ``tensor_core``
+  forward with the dropout) in bfloat16 and ``identity_f32``
+  (``csrc/attention_identity_f32.cuh``, the same pass with every product as
+  three bf16 MMAs of hi + lo pairs) in float32: they write out and lse and
+  no o_norm (``train_fwd_identity``); ``tensor_core``
   (``csrc/reattention_bnfwd_tc.cuh``, the exact-BN sweep below without S
   and C, with the head mix as its epilogue, taken from the f32 o_norm as
   the TPU epilogue takes it) for bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
@@ -34,17 +36,23 @@ beside it and a launch counter:
   FMAs) for float32 and every other shape;
 * ``train_bwd``  <- ``_bwd`` (:451): dq, dk, dv (f32) from the residuals,
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
-  It has two routes, and ``train_bwd_route`` names the one a call takes from
-  the input dtype and (heads, dh), nothing else: ``tensor_core``
+  ``train_bwd_route`` names the route a call takes from the input dtype,
+  (heads, dh) and the caller's ``identity_mix`` flag, nothing else: for the
+  identity head mix at ``IDENTITY_TC_SHAPES`` (``train_bwd_identity``,
+  no BN term), ``identity_tc`` in bfloat16 and ``identity_f32`` in float32
+  (``csrc/attention_identity_bwd.cuh``: the flash-attention backward with
+  the dropout regenerated, a dq kernel and a dk / dv kernel, each output
+  written once, no workspace; the map side of each product as bf16 hi + lo,
+  f32 inputs split the same way); ``tensor_core``
   (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``
-  (base's and large's levels, HViTUNetTF's level-0 keras attention and the
-  classifier's 16-head levels (16, 12) and (16, 48)), every product a bf16
-  MMA with dS and the head-mixed map B carried as bf16 pairs hi + lo: one
-  fused kernel at (8, 24) and (8, 96), the same steps with the
-  probabilities and g.v staged through shared memory at 16 heads, and at
-  dh 192 and 384 a kernel that writes dS and B to a bf16 workspace and one
-  that forms dq, dk and dv from it; ``cuda_core`` (f32 FMAs) for float32
-  and every other shape.
+  (base's and large's levels and the classifier's 16-head levels (16, 12)
+  and (16, 48)), every product a bf16 MMA with dS and the head-mixed map B
+  carried as bf16 pairs hi + lo: one fused kernel at (8, 24) and (8, 96),
+  the same steps with the probabilities and g.v staged through shared
+  memory at 16 heads, and at dh 384 a kernel that writes dS and B to a
+  bf16 workspace and one that forms dq, dk and dv from it; ``cuda_core``
+  (f32 FMAs) for float32 and every other shape (a general-mix call at
+  (8, 192) too).
 
 A_h = softmax(q_h k_h^T) * mask, where the dropout mask keeps an entry iff
 the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
@@ -86,16 +94,18 @@ from vit_unet_tpu_torch.kernels.flash_reattention import (
 )
 
 ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
-#: the frozen-BN forward's routes: also route 2, the identity mix
-FWD_ROUTES = ROUTES + ("identity_tc",)
+#: the identity mix's routes (bf16, f32): routes 2 and 3 of the frozen-BN
+#: forward and of the backward
+IDENTITY_ROUTES = ("identity_tc", "identity_f32")
+FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
 #: level shapes of base and large, for the exact-BN forward also the
-#: classifier's (16, 12) level, and for the backward also HViTUNetTF's
-#: level-0 keras attention, (8, 192), and the classifier's 16-head levels
+#: classifier's (16, 12) level, and for the backward also the classifier's
+#: 16-head levels
 TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
 BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)})
-TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 192), (8, 384), (16, 12), (16, 48)})
+TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)})
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
@@ -103,13 +113,17 @@ def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
             else "cuda_core")
 
 
+def _identity_route(dtype: torch.dtype) -> str:
+    return IDENTITY_ROUTES[dtype == torch.float32]
+
+
 def train_fwd_route(dtype: torch.dtype, heads: int, dh: int,
                     identity_mix: bool = False) -> str:
     """The route a CUDA frozen-BN forward with these inputs takes: the only
     place it is chosen, by dtype, shape and the caller's ``identity_mix``
     flag alone (never by reading the head mix)."""
-    if identity_mix and dtype == torch.bfloat16 and (heads, dh) in IDENTITY_TC_SHAPES:
-        return "identity_tc"
+    if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
+        return _identity_route(dtype)
     return _route(TRAIN_FWD_TC_SHAPES, dtype, heads, dh)
 
 
@@ -119,9 +133,13 @@ def bn_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
     return _route(BN_FWD_TC_SHAPES, dtype, heads, dh)
 
 
-def train_bwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
-    """The route a CUDA ``train_bwd`` call with these inputs takes: the only
-    place it is chosen, and by dtype and shape alone."""
+def train_bwd_route(dtype: torch.dtype, heads: int, dh: int,
+                    identity_mix: bool = False) -> str:
+    """The route a CUDA backward with these inputs takes: the only place it
+    is chosen, by dtype, shape and the caller's ``identity_mix`` flag alone
+    (``train_bwd_identity`` passes it; ``train_bwd`` never does)."""
+    if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
+        return _identity_route(dtype)
     return _route(TRAIN_BWD_TC_SHAPES, dtype, heads, dh)
 
 
@@ -306,6 +324,14 @@ def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
     bmix = torch.einsum("ph,bhnm->bpnm", m32, a)
     dv = torch.einsum("bpnm,bnpd->bmpd", bmix, gh).reshape(batch, n_k, heads * dh)
     return dq, dk, dv
+
+
+def train_bwd_identity_plain(q, k, v_cat, lse, g, d, seed, rate: float,
+                             head_base: int = 0):
+    """Plain version of ``train_bwd_identity``: ``train_bwd_plain`` with
+    the identity mix and no BN term."""
+    eye = torch.eye(q.shape[1], dtype=_wide(q).dtype, device=q.device)
+    return train_bwd_plain(q, k, v_cat, lse, g, eye, d, seed, rate, None, head_base)
 
 
 def mixed_map(q, k, conv_m, conv_c, mask=None):
@@ -512,23 +538,24 @@ def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
 
 def launch_train_fwd_identity(q, k, v_cat, seed, rate: float = 0.0, *,
                               head_base: int = 0):
-    """The identity route's kernel (route 2 of ``vit_train_fwd``) on CUDA
-    inputs that ``_check`` took: (out, lse), no o_norm.  Only the
-    measurements and the route-against-route tests call it themselves; it
-    counts no launch."""
+    """The identity route's kernel for q's dtype (route 2 or 3 of
+    ``vit_train_fwd``) on CUDA inputs that ``_check`` took:
+    (out, lse), no o_norm.  Only the measurements and the route-against-
+    route tests call it themselves; it counts no launch."""
     batch, heads, n_q, dh = q.shape
     dev = q.device
-    _require_aligned("identity_tc", q=q, k=k, v_cat=v_cat)
+    route = _identity_route(q.dtype)
+    _require_aligned(route, q=q, k=k, v_cat=v_cat)
     out = torch.empty((batch, n_q, heads * dh), dtype=q.dtype, device=dev)
     lse = torch.empty((batch, heads, n_q), dtype=torch.float32, device=dev)
     seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
     lib = _library()
     with torch.cuda.device(dev):
-        _launch("train_fwd (identity_tc)", lib.vit_train_fwd, q.data_ptr(),
+        _launch(f"train_fwd ({route})", lib.vit_train_fwd, q.data_ptr(),
                 k.data_ptr(), v_cat.data_ptr(), None, None, None, seed_ptr, thr,
                 scale, lse.data_ptr(), None, out.data_ptr(), batch, heads, n_q,
                 k.shape[2], dh, SUPPORTED_DTYPES[q.dtype],
-                FWD_ROUTES.index("identity_tc"), _stream(dev))
+                FWD_ROUTES.index(route), _stream(dev))
     return out, lse
 
 
@@ -553,7 +580,7 @@ def train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
 def train_fwd_identity(q, k, v_cat, seed, rate: float = 0.0, head_base: int = 0):
     """The frozen-BN forward with the identity head mix (M = I, c = 0):
     (out (B, Nq, H*dh), lse (B, H, Nq) f32), no o_norm.  CUDA tensors take
-    the route ``train_fwd_route(..., identity_mix=True)`` names: the
+    the route ``train_fwd_route(..., identity_mix=True)`` names: a
     one-pass identity route, or another route of ``train_fwd`` with I and 0
     as the mix, its o_norm dropped.  Counted as a ``train_fwd`` launch."""
     _check(q, k, v_cat)
@@ -561,7 +588,7 @@ def train_fwd_identity(q, k, v_cat, seed, rate: float = 0.0, head_base: int = 0)
         return train_fwd_identity_plain(q, k, v_cat, seed, rate, head_base)
     batch, heads, _, dh = q.shape
     route = train_fwd_route(q.dtype, heads, dh, identity_mix=True)
-    if route == "identity_tc":
+    if route in IDENTITY_ROUTES:
         out, lse = launch_train_fwd_identity(q, k, v_cat, seed, rate,
                                              head_base=head_base)
     else:
@@ -660,8 +687,9 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
     summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
     core route at dh 12, 24, 48 and 96), so its last bits vary from run to
-    run; the tensor-core classes at dh 192 and 384 use no atomics and
-    repeat bit for bit."""
+    run; the tensor-core class at dh 384 uses no atomics and repeats bit
+    for bit, and so do the identity routes
+    (``train_bwd_identity``)."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
         return train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate,
@@ -674,6 +702,59 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     return out
 
 
+def launch_bwd_identity(q, k, v_cat, lse, g, d, seed, rate: float = 0.0, *,
+                        head_base: int = 0):
+    """The identity route's kernels for q's dtype (route 2 or 3 of
+    ``vit_train_bwd``) on CUDA inputs that ``_check`` took:
+    (dq, dk, dv), f32, each written once.  Only the measurements and the
+    route-against-route tests call it themselves; it counts no launch."""
+    batch, heads, n_q, dh = q.shape
+    n_k = k.shape[2]
+    dev = q.device
+    route = _identity_route(q.dtype)
+    g = g.to(q.dtype).contiguous()
+    if g.shape != (batch, n_q, heads * dh):
+        raise ValueError(f"g shape {tuple(g.shape)}, expected {(batch, n_q, heads * dh)}")
+    _require_aligned(route, q=q, k=k, v_cat=v_cat, g=g)
+    lse, d = _f32(lse, dev), _f32(d, dev)
+    dq = torch.empty((batch, heads, n_q, dh), dtype=torch.float32, device=dev)
+    dk = torch.empty((batch, heads, n_k, dh), dtype=torch.float32, device=dev)
+    dv = torch.empty((batch, n_k, heads * dh), dtype=torch.float32, device=dev)
+    seed_ptr, thr, scale = _dropout_args(seed, rate, dev, head_base)
+    lib = _library()
+    with torch.cuda.device(dev):
+        _launch(f"train_bwd ({route})", lib.vit_train_bwd, q.data_ptr(),
+                k.data_ptr(), v_cat.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                d.data_ptr(), None, None, None, seed_ptr, thr, scale, dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), batch, heads, n_q, n_k, dh,
+                SUPPORTED_DTYPES[q.dtype], BWD_ROUTES.index(route), None, _stream(dev))
+    return dq, dk, dv
+
+
+def train_bwd_identity(q, k, v_cat, lse, g, d, seed, rate: float = 0.0,
+                       head_base: int = 0):
+    """The backward with the identity head mix (M = I, c = 0) and no BN
+    term: (dq, dk, dv), f32, as ``train_bwd`` with I.  CUDA tensors take
+    the route ``train_bwd_route(..., identity_mix=True)`` names: an identity
+    route, whose outputs are each written once, so two calls give the same
+    bits, or another route of ``train_bwd`` with I as the mix.  Counted as a
+    ``train_bwd`` launch."""
+    _check(q, k, v_cat)
+    if q.device.type == "cpu":
+        return train_bwd_identity_plain(q, k, v_cat, lse, g, d, seed, rate, head_base)
+    heads, dh = q.shape[1], q.shape[3]
+    route = train_bwd_route(q.dtype, heads, dh, identity_mix=True)
+    if route in IDENTITY_ROUTES:
+        out = launch_bwd_identity(q, k, v_cat, lse, g, d, seed, rate,
+                                  head_base=head_base)
+    else:
+        out = launch_bwd(q, k, v_cat, lse, g, torch.eye(heads, device=q.device), d,
+                         seed, rate, route=route, head_base=head_base)
+    train_bwd.launches += 1
+    train_bwd.route_launches[route] += 1
+    return out
+
+
 #: kernel launches since the last reset (the plain versions do not count),
 #: also by route
 train_fwd.launches = 0
@@ -681,7 +762,7 @@ train_fwd.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 bn_fwd.launches = 0
 bn_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 train_bwd.launches = 0
-train_bwd.route_launches = dict.fromkeys(ROUTES, 0)
+train_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 # --- plain torch around the kernels -------------------------------------------
@@ -767,9 +848,8 @@ class _FlashTrainIdentity(torch.autograd.Function):
         q, k, v_cat, lse, out = ctx.saved_tensors
         batch, heads, n_q, dh = q.shape
         d = (_wide(g) * _wide(out)).reshape(batch, n_q, heads, dh).sum(-1).transpose(1, 2)
-        eye = torch.eye(heads, dtype=d.dtype, device=q.device)
-        dq, dk, dv = train_bwd(q, k, v_cat, lse, g, eye, d, ctx.seed, ctx.rate,
-                               head_base=ctx.head_base)
+        dq, dk, dv = train_bwd_identity(q, k, v_cat, lse, g, d, ctx.seed, ctx.rate,
+                                        ctx.head_base)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v_cat.dtype), None, None, None
 
 
