@@ -34,8 +34,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    in f32); the frozen-BN forward's identity route (bf16, no o_norm,
    ``IDENTITY_FWD_CASES`` at rates 0 and 0.2 against plain and the
    CUDA-core route, its dropout bits read back exactly, with a rank's
-   ``head_base`` too, and at b64 timed against the CUDA-core route in turns)
-   and its float32 form (split-precision MMAs, the same checks at f32's
+   ``head_base`` too, and at b64 timed against the CUDA-core route in turns,
+   and at rate 0 against ``scaled_dot_product_attention``'s forward, the
+   same function there, in turns) and its float32 form (split-precision MMAs, the same checks at f32's
    tolerance); the backward's identity routes in bf16 and f32
    (``IDENTITY_BWD_CASES``: both classes, 64 queries of 256 keys, ragged
    70 x 130, 1 x 49; rates 0 and 0.2, ``head_base`` 0 and 4; dq, dk, dv
@@ -43,7 +44,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    the identity Function against float64 autograd; at b64 timed in turns
    against the route each call took before, beside SDPA's backward);
    the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
-   against plain and the CUDA-core route, its dropout bits read back); the
+   against plain and the CUDA-core route, its dropout bits read back);
+   kernels 3 and 4 at lite's tensor-core classes (4, 12), (4, 48), (4, 192)
+   (``LITE_CASES``: each level's N, N 3,136 at B2, ragged, more queries than
+   keys, a single query; rates 0 and 0.2, BN term off and on; against plain
+   and the CUDA-core route; the exact-BN forward's dropout bits read back,
+   its two smaller levels at b64 too), and at b64 at lite's three level
+   shapes through the counted wrappers against the plain version (built 8
+   images at a time), two calls bit for bit where no atomics sum, per call
+   on both routes in turns beside the plain's time and the bound; the
    backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
@@ -74,7 +83,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    and dropout seed; then a model whose level 0 (head dim 1536) is wider
    than the kernels take (``GATE_MODEL``), served and trained against its
    plain path, level 0 on the plain path and the others on the kernels;
-   and the exact-BN step with each QKV form held in turns;
+   and the exact-BN step with each QKV form held in turns; then lite (the
+   CLI's default model, 224², bf16, b64, dropout 0.2): exact-BN steps with
+   their launches by route (kernels 4 and 3 on the tensor cores at all
+   three level shapes), step time and peak memory, and the step with
+   kernels 3 and 4 held on the CUDA-core routes and as named, in turns;
 5. the trainer: synthetic uint8 pairs written as TFRecord shards, the base
    preset (224², bf16, batch 64, dropout 0.2) trained through ``Fitter``
    for 2 epochs of 24 steps fed by ``TFRecordStream`` ->
@@ -92,7 +105,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    exactly), ``run_denoising.main`` in this process for denoise (base,
    224², bf16, ``--flash``, batch 16, 2 epochs, the first frozen BN),
    deblur, derain and segment (1 epoch each) and the default lite model
-   (1 epoch), with each epoch's launches by route, img/s and idle share;
+   (1 epoch, every launch of kernels 1, 4 and 3 on the tensor cores), with
+   each epoch's launches by route, img/s and idle share;
    then ``export_predictor`` / ``load_predictor`` of the trained model at
    b64 against ``Predictor`` (bit for bit, launches through the program),
    an f32 program exported on the CPU run on the card, and the b64 forward
@@ -196,7 +210,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    flip and the tracking warmup, whose flips are the negative controls;
    launches by route, every kernel-2 and kernel-3 launch of the
    ``HViTUNetTF`` SIDD runs on its identity route), the results file
-   written; ``convert_tfrecords`` on PNG pairs (the count read back from the
+   written (every lite run's kernel-4 and kernel-3 launches on the tensor
+   cores); ``convert_tfrecords`` on PNG pairs (the count read back from the
    names, a record read back exactly), ``train_denoising`` on those shards
    (lite 128², bf16, ``--flash``, one epoch, its PSNR probes) and
    ``serve_model`` from a ``Fitter`` checkpoint;
@@ -799,6 +814,24 @@ BN16_CASES = [(4, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96)
 # (heads, dh) classes of the backward's tensor-core route in its maps +
 # products form: no atomics, so a call repeats bit for bit
 ATOMIC_FREE_BWD = {(8, 384)}
+# lite's classes on the tensor cores (kernels 3 and 4): each at its level N
+# (N 3,136 at B2; at b64 ``lite_b64`` holds it by LITE_SLICE images),
+# ragged over partial key tiles and dropout windows, more queries than
+# keys, a single query
+LITE_CASES = [(2, 4, 12, 3136, 3136), (2, 4, 12, 100, 130), (2, 4, 12, 200, 96),
+              (2, 4, 12, 1, 49), (4, 4, 48, 784, 784), (2, 4, 48, 100, 130),
+              (2, 4, 48, 1, 49), (4, 4, 192, 196, 196), (2, 4, 192, 70, 130),
+              (2, 4, 192, 1, 49)]
+# the forwards at b64 against their plain versions: lite's two smaller levels
+LITE_B64_FWD = [(BATCH, 4, 48, 784, 784), (BATCH, 4, 192, 196, 196)]
+# (batch, heads, dh, N) of the exact-BN forward's dropout-bit read-back at
+# lite's classes: each bit where P >= N, counts of keys m = j mod P at dh 12
+LITE_BITS = [(2, 4, 12, 300), (2, 4, 48, 192), (2, 4, 192, 196)]
+# lite's levels at 224²: (heads, dh, N, calls a train step or forward)
+LITE_LEVELS = [(4, 192, 196, 2), (4, 48, 784, 3), (4, 12, 3136, 3)]
+# images a plain version holds at a time at b64: at N 3,136 one f32 N x N
+# map of 8 images is 1.3 GB
+LITE_SLICE = 8
 # the frozen-BN forward's identity route (KerasMHA's training calls, bf16):
 # its two classes at N 256, the level-0 skip's 64 queries of 256 keys,
 # ragged over a partial dropout window, a single query
@@ -927,7 +960,10 @@ def check_train_kernels(batch, heads, dh, n_q, n_k, dtype, rate, reps=0,
 def bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate, bn):
     """The backward's arguments on the card, lse from the plain forward."""
     q, k, v, m_eff, _, g_out, seed = train_inputs(batch, heads, dh, n_q, n_k, dtype)
-    lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), -1)
+    # by LITE_SLICE images at a time: at lite's b64 N 3,136 one f32 score map
+    # of all 64 is 10 GiB
+    lse = torch.cat([torch.logsumexp(qb.float() @ kb.float().transpose(-1, -2), -1)
+                     for qb, kb in zip(q.split(LITE_SLICE), k.split(LITE_SLICE))])
     gen = torch.Generator(device="cuda").manual_seed(4)
     d = torch.randn(batch, heads, n_q, generator=gen, device="cuda")
     extra = ((torch.randn(heads, heads, generator=gen, device="cuda") * 0.1,
@@ -969,6 +1005,97 @@ def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
         msg += " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes)
     print(msg)
     return max(rel_err(a, b)[0] for a, b in zip(got, want))
+
+
+def lite_b64(heads, dh, n):
+    """Kernels 4 and 3 at one of lite's level shapes at b64 (rate 0.2, the
+    backward with the BN term), each through its counted wrapper, whose
+    route count must rise by one, against its plain version on the same
+    inputs: S, C, lse and o_norm at BN_FWD_TOLS, dq, dk and dv at
+    F32_OUT_TOL.  The plain versions are built LITE_SLICE images at a time
+    (each image group draws the call's own dropout bits) and timed so.  A
+    second call on the launch function must give the outputs no atomics sum
+    (the forward's four; the backward's dk and dv) bit for bit, and dq
+    within F32_OUT_TOL.  Returns {kernel: (max_abs_err, plain_ms)}."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    args = bwd_inputs(BATCH, heads, dh, n, n, torch.bfloat16, RATE, True)
+    q, k, v, lse, g, m_eff, d, seed, _, extra = args
+    fwd_route = T.bn_fwd_route(torch.bfloat16, heads, dh)
+    bwd_route = T.train_bwd_route(torch.bfloat16, heads, dh)
+    kernels = {
+        "bn_fwd": (T.bn_fwd, fwd_route, lambda: T.bn_fwd(q, k, v, seed, RATE),
+                   lambda: T.launch_bn_fwd(q, k, v, seed, RATE, route=fwd_route),
+                   lambda s, i: T.bn_fwd_plain(q[s], k[s], v[s], seed, RATE, batch_base=i),
+                   [t[torch.bfloat16] for t in BN_FWD_TOLS], (0, 1, 2, 3)),
+        "bwd": (T.train_bwd, bwd_route, lambda: T.train_bwd(*args),
+                lambda: T.launch_bwd(*args, route=bwd_route),
+                lambda s, i: T.train_bwd_plain(q[s], k[s], v[s], lse[s], g[s], m_eff, d[s],
+                                               seed, RATE, extra, batch_base=i),
+                [F32_OUT_TOL[torch.bfloat16]] * 3, (1, 2)),
+    }
+    res = {}
+    for key, (wrapper, route, counted, launch, plain, tols, exact) in kernels.items():
+        before = wrapper.route_launches[route]
+        got = counted()
+        if wrapper.route_launches[route] != before + 1:
+            raise AssertionError(f"lite {key} H{heads} dh{dh} B{BATCH}: the call did not "
+                                 f"take the {route} route")
+        again = launch()
+        sliced = lambda: [torch.cat(parts) for parts in zip(
+            *(plain(slice(i, i + LITE_SLICE), i) for i in range(0, BATCH, LITE_SLICE)))]
+        want = sliced()
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        for (_, rel), tol in zip(errs, tols):
+            require(f"lite {key} [{route}] B{BATCH} H{heads} dh{dh} N{n}", rel, tol)
+        same = all(torch.equal(got[i], again[i]) for i in exact)
+        rest = [rel_err(got[i], again[i])[1] for i in range(len(got)) if i not in exact]
+        print(f"    H{heads} dh{dh} N{n} B{BATCH} {key} [{route}] vs plain (by {LITE_SLICE} "
+              f"images): rel " + " ".join(f"{r:.2e}" for _, r in errs)
+              + f"; two calls bit for bit {same}"
+              + "".join(f", dq rel {r:.2e} (atomics)" for r in rest))
+        if not same:
+            raise AssertionError(f"lite {key} H{heads} dh{dh}: two b64 calls differ where "
+                                 f"no atomics sum")
+        for r in rest:
+            require(f"lite {key} dq of two calls", r, F32_OUT_TOL[torch.bfloat16])
+        del got, again, want
+        res[key] = (max(e for e, _ in errs), time_ms(sliced, 2, warmup=0))
+    return res
+
+
+def lite_kernels(cases_err):
+    """Kernels 3 and 4 at lite's three level shapes, bf16, rate 0.2 (the
+    backward with the BN term), at b64: each held against its plain version
+    (``lite_b64``), then per call on the CUDA-core route and on the route
+    its route function names, in turns, beside the plain version's time and
+    the bound.  ``cases_err``: the worst max_abs_err of each kernel over
+    LITE_CASES.  Returns {class: {kernel: row}}, the row's ``err`` the b64
+    call's."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    res = {}
+    card = card_line()
+    for heads, dh, n, calls in LITE_LEVELS:
+        shape = f"H{heads} dh{dh} N{n}"
+        bounds = train_bounds(BATCH, heads, dh, n, n, torch.bfloat16)
+        held = lite_b64(heads, dh, n)
+        torch.cuda.empty_cache()
+        old_b, new_b = time_bwd_routes(BATCH, heads, dh, n, reps=5)
+        old_f, new_f = time_fwd_routes("bn_fwd", BATCH, heads, dh, n, reps=5)
+        res[shape] = {}
+        for key, old, new, pick in (("bn_fwd", old_f, new_f, T.bn_fwd_route),
+                                    ("bwd", old_b, new_b, T.train_bwd_route)):
+            err, plain_ms = held[key]
+            row = dict(route=pick(torch.bfloat16, heads, dh), ms=new, cuda_core_ms=old,
+                       plain_ms=plain_ms, bound=bound_of(*bounds[key]), err=err,
+                       cases_err=cases_err[key], calls_per_step=calls)
+            res[shape][key] = row
+            print(f"    lite {shape} B{BATCH} bf16 {key} [{row['route']}]: {new:.4f} ms a call "
+                  f"(cuda_core {old:.4f} ms in turns, {old / new:.2f}x), plain "
+                  f"{plain_ms:.4f} ms (by {LITE_SLICE} images), bound {row['bound'][0]:.4f} ms "
+                  f"({row['bound'][1]}), max_abs_err {err:.3e} at B{BATCH} "
+                  f"({cases_err[key]:.3e} over LITE_CASES) [{card}]")
+    return res
 
 
 def time_bwd_routes(batch, heads, dh, n, reps=10):
@@ -1166,11 +1293,26 @@ def time_fwd_identity(batch, heads, dh, n, reps=10, dtype=torch.bfloat16):
     plain = time_ms(lambda: T.train_fwd_identity_plain(q, k, v, sd, RATE), 2, warmup=1)
     err = fwd_identity_turns(batch, heads, dh, n, n, RATE, dtype=dtype)
     bound = bound_of(*train_bounds(batch, heads, dh, n, n, dtype)["fwd_identity"])
+    # at rate 0 scaled_dot_product_attention's forward computes the same out
+    # (the library call beside the route; the port never calls it): held
+    # against the route's out, the two timed in turns (sdpa, route, route, sdpa)
+    vh = v.view(batch, n, heads, dh).transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, vh, scale=1.0)
+    rate0 = lambda: T.launch_train_fwd_identity(q, k, v, sd, 0.0)
+    rel = rel_err(sdpa().transpose(1, 2).reshape(batch, n, heads * dh), rate0()[0])[1]
+    require(f"sdpa against the {route} route at rate 0", rel, TRAIN_TOL[dtype])
+    lib = [(name, time_ms(fn, reps)) for name, fn in
+           (("sdpa", sdpa), (route, rate0), (route, rate0), ("sdpa", sdpa))]
+    sdpa_t = min(t for r, t in lib if r == "sdpa")
+    rate0_t = min(t for r, t in lib if r == route)
     print(f"    H{heads} dh{dh} N{n} B{batch} {str(dtype)[6:]} fwd identity mix in turns: "
           + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
           + f"; cuda_core / {route} {old / new:.2f}x; plain {plain:.4f} ms; bound "
-          f"{bound[0]:.4f} ms ({bound[1]}) [{card_line()}]")
-    return dict(err=err, ms=new, cuda_core_ms=old, plain_ms=plain, bound=bound)
+          f"{bound[0]:.4f} ms ({bound[1]}); at rate 0 in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in lib)
+          + f" (out rel {rel:.2e}) [{card_line()}]")
+    return dict(err=err, ms=new, cuda_core_ms=old, plain_ms=plain, bound=bound,
+                rate0_ms=rate0_t, sdpa_ms=sdpa_t)
 
 
 # the backward's identity routes (KerasMHA's calls, bf16 and f32): its two
@@ -1383,14 +1525,22 @@ def phase_train_kernels():
             if n == n_k:
                 for rate in (0.0, RATE):
                     check_functions(batch, heads, dh, n, dtype, rate)
+    # both Functions at lite's tensor-core classes (N 1,024 at dh 12: the
+    # float64 reference's N x N maps stay near a gigabyte)
+    for heads, dh, n, _ in LITE_LEVELS:
+        check_functions(2, heads, dh, min(n, 1024), torch.bfloat16)
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
+    lite_err = dict.fromkeys(("bwd", "bn_fwd"), 0.0)
     for shape in ([s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES]
-                  + BWD_EDGE_CASES + KERAS_SHAPES + BWD16_CASES):
+                  + BWD_EDGE_CASES + KERAS_SHAPES + BWD16_CASES + LITE_CASES):
         for rate in (0.0, RATE):
             for bn in (False, True):
-                tc_err = max(tc_err, check_bwd_routes(*shape, rate, bn))
+                err = check_bwd_routes(*shape, rate, bn)
+                tc_err = max(tc_err, err)
+                if shape in LITE_CASES:
+                    lite_err["bwd"] = max(lite_err["bwd"], err)
     fwd_err = {}
     for key, classes in (("fwd", T.TRAIN_FWD_TC_SHAPES), ("bn_fwd", T.BN_FWD_TC_SHAPES)):
         print(f"  the {'frozen' if key == 'fwd' else 'exact'}-BN forward in bf16 on the "
@@ -1398,11 +1548,19 @@ def phase_train_kernels():
         fwd_err[key] = 0.0
         shapes = [s for s in TRAIN_SHAPES[:3] if s[1:3] in classes]
         head16 = [s for s in BN16_CASES if s[1:3] in classes]
-        for shape in shapes + [(BATCH,) + s[1:] for s in shapes] + FWD_EDGE_CASES + head16:
+        lite = [s for s in LITE_CASES + LITE_B64_FWD if s[1:3] in classes]
+        for shape in (shapes + [(BATCH,) + s[1:] for s in shapes] + FWD_EDGE_CASES + head16
+                      + lite):
             for rate in (0.0, RATE):
-                fwd_err[key] = max(fwd_err[key], fwd_turns(key, *shape, rate))
+                err = fwd_turns(key, *shape, rate)
+                fwd_err[key] = max(fwd_err[key], err)
+                if shape in lite:
+                    lite_err[key] = max(lite_err[key], err)
         for batch, heads, dh, n, _ in shapes + head16[:1]:
             check_fwd_bits(key, batch, heads, dh, n)
+        for batch, heads, dh, n in LITE_BITS:
+            if (heads, dh) in classes:
+                check_fwd_bits(key, batch, heads, dh, n)
     print(f"  main-path shapes (base, B{BATCH}, bf16, rate {RATE}), "
           f"calls per train step:")
     total = {kname: dict(err=0.0, ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
@@ -1450,6 +1608,8 @@ def phase_train_kernels():
     for kname in ("fwd", "bn_fwd", "bwd"):
         print(f"  {kname} per train step with every call on the CUDA-core route: "
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
+    print(f"  lite's level shapes (B{BATCH}, bf16, rate {RATE}), kernels 3 and 4 a call:")
+    total["lite"] = lite_kernels(lite_err)
     print("  the frozen-BN forward's identity route (KerasMHA's bf16 calls):")
     ident_err = 0.0
     for shape in IDENTITY_FWD_CASES:
@@ -1654,10 +1814,80 @@ def phase_train():
     qkv_breakdown(lambda: exact.train_step(state, batch), "exact-BN train step")
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
+    lite = lite_step()
     compare_train_paths()
     check_shape_gate()
     print(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
-    return launches, step_ms
+    return launches, step_ms, lite
+
+
+def lite_step():
+    """Lite (the CLI's default model) at 224², bf16, b64, dropout 0.2, exact
+    BN, AdamW 1e-4: 2 warm-up steps, then 5 steps with the launches counted
+    from 0 (each of lite's 8 re-attention calls a step on the route its route
+    function names: kernels 4 and 3 on the tensor cores), their median time
+    and peak memory; then the step with kernels 3 and 4 held on the
+    CUDA-core routes and as named, in turns (old, new, new, old, each the
+    median of 3).  Returns dict(launches, ms, peak_gib, turns)."""
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+
+    card = card_line()
+    calls = sum(c for *_, c in LITE_LEVELS)
+    want_routes = {"bn_fwd": "tensor_core", "bwd": "tensor_core"}
+    named = {key: {pick(torch.bfloat16, h, d) for h, d, _, _ in LITE_LEVELS}
+             for key, pick in (("bn_fwd", T.bn_fwd_route), ("bwd", T.train_bwd_route))}
+    if named != {key: {r} for key, r in want_routes.items()}:
+        raise AssertionError(f"lite's levels: routes named {named}, expected {want_routes}")
+    model = get_vit_unet("lite", dtype="bfloat16", param_dtype="bfloat16", seed=0,
+                         device="cuda")
+    model.train()
+    opt = adamw(model, 1e-4)
+    state = TrainState.create(model=model, optimizer=opt, seed=1)
+    exact = build_step_functions(model, opt, mse)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(BATCH, 3, 224, 224, generator=gen, device="cuda")
+    batch = {"x": x, "y": 0.9 * x}
+    state, _, _ = timed_steps(exact, state, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    state, losses, ms = timed_steps(exact, state, batch, 5)
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(launches, 0)
+    for key, route in want_routes.items():
+        want[key] = want[f"{key}_{route}"] = 5 * calls
+    print(f"  lite b{BATCH} bf16 exact-BN step (224², 8 re-attention calls): median "
+          f"{ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f}; launches {launches} [{card}]")
+    if launches != want:
+        raise AssertionError(f"lite step: launches {launches}, expected {want}")
+    held = [mock.patch.object(T, pick, lambda *a, **k: "cuda_core")
+            for pick in ("bn_fwd_route", "train_bwd_route")]
+    turns = []
+    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+        with contextlib.ExitStack() as stack:
+            if route == "cuda_core":
+                for h in held:
+                    stack.enter_context(h)
+            torch.cuda.reset_peak_memory_stats()
+            state, _, t = timed_steps(exact, state, batch, 3)
+            turns.append((route, t, torch.cuda.max_memory_allocated() / 2 ** 30))
+    print(f"  lite b{BATCH} bf16 exact-BN step, kernels 3 and 4 on each route in turns "
+          "(median of 3; peak): " + ", ".join(f"{r} {t:.3f} ms ({g:.2f} GiB)"
+                                              for r, t, g in turns) + f" [{card}]")
+    if not min(t for r, t, _ in turns if r == "tensor_core") < min(
+            t for r, t, _ in turns if r == "cuda_core"):
+        raise AssertionError("lite's step is not faster with kernels 3 and 4 on the "
+                             "tensor cores")
+    device_breakdown(lambda: exact.train_step(state, batch), ms, "lite train step", reps=1)
+    del model, opt, state, exact
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, peak_gib=peak, turns=turns)
 
 
 # One train step at batch 4 with the same weights and dropout seed, so the
@@ -2550,14 +2780,17 @@ def phase_entry():
             print(f"  {task}: {result} in {secs:.1f} s, epoch {p.rates[0]:.1f} "
                   f"img/s over steps 2-{steps}; launches as expected [{card}]")
 
-        # the CLI's default model, lite, bf16: its level shapes take the
-        # routes the route functions name for them
-        lite_levels = [(4, 192), (4, 48), (4, 12)]
+        # the CLI's default model, lite, bf16: every one of its level shapes
+        # takes the tensor cores in kernels 1, 4 and 3 (no lite class is left
+        # on the CUDA cores there; its frozen-BN forward, kernel 2, is, and an
+        # exact-BN epoch does not run it)
+        lite_levels = [(h, d) for h, d, _, _ in LITE_LEVELS]
         routes = {"bn_fwd": {T.bn_fwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
                   "bwd": {T.train_bwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
                   "eval": {TK.kernel_route(torch.bfloat16, h, d) for h, d in lite_levels}}
-        if any(len(r) != 1 for r in routes.values()):
-            raise AssertionError(f"lite's levels take mixed routes: {routes}")
+        if routes != {k: {"tensor_core"} for k in routes}:
+            raise AssertionError(f"lite's levels: routes named {routes}, expected the "
+                                 "tensor cores for kernels 1, 4 and 3")
         routes = {k: r.pop() for k, r in routes.items()}
         p = CliProbe(steps, profiled=False)
         result, _, secs = run_cli(
@@ -4854,6 +5087,13 @@ def ex_convergence(root):
                     or launches[key]["bwd"] != launches[key]["bwd_identity_tc"]):
                 raise AssertionError(f"sidd {key}: kernels 2-3 off their identity routes: "
                                      f"{launches[key]}")
+            # the lite runs (bf16): every kernel-4 and kernel-3 launch on the
+            # tensor cores
+            if key not in EX_TF_RUNS and (
+                    launches[key]["bn_fwd"] != launches[key]["bn_fwd_tensor_core"]
+                    or launches[key]["bwd"] != launches[key]["bwd_tensor_core"]):
+                raise AssertionError(f"{script} {key} (lite): kernels 3-4 off the tensor "
+                                     f"cores: {launches[key]}")
         with open(os.path.join(root, "conv.json")) as fh:
             written = json.load(fh)
     if not {"segmentation_demo", "runs", "denoise_beyond_identity"} <= set(written):
@@ -5000,7 +5240,7 @@ def main(argv=None) -> int:
     if "3" in phases:
         launches = phase_slice()
     if "4" in phases:
-        train_launches_, _ = phase_train()
+        train_launches_, _, lite = phase_train()
     if "5" in phases:
         fit_launches = phase_trainer()
     if "6" in phases:
@@ -5029,7 +5269,8 @@ def main(argv=None) -> int:
     # the entry point (phase 6: the CLI's runs, the loaded programs), the
     # TF-flavour model (phase 7: serving, the keras-attention steps and the
     # re-attention variant's steps) and the classifier (phase 8)
-    model_paths = {"tf_serving": tf["serving"], "tf_f32_serving": tf["f32_serving"],
+    model_paths = {"lite_step": lite["launches"],   # phase 4's lite b64 steps
+                   "tf_serving": tf["serving"], "tf_f32_serving": tf["f32_serving"],
                    "tf_train": tf["train"], "tf_f32_train": tf["f32_train"],
                    "tf_variant": tf["variant"],
                    # the classifier (phase 8): its forward and steps, the CLI
@@ -5141,11 +5382,14 @@ def main(argv=None) -> int:
         # (8, 192) at N 256, b64 bf16, rate 0.2 (phase 2b)
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound"][0], "bound_by": t8["bound"][1],
-        # no single PyTorch call draws the Philox mask inside the map
-        "library_ms": None,
+        # no single PyTorch call draws the Philox mask inside the map; at rate
+        # 0 scaled_dot_product_attention's forward computes the same out:
+        # its time, beside the route's own at rate 0 (``rate0_ms``)
+        "library_ms": t8["sdpa_ms"], "rate0_ms": t8["rate0_ms"],
         # the CUDA-core route (the general forward with I and 0) in turns
         "cuda_core_ms": t8["cuda_core_ms"],
-        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound")}
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound",
+                                                     "rate0_ms", "sdpa_ms")}
                     for shape, r in fid["classes"].items()},
     })
     # kernel 2's f32 identity route: KerasMHA's f32 training calls (phase 7's
@@ -5164,9 +5408,11 @@ def main(argv=None) -> int:
         # the bf16 MMAs it issues, three a product
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound"][0], "bound_by": t8["bound"][1],
-        "library_ms": None,
+        # SDPA's f32 forward at rate 0, as for the bf16 route
+        "library_ms": t8["sdpa_ms"], "rate0_ms": t8["rate0_ms"],
         "cuda_core_ms": t8["cuda_core_ms"],
-        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound")}
+        "classes": {shape: {key: r[key] for key in ("ms", "plain_ms", "cuda_core_ms", "bound",
+                                                     "rate0_ms", "sdpa_ms")}
                     for shape, r in fid32["classes"].items()},
     })
     # kernel 3's identity routes: KerasMHA's training calls, bf16 (phase 7's
@@ -5227,6 +5473,27 @@ def main(argv=None) -> int:
                                 + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
                                 for r in [c[len(key) + 1:] for c in train_launches_
                                           if c.startswith(key + "_")]})
+    # kernels 4 and 3 at lite's classes: phase 4's lite steps, whose every
+    # launch is a lite call on the tensor cores; the numbers are (4, 12)'s
+    # at b64 (phase 2b), where lite spends most, the other classes beside;
+    # the plain version's time is its b64 call's, by LITE_SLICE images
+    for key, name, source, replaces in (
+            ("bn_fwd", "flash_reattention_bn_fwd_lite", TC_SOURCES["bn_fwd"],
+             "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
+            ("bwd", "flash_reattention_train_bwd_lite", TC_SOURCES["bwd"],
+             "vit_unet_tpu/kernels/flash_reattention_train.py:451")):
+        rows = {shape: r[key] for shape, r in tk["lite"].items()}
+        r12 = rows["H4 dh12 N3136"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": lite["launches"][f"{key}_tensor_core"],
+            "launches_by_path": {"lite_step": lite["launches"][f"{key}_tensor_core"]},
+            "max_abs_err": r12["err"], "ms": r12["ms"], "plain_ms": r12["plain_ms"],
+            "bound_ms": r12["bound"][0], "bound_by": r12["bound"][1],
+            # no single PyTorch call computes re-attention with a head mix
+            "library_ms": None,
+            # the CUDA-core route on the same inputs, in turns
+            "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
     # kernel 4's 16-head tensor-core class, (16, 12): the classifier's
     # exact-BN steps and CLI (phase 8), the only paths at 16 heads; there
     # (16, 48) takes the CUDA-core route, so these are all (16, 12) calls

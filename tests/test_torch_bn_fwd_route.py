@@ -84,10 +84,10 @@ def test_attend_routes_wide_heads_to_the_plain_path(dh):
             torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
-# base's and large's levels and the classifier's (16, 12) level run the
-# exact-BN forward on the tensor cores in bf16; lite's (4 heads), the
-# classifier's (16, 48) and every float32 call stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (16, 12)}
+# base's, large's and lite's levels and the classifier's (16, 12) level run
+# the exact-BN forward on the tensor cores in bf16; the classifier's
+# (16, 48) and every float32 call stay on the CUDA cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12)}
 
 
 @pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384), (4, 12), (4, 48),
@@ -187,3 +187,51 @@ def test_bn_fwd16_pair_rounding_stays_within_tolerance(n, rate):
     _, var, _, _ = TT._bn_moments(a.sum(-1), c_pair, w, cb, cnt)
     assert _rel(c_pair, c_w) <= 1e-4 and _rel(var, var_w) <= 1e-4
     assert _rel(prod(hi, hi), c_w) > 1e-3
+
+
+@pytest.mark.parametrize("dh,n,rate", [(12, 200, 0.2), (12, 64, 0.0), (48, 130, 0.2)])
+def test_bn_fwd_online_lse_matches_the_plain_version(dh, n, rate):
+    """Lite's register classes (4, 12), (4, 48) take the log-sum-exp in the
+    sweep, emulated here on the CPU with bf16 inputs: per 64-key tile each
+    row's running max m of the scores (log2 units), its normaliser l, A, S
+    and C taken relative to m and their sums rescaled by 2^(m_old - m_new)
+    when it moves, A rounded to bf16 unnormalised for the product with V_cat,
+    and at the end o_norm, S and C divided by l, lse = (m + log2 l) ln 2.
+    S, C and lse stay within 1e-4 of ``bn_fwd_plain`` (the card holds them
+    at 1e-3) and o_norm within 2e-2: folding the pass into the sweep costs
+    no accuracy."""
+    heads, batch, seed = 4, 2, 5
+    g = torch.Generator().manual_seed(dh + n)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()
+    k = rnd(batch, heads, n, dh).bfloat16()
+    v = rnd(batch, n, heads * dh).bfloat16()
+    s_w, c_w, lse_w, onorm_w = TT.bn_fwd_plain(q, k, v, seed, rate)
+
+    log2e = 1.4426950408889634
+    x_all = (q.float() @ k.float().transpose(-1, -2)) * log2e
+    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0
+            else torch.ones(batch, heads, n, n))
+    m = torch.full((batch, heads, n), -float("inf"))
+    l, s_acc = torch.zeros(batch, heads, n), torch.zeros(batch, heads, n)
+    c_acc = torch.zeros(batch, heads, heads, n)
+    acc = torch.zeros(batch, heads, n, heads * dh)
+    for k0 in range(0, n, 64):
+        x = x_all[..., k0:k0 + 64]
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        m = m_new
+        p = torch.exp2(x - m[..., None])
+        a = p * mask[..., k0:k0 + 64]
+        l = l * alpha + p.sum(-1)
+        s_acc = s_acc * alpha + a.sum(-1)
+        c_acc = (c_acc * alpha[:, :, None] * alpha[:, None]
+                 + torch.einsum("bgnm,bhnm->bghn", a, a))
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bhnm,bmj->bhnj", a.bfloat16().float(), v[:, k0:k0 + 64].float()))
+    onorm = (acc / l[..., None]).bfloat16()
+    lse = (m + torch.log2(l)) / log2e
+    assert _rel(onorm, onorm_w) <= 2e-2
+    worst = max(_rel(s_acc / l, s_w), _rel(c_acc / (l[:, :, None] * l[:, None]), c_w),
+                _rel(lse, lse_w))
+    assert worst <= 1e-4, worst

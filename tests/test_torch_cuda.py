@@ -417,6 +417,14 @@ HEAD16_BWD_CASES = [
     (2, 16, 48, 196, 196), (2, 16, 12, 784, 784), (2, 16, 48, 100, 130),
     (2, 16, 12, 200, 96), (2, 16, 12, 1, 49),
 ]
+# lite's 4-head classes (kernels 3 and 4 on the tensor cores) at a level N
+# (dh 12 at 1,024 of its 3,136), ragged over partial key tiles and dropout
+# windows, more queries than keys, a single query
+LITE_CASES = [
+    (2, 4, 12, 1024, 1024), (2, 4, 12, 100, 130), (2, 4, 12, 200, 96), (2, 4, 12, 1, 49),
+    (2, 4, 48, 784, 784), (2, 4, 48, 100, 130), (2, 4, 192, 196, 196), (2, 4, 192, 70, 130),
+    (2, 4, 192, 1, 49),
+]
 
 
 def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
@@ -431,7 +439,7 @@ def _bwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate, bn):
 
 @pytest.mark.parametrize("bn", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES + LITE_CASES)
 def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == "tensor_core"
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate, bn)
@@ -444,7 +452,7 @@ def test_bwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, r
         assert _rel(a, b) <= F32_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + HEAD16_BWD_CASES + LITE_CASES)
 def test_bwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
     args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
     tc = TT.launch_bwd(*args, route="tensor_core")
@@ -476,6 +484,32 @@ def test_bwd_16_head_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n
     torch.cuda.synchronize()
     assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
     assert _rel(first[0], again[0]) <= F32_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_CASES[::3])
+def test_bwd_lite_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k):
+    """At 4 heads one warp of a head keeps dk, the other dv, each written once
+    from its registers: two calls give the same dk and dv bits; dq goes by
+    atomics, within the tolerance."""
+    args = _bwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, 0.2, True)
+    first = TT.launch_bwd(*args, route="tensor_core")
+    again = TT.launch_bwd(*args, route="tensor_core")
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    assert _rel(first[0], again[0]) <= F32_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dh", [12, 48, 192])
+def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
+    """Lite's classes in float32: kernels 3 and 4 on the CUDA cores."""
+    args = _bwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2, True)
+    before = dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches)
+    TT.train_bwd(*args)
+    TT.bn_fwd(args[0], args[1], args[2], args[7], 0.2)
+    torch.cuda.synchronize()
+    assert TT.train_bwd.route_launches == {
+        **before[0], "cuda_core": before[0]["cuda_core"] + 1}
+    assert TT.bn_fwd.route_launches == {**before[1], "cuda_core": before[1]["cuda_core"] + 1}
 
 
 def test_bwd_float32_takes_the_cuda_core_route(cuda):
@@ -511,7 +545,7 @@ BN_FWD_TOLS = (F32_TOL, F32_TOL, F32_TOL, TOL)   # S, C, lse, o_norm
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + LITE_CASES)
 def test_bn_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate):
     assert TT.bn_fwd_route(torch.bfloat16, heads, dh) == "tensor_core"
     q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
@@ -524,7 +558,7 @@ def test_bn_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k
         assert _rel(a, b) <= tol[torch.bfloat16]
 
 
-@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES)
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BWD_TC_CASES + LITE_CASES)
 def test_bn_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n_k):
     q, k, v, _, _, _, seed = _train_inputs(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k)
     tc = TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
@@ -534,7 +568,8 @@ def test_bn_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q
         assert _rel(a, b) <= tol[torch.bfloat16]
 
 
-@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (16, 12, 128)])
+@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (16, 12, 128), (4, 12, 48),
+                                      (4, 48, 192), (4, 192, 196)])
 def test_bn_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     """q = 0 makes every probability 1/Nk, and V_cat[m, j] = 1 where m = j
     (P >= Nk here) makes o_norm[..., m] Nk (1 - rate) the keep bit of key m."""

@@ -32,7 +32,7 @@ TOL = 1e-4
     (torch.float32, 8, 192, True, "identity_f32"),     # the default (f32) config
     (torch.float32, 4, 192, True, "identity_f32"),
     (torch.bfloat16, 8, 192, False, "cuda_core"),      # without the flag
-    (torch.bfloat16, 4, 192, False, "cuda_core"),
+    (torch.bfloat16, 4, 192, False, "tensor_core"),    # lite's level 0, a general mix
     (torch.float32, 8, 192, False, "cuda_core"),
     (torch.bfloat16, 8, 96, True, "tensor_core"),      # other classes keep theirs
     (torch.bfloat16, 16, 12, True, "tensor_core"),

@@ -47,7 +47,9 @@ def _cotangent_loss(out):
     return (out * torch.cos(out)).sum()
 
 
-@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16)])
+# (4, 12) and (4, 48): lite's two deeper levels (kernels 3 and 4 take the
+# tensor cores there in bf16), at a small N
+@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48)])
 def test_frozen_function_matches_jax(n, heads, dh):
     args = _frozen_inputs(n, heads, dh, seed=1)
     jargs = [jnp.asarray(a) for a in args]
@@ -70,7 +72,7 @@ def test_frozen_function_matches_jax(n, heads, dh):
                                    atol=5e-4, err_msg=f"grad d{name}")
 
 
-@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16)])
+@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48)])
 def test_bn_function_and_moments_match_jax(n, heads, dh):
     args = _bn_inputs(n, heads, dh)
     jargs = [jnp.asarray(a) for a in args]
@@ -147,6 +149,32 @@ def test_dropout_mask_does_not_depend_on_the_tiling():
     words = TT.philox4(99, ar(1)[:, None], ar(1)[:, None], ar(70)[:, None], ar(16)[None, :])
     for w, word in enumerate(words):
         assert torch.equal(full[0, 0, :, 16 * w:16 * w + 16], word)
+
+
+@pytest.mark.parametrize("kernel", ["bn_fwd", "bwd"])
+def test_plain_versions_by_image_groups(kernel):
+    """A plain version of images i.. of a call, given batch_base i, draws
+    that call's dropout bits: its groups of images, concatenated, equal the
+    whole call's plain version (how a b64 call is held on the card)."""
+    batch, heads, n, dh = 5, 4, 70, 12
+    q, k, v, m_eff, _, _, _ = _bn_inputs(n, heads, dh, batch=batch)
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    q, k, v, m_eff = _t((q, k, v, m_eff))
+    lse, g, d, g_mat, kappa = (f(batch, heads, n), f(batch, n, heads * dh),
+                               f(batch, heads, n), f(heads, heads), f(heads))
+    if kernel == "bn_fwd":
+        call = lambda s, i: TT.bn_fwd_plain(q[s], k[s], v[s], 17, 0.2, batch_base=i)
+    else:
+        call = lambda s, i: TT.train_bwd_plain(q[s], k[s], v[s], lse[s], g[s], m_eff, d[s],
+                                               17, 0.2, (g_mat, kappa), batch_base=i)
+    whole = call(slice(0, batch), 0)
+    groups = [call(slice(i, i + 2), i) for i in range(0, batch, 2)]
+    for got, want in zip(zip(*groups), whole):
+        torch.testing.assert_close(torch.cat(got), want, rtol=1e-6, atol=1e-6)
+    # without the base, a later group draws the first group's bits
+    first = call(slice(2, 4), 0)
+    assert not all(torch.allclose(a, b[2:4]) for a, b in zip(first, whole))
 
 
 @pytest.mark.parametrize("mode", ["frozen", "bn"])

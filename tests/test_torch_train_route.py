@@ -64,11 +64,10 @@ def _level_shapes():
     return out
 
 
-# base's and large's levels and the classifier's two levels run on the
-# tensor cores in bf16; lite's (4 heads) stay on the CUDA cores, and so does
-# a general-mix call at HViTUNetTF's level 0 (its keras attention takes the
-# identity route)
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)}
+# base's, large's and lite's levels and the classifier's two levels run on
+# the tensor cores in bf16; a general-mix call at HViTUNetTF's level 0 stays
+# on the CUDA cores (its keras attention takes the identity route)
+TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12), (16, 48)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
@@ -76,6 +75,7 @@ def test_train_bwd_route_by_dtype_and_shape(preset, level, heads, dh):
     assert TT.train_bwd_route(torch.float32, heads, dh) == "cuda_core"
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == want
+    assert TT.TRAIN_BWD_TC_SHAPES == TENSOR_CORE
 
 
 def test_classifier_levels_at_the_cli_defaults():
@@ -162,7 +162,8 @@ def _round(x, pairs):
 
 @pytest.mark.parametrize("heads,dh,n", [
     pytest.param(heads, dh, n, id=f"{dh}-{n}" if heads == 8 else f"h{heads}-{dh}-{n}")
-    for heads, dh, n in [(8, 24, 128), (8, 96, 64), (8, 192, 130), (16, 12, 200), (16, 48, 100)]])
+    for heads, dh, n in [(8, 24, 128), (8, 96, 64), (8, 192, 130), (16, 12, 200), (16, 48, 100),
+                         (4, 12, 256), (4, 48, 128), (4, 192, 100)]])
 def test_bf16_pairs_keep_the_backward_within_its_tolerance(heads, dh, n):
     """Why the tensor-core backward carries dS and the mixed map B as bf16
     pairs: emulated on the CPU with bf16 inputs, rate 0.2 and the BN term,
@@ -170,7 +171,8 @@ def test_bf16_pairs_keep_the_backward_within_its_tolerance(heads, dh, n):
     more than 1e-3 (max|err| / max|plain|, the card's tolerance for these
     f32 outputs) off the plain version; the pairs keep them under 1e-4.
     Every class rounds alike: the 16-head classes keep P and g.v in f32
-    (staged through shared memory) and round only dS and B, to pairs."""
+    (staged through shared memory) and round only dS and B, to pairs, and
+    so do lite's 4-head classes, in registers."""
     rate = 0.2
     g = torch.Generator().manual_seed(dh)
     rnd = lambda *s: torch.randn(*s, generator=g)

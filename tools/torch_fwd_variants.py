@@ -2,14 +2,15 @@
 """Where the two training forwards' tensor-core routes spend their time, on
 one NVIDIA GPU.
 
-    python3 tools/torch_fwd_variants.py [--parent DIR] [--only NAME,...]
+    python3 tools/torch_fwd_variants.py [--parent DIR] [--only NAME,...] [--lite]
 
 Builds ``flash_reattention_train.cu`` once per variant, all in parallel, into
 ``build/fwd_variants/`` (ignored by git), each with an edited copy of
 ``reattention_bnfwd_tc.cuh``, and times the exact-BN forward (``vit_bn_fwd``)
 and the frozen-BN forward (``vit_train_fwd``) on their tensor-core routes at
-base's three level shapes, batch 64, bf16, dropout rate 0 and 0.2 (CUDA
-events, 20 calls after 3):
+base's three level shapes (``--lite``: the exact-BN forward alone at lite's,
+4 heads), batch 64, bf16, dropout rate 0 and 0.2 (CUDA events, 20 calls
+after 3):
 
 * ``base``: the source as it is;
 * ``noprod``: without step 3 of the register form (o_norm += A V_cat);
@@ -17,7 +18,11 @@ events, 20 calls after 3):
 * ``lseonly``: the log-sum-exp pass alone (where the frozen forward takes
   its own, at most 64 keys, nothing);
 * ``passlse``: the frozen forward always takes the log-sum-exp pass;
-* ``nomix``: the frozen forward without its head mix (``out`` unwritten).
+* ``nomix``: the frozen forward without its head mix (``out`` unwritten);
+* ``minb1``, ``minb3``: lite's (4, 12) class at one or three blocks an SM
+  (the source: two);
+* ``twopass``: lite's (4, 12) class with the log-sum-exp pass first and the
+  sweep reading it (the source takes it in the sweep).
 
 With ``--parent DIR`` (a copy of an earlier ``kernels/csrc``), that source
 is built too as ``parent`` and its exact-BN forward timed beside the others
@@ -45,28 +50,35 @@ from vit_unet_tpu_torch.kernels.flash_reattention_train import keep_threshold  #
 
 OUT = ROOT / "build" / "fwd_variants"
 HEADER = "reattention_bnfwd_tc.cuh"
-PRODUCT = """      if constexpr (C::RES) {
-#pragma unroll
-        for (int kk = 0; kk < KT / 16; ++kk) product_step<C>(as, vbuf, kk, warp, lane, acc);
-      }"""
+PRODUCT = """#pragma unroll
+        for (int kk = 0; kk < KT / 16; ++kk) product_step<C>(as, vbuf, kk, wh, wcol, lane, acc);
+"""
 C_PRODUCTS = "      for (int j = 0; j < 4; ++j) cacc[p] = fmaf(a[h2][j], a[h3][j], cacc[p]);"
-AFTER_LSE = "  if (rc) return rc;\n#define VIT_BNFWD"
+SWEEP = ("  launch<Cfg<__VA_ARGS__>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, "
+         "stream)")
 OWN_LSE = "{ return mix && nk <= KT; }"
 MIX_BODY = "  constexpr int H = C::H, LDX = C::LDX, NQD = C::PC / 4;   // column quads of a row\n"
+LITE12 = "VIT_BNFWD(4, 12, 64, 48, false, 16, 2, true)"
+TWOPASS12 = ("{ rc = VIT_BNFWD_LSE(4, 12, 32, 64, 4, 2, 2); "
+             "return rc ? rc : VIT_BNFWD(4, 12, 64, 48, false, 16, 2); }")
 SHAPES = [(8, 24, 784), (8, 96, 196), (8, 384, 49)]   # (heads, dh, N) of base
+LITE_SHAPES = [(4, 12, 3136), (4, 48, 784), (4, 192, 196)]
 BATCH = 64
 
 
 def variants() -> dict[str, str]:
     src = (_build.CSRC / HEADER).read_text()
-    for piece in (PRODUCT, C_PRODUCTS, AFTER_LSE, OWN_LSE, MIX_BODY):
+    for piece in (PRODUCT, C_PRODUCTS, SWEEP, OWN_LSE, MIX_BODY, LITE12):
         if piece not in src:
             raise SystemExit(f"{HEADER} no longer holds the piece a variant edits:\n{piece}")
     return {"base": src, "noprod": src.replace(PRODUCT, ""),
             "noC": src.replace(C_PRODUCTS, ";"),
-            "lseonly": src.replace(AFTER_LSE, "  return rc;\n#define VIT_BNFWD"),
+            "lseonly": src.replace(SWEEP, "  0"),
             "passlse": src.replace(OWN_LSE, "{ return false; }"),
-            "nomix": src.replace(MIX_BODY, "  return;\n" + MIX_BODY)}
+            "nomix": src.replace(MIX_BODY, "  return;\n" + MIX_BODY),
+            "minb1": src.replace(LITE12, LITE12.replace("16, 2,", "16, 1,")),
+            "minb3": src.replace(LITE12, LITE12.replace("16, 2,", "16, 3,")),
+            "twopass": src.replace("return " + LITE12 + ";", TWOPASS12)}
 
 
 def build(name: str, csrc: Path, header: str | None) -> Path:
@@ -100,6 +112,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="an earlier kernels/csrc to build beside")
     parser.add_argument("--only", help="comma-separated variants to build (default: all)")
+    parser.add_argument("--lite", action="store_true",
+                        help="lite's shapes (4 heads), the exact-BN forward alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_fwd_variants: no CUDA device", file=sys.stderr)
@@ -121,7 +135,7 @@ def main() -> int:
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 7 + [p]
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
-    for heads, dh, n in SHAPES:
+    for heads, dh, n in LITE_SHAPES if args.lite else SHAPES:
         g = torch.Generator().manual_seed(0)
         q = (torch.randn(BATCH, heads, n, dh, generator=g) * 3 * dh ** -0.5).cuda().bfloat16()
         k = torch.randn(BATCH, heads, n, dh, generator=g).cuda().bfloat16()
@@ -148,7 +162,7 @@ def main() -> int:
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), sd, thr, scale, ptr["lse"],
                     ptr["onorm"], ptr["srow"], ptr["crow"], BATCH, heads, n, n, dh, 1, 1,
                     stream)}
-                if name != "parent":
+                if name != "parent" and not args.lite:
                     calls["fwd"] = lambda: lib.vit_train_fwd(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), vsum.data_ptr(),
                         m_eff.data_ptr(), c_eff.data_ptr(), sd, thr, scale, ptr["lse"],

@@ -1,7 +1,8 @@
 // Training forward of flash re-attention on the tensor cores: the bfloat16
 // routes of vit_bn_fwd (exact BN) and vit_train_fwd (frozen BN) in
 // flash_reattention_train.cu, at the (heads, dh) classes bn_fwd_tc and
-// train_fwd_tc instantiate: the levels of base and large.
+// train_fwd_tc instantiate: the levels of base and large, and for exact BN
+// also lite's (4 heads: dh 12, 48, 192).
 //
 // Replaces the Pallas TPU kernels of vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bn_fwd (pallas_call body _bn_fwd_kernel) and ::_fwd (body _fwd_kernel)
@@ -75,6 +76,32 @@
 // past Nk get A = 0 before S, C and the product; rows past Nq get
 // lse = +inf, so A = 0, and write nothing.
 //
+// 4 heads (lite's levels, exact BN only).  The block keeps its 8 warps, two
+// a head: in step 1 warp w takes head w / 2 and keys 32 (w % 2) .. + 31 of
+// the tile (16 x 32 scores), in step 3 the same head and half the block's
+// o_norm columns (P / 2 of a register tile, PC / 2 of a chunk); step 2 is
+// the same thread per (row, Philox group), now over 4 heads (4 calls a tile,
+// every word used; C's 10 sums).  The classes:
+//   * (4, 12), P = 48: the register form; dh 12 is copied in 8-byte pieces
+//     and zero-padded to one k16 step (depth chunk 16); a warp keeps 16 x 24
+//     of o_norm (an odd count of 8-column tiles: the last B fragment by
+//     ldmatrix.x2.trans);
+//   * (4, 48), P = 192: the register form, three depth chunks of 16, a warp
+//     16 x 96 of o_norm;
+//   * (4, 192), P = 768: the chunked form with 128-column chunks (64 a warp)
+//     and A of up to 256 keys, as base's (8, 96).
+// At dh 12 and 48 the block takes 74,240 and 92,672 B of shared memory, and
+// two blocks share an SM (at most 128 registers a thread).  There the
+// log-sum-exp pass, a fifth of the call at (4, 12) (its scores and exps
+// again), is folded into the sweep (Cfg::ONLINE, probs_tile_online): step 2
+// keeps each row's running max of the scores, a half-warp's max per tile,
+// and A, S, C and the normaliser l relative to it, rescaling their sums
+// when it moves; step 3 rescales o_norm's rows by the factor step 2 leaves
+// in shared memory; at the end the sweep divides o_norm, S and C by l and
+// writes lse = max + log l.  A is rounded to bf16 unnormalised (its
+// relative error is the same).  Dropout does not enter l: it stays the
+// pre-dropout normaliser.
+//
 // The log-sum-exp pass comes first, and is kernel 1's tensor-core pass
 // (reattention_tc.cuh::lse_kernel) at the same classes.
 //
@@ -102,6 +129,7 @@
 namespace vit_bnfwd {
 
 using vit_mma::ldsm_x2;
+using vit_mma::ldsm_x2_trans;
 using vit_mma::ldsm_x4;
 using vit_mma::ldsm_x4_trans;
 using vit_mma::mma_bf16;
@@ -117,28 +145,36 @@ constexpr int NW = vit_tile::NW;   // warps per block
 constexpr int NT = vit_tile::NT;   // threads per block
 constexpr int BQ = 16;             // query rows per block
 constexpr int KT = 64;             // keys of a score tile: one Philox window
-constexpr int DC = 32;             // depth chunk of the score product
-constexpr int LDC = DC + 8;        // bf16 pitch of a warp's staged q / K rows
 constexpr int LDSF = KT + 16;      // f32 pitch of the score tiles
-constexpr int WARP_ELEMS = (BQ + KT) * LDC;   // one of a warp's two buffers
 
 // The frozen forward takes the log-sum-exp itself where all keys fit one
 // key tile (tile_lse); otherwise the log-sum-exp pass runs first.
 __host__ __device__ constexpr bool own_lse(bool mix, int nk) { return mix && nk <= KT; }
 
 // MIX_: the frozen forward (head mix into out, no S and C); else exact BN.
-template <int H_, int DH_, int KC_, int PC_, bool MIX_ = false>
+// DC_: the depth chunk of the score product; MINB_: blocks an SM; ONLINE_:
+// exact BN in the register form with the log-sum-exp taken in the sweep
+// (no log-sum-exp pass; probs_tile_online).
+template <int H_, int DH_, int KC_, int PC_, bool MIX_ = false, int DC_ = 32, int MINB_ = 1,
+          bool ONLINE_ = false>
 struct Cfg {
-  static constexpr int H = H_, DH = DH_, KC = KC_, PC = PC_;
-  static constexpr bool MIX = MIX_;
+  static constexpr int H = H_, DH = DH_, KC = KC_, PC = PC_, DC = DC_, MINB = MINB_;
+  static constexpr bool MIX = MIX_, ONLINE = ONLINE_;
   static constexpr int P = H * DH;
+  static constexpr int WPH = NW / H;              // warps a head: 1 (8 heads) or 2 (4)
+  static constexpr int KTW = KT / WPH;            // keys of a warp's score tile
+  static constexpr int PCW = PC / WPH;            // o_norm columns of a warp
+  static constexpr int NVTW = PCW / 8;            // 8-column tiles of a warp's output
   static constexpr bool RES = PC == P;            // o_norm stays in registers
   static constexpr int NDC = (DH + DC - 1) / DC;  // depth chunks
-  static constexpr int CPR = (DH < DC ? DH : DC) / 8;   // 16-byte copies a row and chunk
+  static constexpr int LDC = DC + 8;              // bf16 pitch of a warp's staged q / K rows
+  static constexpr int CH = DH % 8 == 0 ? 8 : 4;  // bf16 a copy (16 or 8 bytes)
+  static constexpr int CPR = (DH < DC ? DH : DC) / CH;  // copies a row and chunk
+  static constexpr int WARP_ELEMS = (BQ + KTW) * LDC;   // one of a warp's two buffers
   static constexpr int NPAIR = H * (H + 1) / 2;   // C's upper triangle
   static constexpr int LDA = KC + 8;              // bf16 pitch of the A tiles
   static constexpr int LDV = PC + 8;              // bf16 pitch of a V_cat buffer
-  static constexpr int NVT = PC / 8;              // 8-column tiles of a warp's output
+  static constexpr int NVT = PC / 8;              // 8-column tiles of a column chunk
   static constexpr int VROWS = RES ? KT : KC;     // keys of a V_cat buffer
   static constexpr int NVBUF = RES ? 1 : 2;
   static constexpr int V_ELEMS = VROWS * LDV;
@@ -150,22 +186,47 @@ struct Cfg {
   // steps 1-2 and step 3 do not overlap
   static constexpr size_t BODY =
       S_BYTES + A_BYTES + (RES ? W_BYTES + V_BYTES : (W_BYTES > V_BYTES ? W_BYTES : V_BYTES));
-  // the frozen forward stages M (H x H) and c (H) once, after the body
-  static constexpr size_t SMEM = BODY + (MIX ? sizeof(float) * (H * H + H) : 0);
-  static_assert(H == NW, "warp h owns head h");
-  static_assert(DH % 8 == 0 && (DH < DC || DH % DC == 0), "depth chunks");
+  // the frozen forward stages M (H x H) and c (H) once, after the body; the
+  // online form keeps each (head, row)'s rescale factor of the tile and, at
+  // the end, 1 / l there
+  static constexpr size_t SMEM =
+      BODY + (MIX ? sizeof(float) * (H * H + H) : 0) + (ONLINE ? sizeof(float) * 2 * H * BQ : 0);
+  static_assert(!ONLINE || (RES && !MIX), "the online log-sum-exp: exact BN, register form");
+  static_assert(WPH * H == NW && (WPH == 1 || WPH == 2), "a head's warps");
+  static_assert(!MIX || WPH == 1, "the frozen forward's mix: warp h holds head h");
+  static_assert(DH % 4 == 0 && DC % 16 == 0 && (DH < DC || DH % DC == 0), "depth chunks");
   static_assert(DH >= DC || RES, "zero padding of the warp buffers is never overwritten");
-  static_assert(KC % KT == 0 && P % PC == 0 && NVT % 2 == 0, "tiles");
+  static_assert(KC % KT == 0 && P % PC == 0 && PCW % 8 == 0, "tiles");
   static_assert(!RES || KC == KT, "the register form keeps one key tile of A");
   static_assert(SMEM <= 232448, "shared memory of a block");
   // the mix's exchange of the f32 accumulators, [H][BQ][LDX]; a thread mixes
   // NMIX column quads of the block's 16 x PC tile
   static constexpr int LDX = PC + 8;
   static constexpr size_t X_BYTES = sizeof(float) * H * BQ * LDX;
-  static constexpr int NMIX = BQ * PC / 4 / NT;
+  static constexpr int NMIX = BQ * PC / 4 >= NT ? BQ * PC / 4 / NT : 1;
   static_assert(!MIX || X_BYTES <= (RES ? BODY : S_BYTES), "the mix's exchange region");
-  static_assert(BQ * PC / 4 % NT == 0, "column quads of the mix");
+  static_assert(!MIX || BQ * PC / 4 % NT == 0, "column quads of the mix");
 };
+
+// The keep bits of thread (row, c) of step 2 for the key tile at k0: bit
+// 4 h + j for key c + 16 j of head h, all four words of one Philox call a
+// head; all kept without dropout or past Nq.
+template <typename C>
+__device__ __forceinline__ uint32_t keep_bits(uint64_t sd, int thr, int b, int row, bool rvalid,
+                                              int k0, int c) {
+  uint32_t keep = 0xFFFFFFFFu;
+  if (thr > 0 && rvalid) {
+    keep = 0;
+    const uint32_t t = static_cast<uint32_t>(thr);
+#pragma unroll
+    for (int h = 0; h < C::H; ++h) {
+      const uint4 w = vit::philox4(sd, b, h, row, (k0 >> 2) + c);
+      keep |= (((w.x >> 8) >= t ? 1u : 0u) | ((w.y >> 8) >= t ? 2u : 0u) |
+               ((w.z >> 8) >= t ? 4u : 0u) | ((w.w >> 8) >= t ? 8u : 0u)) << (4 * h);
+    }
+  }
+  return keep;
+}
 
 // Step 2 for key tile t (keys k0 .. k0 + 63): thread (r, c) of the block.
 template <typename C>
@@ -175,17 +236,7 @@ __device__ __forceinline__ void probs_tile(const float* ss, bf16* as, int aoff, 
                                            const float (&lse2)[C::H], bool acc_sc,
                                            float (&sacc)[C::H], float (&cacc)[C::NPAIR]) {
   constexpr int H = C::H;
-  uint32_t keep = 0xFFFFFFFFu;   // bit 4 h + j: key c + 16 j of head h is kept
-  if (thr > 0 && rvalid) {
-    keep = 0;
-    const uint32_t t = static_cast<uint32_t>(thr);
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const uint4 w = vit::philox4(sd, b, h, row, (k0 >> 2) + c);
-      keep |= (((w.x >> 8) >= t ? 1u : 0u) | ((w.y >> 8) >= t ? 2u : 0u) |
-               ((w.z >> 8) >= t ? 4u : 0u) | ((w.w >> 8) >= t ? 8u : 0u)) << (4 * h);
-    }
-  }
+  const uint32_t keep = keep_bits<C>(sd, thr, b, row, rvalid, k0, c);
   const float ks = thr > 0 ? scale : 1.f;
   float a[H][4];
 #pragma unroll
@@ -208,22 +259,97 @@ __device__ __forceinline__ void probs_tile(const float* ss, bf16* as, int aoff, 
       for (int j = 0; j < 4; ++j) cacc[p] = fmaf(a[h2][j], a[h3][j], cacc[p]);
 }
 
-// Step 3, one 16-key step kk: acc (16 rows x PC columns of head `warp`) +=
-// A (keys 16 kk .. 16 kk + 15 of the A tiles) @ vb (those keys' rows of a
+// Step 2 with the log-sum-exp taken in the sweep (C::ONLINE), key tile at
+// k0, thread (r, c): per head the row's running max m2 of the scores in
+// log2 units (a half-warp's max, the same in its 16 threads) and this
+// thread's sum lsum of exp2(s - m2) over its valid keys, pre-dropout; A, S
+// and C relative to m2, their sums rescaled by alpha = exp2(m2_old -
+// m2_new) when the max moves, and A written unnormalised (the sweep divides
+// by l = sum lsum at the end).  Thread c = 0 leaves each head's alpha of its
+// row in alpha_s[h][r] for step 3.
+template <typename C>
+__device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int k0, int nk, int b,
+                                                  int row, bool rvalid, int r, int c,
+                                                  uint64_t sd, int thr, float scale,
+                                                  float (&m2)[C::H], float (&lsum)[C::H],
+                                                  float (&sacc)[C::H], float (&cacc)[C::NPAIR],
+                                                  float* alpha_s) {
+  constexpr int H = C::H;
+  const uint32_t keep = keep_bits<C>(sd, thr, b, row, rvalid, k0, c);
+  const float ks = thr > 0 ? scale : 1.f;
+  float a[H][4], al[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float x[4], mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[j] = k0 + c + 16 * j < nk ? ss[(h * BQ + r) * LDSF + c + 16 * j] * LOG2E : -INFINITY;
+      mt = fmaxf(mt, x[j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    const float mn = fmaxf(m2[h], mt);   // finite: key k0 of the tile is valid
+    al[h] = fast_exp2(m2[h] - mn);       // 0 on the first tile (m2 = -inf)
+    m2[h] = mn;
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float pj = fast_exp2(x[j] - mn);   // 0 past Nk
+      ps += pj;
+      a[h][j] = (keep >> (4 * h + j)) & 1u ? pj * ks : 0.f;
+      as[(h * BQ + r) * C::LDA + c + 16 * j] = __float2bfloat16_rn(a[h][j]);
+    }
+    lsum[h] = fmaf(lsum[h], al[h], ps);
+    sacc[h] = fmaf(sacc[h], al[h], (a[h][0] + a[h][1]) + (a[h][2] + a[h][3]));
+    if (c == 0) alpha_s[h * BQ + r] = al[h];
+  }
+  int p = 0;
+#pragma unroll
+  for (int h2 = 0; h2 < H; ++h2)
+#pragma unroll
+    for (int h3 = h2; h3 < H; ++h3, ++p) {
+      float x = cacc[p] * (al[h2] * al[h3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x = fmaf(a[h2][j], a[h3][j], x);
+      cacc[p] = x;
+    }
+}
+
+// acc (16 rows of head h: gq, gq + 8 of this lane) *= f[h][row]
+template <typename C>
+__device__ __forceinline__ void scale_rows(float (&acc)[C::NVTW][4], const float* f, int h,
+                                           int lane) {
+  const float f0 = f[h * BQ + lane / 4], f1 = f[h * BQ + lane / 4 + 8];
+#pragma unroll
+  for (int nv = 0; nv < C::NVTW; ++nv) {
+    acc[nv][0] *= f0;
+    acc[nv][1] *= f0;
+    acc[nv][2] *= f1;
+    acc[nv][3] *= f1;
+  }
+}
+
+// Step 3, one 16-key step kk: acc (16 rows x PCW columns col0.. of head h)
+// += A (keys 16 kk .. 16 kk + 15 of the A tiles) @ vb (those keys' rows of a
 // V_cat buffer).
 template <typename C>
-__device__ __forceinline__ void product_step(const bf16* as, const bf16* vb, int kk, int warp,
-                                             int lane, float (&acc)[C::NVT][4]) {
+__device__ __forceinline__ void product_step(const bf16* as, const bf16* vb, int kk, int h,
+                                             int col0, int lane, float (&acc)[C::NVTW][4]) {
   uint32_t af[4];
-  ldsm_x4(af, as + (warp * BQ + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDA + 8 * (lane / 16) +
+  ldsm_x4(af, as + (h * BQ + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDA + 8 * (lane / 16) +
                   16 * kk);
-  const bf16* vrow = vb + (16 * kk + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDV + 8 * (lane / 16);
+  const bf16* vrow = vb + (16 * kk + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDV + col0;
 #pragma unroll
-  for (int nv = 0; nv < C::NVT; nv += 2) {
+  for (int nv = 0; nv + 2 <= C::NVTW; nv += 2) {
     uint32_t vf[4];   // b0, b1 of column tile nv, then of nv + 1
-    ldsm_x4_trans(vf, vrow + 8 * nv);
+    ldsm_x4_trans(vf, vrow + 8 * nv + 8 * (lane / 16));
     mma_bf16(acc[nv], af, vf[0], vf[1]);
     mma_bf16(acc[nv + 1], af, vf[2], vf[3]);
+  }
+  if constexpr (C::NVTW % 2 == 1) {   // the last tile alone (lanes 0-15 address it)
+    uint32_t vf[2];
+    ldsm_x2_trans(vf, vrow + 8 * (C::NVTW - 1));
+    mma_bf16(acc[C::NVTW - 1], af, vf[0], vf[1]);
   }
 }
 
@@ -242,25 +368,25 @@ __device__ __forceinline__ void load_v(bf16* dst, const bf16* v, int b, int key0
 }
 
 template <typename C>
-__device__ __forceinline__ void zero_acc(float (&acc)[C::NVT][4]) {
+__device__ __forceinline__ void zero_acc(float (&acc)[C::NVTW][4]) {
 #pragma unroll
-  for (int nv = 0; nv < C::NVT; ++nv)
+  for (int nv = 0; nv < C::NVTW; ++nv)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nv][e] = 0.f;
 }
 
-// acc (rows q0 + 16 rows, columns c0 .. c0 + PC of head `warp`) -> o_norm, bf16
+// acc (rows q0 + 16 rows, columns c0 .. c0 + PCW of head h) -> o_norm, bf16
 template <typename C>
-__device__ __forceinline__ void store_acc(const float (&acc)[C::NVT][4], bf16* onorm, int b,
-                                          int q0, int c0, int nq, int warp, int lane) {
+__device__ __forceinline__ void store_acc(const float (&acc)[C::NVTW][4], bf16* onorm, int b,
+                                          int q0, int c0, int nq, int h, int lane) {
   const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + gq + 8 * r;
     if (row >= nq) continue;
-    bf16* dst = onorm + (((int64_t)b * C::H + warp) * nq + row) * C::P + c0 + 2 * t4;
+    bf16* dst = onorm + (((int64_t)b * C::H + h) * nq + row) * C::P + c0 + 2 * t4;
 #pragma unroll
-    for (int nv = 0; nv < C::NVT; ++nv)
+    for (int nv = 0; nv < C::NVTW; ++nv)
       *reinterpret_cast<uint32_t*>(dst + 8 * nv) = pack_bf16(acc[nv][2 * r], acc[nv][2 * r + 1]);
   }
 }
@@ -286,13 +412,13 @@ __device__ __forceinline__ void load_vsum(float (&vq)[C::NMIX][4], const float* 
 // xs (C::X_BYTES) must be free for every warp when this is called; it is
 // read until the call returns.
 template <typename C>
-__device__ __forceinline__ void mix_out(const float (&acc)[C::NVT][4], float* xs, const float* mc,
+__device__ __forceinline__ void mix_out(const float (&acc)[C::NVTW][4], float* xs, const float* mc,
                                         const float (&vq)[C::NMIX][4], bf16* out, int b, int q0,
                                         int c0, int nq, int warp, int lane, int tid) {
   constexpr int H = C::H, LDX = C::LDX, NQD = C::PC / 4;   // column quads of a row
   const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
-  for (int nv = 0; nv < C::NVT; ++nv)
+  for (int nv = 0; nv < C::NVTW; ++nv)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<float2*>(xs + (warp * BQ + gq + 8 * r) * LDX + 8 * nv + 2 * t4) =
@@ -354,30 +480,39 @@ __device__ __forceinline__ void tile_lse(const float* ss, float* lse, int b, int
 // Exact BN writes srow and crow; frozen BN (C::MIX) reads vsum, m_eff, c_eff
 // and writes out.  The other mode's pointers are not read.
 template <typename C>
-__global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
+__global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     float* __restrict__ lse, const int64_t* __restrict__ seed, int thr, float scale,
     bf16* __restrict__ onorm, float* __restrict__ srow, float* __restrict__ crow,
     const float* __restrict__ vsum, const float* __restrict__ m_eff,
     const float* __restrict__ c_eff, bf16* __restrict__ out, int nq, int nk) {
-  constexpr int H = C::H, DH = C::DH;
+  constexpr int H = C::H, DH = C::DH, DC = C::DC, LDC = C::LDC, WARP_ELEMS = C::WARP_ELEMS;
   extern __shared__ __align__(128) unsigned char bn_smem[];
   float* ss = reinterpret_cast<float*>(bn_smem);                    // [H][BQ][LDSF] scores
   bf16* as = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES);         // [H][BQ][LDA] bf16 A
   bf16* wbuf = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES + C::A_BYTES);  // [NW][2][WARP_ELEMS]
   bf16* vbuf = C::RES ? wbuf + NW * 2 * WARP_ELEMS : wbuf;          // [NVBUF][VROWS][LDV]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this warp's head; its key part (step 1) and column part (step 3)
+  const int wh = warp / C::WPH, wpart = warp % C::WPH;
+  const int wcol = wpart * C::PCW;
   const int q0 = blockIdx.x * BQ, b = blockIdx.y;
   const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
   // step 2's thread: row er, Philox group ec; a row's 16 threads share a half-warp
   const int er = tid / 16, ec = tid % 16, erow = q0 + er;
   const bool rvalid = erow < nq;
   const bool lse_here = own_lse(C::MIX, nk);
+  // lse2: lse * log2(e) of the row, or with C::ONLINE its running max m2
   float lse2[H], sacc[H], cacc[C::NPAIR];
+  [[maybe_unused]] float lsum[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
-    lse2[h] = rvalid && !lse_here ? lse[((int64_t)b * H + h) * nq + erow] * LOG2E : INFINITY;
+    if constexpr (C::ONLINE)
+      lse2[h] = -INFINITY;
+    else
+      lse2[h] = rvalid && !lse_here ? lse[((int64_t)b * H + h) * nq + erow] * LOG2E : INFINITY;
     sacc[h] = 0.f;
+    if constexpr (C::ONLINE) lsum[h] = 0.f;
   }
 #pragma unroll
   for (int p = 0; p < C::NPAIR; ++p) cacc[p] = 0.f;
@@ -386,27 +521,29 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
   // MMAs read
   if constexpr (DH < DC) vit_tile::zero_bf16<NW * 2 * WARP_ELEMS>(wbuf, tid);
   [[maybe_unused]] float* mc = reinterpret_cast<float*>(bn_smem + C::BODY);   // frozen BN: M, c
+  [[maybe_unused]] float* alpha_s = mc;       // C::ONLINE: [H][BQ] alpha of the tile
+  [[maybe_unused]] float* linv_s = mc + H * BQ;   // then [H][BQ] 1 / l
   if constexpr (C::MIX)
     if (tid < H * H + H) mc[tid] = tid < H * H ? m_eff[tid] : c_eff[tid - H * H];
   __syncthreads();
 
-  const bf16* qh = q + ((int64_t)b * H + warp) * nq * DH;
-  const bf16* kh = k + ((int64_t)b * H + warp) * nk * DH;
+  const bf16* qh = q + ((int64_t)b * H + wh) * nq * DH;
+  const bf16* kh = k + ((int64_t)b * H + wh) * nk * DH;
   bf16* wb = wbuf + warp * 2 * WARP_ELEMS;
-  // this warp's stage (key tile t, depth chunk d): q_h rows, then K_h rows
+  // this warp's stage (key tile t, depth chunk d): q_h rows, then its KTW K_h rows
   auto load_qk = [&](int t, int d, bf16* dst) {
-    for (int e = lane; e < (BQ + KT) * C::CPR; e += 32) {
+    for (int e = lane; e < (BQ + C::KTW) * C::CPR; e += 32) {
       const int j = e % C::CPR, r = e / C::CPR;
       const bool isq = r < BQ;
-      const int row = isq ? q0 + r : t * KT + r - BQ;
+      const int row = isq ? q0 + r : t * KT + wpart * C::KTW + r - BQ;
       const bool valid = row < (isq ? nq : nk);
-      const bf16* src = (isq ? qh : kh) + (int64_t)row * DH + d * DC + 8 * j;
-      cp_async<16>(dst + r * LDC + 8 * j, valid ? src : q, valid);
+      const bf16* src = (isq ? qh : kh) + (int64_t)row * DH + d * DC + C::CH * j;
+      cp_async<2 * C::CH>(dst + r * LDC + C::CH * j, valid ? src : q, valid);
     }
     cp_async_commit();
   };
 
-  float acc[C::NVT][4];
+  float acc[C::NVTW][4];
   zero_acc<C>(acc);
 
   // Steps 1-2 over key tiles [t0, t1); A of tile t at column (t - t0) KT of
@@ -414,7 +551,7 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
   auto sweep = [&](int t0, int t1, bool acc_sc) {
     const int total = (t1 - t0) * C::NDC;
     load_qk(t0, 0, wb);
-    float st[KT / 8][4];
+    float st[C::KTW / 8][4];
     for (int s = 0; s < total; ++s) {
       const int t = t0 + s / C::NDC, d = s % C::NDC;
       if (s + 1 < total) {
@@ -426,7 +563,7 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
       __syncwarp();
       if (d == 0) {
 #pragma unroll
-        for (int nt = 0; nt < KT / 8; ++nt)
+        for (int nt = 0; nt < C::KTW / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) st[nt][e] = 0.f;
       }
@@ -436,7 +573,7 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
         uint32_t af[4];
         ldsm_x4(af, buf + ((lane % 8) + 8 * ((lane / 8) % 2)) * LDC + 8 * (lane / 16) + 16 * kq);
 #pragma unroll
-        for (int nt = 0; nt < KT / 8; ++nt) {
+        for (int nt = 0; nt < C::KTW / 8; ++nt) {
           uint32_t bf[2];
           ldsm_x2(bf, buf + (BQ + 8 * nt + (lane % 8)) * LDC + 8 * ((lane / 8) % 2) + 16 * kq);
           mma_bf16(st[nt], af, bf[0], bf[1]);
@@ -447,10 +584,11 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
       {
         const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
-        for (int nt = 0; nt < KT / 8; ++nt)
+        for (int nt = 0; nt < C::KTW / 8; ++nt)
 #pragma unroll
           for (int r = 0; r < 2; ++r)
-            *reinterpret_cast<float2*>(ss + (warp * BQ + gq + 8 * r) * LDSF + 8 * nt + 2 * t4) =
+            *reinterpret_cast<float2*>(ss + (wh * BQ + gq + 8 * r) * LDSF + wpart * C::KTW +
+                                       8 * nt + 2 * t4) =
                 make_float2(st[nt][2 * r], st[nt][2 * r + 1]);
       }
       // every head's scores of tile t are stored; everyone is done with the
@@ -459,13 +597,18 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
       if constexpr (C::RES) load_v<C>(vbuf, v, b, t * KT, KT, 0, nk, tid);
       if (lse_here) tile_lse<C>(ss, lse, b, erow, rvalid, er, ec, nq, nk, lse2);
       // RES keeps one key tile of A; otherwise A of all the sweep's keys
-      probs_tile<C>(ss, as, C::RES ? 0 : (t - t0) * KT, t * KT, nk, b, erow, rvalid, er, ec, sd,
-                    thr, scale, lse2, acc_sc, sacc, cacc);
+      if constexpr (C::ONLINE)
+        probs_tile_online<C>(ss, as, t * KT, nk, b, erow, rvalid, er, ec, sd, thr, scale, lse2,
+                             lsum, sacc, cacc, alpha_s);
+      else
+        probs_tile<C>(ss, as, C::RES ? 0 : (t - t0) * KT, t * KT, nk, b, erow, rvalid, er, ec,
+                      sd, thr, scale, lse2, acc_sc, sacc, cacc);
       if constexpr (C::RES) cp_async_wait<0>();
       __syncthreads();   // A of tile t is stored (and its V_cat tile has landed)
       if constexpr (C::RES) {
+        if constexpr (C::ONLINE) scale_rows<C>(acc, alpha_s, wh, lane);
 #pragma unroll
-        for (int kk = 0; kk < KT / 16; ++kk) product_step<C>(as, vbuf, kk, warp, lane, acc);
+        for (int kk = 0; kk < KT / 16; ++kk) product_step<C>(as, vbuf, kk, wh, wcol, lane, acc);
       }
     }
   };
@@ -475,7 +618,22 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
     sweep(0, n_tiles, true);
     [[maybe_unused]] float vq[C::NMIX][4];
     if constexpr (C::MIX) load_vsum<C>(vq, vsum, b, 0, tid);
-    store_acc<C>(acc, onorm, b, q0, 0, nq, warp, lane);
+    if constexpr (C::ONLINE) {
+      // l of each (head, row) over the row's 16 threads: lse, and 1 / l for
+      // o_norm (through linv_s), S and C
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], off);
+        if (ec == 0) linv_s[h * BQ + er] = 1.f / lsum[h];
+        if (rvalid && ec == h)
+          lse[((int64_t)b * H + h) * nq + erow] = (lse2[h] + log2f(lsum[h])) / LOG2E;
+      }
+      __syncthreads();
+      scale_rows<C>(acc, linv_s, wh, lane);
+    }
+    store_acc<C>(acc, onorm, b, q0, wcol, nq, wh, lane);
     if constexpr (C::MIX) {
       __syncthreads();   // every warp is done with the A tile and V_cat tile
       mix_out<C>(acc, reinterpret_cast<float*>(bn_smem), mc, vq, out, b, q0, 0, nq, warp, lane,
@@ -500,14 +658,14 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
         if (once && c0 + C::PC < C::P)
           load_v<C>(vbuf + (buf ^ 1) * C::V_ELEMS, v, b, key0, 16 * nks, c0 + C::PC, nk, tid);
         for (int kk = 0; kk < nks; ++kk)
-          product_step<C>(as, vbuf + buf * C::V_ELEMS, kk, warp, lane, acc);
+          product_step<C>(as, vbuf + buf * C::V_ELEMS, kk, wh, wcol, lane, acc);
         // the V_cat buffer (and the region it shares) is free; with one key
         // chunk the frozen forward needs no barrier here: the next copy into
         // this buffer starts after the next chunk's first barrier, and the
         // mix's exchange below uses the score region, which step 3 leaves alone
         if (!(C::MIX && once)) __syncthreads();
       }
-      store_acc<C>(acc, onorm, b, q0, c0, nq, warp, lane);
+      store_acc<C>(acc, onorm, b, q0, c0 + wcol, nq, wh, lane);
       if constexpr (C::MIX) {
         // the score region is free since this chunk's sweep; with more than
         // KC keys the next chunk's sweep writes it again
@@ -526,6 +684,19 @@ __global__ void __launch_bounds__(NT, 1) bnfwd_kernel(
     for (int h = 0; h < H; ++h) sacc[h] += __shfl_xor_sync(0xffffffffu, sacc[h], off);
 #pragma unroll
     for (int p = 0; p < C::NPAIR; ++p) cacc[p] += __shfl_xor_sync(0xffffffffu, cacc[p], off);
+  }
+  if constexpr (C::ONLINE) {   // relative to the running max: divide by l
+    float inv[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      inv[h] = 1.f / lsum[h];
+      sacc[h] *= inv[h];
+    }
+    int p = 0;
+#pragma unroll
+    for (int h2 = 0; h2 < H; ++h2)
+#pragma unroll
+      for (int h3 = h2; h3 < H; ++h3, ++p) cacc[p] *= inv[h2] * inv[h3];
   }
   if (!rvalid) return;
   // the row's 16 threads share the H + NPAIR writes
@@ -569,34 +740,54 @@ int launch(const void* q, const void* k, const void* v, const int64_t* seed, int
 }
 
 // The routes' classes: the log-sum-exp pass of reattention_tc.cuh (its
-// configurations of these classes), then the sweep.  Shared memory a block
-// (one block an SM), either mode:
+// configurations of these classes), then the sweep.  Shared memory a block,
+// either mode (one block an SM but at lite's dh 12 and 48):
 //   (8, 24):  scores 40,960 + A 18,432 + warp buffers 102,400 + V_cat tile
 //             25,600 = 187,392 B; 3,136 blocks at base b64 (49 q tiles x 64);
 //   (8, 96), (8, 384): scores 40,960 + A 67,584 + max(warp buffers 102,400,
 //             V_cat chunks 73,728) = 210,944 B; 832 and 256 blocks at base b64.
+// Exact BN also at lite's classes (the frozen forward's mix needs a warp a
+// head), (4, 12) and (4, 48) with no log-sum-exp pass (ONLINE):
+//   (4, 12):  scores 20,480 + A 9,216 + warp buffers 36,864 + V_cat tile
+//             7,168 + rescale factors 512 = 74,240 B, two blocks an SM;
+//             12,544 blocks at lite b64 (196 q tiles x 64), 49 key tiles each;
+//   (4, 48):  20,480 + 9,216 + 36,864 + 25,600 + 512 = 92,672 B, two blocks
+//             an SM; 3,136 blocks at b64 N 784;
+//   (4, 192): 20,480 + A 33,792 + max(warp buffers 61,440, V_cat chunks
+//             139,264) = 193,536 B; 832 blocks at b64 N 196.
 // cudaErrorInvalidValue for any other shape.
 template <bool MIX>
 int forward_tc(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
                float scale, float* lse, void* onorm, const Outs& o, int batch, int heads,
                int nq, int nk, int dh, cudaStream_t stream) {
-  if (heads != 8 || (dh != 24 && dh != 96 && dh != 384))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rc = 0;
-  if (own_lse(MIX, nk))
-    rc = 0;
-  else if (dh == 24)
-    rc = vit_tc::launch_lse<vit_tc::Cfg<8, 24, 32, 32, 8, 2, 2>>(q, k, lse, batch, nq, nk, stream);
-  else if (dh == 96)
-    rc = vit_tc::launch_lse<vit_tc::Cfg<8, 96, 32, 32, 8, 2, 1>>(q, k, lse, batch, nq, nk, stream);
-  else
-    rc = vit_tc::launch_lse<vit_tc::Cfg<8, 384, 16, 32, 1, 3, 1>>(q, k, lse, batch, nq, nk, stream);
-  if (rc) return rc;
-#define VIT_BNFWD(DH, KC, PC) \
-  launch<Cfg<8, DH, KC, PC, MIX>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, stream)
-  if (dh == 24) return VIT_BNFWD(24, 64, 192);
-  if (dh == 96) return VIT_BNFWD(96, 256, 64);
-  return VIT_BNFWD(384, 256, 64);
+#define VIT_BNFWD_LSE(...) \
+  (own_lse(MIX, nk) ? 0 : vit_tc::launch_lse<vit_tc::Cfg<__VA_ARGS__>>(q, k, lse, batch, nq, nk, stream))
+#define VIT_BNFWD(...) \
+  launch<Cfg<__VA_ARGS__>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, stream)
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (heads == 8 && dh == 24) {
+    rc = VIT_BNFWD_LSE(8, 24, 32, 32, 8, 2, 2);
+    return rc ? rc : VIT_BNFWD(8, 24, 64, 192, MIX);
+  }
+  if (heads == 8 && dh == 96) {
+    rc = VIT_BNFWD_LSE(8, 96, 32, 32, 8, 2, 1);
+    return rc ? rc : VIT_BNFWD(8, 96, 256, 64, MIX);
+  }
+  if (heads == 8 && dh == 384) {
+    rc = VIT_BNFWD_LSE(8, 384, 16, 32, 1, 3, 1);
+    return rc ? rc : VIT_BNFWD(8, 384, 256, 64, MIX);
+  }
+  if constexpr (!MIX) {
+    // the register form takes the log-sum-exp in the sweep: no pass before
+    if (heads == 4 && dh == 12) return VIT_BNFWD(4, 12, 64, 48, false, 16, 2, true);
+    if (heads == 4 && dh == 48) return VIT_BNFWD(4, 48, 64, 192, false, 16, 2, true);
+    if (heads == 4 && dh == 192) {
+      rc = VIT_BNFWD_LSE(4, 192, 16, 32, 2, 2, 2);
+      return rc ? rc : VIT_BNFWD(4, 192, 256, 128, false, 32, 1);
+    }
+  }
+  return rc;
+#undef VIT_BNFWD_LSE
 #undef VIT_BNFWD
 }
 

@@ -1,7 +1,8 @@
 // Training backward of flash re-attention on the tensor cores: the bfloat16
 // route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
 // classes train_bwd_tc instantiates: the levels of base and large (8 heads,
-// dh 24, 96, 384) and the classifier's 16-head levels (16, 12) and (16, 48).
+// dh 24, 96, 384), lite's (4 heads, dh 12, 48, 192) and the classifier's
+// 16-head levels (16, 12) and (16, 48).
 // The keras attention's identity-mix calls at (8, 192) take
 // attention_identity_bwd.cuh.
 //
@@ -55,6 +56,16 @@
 // weigh as much as the MMAs.  Shared memory and registers per class are in
 // train_bwd_tc; one block an SM.  At 16 heads the same steps run with P and
 // T staged through shared memory (staged_kernel, below).
+//
+// 4 heads (lite's levels).  Steps 1-2 are the same, over 4 heads (a
+// sub-tile's S and T of all heads, 32 f32 a thread, stay in registers).
+// Step 3 takes two warps a head: warp 2h keeps dv_h = B_h^T g_h, warp
+// 2h + 1 dk_h = dS_h^T q_h, each a block's BKEY keys x dh in f32 registers,
+// and each forms dq_h for half of dh's 8-column tiles (its atomics); the B
+// fragments of g, q and K are read 16 columns at a time, so a warp never
+// holds a whole row of dh 192.  dh 12 is copied in 8-byte pieces and
+// zero-padded to one k16 step; the padding columns of dq, dk, dv are not
+// written.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,15 +94,18 @@ using vit_tile::LOG2E;
 constexpr int NW = vit_tile::NW;   // warps per block
 constexpr int NT = vit_tile::NT;   // threads per block
 
-template <int H_, int DH_, int BKEY_, int BQ_>
+// MINB_: blocks an SM.
+template <int H_, int DH_, int BKEY_, int BQ_, int MINB_ = 1>
 struct Cfg {
-  static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_;
+  static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_, MINB = MINB_;
+  static constexpr int WPH = NW / H;              // warps a head in step 3: 1 or 2
   static constexpr int DP = (DH + 15) / 16 * 16;  // depth padded for the MMA
   static constexpr int KS = DP / 16;              // k16 steps over the head dim
-  static constexpr int NV = DH / 8;               // 8-column tiles of one head's dh
+  static constexpr int NV = (DH + 7) / 8;         // 8-column tiles of one head's dh (dh 12: 2)
+  static constexpr int NVH = NV / WPH;            // dq's column tiles a warp
   static constexpr int LD = DP + 8;               // bf16 pitch of the q, g, K, V tiles
   static constexpr int LDS = BKEY + 8;            // bf16 pitch of the dS and B tiles
-  static constexpr int CH = 8;                    // bf16 per cp.async (16 bytes)
+  static constexpr int CH = DH % 8 == 0 ? 8 : 4;  // bf16 per cp.async (16 or 8 bytes)
   static constexpr int CPR = DH / CH;             // copies per row
   static constexpr int MK = BKEY / 16;            // 16-key row tiles of dk, dv
   static constexpr int NSUB = (BQ / 16) * (BKEY / 8);  // sub-tiles of step 2
@@ -102,9 +116,11 @@ struct Cfg {
       sizeof(bf16) * (2 * KV_ELEMS + 2 * QG_ELEMS + 4 * DS_ELEMS);
   static constexpr size_t SMEM =
       BF16_BYTES + sizeof(float) * (2 * H * BQ + 2 * H * H + H) + H * BQ * 16;
-  static_assert(H == NW, "warp w owns head w in step 3");
+  static_assert(WPH * H == NW && (WPH == 1 || (WPH == 2 && NV % 2 == 0)),
+                "step 3: warp w owns head w, or warps 2h, 2h + 1 head h");
   static_assert(4 * H <= 32, "a thread's keep bits of a sub-tile fit one word");
-  static_assert(DH % 8 == 0 && BKEY % 16 == 0 && BQ % 16 == 0 && 64 % BKEY == 0, "shape");
+  static_assert(DH % 4 == 0 && (WPH == 2 || DH % 8 == 0) && BKEY % 16 == 0 && BQ % 16 == 0 &&
+                    64 % BKEY == 0, "shape");
   static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
@@ -145,9 +161,97 @@ __device__ __forceinline__ void store_split(bf16* hi, bf16* lo, int off, float x
   *reinterpret_cast<__nv_bfloat162*>(lo + off) = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
 }
 
+// acc (16 rows x 8 n tiles col0 / 8 ..) += a_hi b + a_lo b for the A
+// fragments ah, al and B = 16 rows of a tile of pitch C::LD from `rows`
+// (row lane-addressed as ldsm_b_trans takes it), columns col0 .., N tiles,
+// fetched a pair of tiles at a time.
+template <typename C, int N>
+__device__ __forceinline__ void mma_pair_cols(float (*acc)[4], const uint32_t (&ah)[4],
+                                              const uint32_t (&al)[4], const bf16* rows,
+                                              int col0, int lane) {
+  const bf16* p = rows + ((lane % 8) + 8 * ((lane / 8) % 2)) * C::LD + col0;
+#pragma unroll
+  for (int nv = 0; nv + 2 <= N; nv += 2) {
+    uint32_t f[4];   // b0, b1 of tile nv, then of nv + 1
+    ldsm_x4_trans(f, p + 8 * nv + 8 * (lane / 16));
+    mma_bf16(acc[nv], ah, f[0], f[1]);
+    mma_bf16(acc[nv], al, f[0], f[1]);
+    mma_bf16(acc[nv + 1], ah, f[2], f[3]);
+    mma_bf16(acc[nv + 1], al, f[2], f[3]);
+  }
+  if constexpr (N % 2 == 1) {   // the last tile alone (lanes 0-15 address it)
+    uint32_t f[2];
+    ldsm_x2_trans(f, p + 8 * (N - 1));
+    mma_bf16(acc[N - 1], ah, f[0], f[1]);
+    mma_bf16(acc[N - 1], al, f[0], f[1]);
+  }
+}
+
+// Step 3 at 4 heads, warp w of a q tile: head h = w / 2; warp 2h adds
+// B_h^T g_h into acc (its dv), warp 2h + 1 dS_h^T q_h (its dk); then dq_h =
+// dS_h K_h over the block's keys for this warp's half of dh's column tiles,
+// added into dq by atomics (the padding columns of dh 12 are skipped).
+template <typename C>
+__device__ __forceinline__ void step3_pair(const bf16* qs, const bf16* gs, const bf16* ks,
+                                           const bf16* ds_hi, const bf16* ds_lo,
+                                           const bf16* b_hi, const bf16* b_lo,
+                                           float (&acc)[C::MK][C::NV][4], float* dq, int b,
+                                           int q0, int nq, int warp, int lane) {
+  constexpr int H = C::H, DH = C::DH, BQ = C::BQ, BKEY = C::BKEY, LD = C::LD, LDS = C::LDS;
+  constexpr int NV = C::NV, NVH = C::NVH;
+  const int h = warp / 2, half = warp % 2;
+  const int gq = lane / 4, t4 = lane % 4;
+  const bf16* mhi = half ? ds_hi : b_hi;
+  const bf16* mlo = half ? ds_lo : b_lo;
+  const bf16* rows = half ? qs : gs;
+  // A operands dS^T, B^T (keys 16 mt.., queries kq..) of the [query][key]
+  // tiles, by ldmatrix.trans
+  const int a_t = (lane % 8) + 8 * (lane / 16), a_c = 8 * ((lane / 8) % 2);
+#pragma unroll
+  for (int kq = 0; kq < BQ; kq += 16) {
+#pragma unroll
+    for (int mt = 0; mt < C::MK; ++mt) {
+      const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+      uint32_t ah[4], al[4];
+      ldsm_x4_trans(ah, mhi + off);
+      ldsm_x4_trans(al, mlo + off);
+      mma_pair_cols<C, NV>(acc[mt], ah, al, rows + (h * BQ + kq) * LD, 0, lane);
+    }
+  }
+  // dq_h (queries mq.., column tiles half NVH ..) = dS_h K_h over the block's keys
+  for (int mq = 0; mq < BQ && q0 + mq < nq; mq += 16) {
+    float dacc[NVH][4];
+#pragma unroll
+    for (int nv = 0; nv < NVH; ++nv)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dacc[nv][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < BKEY; kc += 16) {
+      uint32_t ah[4], al[4];
+      const int off = (h * BQ + mq + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + kc +
+                      8 * (lane / 16);
+      ldsm_x4(ah, ds_hi + off);
+      ldsm_x4(al, ds_lo + off);
+      mma_pair_cols<C, NVH>(dacc, ah, al, ks + (h * BKEY + kc) * LD, 8 * NVH * half, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + mq + gq + 8 * r;
+      if (row >= nq) continue;
+      float* dst = dq + (((int64_t)b * H + h) * nq + row) * DH + 8 * NVH * half + 2 * t4;
+#pragma unroll
+      for (int nv = 0; nv < NVH; ++nv) {
+        if (DH % 8 != 0 && 8 * (NVH * half + nv) + 2 * t4 >= DH) continue;   // padding
+        atomicAdd(dst + 8 * nv, dacc[nv][2 * r]);
+        atomicAdd(dst + 8 * nv + 1, dacc[nv][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // Grid (key tiles of BKEY, B).  dq must be zeroed; dk and dv are written.
 template <typename C>
-__global__ void __launch_bounds__(NT, 1) bwd_kernel(
+__global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dvec,
     const float* __restrict__ m_eff, const float* __restrict__ gmat,
@@ -155,6 +259,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
   constexpr int H = C::H, DH = C::DH, BQ = C::BQ, BKEY = C::BKEY, LD = C::LD, LDS = C::LDS;
   constexpr int NV = C::NV, MK = C::MK, PROJ = H * DH;
+  constexpr bool PAIR = C::WPH == 2;   // step 3: two warps a head
   extern __shared__ __align__(128) unsigned char bwd_smem[];
   bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [H][BKEY][LD]
   bf16* vs = ks + C::KV_ELEMS;                    // [H][BKEY][LD]
@@ -188,13 +293,20 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(
   load_rows<C, BKEY, H>(vs, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
   cp_async_commit();
 
-  float dk_acc[MK][NV][4], dv_acc[MK][NV][4];
+  // PAIR: dk_acc holds this warp's dv (even warp) or dk (odd warp)
+  float dk_acc[MK][NV][4], dv_acc[PAIR ? 1 : MK][NV][4];
 #pragma unroll
   for (int mt = 0; mt < MK; ++mt)
 #pragma unroll
     for (int nv = 0; nv < NV; ++nv)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[mt][nv][e] = dv_acc[mt][nv][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk_acc[mt][nv][e] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < (PAIR ? 1 : MK); ++mt)
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[mt][nv][e] = 0.f;
 
   const uint32_t grp0 = static_cast<uint32_t>(k0 >> 6) * 16;
   const uint32_t t = static_cast<uint32_t>(thr);
@@ -310,98 +422,125 @@ __global__ void __launch_bounds__(NT, 1) bwd_kernel(
     }
     __syncthreads();
 
-    // ---- 3. warp w, head w: dk, dv, dq
-    const int h = warp;
-    // A operands dS^T, B^T (keys 16 mt.., queries kq..) of the [query][key]
-    // tiles, by ldmatrix.trans
-    const int a_t = (lane % 8) + 8 * (lane / 16), a_c = 8 * ((lane / 8) % 2);
+    // ---- 3. dk, dv, dq
+    if constexpr (PAIR) {
+      step3_pair<C>(qs, gs, ks, ds_hi, ds_lo, b_hi, b_lo, dk_acc, dq, b, q0, nq, warp, lane);
+    } else {
+      // warp w, head w
+      const int h = warp;
+      // A operands dS^T, B^T (keys 16 mt.., queries kq..) of the [query][key]
+      // tiles, by ldmatrix.trans
+      const int a_t = (lane % 8) + 8 * (lane / 16), a_c = 8 * ((lane / 8) % 2);
 #pragma unroll
-    for (int kq = 0; kq < BQ; kq += 16) {
-      uint32_t qb[2 * NV];
-      ldsm_b_trans<C>(qb, qs + (h * BQ + kq) * LD, lane);
+      for (int kq = 0; kq < BQ; kq += 16) {
+        uint32_t qb[2 * NV];
+        ldsm_b_trans<C>(qb, qs + (h * BQ + kq) * LD, lane);
 #pragma unroll
-      for (int mt = 0; mt < MK; ++mt) {
-        const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
-        uint32_t ah[4], al[4];
-        ldsm_x4_trans(ah, ds_hi + off);
-        ldsm_x4_trans(al, ds_lo + off);
+        for (int mt = 0; mt < MK; ++mt) {
+          const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+          uint32_t ah[4], al[4];
+          ldsm_x4_trans(ah, ds_hi + off);
+          ldsm_x4_trans(al, ds_lo + off);
 #pragma unroll
-        for (int nv = 0; nv < NV; ++nv) {
-          mma_bf16(dk_acc[mt][nv], ah, qb[2 * nv], qb[2 * nv + 1]);
-          mma_bf16(dk_acc[mt][nv], al, qb[2 * nv], qb[2 * nv + 1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int kq = 0; kq < BQ; kq += 16) {
-      uint32_t gb[2 * NV];
-      ldsm_b_trans<C>(gb, gs + (h * BQ + kq) * LD, lane);
-#pragma unroll
-      for (int mt = 0; mt < MK; ++mt) {
-        const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
-        uint32_t ah[4], al[4];
-        ldsm_x4_trans(ah, b_hi + off);
-        ldsm_x4_trans(al, b_lo + off);
-#pragma unroll
-        for (int nv = 0; nv < NV; ++nv) {
-          mma_bf16(dv_acc[mt][nv], ah, gb[2 * nv], gb[2 * nv + 1]);
-          mma_bf16(dv_acc[mt][nv], al, gb[2 * nv], gb[2 * nv + 1]);
-        }
-      }
-    }
-    // dq_h (queries mq.., all dh) = dS_h K_h over the block's keys
-    for (int mq = 0; mq < BQ && q0 + mq < nq; mq += 16) {
-      float acc[NV][4];
-#pragma unroll
-      for (int nv = 0; nv < NV; ++nv)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nv][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < BKEY; kc += 16) {
-        uint32_t kb[2 * NV], ah[4], al[4];
-        ldsm_b_trans<C>(kb, ks + (h * BKEY + kc) * LD, lane);
-        const int off = (h * BQ + mq + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + kc +
-                        8 * (lane / 16);
-        ldsm_x4(ah, ds_hi + off);
-        ldsm_x4(al, ds_lo + off);
-#pragma unroll
-        for (int nv = 0; nv < NV; ++nv) {
-          mma_bf16(acc[nv], ah, kb[2 * nv], kb[2 * nv + 1]);
-          mma_bf16(acc[nv], al, kb[2 * nv], kb[2 * nv + 1]);
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(dk_acc[mt][nv], ah, qb[2 * nv], qb[2 * nv + 1]);
+            mma_bf16(dk_acc[mt][nv], al, qb[2 * nv], qb[2 * nv + 1]);
+          }
         }
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = q0 + mq + gq + 8 * r;
-        if (row >= nq) continue;
-        float* dst = dq + (((int64_t)b * H + h) * nq + row) * DH + 2 * t4;
+      for (int kq = 0; kq < BQ; kq += 16) {
+        uint32_t gb[2 * NV];
+        ldsm_b_trans<C>(gb, gs + (h * BQ + kq) * LD, lane);
 #pragma unroll
-        for (int nv = 0; nv < NV; ++nv) {
-          atomicAdd(dst + 8 * nv, acc[nv][2 * r]);
-          atomicAdd(dst + 8 * nv + 1, acc[nv][2 * r + 1]);
+        for (int mt = 0; mt < MK; ++mt) {
+          const int off = (h * BQ + kq + a_t) * LDS + 16 * mt + a_c;
+          uint32_t ah[4], al[4];
+          ldsm_x4_trans(ah, b_hi + off);
+          ldsm_x4_trans(al, b_lo + off);
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(dv_acc[mt][nv], ah, gb[2 * nv], gb[2 * nv + 1]);
+            mma_bf16(dv_acc[mt][nv], al, gb[2 * nv], gb[2 * nv + 1]);
+          }
+        }
+      }
+      // dq_h (queries mq.., all dh) = dS_h K_h over the block's keys
+      for (int mq = 0; mq < BQ && q0 + mq < nq; mq += 16) {
+        float acc[NV][4];
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nv][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < BKEY; kc += 16) {
+          uint32_t kb[2 * NV], ah[4], al[4];
+          ldsm_b_trans<C>(kb, ks + (h * BKEY + kc) * LD, lane);
+          const int off = (h * BQ + mq + (lane % 8) + 8 * ((lane / 8) % 2)) * LDS + kc +
+                          8 * (lane / 16);
+          ldsm_x4(ah, ds_hi + off);
+          ldsm_x4(al, ds_lo + off);
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            mma_bf16(acc[nv], ah, kb[2 * nv], kb[2 * nv + 1]);
+            mma_bf16(acc[nv], al, kb[2 * nv], kb[2 * nv + 1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + mq + gq + 8 * r;
+          if (row >= nq) continue;
+          float* dst = dq + (((int64_t)b * H + h) * nq + row) * DH + 2 * t4;
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            atomicAdd(dst + 8 * nv, acc[nv][2 * r]);
+            atomicAdd(dst + 8 * nv + 1, acc[nv][2 * r + 1]);
+          }
         }
       }
     }
   }
   cp_async_wait<0>();   // no q tile: the K / V copies are still in flight
 
-  const int h = warp;
+  if constexpr (PAIR) {
+    // warp 2h: dv of head h; warp 2h + 1: dk; the padding columns of dh 12
+    // are not written
+    const int h = warp / 2;
+    const bool is_dk = warp % 2;
 #pragma unroll
-  for (int mt = 0; mt < MK; ++mt)
+    for (int mt = 0; mt < MK; ++mt)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = k0 + 16 * mt + gq + 8 * r;
-      if (key >= nk) continue;
-      float* dkr = dk + (((int64_t)b * H + h) * nk + key) * DH + 2 * t4;
-      float* dvr = dv + ((int64_t)b * nk + key) * PROJ + h * DH + 2 * t4;
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * mt + gq + 8 * r;
+        if (key >= nk) continue;
+        float* dst = is_dk ? dk + (((int64_t)b * H + h) * nk + key) * DH + 2 * t4
+                           : dv + ((int64_t)b * nk + key) * PROJ + h * DH + 2 * t4;
 #pragma unroll
-      for (int nv = 0; nv < NV; ++nv) {
-        *reinterpret_cast<float2*>(dkr + 8 * nv) =
-            make_float2(dk_acc[mt][nv][2 * r], dk_acc[mt][nv][2 * r + 1]);
-        *reinterpret_cast<float2*>(dvr + 8 * nv) =
-            make_float2(dv_acc[mt][nv][2 * r], dv_acc[mt][nv][2 * r + 1]);
+        for (int nv = 0; nv < NV; ++nv) {
+          if (DH % 8 != 0 && 8 * nv + 2 * t4 >= DH) continue;
+          *reinterpret_cast<float2*>(dst + 8 * nv) =
+              make_float2(dk_acc[mt][nv][2 * r], dk_acc[mt][nv][2 * r + 1]);
+        }
       }
-    }
+  } else {
+    const int h = warp;
+#pragma unroll
+    for (int mt = 0; mt < MK; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * mt + gq + 8 * r;
+        if (key >= nk) continue;
+        float* dkr = dk + (((int64_t)b * H + h) * nk + key) * DH + 2 * t4;
+        float* dvr = dv + ((int64_t)b * nk + key) * PROJ + h * DH + 2 * t4;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          *reinterpret_cast<float2*>(dkr + 8 * nv) =
+              make_float2(dk_acc[mt][nv][2 * r], dk_acc[mt][nv][2 * r + 1]);
+          *reinterpret_cast<float2*>(dvr + 8 * nv) =
+              make_float2(dv_acc[mt][nv][2 * r], dv_acc[mt][nv][2 * r + 1]);
+        }
+      }
+  }
 }
 
 template <typename C>
@@ -1151,18 +1290,32 @@ int launch_maps(const void* q, const void* k, const void* v, const void* g, cons
 //            two heads 64 f32 registers a thread;
 //   (16, 48): staged_kernel, BKEY 16, BQ 16: K, V 57,344 + q, g 57,344 +
 //            stage 49,152 + 5,184 = 169,024 B; 832 blocks at b64 N 196, 13 q
-//            tiles each; dk and dv of two heads 96 registers a thread.
+//            tiles each; dk and dv of two heads 96 registers a thread;
+//   (4, 12): BKEY 64, BQ 32: K, V 24,576 + q, g 12,288 + dS, B 73,728 +
+//            lse, D, M, G, kappa 1,168 + keep bits 2,048 = 113,808 B, two
+//            blocks an SM; 3,136 blocks at lite b64 N 3,136 (49 key tiles x
+//            64 images), 98 q tiles each; a warp's dk or dv 32 registers;
+//   (4, 48): BKEY 64, BQ 32: K, V 57,344 + q, g 28,672 + 73,728 + 1,168 +
+//            2,048 = 162,960 B; 832 blocks at b64 N 784, 25 q tiles each; a
+//            warp's dk or dv 96 registers;
+//   (4, 192): BKEY 16, BQ 32: K, V 51,200 + q, g 102,400 + 24,576 + 1,168 +
+//            2,048 = 181,392 B; 832 blocks at b64 N 196, 7 q tiles each; a
+//            warp's dk or dv 96 registers (step 2 has 4 sub-tiles a q tile:
+//            half the warps wait there).
 // cudaErrorInvalidValue for any other shape.
 inline int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
                         const float* lse, const float* dvec, const float* m_eff,
                         const float* gmat, const float* kappa, const int64_t* seed, int thr,
                         float scale, float* dq, float* dk, float* dv, void* work, int batch,
                         int heads, int nq, int nk, int dh, cudaStream_t stream) {
-#define VIT_BWD_TC(DH, BKEY, BQ)                                                       \
-  launch<Cfg<8, DH, BKEY, BQ>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, \
-                               dq, dk, dv, batch, nq, nk, stream)
-  if (heads == 8 && dh == 24) return VIT_BWD_TC(24, 64, 16);
-  if (heads == 8 && dh == 96) return VIT_BWD_TC(96, 16, 32);
+#define VIT_BWD_TC(...)                                                                    \
+  launch<Cfg<__VA_ARGS__>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, \
+                           dv, batch, nq, nk, stream)
+  if (heads == 8 && dh == 24) return VIT_BWD_TC(8, 24, 64, 16);
+  if (heads == 8 && dh == 96) return VIT_BWD_TC(8, 96, 16, 32);
+  if (heads == 4 && dh == 12) return VIT_BWD_TC(4, 12, 64, 32, 2);
+  if (heads == 4 && dh == 48) return VIT_BWD_TC(4, 48, 64, 32);
+  if (heads == 4 && dh == 192) return VIT_BWD_TC(4, 192, 16, 32);
 #undef VIT_BWD_TC
 #define VIT_BWD_STAGED(DH, BKEY, BQ)                                                    \
   launch_staged<StagedCfg<16, DH, BKEY, BQ>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, \

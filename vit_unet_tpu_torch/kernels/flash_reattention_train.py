@@ -28,7 +28,9 @@ beside it and a launch counter:
   ``o_norm`` and the rows S (B, H, Nq) = sum_m A_h, C (B, H, H, Nq) =
   sum_m A_h2 A_h3, f32, with no head mix.  Two routes, named by
   ``bn_fwd_route`` from the input dtype and (heads, dh): ``tensor_core``
-  (``csrc/reattention_bnfwd_tc.cuh``; at the classifier's (16, 12),
+  (``csrc/reattention_bnfwd_tc.cuh``, at lite's 4-head levels with two warps
+  a head, at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep
+  rather than by a pass before it; at the classifier's (16, 12),
   ``csrc/reattention_bnfwd16_tc.cuh``) for bfloat16 at ``BN_FWD_TC_SHAPES``,
   the scores and A @ V_cat as bf16 MMAs, S and C from the f32
   probabilities (at 16 heads C as an MMA of A carried as bf16 pairs
@@ -45,12 +47,14 @@ beside it and a launch counter:
   written once, no workspace; the map side of each product as bf16 hi + lo,
   f32 inputs split the same way); ``tensor_core``
   (``csrc/reattention_bwd_tc.cuh``) for bfloat16 at ``TRAIN_BWD_TC_SHAPES``
-  (base's and large's levels and the classifier's 16-head levels (16, 12)
-  and (16, 48)), every product a bf16 MMA with dS and the head-mixed map B
-  carried as bf16 pairs hi + lo: one fused kernel at (8, 24) and (8, 96),
-  the same steps with the probabilities and g.v staged through shared
-  memory at 16 heads, and at dh 384 a kernel that writes dS and B to a
-  bf16 workspace and one that forms dq, dk and dv from it; ``cuda_core``
+  (base's and large's levels, lite's 4-head levels and the classifier's
+  16-head levels (16, 12) and (16, 48)), every product a bf16 MMA with dS
+  and the head-mixed map B carried as bf16 pairs hi + lo: one fused kernel
+  at (8, 24), (8, 96) and lite's (4, 12), (4, 48), (4, 192) (there two
+  warps a head, one keeping dk, one dv), the same steps with the
+  probabilities and g.v staged through shared memory at 16 heads, and at
+  dh 384 a kernel that writes dS and B to a bf16 workspace and one that
+  forms dq, dk and dv from it; ``cuda_core``
   (f32 FMAs) for float32 and every other shape (a general-mix call at
   (8, 192) too).
 
@@ -100,12 +104,14 @@ IDENTITY_ROUTES = ("identity_tc", "identity_f32")
 FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
-#: level shapes of base and large, for the exact-BN forward also the
-#: classifier's (16, 12) level, and for the backward also the classifier's
-#: 16-head levels
+#: level shapes of base and large, for the exact-BN forward and the backward
+#: also lite's (4, 12), (4, 48), (4, 192) and the classifier's (16, 12)
+#: level, and for the backward its (16, 48) level too
+LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
 TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
-BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)})
-TRAIN_BWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)})
+BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)}) | LITE_TC_SHAPES
+TRAIN_BWD_TC_SHAPES = (frozenset({(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)})
+                       | LITE_TC_SHAPES)
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
@@ -214,18 +220,20 @@ def _keep_scale(rate: float) -> float:
 
 
 def dropout_mask(seed, rate: float, batch: int, heads: int, n_q: int,
-                 n_k: int, device=None, head_base: int = 0) -> torch.Tensor:
+                 n_k: int, device=None, head_base: int = 0, *,
+                 batch_base: int = 0) -> torch.Tensor:
     """The (B, H, Nq, Nk) f32 dropout scale, 0 or 1/(1 - rate).  ``seed``:
     an int, or the one-element int64 seed tensor the kernels take
     (``new_seed``), read on its device: drawing the mask then needs no
     value from the host, so the card runs it without a synchronisation.
     ``device`` defaults to the seed tensor's.  ``head_base``: the heads
     are heads head_base.. of a wider layer (a tensor-parallel rank's), and
-    draw that layer's bits."""
+    draw that layer's bits.  ``batch_base``: the images are images
+    batch_base.. of a larger batch, and draw that batch's bits."""
     if device is None and torch.is_tensor(seed):
         device = seed.device
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    bits = dropout_bits(seed, ar(batch), ar(heads) + head_base, ar(n_q), n_k)
+    bits = dropout_bits(seed, ar(batch) + batch_base, ar(heads) + head_base, ar(n_q), n_k)
     keep = (bits >> 8) >= keep_threshold(rate)
     return torch.where(keep, _keep_scale(rate), 0.0).to(torch.float32)
 
@@ -245,14 +253,15 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _probs_plain(q, k, seed, rate, head_base=0):
+def _probs_plain(q, k, seed, rate, head_base=0, batch_base=0):
     """(p, A, lse): pre-dropout probabilities, masked ones, and the LSE, f32."""
     s = torch.einsum("bhnd,bhmd->bhnm", _wide(q), _wide(k))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     if rate > 0.0:
         b, h, n_q, n_k = p.shape
-        a = p * dropout_mask(seed, rate, b, h, n_q, n_k, p.device, head_base)
+        a = p * dropout_mask(seed, rate, b, h, n_q, n_k, p.device, head_base,
+                             batch_base=batch_base)
     else:
         a = p
     return p, a, lse
@@ -287,9 +296,12 @@ def train_fwd_identity_plain(q, k, v_cat, seed, rate: float, head_base: int = 0)
     return out.to(q.dtype), lse
 
 
-def bn_fwd_plain(q, k, v_cat, seed, rate: float):
-    """Plain version of ``bn_fwd``: (S rows, C rows, lse, o_norm)."""
-    _, a, lse = _probs_plain(q, k, seed, rate)
+def bn_fwd_plain(q, k, v_cat, seed, rate: float, *, batch_base: int = 0):
+    """Plain version of ``bn_fwd``: (S rows, C rows, lse, o_norm).
+    ``batch_base``: the images are images batch_base.. of the kernel's call
+    (their dropout bits are that call's), so a large call is held image
+    group by image group."""
+    _, a, lse = _probs_plain(q, k, seed, rate, batch_base=batch_base)
     onorm = torch.einsum("bhnm,bmj->bhnj", a, _wide(v_cat)).to(q.dtype)
     s_rows = a.sum(-1)
     c_rows = torch.einsum("bgnm,bhnm->bghn", a, a)
@@ -297,15 +309,15 @@ def bn_fwd_plain(q, k, v_cat, seed, rate: float):
 
 
 def train_bwd_plain(q, k, v_cat, lse, g, m_eff, d, seed, rate: float,
-                    bn_extra=None, head_base: int = 0):
+                    bn_extra=None, head_base: int = 0, *, batch_base: int = 0):
     """Plain version of ``train_bwd``: (dq, dk, dv), f32, with the N x N
-    maps materialised."""
+    maps materialised; ``batch_base`` as ``bn_fwd_plain`` takes it."""
     batch, heads, n_q, dh = q.shape
     n_k = k.shape[2]
     s = torch.einsum("bhnd,bhmd->bhnm", _wide(q), _wide(k))
     p = torch.exp(s - lse[..., None])
-    mask = (dropout_mask(seed, rate, batch, heads, n_q, n_k,
-                         p.device, head_base) if rate > 0.0 else None)
+    mask = (dropout_mask(seed, rate, batch, heads, n_q, n_k, p.device, head_base,
+                         batch_base=batch_base) if rate > 0.0 else None)
     a = p * mask if mask is not None else p
     m32 = _wide(m_eff)
     gh = _wide(g).reshape(batch, n_q, heads, dh)
@@ -686,9 +698,9 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
     CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
     summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
-    core route at dh 12, 24, 48 and 96), so its last bits vary from run to
-    run; the tensor-core class at dh 384 uses no atomics and repeats bit
-    for bit, and so do the identity routes
+    core route at dh 12, 24, 48, 96 and lite's 192), so its last bits vary
+    from run to run; the tensor-core class at dh 384 uses no atomics and
+    repeats bit for bit, and so do the identity routes
     (``train_bwd_identity``)."""
     _check(q, k, v_cat)
     if q.device.type == "cpu":
