@@ -18,7 +18,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``kernel_route`` names, float32 on the CUDA cores, bfloat16 on the tensor
    cores; at the main path's shapes both routes in turns, each pass alone,
    and ``scaled_dot_product_attention`` as a reading of the two products'
-   cost), and the three training kernels (2b) at dropout rate 0 and 0.2,
+   cost; and at lite's three level shapes at b64 against the plain version
+   built 8 images at a time, beside its time, the bound and SDPA's), and the
+   three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
    N x N forward with the same dropout mask; every kernel and Function also
    at 16 heads (``HEAD16_SHAPES``: dh 48, 12, 192 and 384, the
@@ -45,11 +47,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    against the route each call took before, beside SDPA's backward);
    the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
    against plain and the CUDA-core route, its dropout bits read back);
-   kernels 3 and 4 at lite's tensor-core classes (4, 12), (4, 48), (4, 192)
+   kernels 2, 3 and 4 at lite's tensor-core classes (4, 12), (4, 48), (4, 192)
    (``LITE_CASES``: each level's N, N 3,136 at B2, ragged, more queries than
    keys, a single query; rates 0 and 0.2, BN term off and on; against plain
-   and the CUDA-core route; the exact-BN forward's dropout bits read back,
-   its two smaller levels at b64 too), and at b64 at lite's three level
+   and the CUDA-core route; both forwards' dropout bits read back, their two
+   smaller levels at b64 too), and at b64 at lite's three level
    shapes through the counted wrappers against the plain version (built 8
    images at a time), two calls bit for bit where no atomics sum, per call
    on both routes in turns beside the plain's time and the bound; the
@@ -88,6 +90,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    their launches by route (kernels 4 and 3 on the tensor cores at all
    three level shapes), step time and peak memory, and the step with
    kernels 3 and 4 held on the CUDA-core routes and as named, in turns;
+   then its frozen-BN steps the same way (kernels 2 and 3 on the tensor
+   cores), with kernel 2 held on its CUDA-core route and as named, in turns;
 5. the trainer: synthetic uint8 pairs written as TFRecord shards, the base
    preset (224², bf16, batch 64, dropout 0.2) trained through ``Fitter``
    for 2 epochs of 24 steps fed by ``TFRecordStream`` ->
@@ -105,7 +109,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    exactly), ``run_denoising.main`` in this process for denoise (base,
    224², bf16, ``--flash``, batch 16, 2 epochs, the first frozen BN),
    deblur, derain and segment (1 epoch each) and the default lite model
-   (1 epoch, every launch of kernels 1, 4 and 3 on the tensor cores), with
+   (1 epoch, every launch of kernels 1, 4 and 3 on the tensor cores, and
+   kernel 2's route there named the tensor cores too), with
    each epoch's launches by route, img/s and idle share;
    then ``export_predictor`` / ``load_predictor`` of the trained model at
    b64 against ``Predictor`` (bit for bit, launches through the program),
@@ -210,8 +215,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    flip and the tracking warmup, whose flips are the negative controls;
    launches by route, every kernel-2 and kernel-3 launch of the
    ``HViTUNetTF`` SIDD runs on its identity route), the results file
-   written (every lite run's kernel-4 and kernel-3 launches on the tensor
-   cores); ``convert_tfrecords`` on PNG pairs (the count read back from the
+   written (every lite run's kernel-2, kernel-4 and kernel-3 launches on the
+   tensor cores); ``convert_tfrecords`` on PNG pairs (the count read back from the
    names, a record read back exactly), ``train_denoising`` on those shards
    (lite 128², bf16, ``--flash``, one epoch, its PSNR probes) and
    ``serve_model`` from a ``Fitter`` checkpoint;
@@ -499,6 +504,49 @@ def phase_environment(sources):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def lite_eval():
+    """Kernel 1 at lite's three level shapes at b64, bf16, through its
+    counted wrapper on the route ``kernel_route`` names, against its plain
+    version built LITE_SLICE images at a time (eval draws no dropout, so a
+    slice is the call's own), per call beside the plain version's time, the
+    bound and ``scaled_dot_product_attention``'s (not the same function:
+    what the two products alone cost).  Returns {class: row}."""
+    from vit_unet_tpu_torch.kernels.flash_reattention import (
+        flash_reattention, flash_reattention_plain, kernel_route)
+    res = {}
+    card = card_line()
+    dtype = torch.bfloat16
+    for heads, dh, n, calls in LITE_LEVELS:
+        q, k, v, w, b = reattention_inputs(BATCH, heads, dh, n, n, dtype, 0)
+        route = kernel_route(dtype, heads, dh)
+        before = flash_reattention.route_launches[route]
+        run = lambda: flash_reattention(q, k, v, w, b, num_heads=heads)
+        got = run()
+        if flash_reattention.route_launches[route] != before + 1:
+            raise AssertionError(f"lite eval H{heads} dh{dh}: the call did not take the "
+                                 f"{route} route")
+        sliced = lambda: torch.cat([
+            flash_reattention_plain(q[i:i + LITE_SLICE], k[i:i + LITE_SLICE],
+                                    v[i:i + LITE_SLICE], w, b, num_heads=heads)
+            for i in range(0, BATCH, LITE_SLICE)])
+        err, rel = rel_err(got, sliced())
+        require(f"lite eval [{route}] B{BATCH} H{heads} dh{dh} N{n}", rel, TOL[dtype])
+        del got
+        vh = v.view(BATCH, n, heads, dh).transpose(1, 2)
+        row = dict(route=route, err=err, ms=time_ms(run, 10),
+                   plain_ms=time_ms(sliced, 2, warmup=0),
+                   sdpa_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, vh, scale=1.0), 10),
+                   bound=bound_of(*bound_parts(BATCH, heads, dh, n, n, dtype)),
+                   calls_per_forward=calls)
+        res[f"H{heads} dh{dh} N{n}"] = row
+        print(f"    lite H{heads} dh{dh} N{n} B{BATCH} bf16 eval [{route}]: {row['ms']:.4f} ms "
+              f"a call, plain {row['plain_ms']:.4f} ms (by {LITE_SLICE} images), bound "
+              f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), sdpa {row['sdpa_ms']:.4f} ms; "
+              f"max_abs_err {err:.3e} rel {rel:.3e} [{card}]")
+    return res
+
+
 def phase_kernels():
     print("== phase 2a: flash_reattention kernel vs plain on the card")
     t_phase = time.perf_counter()
@@ -521,6 +569,8 @@ def phase_kernels():
             total[f"{key}_ms"] += calls * passes[key]
     total["bound_ms"], total["bound_by"] = bound_of(total["t_bytes"],
                                                     total["t_ops"])
+    print(f"  lite's level shapes (B{BATCH}, bf16), a call:")
+    total["lite"] = lite_eval()
     print("  the identity-mix route (KerasMHA's calls), bf16:")
     ident = [check_kernel(*shape, torch.bfloat16, identity_mix=True, label="identity")
              for shape in IDENTITY_CASES]
@@ -1008,21 +1058,33 @@ def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
 
 
 def lite_b64(heads, dh, n):
-    """Kernels 4 and 3 at one of lite's level shapes at b64 (rate 0.2, the
-    backward with the BN term), each through its counted wrapper, whose
+    """Kernels 2, 4 and 3 at one of lite's level shapes at b64 (rate 0.2,
+    the backward with the BN term), each through its counted wrapper, whose
     route count must rise by one, against its plain version on the same
-    inputs: S, C, lse and o_norm at BN_FWD_TOLS, dq, dk and dv at
-    F32_OUT_TOL.  The plain versions are built LITE_SLICE images at a time
-    (each image group draws the call's own dropout bits) and timed so.  A
-    second call on the launch function must give the outputs no atomics sum
-    (the forward's four; the backward's dk and dv) bit for bit, and dq
-    within F32_OUT_TOL.  Returns {kernel: (max_abs_err, plain_ms)}."""
+    inputs: out, lse and o_norm at FWD_TOLS, S, C, lse and o_norm at
+    BN_FWD_TOLS, dq, dk and dv at F32_OUT_TOL.  The plain versions are
+    built LITE_SLICE images at a time (each image group draws the call's
+    own dropout bits) and timed so.  A second call on the launch function
+    must give the outputs no atomics sum (the forwards' every output; the
+    backward's dk and dv) bit for bit, and dq within F32_OUT_TOL.  Returns
+    {kernel: (max_abs_err, plain_ms)}."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     args = bwd_inputs(BATCH, heads, dh, n, n, torch.bfloat16, RATE, True)
     q, k, v, lse, g, m_eff, d, seed, _, extra = args
+    vsum = v.float().sum(1)
+    c_eff = torch.randn(heads, generator=torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda") * 0.1
+    fwd2_route = T.train_fwd_route(torch.bfloat16, heads, dh)
     fwd_route = T.bn_fwd_route(torch.bfloat16, heads, dh)
     bwd_route = T.train_bwd_route(torch.bfloat16, heads, dh)
     kernels = {
+        "fwd": (T.train_fwd, fwd2_route,
+                lambda: T.train_fwd(q, k, v, vsum, m_eff, c_eff, seed, RATE),
+                lambda: T.launch_train_fwd(q, k, v, vsum, m_eff, c_eff, seed, RATE,
+                                           route=fwd2_route),
+                lambda s, i: T.train_fwd_plain(q[s], k[s], v[s], vsum[s], m_eff, c_eff, seed,
+                                               RATE, batch_base=i),
+                [t[torch.bfloat16] for t in FWD_TOLS], (0, 1, 2)),
         "bn_fwd": (T.bn_fwd, fwd_route, lambda: T.bn_fwd(q, k, v, seed, RATE),
                    lambda: T.launch_bn_fwd(q, k, v, seed, RATE, route=fwd_route),
                    lambda s, i: T.bn_fwd_plain(q[s], k[s], v[s], seed, RATE, batch_base=i),
@@ -1065,7 +1127,7 @@ def lite_b64(heads, dh, n):
 
 
 def lite_kernels(cases_err):
-    """Kernels 3 and 4 at lite's three level shapes, bf16, rate 0.2 (the
+    """Kernels 2, 4 and 3 at lite's three level shapes, bf16, rate 0.2 (the
     backward with the BN term), at b64: each held against its plain version
     (``lite_b64``), then per call on the CUDA-core route and on the route
     its route function names, in turns, beside the plain version's time and
@@ -1082,8 +1144,10 @@ def lite_kernels(cases_err):
         torch.cuda.empty_cache()
         old_b, new_b = time_bwd_routes(BATCH, heads, dh, n, reps=5)
         old_f, new_f = time_fwd_routes("bn_fwd", BATCH, heads, dh, n, reps=5)
+        old_2, new_2 = time_fwd_routes("fwd", BATCH, heads, dh, n, reps=5)
         res[shape] = {}
-        for key, old, new, pick in (("bn_fwd", old_f, new_f, T.bn_fwd_route),
+        for key, old, new, pick in (("fwd", old_2, new_2, T.train_fwd_route),
+                                    ("bn_fwd", old_f, new_f, T.bn_fwd_route),
                                     ("bwd", old_b, new_b, T.train_bwd_route)):
             err, plain_ms = held[key]
             row = dict(route=pick(torch.bfloat16, heads, dh), ms=new, cuda_core_ms=old,
@@ -1532,7 +1596,7 @@ def phase_train_kernels():
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
-    lite_err = dict.fromkeys(("bwd", "bn_fwd"), 0.0)
+    lite_err = dict.fromkeys(("bwd", "fwd", "bn_fwd"), 0.0)
     for shape in ([s for s in TRAIN_SHAPES[:3] if s[1:3] in T.TRAIN_BWD_TC_SHAPES]
                   + BWD_EDGE_CASES + KERAS_SHAPES + BWD16_CASES + LITE_CASES):
         for rate in (0.0, RATE):
@@ -1608,7 +1672,7 @@ def phase_train_kernels():
     for kname in ("fwd", "bn_fwd", "bwd"):
         print(f"  {kname} per train step with every call on the CUDA-core route: "
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
-    print(f"  lite's level shapes (B{BATCH}, bf16, rate {RATE}), kernels 3 and 4 a call:")
+    print(f"  lite's level shapes (B{BATCH}, bf16, rate {RATE}), kernels 2, 4 and 3 a call:")
     total["lite"] = lite_kernels(lite_err)
     print("  the frozen-BN forward's identity route (KerasMHA's bf16 calls):")
     ident_err = 0.0
@@ -1821,14 +1885,68 @@ def phase_train():
     return launches, step_ms, lite
 
 
+# the training kernels by key: their route functions and numbers.  At lite's
+# three level classes in bf16 each route function names the tensor cores
+TRAIN_ROUTE_PICKS = {"fwd": ("train_fwd_route", "2"), "bn_fwd": ("bn_fwd_route", "4"),
+                     "bwd": ("train_bwd_route", "3")}
+
+
+def lite_steps(label, steps, state, batch, kernels, held, card):
+    """Lite's ``steps`` (2 warm-up, then 5 with the launches counted from 0:
+    each of its 8 re-attention calls a step through ``kernels`` on the
+    tensor cores, and no other kernel), their median time and
+    peak memory; then the step with the kernels ``held`` held on the CUDA
+    cores (their route functions patched) and as named, in turns (old, new,
+    new, old, each the median of 3), faster as named.  Returns (state,
+    dict(launches, ms, peak_gib, turns))."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    calls = sum(c for *_, c in LITE_LEVELS)
+    state, _, _ = timed_steps(steps, state, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    state, losses, ms = timed_steps(steps, state, batch, 5)
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(launches, 0)
+    for key in kernels:
+        want[key] = want[f"{key}_tensor_core"] = 5 * calls
+    print(f"  lite b{BATCH} bf16 {label} step (224², {calls} re-attention calls): median "
+          f"{ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB, losses "
+          f"{losses[0]:.5f} .. {losses[-1]:.5f}; launches {launches} [{card}]")
+    if launches != want:
+        raise AssertionError(f"lite {label} step: launches {launches}, expected {want}")
+    patches = [mock.patch.object(T, TRAIN_ROUTE_PICKS[key][0], lambda *a, **k: "cuda_core")
+               for key in held]
+    turns = []
+    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+        with contextlib.ExitStack() as stack:
+            if route == "cuda_core":
+                for patch in patches:
+                    stack.enter_context(patch)
+            torch.cuda.reset_peak_memory_stats()
+            state, _, t = timed_steps(steps, state, batch, 3)
+            turns.append((route, t, torch.cuda.max_memory_allocated() / 2 ** 30))
+    names = ("kernels " if len(held) > 1 else "kernel ") + " and ".join(
+        TRAIN_ROUTE_PICKS[key][1] for key in held)
+    print(f"  lite b{BATCH} bf16 {label} step, {names} on each route in turns "
+          "(median of 3; peak): " + ", ".join(f"{r} {t:.3f} ms ({g:.2f} GiB)"
+                                              for r, t, g in turns) + f" [{card}]")
+    if not min(t for r, t, _ in turns if r == "tensor_core") < min(
+            t for r, t, _ in turns if r == "cuda_core"):
+        raise AssertionError(f"lite's {label} step is not faster with {names} on the "
+                             "tensor cores")
+    device_breakdown(lambda: steps.train_step(state, batch), ms, f"lite {label} step",
+                     reps=1)
+    return state, dict(launches=launches, ms=ms, peak_gib=peak, turns=turns)
+
+
 def lite_step():
-    """Lite (the CLI's default model) at 224², bf16, b64, dropout 0.2, exact
-    BN, AdamW 1e-4: 2 warm-up steps, then 5 steps with the launches counted
-    from 0 (each of lite's 8 re-attention calls a step on the route its route
-    function names: kernels 4 and 3 on the tensor cores), their median time
-    and peak memory; then the step with kernels 3 and 4 held on the
-    CUDA-core routes and as named, in turns (old, new, new, old, each the
-    median of 3).  Returns dict(launches, ms, peak_gib, turns)."""
+    """Lite (the CLI's default model) at 224², bf16, b64, dropout 0.2, AdamW
+    1e-4: its exact-BN step (kernels 4 and 3, both held in the turns) and
+    then its frozen-BN step (kernels 2 and 3, kernel 2 held alone), each
+    through ``lite_steps``.  Returns dict(launches: both steps' counted
+    launches summed, exact, frozen)."""
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     from vit_unet_tpu_torch.parallel.train_step import (
@@ -1836,58 +1954,29 @@ def lite_step():
     from vit_unet_tpu_torch.train.losses import mse
 
     card = card_line()
-    calls = sum(c for *_, c in LITE_LEVELS)
-    want_routes = {"bn_fwd": "tensor_core", "bwd": "tensor_core"}
-    named = {key: {pick(torch.bfloat16, h, d) for h, d, _, _ in LITE_LEVELS}
-             for key, pick in (("bn_fwd", T.bn_fwd_route), ("bwd", T.train_bwd_route))}
-    if named != {key: {r} for key, r in want_routes.items()}:
-        raise AssertionError(f"lite's levels: routes named {named}, expected {want_routes}")
+    named = {key: {getattr(T, pick)(torch.bfloat16, h, d) for h, d, _, _ in LITE_LEVELS}
+             for key, (pick, _) in TRAIN_ROUTE_PICKS.items()}
+    if named != dict.fromkeys(TRAIN_ROUTE_PICKS, {"tensor_core"}):
+        raise AssertionError(f"lite's levels: routes named {named}, expected the tensor cores")
     model = get_vit_unet("lite", dtype="bfloat16", param_dtype="bfloat16", seed=0,
                          device="cuda")
     model.train()
     opt = adamw(model, 1e-4)
     state = TrainState.create(model=model, optimizer=opt, seed=1)
-    exact = build_step_functions(model, opt, mse)
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(BATCH, 3, 224, 224, generator=gen, device="cuda")
     batch = {"x": x, "y": 0.9 * x}
-    state, _, _ = timed_steps(exact, state, batch, 2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_train_launches()
-    state, losses, ms = timed_steps(exact, state, batch, 5)
-    launches = train_launches()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = dict.fromkeys(launches, 0)
-    for key, route in want_routes.items():
-        want[key] = want[f"{key}_{route}"] = 5 * calls
-    print(f"  lite b{BATCH} bf16 exact-BN step (224², 8 re-attention calls): median "
-          f"{ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB, losses "
-          f"{losses[0]:.5f} .. {losses[-1]:.5f}; launches {launches} [{card}]")
-    if launches != want:
-        raise AssertionError(f"lite step: launches {launches}, expected {want}")
-    held = [mock.patch.object(T, pick, lambda *a, **k: "cuda_core")
-            for pick in ("bn_fwd_route", "train_bwd_route")]
-    turns = []
-    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
-        with contextlib.ExitStack() as stack:
-            if route == "cuda_core":
-                for h in held:
-                    stack.enter_context(h)
-            torch.cuda.reset_peak_memory_stats()
-            state, _, t = timed_steps(exact, state, batch, 3)
-            turns.append((route, t, torch.cuda.max_memory_allocated() / 2 ** 30))
-    print(f"  lite b{BATCH} bf16 exact-BN step, kernels 3 and 4 on each route in turns "
-          "(median of 3; peak): " + ", ".join(f"{r} {t:.3f} ms ({g:.2f} GiB)"
-                                              for r, t, g in turns) + f" [{card}]")
-    if not min(t for r, t, _ in turns if r == "tensor_core") < min(
-            t for r, t, _ in turns if r == "cuda_core"):
-        raise AssertionError("lite's step is not faster with kernels 3 and 4 on the "
-                             "tensor cores")
-    device_breakdown(lambda: exact.train_step(state, batch), ms, "lite train step", reps=1)
-    del model, opt, state, exact
+    res = {}
+    state, res["exact"] = lite_steps("exact-BN", build_step_functions(model, opt, mse), state,
+                                     batch, ("bn_fwd", "bwd"), ("bn_fwd", "bwd"), card)
+    state, res["frozen"] = lite_steps(
+        "frozen-BN", build_step_functions(model, opt, mse, bn_frozen=True), state, batch,
+        ("fwd", "bwd"), ("fwd",), card)
+    res["launches"] = dict(collections.Counter(res["exact"]["launches"])
+                           + collections.Counter(res["frozen"]["launches"]))
+    del model, opt, state
     torch.cuda.empty_cache()
-    return dict(launches=launches, ms=ms, peak_gib=peak, turns=turns)
+    return res
 
 
 # One train step at batch 4 with the same weights and dropout seed, so the
@@ -2781,17 +2870,17 @@ def phase_entry():
                   f"img/s over steps 2-{steps}; launches as expected [{card}]")
 
         # the CLI's default model, lite, bf16: every one of its level shapes
-        # takes the tensor cores in kernels 1, 4 and 3 (no lite class is left
-        # on the CUDA cores there; its frozen-BN forward, kernel 2, is, and an
-        # exact-BN epoch does not run it)
+        # takes the tensor cores in kernels 1, 2, 4 and 3 (an exact-BN epoch
+        # runs no kernel 2)
         lite_levels = [(h, d) for h, d, _, _ in LITE_LEVELS]
         routes = {"bn_fwd": {T.bn_fwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
                   "bwd": {T.train_bwd_route(torch.bfloat16, h, d) for h, d in lite_levels},
-                  "eval": {TK.kernel_route(torch.bfloat16, h, d) for h, d in lite_levels}}
+                  "eval": {TK.kernel_route(torch.bfloat16, h, d) for h, d in lite_levels},
+                  "fwd": {T.train_fwd_route(torch.bfloat16, h, d) for h, d in lite_levels}}
         if routes != {k: {"tensor_core"} for k in routes}:
             raise AssertionError(f"lite's levels: routes named {routes}, expected the "
-                                 "tensor cores for kernels 1, 4 and 3")
-        routes = {k: r.pop() for k, r in routes.items()}
+                                 "tensor cores for kernels 1, 2, 4 and 3")
+        routes = {k: r.pop() for k, r in routes.items() if k != "fwd"}
         p = CliProbe(steps, profiled=False)
         result, _, secs = run_cli(
             "denoise", root, ["--dtype", "bfloat16", "--flash", "--n_epochs", "1"],
@@ -5087,12 +5176,12 @@ def ex_convergence(root):
                     or launches[key]["bwd"] != launches[key]["bwd_identity_tc"]):
                 raise AssertionError(f"sidd {key}: kernels 2-3 off their identity routes: "
                                      f"{launches[key]}")
-            # the lite runs (bf16): every kernel-4 and kernel-3 launch on the
-            # tensor cores
-            if key not in EX_TF_RUNS and (
-                    launches[key]["bn_fwd"] != launches[key]["bn_fwd_tensor_core"]
-                    or launches[key]["bwd"] != launches[key]["bwd_tensor_core"]):
-                raise AssertionError(f"{script} {key} (lite): kernels 3-4 off the tensor "
+            # the lite runs (bf16): every kernel-2, kernel-4 and kernel-3 launch
+            # on the tensor cores
+            if key not in EX_TF_RUNS and any(
+                    launches[key][k] != launches[key][f"{k}_tensor_core"]
+                    for k in ("fwd", "bn_fwd", "bwd")):
+                raise AssertionError(f"{script} {key} (lite): kernels 2-4 off the tensor "
                                      f"cores: {launches[key]}")
         with open(os.path.join(root, "conv.json")) as fh:
             written = json.load(fh)
@@ -5321,6 +5410,8 @@ def main(argv=None) -> int:
         # a rank's keras heads at model 2 (phase 10a), bf16 and f32
         "tp_heads": {tp_shape: {dt: r["flash_reattention"]
                                 for dt, r in tp["kernels"].items()}},
+        # lite's level shapes at b64, bf16 (phase 2a)
+        "lite": k["lite"],
     }]
     # kernel 1's identity route: KerasMHA's bf16 eval calls (phases 7, 11)
     ident = k["identity"]
@@ -5473,11 +5564,14 @@ def main(argv=None) -> int:
                                 + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
                                 for r in [c[len(key) + 1:] for c in train_launches_
                                           if c.startswith(key + "_")]})
-    # kernels 4 and 3 at lite's classes: phase 4's lite steps, whose every
-    # launch is a lite call on the tensor cores; the numbers are (4, 12)'s
-    # at b64 (phase 2b), where lite spends most, the other classes beside;
-    # the plain version's time is its b64 call's, by LITE_SLICE images
+    # kernels 2, 4 and 3 at lite's classes: phase 4's lite steps (exact and
+    # frozen BN), whose every launch is a lite call on the tensor cores; the
+    # numbers are (4, 12)'s at b64 (phase 2b), where lite spends most, the
+    # other classes beside; the plain version's time is its b64 call's, by
+    # LITE_SLICE images
     for key, name, source, replaces in (
+            ("fwd", "flash_reattention_train_fwd_lite", TC_SOURCES["fwd"],
+             "vit_unet_tpu/kernels/flash_reattention_train.py:363"),
             ("bn_fwd", "flash_reattention_bn_fwd_lite", TC_SOURCES["bn_fwd"],
              "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
             ("bwd", "flash_reattention_train_bwd_lite", TC_SOURCES["bwd"],

@@ -417,7 +417,7 @@ HEAD16_BWD_CASES = [
     (2, 16, 48, 196, 196), (2, 16, 12, 784, 784), (2, 16, 48, 100, 130),
     (2, 16, 12, 200, 96), (2, 16, 12, 1, 49),
 ]
-# lite's 4-head classes (kernels 3 and 4 on the tensor cores) at a level N
+# lite's 4-head classes (kernels 2, 3 and 4 on the tensor cores) at a level N
 # (dh 12 at 1,024 of its 3,136), ragged over partial key tiles and dropout
 # windows, more queries than keys, a single query
 LITE_CASES = [
@@ -501,15 +501,20 @@ def test_bwd_lite_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k)
 
 @pytest.mark.parametrize("dh", [12, 48, 192])
 def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
-    """Lite's classes in float32: kernels 3 and 4 on the CUDA cores."""
+    """Lite's classes in float32: kernels 2, 3 and 4 on the CUDA cores."""
     args = _bwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2, True)
-    before = dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches)
+    before = (dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches),
+              dict(TT.train_fwd.route_launches))
     TT.train_bwd(*args)
     TT.bn_fwd(args[0], args[1], args[2], args[7], 0.2)
+    TT.train_fwd(*_fwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2))
     torch.cuda.synchronize()
+    assert TT.train_fwd_route(torch.float32, 4, dh) == "cuda_core"
     assert TT.train_bwd.route_launches == {
         **before[0], "cuda_core": before[0]["cuda_core"] + 1}
     assert TT.bn_fwd.route_launches == {**before[1], "cuda_core": before[1]["cuda_core"] + 1}
+    assert TT.train_fwd.route_launches == {
+        **before[2], "cuda_core": before[2]["cuda_core"] + 1}
 
 
 def test_bwd_float32_takes_the_cuda_core_route(cuda):
@@ -624,8 +629,8 @@ def test_bn_fwd16_tensor_core_route_matches_plain_and_cuda_core(cuda, batch, hea
 
 FWD_TOLS = (TOL, F32_TOL, TOL)   # out, lse, o_norm
 # and with more keys than the chunked form keeps A of (256): A recomputed
-# for every column chunk
-FWD_TC_CASES = BWD_TC_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
+# for every column chunk; and lite's classes
+FWD_TC_CASES = BWD_TC_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)] + LITE_CASES
 
 
 def _fwd_args(cuda, dtype, batch, heads, dh, n_q, n_k, rate):
@@ -658,7 +663,8 @@ def test_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n
         assert _rel(a, b) <= tol[torch.bfloat16]
 
 
-@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196)])
+@pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (4, 192, 196),
+                                        (4, 48, 192), (4, 12, 48)])
 def test_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     """As for the exact-BN forward, with the head mix M = identity and c = 0:
     o_norm[..., m] Nk (1 - rate) is the keep bit of key m, and out[b, n, j]
@@ -674,6 +680,53 @@ def test_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     assert torch.equal(torch.round(onorm[..., :n].float() * n * (1 - rate)), mask.float())
     own = onorm.unflatten(-1, (heads, dh)).diagonal(dim1=1, dim2=3)   # (B, N, dh, H)
     assert torch.equal(out, own.permute(0, 1, 3, 2).flatten(-2))
+
+
+def test_lite_frozen_step_on_the_kernels_matches_the_plain_path(cuda):
+    """Lite at 64² in bf16 (levels (4, 12) at N 256, (4, 48) at 64, (4, 192)
+    at 16), one frozen-BN step with dropout: each of its 8 re-attention
+    calls through kernel 2 and kernel 3 on the tensor cores.  Its loss
+    against the plain path (``flash_train=False``; the same weights and
+    dropout seed give the same masks) at the bf16 tolerance, and its
+    gradients against the same step with kernel 2 held on the CUDA-core
+    route at 3e-2 of the largest (both bf16 on the kernels: they differ by
+    kernel 2's rounding of out and o_norm and kernel 3's dq atomics)."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    from vit_unet_tpu_torch import get_vit_unet
+    from vit_unet_tpu_torch.nn.reattention import ReAttention
+    from vit_unet_tpu_torch.parallel.train_step import (
+        TrainState, adamw, build_step_functions)
+    from vit_unet_tpu_torch.train.losses import mse
+    model = get_vit_unet("lite", device=cuda, seed=0, im_size=64, dtype="bfloat16",
+                         param_dtype="bfloat16").train()
+    x = torch.randn(4, 3, 64, 64, generator=torch.Generator().manual_seed(0)).to(cuda)
+    held = mock.patch.object(TT, "train_fwd_route", lambda *a, **k: "cuda_core")
+    res = {}
+    for path in ("tensor_core", "cuda_core", "plain"):
+        m = copy.deepcopy(model)
+        for layer in m.modules():
+            if isinstance(layer, ReAttention):
+                layer.flash_train = path != "plain"
+        opt = adamw(m, 1e-4)
+        steps = build_step_functions(m, opt, mse, bn_frozen=True)
+        before = dict(TT.train_fwd.route_launches), dict(TT.train_bwd.route_launches)
+        with held if path == "cuda_core" else contextlib.nullcontext():
+            _, met = steps.train_step(TrainState.create(model=m, optimizer=opt, seed=7),
+                                      {"x": x, "y": 0.9 * x})
+        torch.cuda.synchronize()
+        if path == "tensor_core":
+            assert TT.train_fwd.route_launches == {
+                **before[0], "tensor_core": before[0]["tensor_core"] + 8}
+            assert TT.train_bwd.route_launches == {
+                **before[1], "tensor_core": before[1]["tensor_core"] + 8}
+        res[path] = (met["loss"].float(), [p.grad.float() for p in m.parameters()])
+    assert _rel(res["tensor_core"][0], res["plain"][0]) <= TOL[torch.bfloat16]
+    grads, held_grads = res["tensor_core"][1], res["cuda_core"][1]
+    gmax = max(g.abs().max().item() for g in held_grads)
+    assert max((a - b).abs().max().item() for a, b in zip(grads, held_grads)) <= 3e-2 * gmax
 
 
 def test_fwd_float32_takes_the_cuda_core_route(cuda):

@@ -1,6 +1,6 @@
 """The frozen-BN forward's route choice, its CPU path, the port's frozen-BN
-forward at base's head count against the JAX package, and a CPU emulation
-of the rounding its tensor-core route does.
+forward at base's and lite's head counts against the JAX package, and CPU
+emulations of the rounding its tensor-core route does.
 
 ``train_fwd_route`` picks the frozen-BN forward's kernels on the card by
 dtype and (heads, dh) alone; on the CPU ``train_fwd`` is the plain version
@@ -35,9 +35,8 @@ def _level_shapes():
     return out
 
 
-# base's and large's levels run on the tensor cores in bf16; lite's (4 heads)
-# stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384)}
+# lite's, base's and large's levels run on the tensor cores in bf16
+TENSOR_CORE = {(4, 12), (4, 48), (4, 192), (8, 24), (8, 96), (8, 384)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
@@ -60,15 +59,15 @@ def test_train_fwd_on_cpu_is_the_plain_version():
         assert torch.equal(a, b)
 
 
-def test_train_fwd_matches_jax_fwd_at_base_heads():
+def _matches_jax_fwd(heads, dh, seed):
     """The port's frozen-BN forward (its plain version here) against the TPU
-    kernel it replaces, ``_fwd``, in interpret mode at 8 heads and dh 24,
-    rate 0: out, lse and o_norm in f32.  Blocks of 32 over 48 rows and keys,
-    so the JAX kernel takes two key steps of its online softmax and masks
-    padded keys; its lse and o_norm come back in the kernel's blocked
-    layout (B, q blocks, H, 32, ...)."""
-    n, heads, dh, block = 48, 8, 24, 32
-    rng = np.random.default_rng(7)
+    kernel it replaces, ``_fwd``, in interpret mode, rate 0: out, lse and
+    o_norm in f32.  Blocks of 32 over 48 rows and keys, so the JAX kernel
+    takes two key steps of its online softmax and masks padded keys; its
+    lse and o_norm come back in the kernel's blocked layout (B, q blocks,
+    H, 32, ...)."""
+    n, block = 48, 32
+    rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     q, k = f(2, heads, n, dh) * 0.5, f(2, heads, n, dh) * 0.5
     v, m, c = f(2, n, heads * dh), f(heads, heads) * 0.4, f(heads) * 0.2
@@ -83,6 +82,18 @@ def test_train_fwd_matches_jax_fwd_at_base_heads():
     for name, a, b in zip(("out", "lse", "o_norm"), got, (out_w, lse_w, onorm_w)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4,
                                    err_msg=name)
+
+
+def test_train_fwd_matches_jax_fwd_at_base_heads():
+    """``_fwd`` against the port at base's 8 heads, dh 24."""
+    _matches_jax_fwd(8, 24, 7)
+
+
+def test_train_fwd_matches_jax_fwd_at_lite_heads():
+    """``_fwd`` against the port at lite's 4 heads, dh 12: the head mix over
+    4 heads of 12 columns, whose tensor-core class splits a head's columns
+    over two warps."""
+    _matches_jax_fwd(4, 12, 8)
 
 
 def _rel(got, want):
@@ -118,3 +129,64 @@ def test_train_fwd_tensor_core_rounding_stays_within_tolerance(dh, n, rate):
     out = TT._mix(onorm, m, c, vsum, dh).bfloat16()
     assert _rel(onorm.bfloat16(), onorm_w) <= 2e-2
     assert _rel(out, out_w) <= 2e-2
+
+
+@pytest.mark.parametrize("dh,n,rate", [(12, 200, 0.2), (12, 64, 0.0), (48, 130, 0.2),
+                                       (192, 70, 0.2), (192, 130, 0.0)])
+def test_train_fwd_lite_rounding_stays_within_tolerance(dh, n, rate):
+    """Lite's tensor-core classes (4 heads, two warps a head), emulated on
+    the CPU with bf16 inputs.  At dh 12 and 48 the sweep takes the
+    log-sum-exp itself: per 64-key tile each row's running max m of the
+    scores (log2 units) and normaliser l, A relative to m rounded to bf16
+    unnormalised for the product with V_cat, the f32 o_norm rescaled by
+    2^(m_old - m_new) when m moves, and divided by l before the mix.  At dh
+    192 the log-sum-exp pass comes first and A = P * mask is rounded once.
+    Each of a head's two warps holds half of its f32 o_norm columns (of the
+    block's 128-column chunk at dh 192) and leaves them for the head mix,
+    which is taken from f32; o_norm is written in bf16.  out and o_norm
+    stay within 2e-2 of ``train_fwd_plain`` and lse within 1e-4 (the card
+    holds them at 2e-2 and 1e-3)."""
+    heads, batch, seed = 4, 2, 9
+    g = torch.Generator().manual_seed(dh + n)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()
+    k = rnd(batch, heads, n, dh).bfloat16()
+    v = rnd(batch, n, heads * dh).bfloat16()
+    m, c = rnd(heads, heads) * heads ** -0.5, rnd(heads) * 0.1
+    vsum = v.float().sum(1)
+    out_w, lse_w, onorm_w = TT.train_fwd_plain(q, k, v, vsum, m, c, seed, rate)
+
+    log2e = 1.4426950408889634
+    x_all = (q.float() @ k.float().transpose(-1, -2)) * log2e
+    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0
+            else torch.ones(batch, heads, n, n))
+    proj = heads * dh
+    chunk = proj if dh < 192 else 128          # a block's o_norm columns at a time
+    halves = [(c0 + w * chunk // 2, c0 + (w + 1) * chunk // 2)
+              for c0 in range(0, proj, chunk) for w in range(2)]
+    if dh < 192:
+        m_run = torch.full((batch, heads, n), -float("inf"))
+        l = torch.zeros(batch, heads, n)
+        parts = [torch.zeros(batch, heads, n, hi - lo) for lo, hi in halves]
+        for k0 in range(0, n, 64):
+            x = x_all[..., k0:k0 + 64]
+            m_new = torch.maximum(m_run, x.amax(-1))
+            alpha = torch.exp2(m_run - m_new)
+            m_run = m_new
+            p = torch.exp2(x - m_run[..., None])
+            a = (p * mask[..., k0:k0 + 64]).bfloat16().float()
+            l = l * alpha + p.sum(-1)
+            vt = v[:, k0:k0 + 64].float()
+            parts = [acc * alpha[..., None] + torch.einsum("bhnm,bmj->bhnj", a, vt[..., lo:hi])
+                     for acc, (lo, hi) in zip(parts, halves)]
+        onorm = torch.cat(parts, -1) / l[..., None]
+        lse = (m_run + torch.log2(l)) / log2e
+    else:
+        lse = torch.logsumexp(x_all / log2e, -1)
+        a = (torch.exp2(x_all - (lse * log2e)[..., None]) * mask).bfloat16().float()
+        onorm = torch.cat([torch.einsum("bhnm,bmj->bhnj", a, v[..., lo:hi].float())
+                           for lo, hi in halves], -1)
+    out = TT._mix(onorm, m, c, vsum, dh).bfloat16()
+    assert _rel(onorm.bfloat16(), onorm_w) <= 2e-2
+    assert _rel(out, out_w) <= 2e-2
+    assert _rel(lse, lse_w) <= 1e-4

@@ -31,7 +31,7 @@ TOL = 1e-4
     (torch.bfloat16, 8, 192, True, "identity_tc"),     # HViTUNetTF's level 0
     (torch.bfloat16, 4, 192, True, "identity_tc"),     # a rank's heads at model 2
     (torch.bfloat16, 8, 192, False, "cuda_core"),      # without the flag
-    (torch.bfloat16, 4, 192, False, "cuda_core"),
+    (torch.bfloat16, 4, 192, False, "tensor_core"),    # lite's level class
     (torch.float32, 8, 192, True, "identity_f32"),     # f32: split precision
     (torch.float32, 4, 192, True, "identity_f32"),
     (torch.float32, 8, 192, False, "cuda_core"),       # without the flag

@@ -3,14 +3,16 @@
 one NVIDIA GPU.
 
     python3 tools/torch_fwd_variants.py [--parent DIR] [--only NAME,...] [--lite]
+                                        [--routes 1,0]
 
 Builds ``flash_reattention_train.cu`` once per variant, all in parallel, into
 ``build/fwd_variants/`` (ignored by git), each with an edited copy of
 ``reattention_bnfwd_tc.cuh``, and times the exact-BN forward (``vit_bn_fwd``)
 and the frozen-BN forward (``vit_train_fwd``) on their tensor-core routes at
-base's three level shapes (``--lite``: the exact-BN forward alone at lite's,
-4 heads), batch 64, bf16, dropout rate 0 and 0.2 (CUDA events, 20 calls
-after 3):
+base's three level shapes (``--lite``: at lite's, 4 heads), batch 64, bf16,
+dropout rate 0 and 0.2 (CUDA events, 20 calls after 3).  ``--routes``: the
+C routes timed, 1 the tensor cores (the default), 0 the CUDA cores (the
+variants share it; timed once, as ``cuda_core``).  The variants:
 
 * ``base``: the source as it is;
 * ``noprod``: without step 3 of the register form (o_norm += A V_cat);
@@ -22,7 +24,9 @@ after 3):
 * ``minb1``, ``minb3``: lite's (4, 12) class at one or three blocks an SM
   (the source: two);
 * ``twopass``: lite's (4, 12) class with the log-sum-exp pass first and the
-  sweep reading it (the source takes it in the sweep).
+  sweep reading it (the source takes it in the sweep);
+* ``pc64``: lite's (4, 192) class in 64-column chunks (the source: 128),
+  so that the frozen forward's exchange fits the score region.
 
 With ``--parent DIR`` (a copy of an earlier ``kernels/csrc``), that source
 is built too as ``parent`` and its exact-BN forward timed beside the others
@@ -58,9 +62,10 @@ SWEEP = ("  launch<Cfg<__VA_ARGS__>>(q, k, v, seed, thr, scale, lse, onorm, o, b
          "stream)")
 OWN_LSE = "{ return mix && nk <= KT; }"
 MIX_BODY = "  constexpr int H = C::H, LDX = C::LDX, NQD = C::PC / 4;   // column quads of a row\n"
-LITE12 = "VIT_BNFWD(4, 12, 64, 48, false, 16, 2, true)"
+LITE12 = "VIT_BNFWD(4, 12, 64, 48, MIX, 16, 2, true)"
 TWOPASS12 = ("{ rc = VIT_BNFWD_LSE(4, 12, 32, 64, 4, 2, 2); "
-             "return rc ? rc : VIT_BNFWD(4, 12, 64, 48, false, 16, 2); }")
+             "return rc ? rc : VIT_BNFWD(4, 12, 64, 48, MIX, 16, 2); }")
+LITE192 = "VIT_BNFWD(4, 192, 256, 128, MIX, 32, 1)"
 SHAPES = [(8, 24, 784), (8, 96, 196), (8, 384, 49)]   # (heads, dh, N) of base
 LITE_SHAPES = [(4, 12, 3136), (4, 48, 784), (4, 192, 196)]
 BATCH = 64
@@ -68,7 +73,7 @@ BATCH = 64
 
 def variants() -> dict[str, str]:
     src = (_build.CSRC / HEADER).read_text()
-    for piece in (PRODUCT, C_PRODUCTS, SWEEP, OWN_LSE, MIX_BODY, LITE12):
+    for piece in (PRODUCT, C_PRODUCTS, SWEEP, OWN_LSE, MIX_BODY, LITE12, LITE192):
         if piece not in src:
             raise SystemExit(f"{HEADER} no longer holds the piece a variant edits:\n{piece}")
     return {"base": src, "noprod": src.replace(PRODUCT, ""),
@@ -78,7 +83,8 @@ def variants() -> dict[str, str]:
             "nomix": src.replace(MIX_BODY, "  return;\n" + MIX_BODY),
             "minb1": src.replace(LITE12, LITE12.replace("16, 2,", "16, 1,")),
             "minb3": src.replace(LITE12, LITE12.replace("16, 2,", "16, 3,")),
-            "twopass": src.replace("return " + LITE12 + ";", TWOPASS12)}
+            "twopass": src.replace("return " + LITE12 + ";", TWOPASS12),
+            "pc64": src.replace(LITE192, LITE192.replace("128", "64"))}
 
 
 def build(name: str, csrc: Path, header: str | None) -> Path:
@@ -112,8 +118,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="an earlier kernels/csrc to build beside")
     parser.add_argument("--only", help="comma-separated variants to build (default: all)")
-    parser.add_argument("--lite", action="store_true",
-                        help="lite's shapes (4 heads), the exact-BN forward alone")
+    parser.add_argument("--lite", action="store_true", help="lite's shapes (4 heads)")
+    parser.add_argument("--routes", default="1",
+                        help="comma-separated C routes to time: 1 tensor cores, 0 CUDA cores")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_fwd_variants: no CUDA device", file=sys.stderr)
@@ -135,6 +142,11 @@ def main() -> int:
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 7 + [p]
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
+    routes = [int(r) for r in args.routes.split(",")]
+    # the CUDA-core route is the same in every variant: timed on the first
+    runs = [(name, lib, 1) for name, lib in libs.items() if 1 in routes]
+    if 0 in routes:
+        runs.append(("cuda_core", next(iter(libs.values())), 0))
     for heads, dh, n in LITE_SHAPES if args.lite else SHAPES:
         g = torch.Generator().manual_seed(0)
         q = (torch.randn(BATCH, heads, n, dh, generator=g) * 3 * dh ** -0.5).cuda().bfloat16()
@@ -145,7 +157,7 @@ def main() -> int:
         c_eff = (torch.randn(heads, generator=g) * 0.1).cuda()
         seed = torch.tensor([5], device="cuda")
         outs = {}
-        for name, lib in libs.items():
+        for name, lib, route in runs:
             bufs = dict(lse=torch.empty(BATCH, heads, n, device="cuda"),
                         srow=torch.empty(BATCH, heads, n, device="cuda"),
                         crow=torch.empty(BATCH, heads, heads, n, device="cuda"),
@@ -160,13 +172,13 @@ def main() -> int:
                 sd = seed.data_ptr() if thr else None
                 calls = {"bn_fwd": lambda: lib.vit_bn_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), sd, thr, scale, ptr["lse"],
-                    ptr["onorm"], ptr["srow"], ptr["crow"], BATCH, heads, n, n, dh, 1, 1,
+                    ptr["onorm"], ptr["srow"], ptr["crow"], BATCH, heads, n, n, dh, 1, route,
                     stream)}
-                if name != "parent" and not args.lite:
+                if name != "parent":
                     calls["fwd"] = lambda: lib.vit_train_fwd(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), vsum.data_ptr(),
                         m_eff.data_ptr(), c_eff.data_ptr(), sd, thr, scale, ptr["lse"],
-                        ptr["onorm"], ptr["out"], BATCH, heads, n, n, dh, 1, 1, stream)
+                        ptr["onorm"], ptr["out"], BATCH, heads, n, n, dh, 1, route, stream)
                 for kname, call in calls.items():
                     if call():
                         raise SystemExit(f"variant {name} {kname} failed to launch")

@@ -58,8 +58,8 @@
 //
 // Each function has a second route, chosen by the caller (train_fwd_route,
 // bn_fwd_route, train_bwd_route in kernels/flash_reattention_train.py): bf16
-// on the tensor cores at base's and large's level shapes (and further
-// classes for the backward and the exact-BN forward), each piece computed
+// on the tensor cores at base's, large's and lite's level shapes (and
+// further classes for the backward and the exact-BN forward), each piece computed
 // once (reattention_bnfwd_tc.cuh for both forwards, reattention_bnfwd16_tc.cuh
 // for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The frozen
 // forward has two more for the keras attention's identity mix (M = I, c = 0)

@@ -1,8 +1,8 @@
 // Training forward of flash re-attention on the tensor cores: the bfloat16
 // routes of vit_bn_fwd (exact BN) and vit_train_fwd (frozen BN) in
 // flash_reattention_train.cu, at the (heads, dh) classes bn_fwd_tc and
-// train_fwd_tc instantiate: the levels of base and large, and for exact BN
-// also lite's (4 heads: dh 12, 48, 192).
+// train_fwd_tc instantiate: the levels of base and large, and lite's (4
+// heads: dh 12, 48, 192).
 //
 // Replaces the Pallas TPU kernels of vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bn_fwd (pallas_call body _bn_fwd_kernel) and ::_fwd (body _fwd_kernel)
@@ -71,17 +71,19 @@
 // 16 x 192 f32 of each head (102,688 B with M and c) over the score, A and
 // warp-buffer regions, free by then; in the chunked form, after each
 // 64-column chunk, 8 x 16 x 64 f32 (37,152 B) in the score region, which
-// step 3 does not use.
+// step 3 does not use.  With 4 heads see below.
 // Ragged edges: every copy zero-fills rows past Nq and Nk (src-size 0); keys
 // past Nk get A = 0 before S, C and the product; rows past Nq get
 // lse = +inf, so A = 0, and write nothing.
 //
-// 4 heads (lite's levels, exact BN only).  The block keeps its 8 warps, two
-// a head: in step 1 warp w takes head w / 2 and keys 32 (w % 2) .. + 31 of
-// the tile (16 x 32 scores), in step 3 the same head and half the block's
-// o_norm columns (P / 2 of a register tile, PC / 2 of a chunk); step 2 is
-// the same thread per (row, Philox group), now over 4 heads (4 calls a tile,
-// every word used; C's 10 sums).  The classes:
+// 4 heads (lite's levels).  The block keeps its 8 warps, two a head: in
+// step 1 warp w takes head w / 2 and keys 32 (w % 2) .. + 31 of the tile
+// (16 x 32 scores), in step 3 the same head and half the block's o_norm
+// columns (P / 2 of a register tile, PC / 2 of a chunk); step 2 is the same
+// thread per (row, Philox group), now over 4 heads (4 calls a tile, every
+// word used; C's 10 sums).  In the frozen forward each of a head's two
+// warps leaves its half of the head's f32 columns in the exchange, so the
+// mix still finds every head's o_norm of a row there.  The classes:
 //   * (4, 12), P = 48: the register form; dh 12 is copied in 8-byte pieces
 //     and zero-padded to one k16 step (depth chunk 16); a warp keeps 16 x 24
 //     of o_norm (an odd count of 8-column tiles: the last B fragment by
@@ -90,17 +92,31 @@
 //     16 x 96 of o_norm;
 //   * (4, 192), P = 768: the chunked form with 128-column chunks (64 a warp)
 //     and A of up to 256 keys, as base's (8, 96).
-// At dh 12 and 48 the block takes 74,240 and 92,672 B of shared memory, and
-// two blocks share an SM (at most 128 registers a thread).  There the
-// log-sum-exp pass, a fifth of the call at (4, 12) (its scores and exps
-// again), is folded into the sweep (Cfg::ONLINE, probs_tile_online): step 2
-// keeps each row's running max of the scores, a half-warp's max per tile,
-// and A, S, C and the normaliser l relative to it, rescaling their sums
-// when it moves; step 3 rescales o_norm's rows by the factor step 2 leaves
-// in shared memory; at the end the sweep divides o_norm, S and C by l and
-// writes lse = max + log l.  A is rounded to bf16 unnormalised (its
-// relative error is the same).  Dropout does not enter l: it stays the
-// pre-dropout normaliser.
+// At dh 12 and 48 the block takes 74,240 and 92,672 B of shared memory (the
+// frozen forward 80 B more, M and c), and two blocks share an SM (at most
+// 128 registers a thread).  There the log-sum-exp pass, a fifth of the
+// call at (4, 12) (its scores and exps again), is folded into the sweep
+// (Cfg::ONLINE, probs_tile_online), in both modes, as the TPU kernel's own
+// sweep keeps m_s, l_s and alpha: step 2 keeps each row's running max of
+// the scores, a half-warp's max per tile, and A, S, C and the normaliser l
+// relative to it, rescaling their sums when it moves; step 3 rescales
+// o_norm's rows by the factor step 2 leaves in shared memory; at the end
+// the sweep divides o_norm, S and C by l (the frozen forward before its
+// exchange, so the mix takes the normalised f32 o_norm) and writes lse =
+// max + log l.  A is rounded to bf16 unnormalised (its relative error is
+// the same).  Dropout does not enter l: it stays the pre-dropout
+// normaliser.  The frozen forward's exchange at (4, 12) and (4, 48), 4 x 16
+// x 56 and 4 x 16 x 200 f32 (14,336 and 51,200 B), lies over the body as
+// at 8 heads.  At (4, 192) a 128-column chunk's, 4 x 16 x 136 f32 (34,816
+// B), does not fit the 20,480 B score region: it lies over the V_cat
+// buffer that the chunk's step 3 has just read (69,632 B; one barrier more
+// a chunk), where a region of its own would take the block to 228,352 B,
+// one block an SM either way, and 64-column chunks (whose exchange fits the
+// score region) halve each warp's product tile and double the A fragment
+// loads of step 3: at lite b64, rate 0.2, 0.402 ms a call against 0.394
+// (tools/torch_fwd_variants.py --lite, variant pc64; H100 80GB HBM3,
+// 700 W), a gap the size of that run's noise, so the form with no extra
+// shared memory and fewer loads stays.
 //
 // The log-sum-exp pass comes first, and is kernel 1's tensor-core pass
 // (reattention_tc.cuh::lse_kernel) at the same classes.
@@ -191,21 +207,24 @@ struct Cfg {
   // the end, 1 / l there
   static constexpr size_t SMEM =
       BODY + (MIX ? sizeof(float) * (H * H + H) : 0) + (ONLINE ? sizeof(float) * 2 * H * BQ : 0);
-  static_assert(!ONLINE || (RES && !MIX), "the online log-sum-exp: exact BN, register form");
+  static_assert(!ONLINE || RES, "the online log-sum-exp: the register form");
   static_assert(WPH * H == NW && (WPH == 1 || WPH == 2), "a head's warps");
-  static_assert(!MIX || WPH == 1, "the frozen forward's mix: warp h holds head h");
   static_assert(DH % 4 == 0 && DC % 16 == 0 && (DH < DC || DH % DC == 0), "depth chunks");
   static_assert(DH >= DC || RES, "zero padding of the warp buffers is never overwritten");
   static_assert(KC % KT == 0 && P % PC == 0 && PCW % 8 == 0, "tiles");
   static_assert(!RES || KC == KT, "the register form keeps one key tile of A");
   static_assert(SMEM <= 232448, "shared memory of a block");
   // the mix's exchange of the f32 accumulators, [H][BQ][LDX]; a thread mixes
-  // NMIX column quads of the block's 16 x PC tile
+  // up to NMIX column quads of the block's 16 x PC tile.  The register form
+  // lays it over the body; the chunked form over the score region where it
+  // fits (8 heads: 64-column chunks), else over the V_cat buffer that step 3
+  // of the chunk has just read (4 heads: 128-column chunks)
   static constexpr int LDX = PC + 8;
   static constexpr size_t X_BYTES = sizeof(float) * H * BQ * LDX;
-  static constexpr int NMIX = BQ * PC / 4 >= NT ? BQ * PC / 4 / NT : 1;
-  static_assert(!MIX || X_BYTES <= (RES ? BODY : S_BYTES), "the mix's exchange region");
-  static_assert(!MIX || BQ * PC / 4 % NT == 0, "column quads of the mix");
+  static constexpr int NMIX = (BQ * PC / 4 + NT - 1) / NT;
+  static constexpr bool X_IN_S = X_BYTES <= S_BYTES;
+  static_assert(!MIX || X_BYTES <= (RES ? BODY : X_IN_S ? S_BYTES : sizeof(bf16) * V_ELEMS),
+                "the mix's exchange region");
 };
 
 // The keep bits of thread (row, c) of step 2 for the key tile at k0: bit
@@ -300,9 +319,11 @@ __device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int
       as[(h * BQ + r) * C::LDA + c + 16 * j] = __float2bfloat16_rn(a[h][j]);
     }
     lsum[h] = fmaf(lsum[h], al[h], ps);
-    sacc[h] = fmaf(sacc[h], al[h], (a[h][0] + a[h][1]) + (a[h][2] + a[h][3]));
+    if constexpr (!C::MIX)
+      sacc[h] = fmaf(sacc[h], al[h], (a[h][0] + a[h][1]) + (a[h][2] + a[h][3]));
     if (c == 0) alpha_s[h * BQ + r] = al[h];
   }
+  if constexpr (C::MIX) return;
   int p = 0;
 #pragma unroll
   for (int h2 = 0; h2 < H; ++h2)
@@ -392,8 +413,8 @@ __device__ __forceinline__ void store_acc(const float (&acc)[C::NVTW][4], bf16* 
 }
 
 // The frozen forward's head mix: thread tid forms out for column quads
-// e = tid + NT i (i < NMIX) of the block's 16 rows x PC columns c0 ..
-// c0 + PC, row e / (PC / 4).  vsum[b] at those columns, loaded ahead of the
+// e = tid + NT i (i < NMIX, e < 4 PC) of the block's 16 rows x PC columns
+// c0 .. c0 + PC, row e / (PC / 4).  vsum[b] at those columns, loaded ahead of the
 // mix so that its latency hides behind the products.
 template <typename C>
 __device__ __forceinline__ void load_vsum(float (&vq)[C::NMIX][4], const float* vsum, int b,
@@ -408,26 +429,27 @@ __device__ __forceinline__ void load_vsum(float (&vq)[C::NMIX][4], const float* 
 }
 
 //   out[b, n, j] = sum_h2 M[head(j), h2] o_norm[b, h2, n, j] + c[head(j)] vsum[b, j]
-// from the f32 accumulators (acc: head `warp`), with M and c staged in mc.
-// xs (C::X_BYTES) must be free for every warp when this is called; it is
-// read until the call returns.
+// from the f32 accumulators (acc: head wh, columns wcol .. wcol + PCW of the
+// chunk; with two warps a head each leaves its half), with M and c staged
+// in mc.  xs (C::X_BYTES) must be free for every warp when this is called;
+// it is read until the call returns.
 template <typename C>
 __device__ __forceinline__ void mix_out(const float (&acc)[C::NVTW][4], float* xs, const float* mc,
                                         const float (&vq)[C::NMIX][4], bf16* out, int b, int q0,
-                                        int c0, int nq, int warp, int lane, int tid) {
+                                        int c0, int nq, int wh, int wcol, int lane, int tid) {
   constexpr int H = C::H, LDX = C::LDX, NQD = C::PC / 4;   // column quads of a row
   const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int nv = 0; nv < C::NVTW; ++nv)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(xs + (warp * BQ + gq + 8 * r) * LDX + 8 * nv + 2 * t4) =
+      *reinterpret_cast<float2*>(xs + (wh * BQ + gq + 8 * r) * LDX + wcol + 8 * nv + 2 * t4) =
           make_float2(acc[nv][2 * r], acc[nv][2 * r + 1]);
   __syncthreads();   // every head's accumulators are in
 #pragma unroll
   for (int i = 0; i < C::NMIX; ++i) {
     const int e = tid + NT * i, r = e / NQD, j = 4 * (e % NQD), row = q0 + r;
-    if (row >= nq) continue;
+    if (r >= BQ || row >= nq) continue;
     const int col = c0 + j, hp = col / C::DH;
     const float cp = mc[H * H + hp];
     float x[4] = {cp * vq[i][0], cp * vq[i][1], cp * vq[i][2], cp * vq[i][3]};
@@ -501,7 +523,7 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
   // step 2's thread: row er, Philox group ec; a row's 16 threads share a half-warp
   const int er = tid / 16, ec = tid % 16, erow = q0 + er;
   const bool rvalid = erow < nq;
-  const bool lse_here = own_lse(C::MIX, nk);
+  const bool lse_here = !C::ONLINE && own_lse(C::MIX, nk);
   // lse2: lse * log2(e) of the row, or with C::ONLINE its running max m2
   float lse2[H], sacc[H], cacc[C::NPAIR];
   [[maybe_unused]] float lsum[H];
@@ -521,8 +543,9 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
   // MMAs read
   if constexpr (DH < DC) vit_tile::zero_bf16<NW * 2 * WARP_ELEMS>(wbuf, tid);
   [[maybe_unused]] float* mc = reinterpret_cast<float*>(bn_smem + C::BODY);   // frozen BN: M, c
-  [[maybe_unused]] float* alpha_s = mc;       // C::ONLINE: [H][BQ] alpha of the tile
-  [[maybe_unused]] float* linv_s = mc + H * BQ;   // then [H][BQ] 1 / l
+  // C::ONLINE: [H][BQ] alpha of the tile, then [H][BQ] 1 / l
+  [[maybe_unused]] float* alpha_s = mc + (C::MIX ? H * H + H : 0);
+  [[maybe_unused]] float* linv_s = alpha_s + H * BQ;
   if constexpr (C::MIX)
     if (tid < H * H + H) mc[tid] = tid < H * H ? m_eff[tid] : c_eff[tid - H * H];
   __syncthreads();
@@ -636,8 +659,8 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
     store_acc<C>(acc, onorm, b, q0, wcol, nq, wh, lane);
     if constexpr (C::MIX) {
       __syncthreads();   // every warp is done with the A tile and V_cat tile
-      mix_out<C>(acc, reinterpret_cast<float*>(bn_smem), mc, vq, out, b, q0, 0, nq, warp, lane,
-                 tid);
+      mix_out<C>(acc, reinterpret_cast<float*>(bn_smem), mc, vq, out, b, q0, 0, nq, wh, wcol,
+                 lane, tid);
     }
   } else {
     const int n_kc = (nk + C::KC - 1) / C::KC;
@@ -660,16 +683,21 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
         for (int kk = 0; kk < nks; ++kk)
           product_step<C>(as, vbuf + buf * C::V_ELEMS, kk, wh, wcol, lane, acc);
         // the V_cat buffer (and the region it shares) is free; with one key
-        // chunk the frozen forward needs no barrier here: the next copy into
-        // this buffer starts after the next chunk's first barrier, and the
-        // mix's exchange below uses the score region, which step 3 leaves alone
-        if (!(C::MIX && once)) __syncthreads();
+        // chunk the frozen forward needs no barrier here when the mix's
+        // exchange below uses the score region, which step 3 leaves alone:
+        // the next copy into this buffer starts after the next chunk's first
+        // barrier
+        if (!(C::MIX && once && C::X_IN_S)) __syncthreads();
       }
       store_acc<C>(acc, onorm, b, q0, c0 + wcol, nq, wh, lane);
       if constexpr (C::MIX) {
-        // the score region is free since this chunk's sweep; with more than
-        // KC keys the next chunk's sweep writes it again
-        mix_out<C>(acc, ss, mc, vq, out, b, q0, c0, nq, warp, lane, tid);
+        // the score region is free since this chunk's sweep, and the V_cat
+        // buffer step 3 has just read since the barrier above (with one key
+        // chunk its next copy starts after the next chunk's first barrier);
+        // with more than KC keys the next chunk's sweep writes both again
+        float* xs = C::X_IN_S ? ss : reinterpret_cast<float*>(
+                                         vbuf + (n_kc == 1 ? ci & 1 : 0) * C::V_ELEMS);
+        mix_out<C>(acc, xs, mc, vq, out, b, q0, c0, nq, wh, wcol, lane, tid);
         if (n_kc > 1) __syncthreads();
       }
       zero_acc<C>(acc);
@@ -746,15 +774,16 @@ int launch(const void* q, const void* k, const void* v, const int64_t* seed, int
 //             25,600 = 187,392 B; 3,136 blocks at base b64 (49 q tiles x 64);
 //   (8, 96), (8, 384): scores 40,960 + A 67,584 + max(warp buffers 102,400,
 //             V_cat chunks 73,728) = 210,944 B; 832 and 256 blocks at base b64.
-// Exact BN also at lite's classes (the frozen forward's mix needs a warp a
-// head), (4, 12) and (4, 48) with no log-sum-exp pass (ONLINE):
+// The frozen forward adds M and c (4 (H^2 + H) B) to each.  Lite's
+// classes, (4, 12) and (4, 48) with no log-sum-exp pass (ONLINE):
 //   (4, 12):  scores 20,480 + A 9,216 + warp buffers 36,864 + V_cat tile
 //             7,168 + rescale factors 512 = 74,240 B, two blocks an SM;
 //             12,544 blocks at lite b64 (196 q tiles x 64), 49 key tiles each;
 //   (4, 48):  20,480 + 9,216 + 36,864 + 25,600 + 512 = 92,672 B, two blocks
 //             an SM; 3,136 blocks at b64 N 784;
 //   (4, 192): 20,480 + A 33,792 + max(warp buffers 61,440, V_cat chunks
-//             139,264) = 193,536 B; 832 blocks at b64 N 196.
+//             139,264) = 193,536 B; 832 blocks at b64 N 196 (the frozen
+//             forward's exchange inside the V_cat chunks).
 // cudaErrorInvalidValue for any other shape.
 template <bool MIX>
 int forward_tc(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
@@ -777,14 +806,12 @@ int forward_tc(const void* q, const void* k, const void* v, const int64_t* seed,
     rc = VIT_BNFWD_LSE(8, 384, 16, 32, 1, 3, 1);
     return rc ? rc : VIT_BNFWD(8, 384, 256, 64, MIX);
   }
-  if constexpr (!MIX) {
-    // the register form takes the log-sum-exp in the sweep: no pass before
-    if (heads == 4 && dh == 12) return VIT_BNFWD(4, 12, 64, 48, false, 16, 2, true);
-    if (heads == 4 && dh == 48) return VIT_BNFWD(4, 48, 64, 192, false, 16, 2, true);
-    if (heads == 4 && dh == 192) {
-      rc = VIT_BNFWD_LSE(4, 192, 16, 32, 2, 2, 2);
-      return rc ? rc : VIT_BNFWD(4, 192, 256, 128, false, 32, 1);
-    }
+  // the register form takes the log-sum-exp in the sweep: no pass before
+  if (heads == 4 && dh == 12) return VIT_BNFWD(4, 12, 64, 48, MIX, 16, 2, true);
+  if (heads == 4 && dh == 48) return VIT_BNFWD(4, 48, 64, 192, MIX, 16, 2, true);
+  if (heads == 4 && dh == 192) {
+    rc = VIT_BNFWD_LSE(4, 192, 16, 32, 2, 2, 2);
+    return rc ? rc : VIT_BNFWD(4, 192, 256, 128, MIX, 32, 1);
   }
   return rc;
 #undef VIT_BNFWD_LSE

@@ -21,7 +21,9 @@ beside it and a launch counter:
   no o_norm (``train_fwd_identity``); ``tensor_core``
   (``csrc/reattention_bnfwd_tc.cuh``, the exact-BN sweep below without S
   and C, with the head mix as its epilogue, taken from the f32 o_norm as
-  the TPU epilogue takes it) for bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
+  the TPU epilogue takes it; at lite's 4-head levels with two warps a head,
+  at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep) for
+  bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
   ``cuda_core`` (f32 FMAs, the mix from the stored o_norm) for float32 and
   every other shape;
 * ``bn_fwd``     <- ``_bn_fwd`` (:741): exact-BN sweep, writes ``lse``,
@@ -104,11 +106,11 @@ IDENTITY_ROUTES = ("identity_tc", "identity_f32")
 FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
-#: level shapes of base and large, for the exact-BN forward and the backward
-#: also lite's (4, 12), (4, 48), (4, 192) and the classifier's (16, 12)
+#: level shapes of base and large and lite's (4, 12), (4, 48), (4, 192), for
+#: the exact-BN forward and the backward also the classifier's (16, 12)
 #: level, and for the backward its (16, 48) level too
 LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
-TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)})
+TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES
 BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)}) | LITE_TC_SHAPES
 TRAIN_BWD_TC_SHAPES = (frozenset({(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)})
                        | LITE_TC_SHAPES)
@@ -277,9 +279,10 @@ def _mix(onorm, m_eff, c_eff, vsum, dh: int):
 
 
 def train_fwd_plain(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float,
-                    head_base: int = 0):
-    """Plain version of ``train_fwd``: (out, lse, o_norm)."""
-    _, a, lse = _probs_plain(q, k, seed, rate, head_base)
+                    head_base: int = 0, *, batch_base: int = 0):
+    """Plain version of ``train_fwd``: (out, lse, o_norm).  ``batch_base``
+    as ``bn_fwd_plain`` takes it."""
+    _, a, lse = _probs_plain(q, k, seed, rate, head_base, batch_base)
     onorm = torch.einsum("bhnm,bmj->bhnj", a, _wide(v_cat)).to(q.dtype)
     out = _mix(onorm, m_eff, c_eff, vsum, q.shape[-1]).to(q.dtype)
     return out, lse, onorm
