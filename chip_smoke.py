@@ -24,8 +24,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    plus the autograd Functions' gradients against torch autograd of the
    N x N forward with the same dropout mask; every kernel and Function also
    at 16 heads (``HEAD16_SHAPES``: dh 48, 12, 192 and 384, the
-   classifier's N and a ragged case, on the CUDA-core routes but kernels
-   1's and 3's bf16 (16, 48) and (16, 12)); every kernel also at HViTUNetTF's
+   classifier's N and a ragged case, on the tensor-core routes in bf16 at
+   (16, 48) and (16, 12), else on the CUDA-core routes); every kernel also at HViTUNetTF's
    keras class (``KERAS_SHAPES``: 8 heads x dh 192 at N 256 and ragged
    100 x 130); kernel 1's one-pass identity route as ``KerasMHA`` calls it
    (``IDENTITY_CASES``: (8, 192) and (4, 192) at N 256, 64 queries of 256
@@ -45,8 +45,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    against plain and the general route with I, twice for the same bits;
    the identity Function against float64 autograd; at b64 timed in turns
    against the route each call took before, beside SDPA's backward);
-   the exact-BN forward's (16, 12) tensor-core class (``BN16_CASES``,
-   against plain and the CUDA-core route, its dropout bits read back);
+   both forwards' 16-head tensor-core classes (16, 12) and (16, 48)
+   (``BN16_CASES``: the classifier's N, ragged, more queries than keys, a
+   single query, and at dh 48 more than 256 keys; rates 0 and 0.2; against
+   plain and the CUDA-core route, a second call bit for bit, their dropout
+   bits read back);
    kernels 2, 3 and 4 at lite's tensor-core classes (4, 12), (4, 48), (4, 192)
    (``LITE_CASES``: each level's N, N 3,136 at B2, ragged, more queries than
    keys, a single query; rates 0 and 0.2, BN term off and on; against plain
@@ -58,7 +61,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
-   cores, and the backward at (16, 12) and (16, 48)), with
+   cores), with
    ragged cases and the two
    routes held against each other (the backward's classes without atomics
    also run twice for the same bits; the forwards also at batch 64, and
@@ -150,12 +153,15 @@ Phases, each of which raises (exit code != 0) when it fails:
 8. the classifier: (a0) kernels 1-4 at its two 16-head level shapes
    ((16, 48) at N 196, (16, 12) at N 784; b64, f32 and bf16, rate 0.2)
    against their plain versions, timed with their bounds and SDPA beside
-   kernel 1, the bf16 backward and the exact-BN forward at (16, 12) also on
-   both routes in turns; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
+   kernel 1, kernels 2-4 in bf16 also on both routes in turns, kernel 1's
+   log-sum-exp pass alone; (a) ``ViTClassifier`` at the CLI's default widths (224², 16
    heads, 5,975,984 parameters, bf16, b64, random weights from a seed): the
    forward, exact-BN and frozen-BN steps (Adam, label-smoothed CE) with
-   their launches asserted by route, times, peak memory and profiler
-   breakdowns, the kernel path against ``use_flash=False``, and one f32
+   their launches asserted by route (every bf16 call on the tensor cores),
+   times, peak memory and profiler breakdowns, each step in turns against
+   the same step with its forward's newest tensor-core classes held on the
+   CUDA cores (faster as named), the kernel path against
+   ``use_flash=False``, and one f32
    batch-4 step of the kernel path against the plain path; (c)
    ``run_classification.main`` in this process on 4 class folders of 24
    images (PNG, 8/24/32-bit BMP bottom-up and top-down, and the committed
@@ -270,8 +276,9 @@ CHECK_SHAPES = [  # (batch, heads, dh, n_q, n_k)
 ]
 # 16 heads: the classifier's two levels at its N, a ragged case, and the two
 # wider head dims ``kernel_takes`` admits at 16 heads (JAX's ``_flash_ok``
-# takes 16 heads only up to dh 48); kernels 1-4 on the CUDA-core routes
-# except kernels 1 and 3 in bf16 at (16, 48) and (16, 12)
+# takes 16 heads only up to dh 48); kernels 1-4 on the tensor-core routes
+# in bf16 at (16, 48) and (16, 12), on the CUDA-core routes in f32 and at
+# dh 192 and 384
 HEAD16_SHAPES = [  # (batch, heads, dh, n_q, n_k)
     (4, 16, 48, 196, 196), (4, 16, 12, 784, 784), (4, 16, 48, 100, 130),
     (2, 16, 192, 196, 196), (2, 16, 384, 49, 49),
@@ -856,11 +863,17 @@ BWD16_CASES = HEAD16_SHAPES[:3] + [(2, 16, 12, 200, 96), (2, 16, 12, 1, 49)]
 # the forwards also with more keys than the chunked form keeps A of (256),
 # so A is recomputed for every column chunk
 FWD_EDGE_CASES = BWD_EDGE_CASES + [(2, 8, 96, 40, 300), (2, 8, 384, 17, 270)]
-# the exact-BN forward's 16-head class on the tensor cores, (16, 12): the
-# classifier's N, ragged over three key tiles, more queries than keys, a
-# single query (its b64 call is phase 8's)
+# both forwards' 16-head classes on the tensor cores, (16, 12) and (16, 48),
+# kernel 2 and kernel 4 alike: the classifier's N, ragged over partial key
+# tiles, more queries than keys, a single query, and at dh 48 more keys
+# than the chunked form keeps A of (256), so A is recomputed for every
+# column chunk (their b64 calls are phase 8's)
 BN16_CASES = [(4, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96),
-              (2, 16, 12, 1, 49)]
+              (2, 16, 12, 1, 49), (4, 16, 48, 196, 196), (2, 16, 48, 100, 130),
+              (2, 16, 48, 200, 96), (2, 16, 48, 1, 49), (2, 16, 48, 40, 300)]
+# (batch, heads, dh, N) of their dropout-bit read-back: counts of keys m =
+# j mod P at (16, 12), each bit at (16, 48) over more than 256 keys
+HEAD16_BITS = [(4, 16, 12, 784), (2, 16, 48, 300)]
 # (heads, dh) classes of the backward's tensor-core route in its maps +
 # products form: no atomics, so a call repeats bit for bit
 ATOMIC_FREE_BWD = {(8, 384)}
@@ -1201,8 +1214,8 @@ def forward(key) -> Forward:
 def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
     """bf16 forward ``key`` on the route its route choice names against its
     plain version and against the CUDA-core route, on the same inputs, each
-    output at its tolerance.  Returns the worst max_abs_err against the
-    plain version."""
+    output at its tolerance, and a second call on its route for the same
+    bits.  Returns the worst max_abs_err against the plain version."""
     f = forward(key)
     dtype = torch.bfloat16
     q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
@@ -1214,6 +1227,7 @@ def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
         raise AssertionError(f"the call did not take the {route} route")
     want = f.plain(*args)
     other = f.launch(*args, route="cuda_core")
+    again = f.launch(*args, route=route)
     torch.cuda.synchronize()
     label = f"{key} [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} rate {rate}"
     errs = [rel_err(a, b) for a, b in zip(got, want)]
@@ -1221,8 +1235,10 @@ def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
     for (_, rel), r, tol in zip(errs, routes, f.tols):
         require(label, rel, tol[dtype])
         require(f"{label} against the cuda_core route", r, tol[dtype])
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):   # no atomics sum
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
     print(f"  {label}: {FWD_OUTPUTS[key]} rel " + " ".join(f"{r:.2e}" for _, r in errs)
-          + " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes))
+          + " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes) + " | repeat bit for bit")
     return max(e for e, _ in errs)
 
 
@@ -1620,8 +1636,11 @@ def phase_train_kernels():
                 fwd_err[key] = max(fwd_err[key], err)
                 if shape in lite:
                     lite_err[key] = max(lite_err[key], err)
-        for batch, heads, dh, n, _ in shapes + head16[:1]:
+        for batch, heads, dh, n, _ in shapes:
             check_fwd_bits(key, batch, heads, dh, n)
+        for batch, heads, dh, n in HEAD16_BITS:
+            if (heads, dh) in classes:
+                check_fwd_bits(key, batch, heads, dh, n)
         for batch, heads, dh, n in LITE_BITS:
             if (heads, dh) in classes:
                 check_fwd_bits(key, batch, heads, dh, n)
@@ -3582,13 +3601,15 @@ def phase_tf():
 # ViTClassifier at the CLI's default widths: 224², patch 16, 196 patches,
 # depth 2 x depth_te 4, hidden 128, 16 heads, head (64, 4); 5,975,984
 # parameters (the JAX model's eval_shape count).  Its levels are (16 heads,
-# dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernels 1 and 3 on
-# their tensor-core routes in bf16, kernel 4 too at (16, 12) and on its
-# CUDA-core route at (16, 48), kernel 2 on its CUDA-core route.
+# dh 48) at N 196 and (16, 12) at N 784, 4 blocks each: kernels 1-4 on
+# their tensor-core routes in bf16 at both.
 CLS_CONFIG = dict(num_patches=196)
 CLS_BF16 = dict(CLS_CONFIG, dtype="bfloat16", param_dtype="bfloat16")
 CLS_PARAMS = 5_975_984
 CLS_LEVELS = [(16, 48, 196, 4), (16, 12, 784, 4)]   # (heads, dh, n, calls)
+# the classes each forward took to the tensor cores last, held on the
+# CUDA cores in phase 8's turns
+CLS_NEW_TC = {"fwd": {(16, 12), (16, 48)}, "bn_fwd": {(16, 48)}}
 CLS_CALLS = 8               # re-attention calls a forward or step
 CLS_STEPS = 5
 CLS_SMOOTHING = 0.05
@@ -3626,8 +3647,7 @@ def cls_expected(routes: dict, n: int) -> dict:
 def cls_routes():
     """The routes the route functions name for the classifier's levels in
     bf16, {kernel: {route: calls a forward or step}}, or the phase fails:
-    kernel 4 takes the tensor cores at (16, 12) and the CUDA cores at
-    (16, 48)."""
+    every kernel takes the tensor cores at both levels."""
     import importlib
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
@@ -3639,10 +3659,7 @@ def cls_routes():
         for h, d, _, calls in CLS_LEVELS:
             named[key][pick(torch.bfloat16, h, d)] += calls
         named[key] = dict(named[key])
-    half = CLS_CALLS // 2
-    if named != {"eval": {"tensor_core": CLS_CALLS}, "fwd": {"cuda_core": CLS_CALLS},
-                 "bn_fwd": {"cuda_core": half, "tensor_core": half},
-                 "bwd": {"tensor_core": CLS_CALLS}}:
+    if named != dict.fromkeys(routes, {"tensor_core": CLS_CALLS}):
         raise AssertionError(f"unexpected routes for the classifier: {named}")
     return named
 
@@ -3650,9 +3667,13 @@ def cls_routes():
 def cls_kernels():
     """(a0) kernels 1-4 at the classifier's two level shapes, b64, rate 0.2,
     f32 and bf16: kernel / plain / bound ms per call; SDPA's time beside
-    kernel 1 as a reading (no head mix); the backward, and the exact-BN
-    forward at (16, 12), in bf16 also on both routes in turns."""
+    kernel 1 as a reading (no head mix); in bf16 kernels 2-4 also on both
+    routes in turns, and kernel 1's log-sum-exp pass alone (both forwards'
+    first launch at (16, 48); at (16, 12) their sweep takes the log-sum-exp
+    itself)."""
+    import importlib
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
     res = {}
     for heads, dh, n, _ in CLS_LEVELS:
         shape = f"H{heads} dh{dh} N{n}"
@@ -3674,22 +3695,47 @@ def cls_kernels():
                                 route=route_of(dtype, heads, dh))
             if row["bwd"]["route"] == "tensor_core":
                 row["bwd"]["cuda_core_ms"], _ = time_bwd_routes(BATCH, heads, dh, n)
-            if row["bn_fwd"]["route"] == "tensor_core":
-                row["bn_fwd"]["cuda_core_ms"], _ = time_fwd_routes("bn_fwd", BATCH, heads,
-                                                                   dh, n)
+            for key in ("fwd", "bn_fwd"):
+                if row[key]["route"] == "tensor_core":
+                    row[key]["cuda_core_ms"], _ = time_fwd_routes(key, BATCH, heads, dh, n)
+            if dtype == torch.bfloat16:
+                q, k, v, w, b = reattention_inputs(BATCH, heads, dh, n, n, dtype, 0)
+                lse = torch.empty(BATCH, heads, n, device="cuda")
+                out = torch.empty(BATCH, n, heads * dh, device="cuda", dtype=dtype)
+                row["flash_reattention"]["lse_pass_ms"] = time_ms(
+                    lambda: TK.launch_passes(q, k, v, w, b, lse, out, route="tensor_core",
+                                             passes=1), 10)
             for label, r in row.items():
                 extra = f", sdpa {r['sdpa_ms']:.4f} ms" if "sdpa_ms" in r else ""
+                extra += (f", its LSE pass alone {r['lse_pass_ms']:.4f} ms"
+                          if "lse_pass_ms" in r else "")
+                extra += (f", cuda_core in turns {r['cuda_core_ms']:.4f} ms"
+                          if "cuda_core_ms" in r else "")
                 print(f"    {shape} {name} {label} [{r['route']}]: {r['ms']:.4f} ms a "
                       f"call, plain {r['plain_ms']:.4f} ms{extra}, bound "
                       f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err "
-                      f"{r['err']:.3e}")
+                      f"{r['err']:.3e} [{card_line()}]")
             res[shape][name] = row
     return res
 
 
+def held_on_cuda_cores(key, classes):
+    """A patch of forward ``key``'s route function (``TRAIN_ROUTE_PICKS``)
+    that names the CUDA-core route at the (heads, dh) ``classes`` and what
+    it named before everywhere else."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    name = TRAIN_ROUTE_PICKS[key][0]
+    pick = getattr(T, name)
+    return mock.patch.object(
+        T, name, lambda dtype, heads, dh, *a, **k: (
+            "cuda_core" if (heads, dh) in classes else pick(dtype, heads, dh, *a, **k)))
+
+
 def cls_model_runs(routes):
     """(a) the bf16 b64 forward and train steps with their launches by
-    route; the kernel path against use_flash=False."""
+    route; the kernel path against use_flash=False; each step in turns
+    with the forward's classes of CLS_NEW_TC held on the CUDA cores and as
+    named (held, new, new, held, each the median of 3), faster as named."""
     from vit_unet_tpu_torch import get_vit_classifier
     from vit_unet_tpu_torch.nn.reattention import ReAttention
     from vit_unet_tpu_torch.parallel.train_step import TrainState, build_step_functions
@@ -3749,6 +3795,24 @@ def cls_model_runs(routes):
         device_breakdown(lambda: steps.train_step(state, batch), step_ms,
                          f"classifier {label}-BN step", reps=1, top=10)
         res[f"{label}_ms"], res[f"{label}_peak"] = step_ms, peak
+        classes = CLS_NEW_TC[fwd]
+        turns = []
+        for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+            with (held_on_cuda_cores(fwd, classes) if route == "cuda_core"
+                  else contextlib.nullcontext()):
+                state, _, t = timed_steps(steps, state, batch, 3)
+            turns.append((route, t))
+        held_ms = min(t for r, t in turns if r == "cuda_core")
+        new_ms = min(t for r, t in turns if r == "tensor_core")
+        print(f"  (a) {label}-BN b{BATCH} bf16 step, kernel {TRAIN_ROUTE_PICKS[fwd][1]} at "
+              f"{sorted(classes)} on each route in turns (median of 3): "
+              + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+              + f"; held / as named {held_ms / new_ms:.2f}x [{card}]")
+        if not new_ms < held_ms:
+            raise AssertionError(f"the classifier's {label}-BN step is not faster with "
+                                 f"kernel {TRAIN_ROUTE_PICKS[fwd][1]} at {sorted(classes)} "
+                                 "on the tensor cores")
+        res[f"{label}_turns"] = turns
         del m, opt, state, steps
     del model
     torch.cuda.empty_cache()
@@ -5588,27 +5652,37 @@ def main(argv=None) -> int:
             "library_ms": None,
             # the CUDA-core route on the same inputs, in turns
             "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
-    # kernel 4's 16-head tensor-core class, (16, 12): the classifier's
-    # exact-BN steps and CLI (phase 8), the only paths at 16 heads; there
-    # (16, 48) takes the CUDA-core route, so these are all (16, 12) calls
-    b16 = cls["kernels"]["H16 dh12 N784"]["bfloat16"]["bn_fwd"]
+    # kernels 4 and 2 at 16 heads, reattention_bnfwd16_tc.cuh's exact and
+    # frozen modes at (16, 12) and (16, 48): the classifier's steps and
+    # CLI (phase 8) are the only paths at 16 heads, and every bf16 call
+    # there takes the tensor cores; the numbers are (16, 12)'s at N 784,
+    # b64 bf16, rate 0.2 (phase 8a0), the larger call, (16, 48)'s beside
     cls_paths = ("classifier", "classifier_cli")
-    kernels.append({
-        "name": "flash_reattention_bn_fwd16",
-        "route": "cuda",
-        "source": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd16_tc.cuh",
-        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:741",
-        "launches": sum(model_paths[p].get("bn_fwd_tensor_core", 0) for p in cls_paths),
-        "launches_by_path": {p: model_paths[p].get("bn_fwd_tensor_core", 0)
-                             for p in cls_paths},
-        # (16, 12) at N 784, b64 bf16, rate 0.2 (phase 8a0)
-        "max_abs_err": b16["err"], "ms": b16["ms"], "plain_ms": b16["plain_ms"],
-        "bound_ms": b16["bound"][0], "bound_by": b16["bound"][1],
-        # no single PyTorch call computes the dropout map's BatchNorm moments
-        "library_ms": None,
-        # the CUDA-core route on the same inputs, in turns
-        "cuda_core_ms": b16["cuda_core_ms"],
-    })
+    for key, name, replaces in (
+            ("bn_fwd", "flash_reattention_bn_fwd16",
+             "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
+            ("fwd", "flash_reattention_train_fwd16",
+             "vit_unet_tpu/kernels/flash_reattention_train.py:363")):
+        rows = {shape: r["bfloat16"][key] for shape, r in cls["kernels"].items()}
+        b16 = rows["H16 dh12 N784"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd16_tc.cuh",
+            "replaces": replaces,
+            "launches": sum(model_paths[p].get(f"{key}_tensor_core", 0) for p in cls_paths),
+            "launches_by_path": {p: model_paths[p].get(f"{key}_tensor_core", 0)
+                                 for p in cls_paths},
+            "max_abs_err": max(r["err"] for r in rows.values()), "ms": b16["ms"],
+            "plain_ms": b16["plain_ms"],
+            "bound_ms": b16["bound"][0], "bound_by": b16["bound"][1],
+            # no single PyTorch call computes re-attention with a head mix,
+            # dropout and the map's BatchNorm moments
+            "library_ms": None,
+            # the CUDA-core route on the same inputs, in turns
+            "cuda_core_ms": b16["cuda_core_ms"],
+            "classes": rows,
+        })
     idle = [kern["name"] for kern in kernels if not kern["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on a main path: {idle}")

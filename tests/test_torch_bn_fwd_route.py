@@ -84,10 +84,10 @@ def test_attend_routes_wide_heads_to_the_plain_path(dh):
             torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
-# base's, large's and lite's levels and the classifier's (16, 12) level run
-# the exact-BN forward on the tensor cores in bf16; the classifier's
-# (16, 48) and every float32 call stay on the CUDA cores
-TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12)}
+# base's, large's and lite's levels and the classifier's two levels run the
+# exact-BN forward on the tensor cores in bf16; every float32 call stays on
+# the CUDA cores
+TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12), (16, 48)}
 
 
 @pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384), (4, 12), (4, 48),
@@ -158,15 +158,20 @@ def test_bn_fwd_tensor_core_rounding_stays_within_tolerance(dh, n, rate):
     assert worst[False] <= 1e-4 and worst[True] > 1e-4, worst
 
 
-@pytest.mark.parametrize("n,rate", [(64, 0.0), (130, 0.2)])
-def test_bn_fwd16_pair_rounding_stays_within_tolerance(n, rate):
-    """The 16-head tensor-core class (16, 12) takes C by an MMA of A carried
-    as bf16 pairs hi = bf16(A), lo = bf16(A - hi): hi hi^T + hi lo^T +
-    lo hi^T, emulated here in f32 (each product of two bf16 exact).  C and
-    the BN variance it gives stay within 1e-4 of ``bn_fwd_plain``'s (the
-    card's tolerance for C is 1e-3); C from hi alone misses 1e-3: why the
-    kernel carries the pair."""
-    heads, dh, batch, seed = 16, 12, 2, 11
+@pytest.mark.parametrize("dh,n,rate", [
+    pytest.param(12, 64, 0.0, id="64-0.0"), pytest.param(12, 130, 0.2, id="130-0.2"),
+    pytest.param(48, 100, 0.2, id="dh48-100-0.2"), pytest.param(48, 300, 0.0, id="dh48-300-0.0"),
+])
+def test_bn_fwd16_pair_rounding_stays_within_tolerance(dh, n, rate):
+    """The 16-head tensor-core classes (16, 12) and (16, 48) take C by an
+    MMA of A carried as bf16 pairs hi = bf16(A), lo = bf16(A - hi):
+    hi hi^T + hi lo^T + lo hi^T, emulated here in f32 (each product of two
+    bf16 exact).  C and the BN variance it gives stay within 1e-4 of
+    ``bn_fwd_plain``'s (the card's tolerance for C is 1e-3); C from hi alone
+    misses 1e-3: why the kernel carries the pair.  At dh 48 over 300 keys
+    the kernel keeps A of 256 keys and takes C a 64-key tile at a time:
+    the same sums in another order."""
+    heads, batch, seed = 16, 2, 11
     g = torch.Generator().manual_seed(n)
     rnd = lambda *s: torch.randn(*s, generator=g)
     q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()
@@ -189,10 +194,15 @@ def test_bn_fwd16_pair_rounding_stays_within_tolerance(n, rate):
     assert _rel(prod(hi, hi), c_w) > 1e-3
 
 
-@pytest.mark.parametrize("dh,n,rate", [(12, 200, 0.2), (12, 64, 0.0), (48, 130, 0.2)])
-def test_bn_fwd_online_lse_matches_the_plain_version(dh, n, rate):
-    """Lite's register classes (4, 12), (4, 48) take the log-sum-exp in the
-    sweep, emulated here on the CPU with bf16 inputs: per 64-key tile each
+@pytest.mark.parametrize("heads,dh,n,rate", [
+    pytest.param(4, 12, 200, 0.2, id="12-200-0.2"), pytest.param(4, 12, 64, 0.0, id="12-64-0.0"),
+    pytest.param(4, 48, 130, 0.2, id="48-130-0.2"),
+    pytest.param(16, 12, 130, 0.2, id="h16-12-130-0.2"),
+])
+def test_bn_fwd_online_lse_matches_the_plain_version(heads, dh, n, rate):
+    """Lite's register classes (4, 12), (4, 48) and the classifier's (16,
+    12) take the log-sum-exp in the sweep, emulated here on the CPU with
+    bf16 inputs: per 64-key tile each
     row's running max m of the scores (log2 units), its normaliser l, A, S
     and C taken relative to m and their sums rescaled by 2^(m_old - m_new)
     when it moves, A rounded to bf16 unnormalised for the product with V_cat,
@@ -200,7 +210,7 @@ def test_bn_fwd_online_lse_matches_the_plain_version(dh, n, rate):
     S, C and lse stay within 1e-4 of ``bn_fwd_plain`` (the card holds them
     at 1e-3) and o_norm within 2e-2: folding the pass into the sweep costs
     no accuracy."""
-    heads, batch, seed = 4, 2, 5
+    batch, seed = 2, 5
     g = torch.Generator().manual_seed(dh + n)
     rnd = lambda *s: torch.randn(*s, generator=g)
     q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()

@@ -574,7 +574,7 @@ def test_bn_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q
 
 
 @pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (16, 12, 128), (4, 12, 48),
-                                      (4, 48, 192), (4, 192, 196)])
+                                      (4, 48, 192), (4, 192, 196), (16, 48, 300)])
 def test_bn_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     """q = 0 makes every probability 1/Nk, and V_cat[m, j] = 1 where m = j
     (P >= Nk here) makes o_norm[..., m] Nk (1 - rate) the keep bit of key m."""
@@ -599,11 +599,13 @@ def test_bn_fwd_float32_takes_the_cuda_core_route(cuda):
         TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
 
 
-# the exact-BN forward's 16-head class on the tensor cores, (16, 12): the
-# classifier's N, ragged over three key tiles, more queries than keys, a
-# single query
+# both forwards' 16-head classes on the tensor cores, (16, 12) and (16, 48):
+# the classifier's N, ragged over partial key tiles, more queries than
+# keys, a single query, and at dh 48 more keys than the chunked form keeps
+# A of (256), so A is recomputed for every column chunk
 BN16_CASES = [(2, 16, 12, 784, 784), (2, 16, 12, 100, 130), (2, 16, 12, 200, 96),
-              (2, 16, 12, 1, 49)]
+              (2, 16, 12, 1, 49), (2, 16, 48, 196, 196), (2, 16, 48, 100, 130),
+              (2, 16, 48, 200, 96), (2, 16, 48, 1, 49), (2, 16, 48, 40, 300)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -617,10 +619,12 @@ def test_bn_fwd16_tensor_core_route_matches_plain_and_cuda_core(cuda, batch, hea
     torch.cuda.synchronize()
     assert TT.bn_fwd.route_launches == {**before, "tensor_core": before["tensor_core"] + 1}
     other = TT.launch_bn_fwd(q, k, v, seed, rate, route="cuda_core")
+    again = TT.launch_bn_fwd(q, k, v, seed, rate, route="tensor_core")
     want = TT.bn_fwd_plain(q, k, v, seed, rate)
     for a, b, c, tol in zip(got, want, other, BN_FWD_TOLS):
         assert _rel(a, b) <= tol[torch.bfloat16]
         assert _rel(a, c) <= tol[torch.bfloat16]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics: the same bits
     s_rows, c_rows = got[:2]
     assert torch.equal(c_rows, c_rows.transpose(1, 2))    # C written as one symmetric sum
 
@@ -663,8 +667,27 @@ def test_fwd_routes_agree_on_the_same_bf16_inputs(cuda, batch, heads, dh, n_q, n
         assert _rel(a, b) <= tol[torch.bfloat16]
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", BN16_CASES)
+def test_fwd16_tensor_core_route_matches_plain_and_cuda_core(cuda, batch, heads, dh, n_q, n_k,
+                                                             rate):
+    assert TT.train_fwd_route(torch.bfloat16, heads, dh) == "tensor_core"
+    args = _fwd_args(cuda, torch.bfloat16, batch, heads, dh, n_q, n_k, rate)
+    before = dict(TT.train_fwd.route_launches)
+    got = TT.train_fwd(*args)
+    torch.cuda.synchronize()
+    assert TT.train_fwd.route_launches == {**before, "tensor_core": before["tensor_core"] + 1}
+    other = TT.launch_train_fwd(*args, route="cuda_core")
+    again = TT.launch_train_fwd(*args, route="tensor_core")
+    for a, b, c, tol in zip(got, TT.train_fwd_plain(*args), other, FWD_TOLS):
+        assert _rel(a, b) <= tol[torch.bfloat16]
+        assert _rel(a, c) <= tol[torch.bfloat16]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics: the same bits
+
+
 @pytest.mark.parametrize("heads,dh,n", [(8, 384, 49), (8, 96, 196), (4, 192, 196),
-                                        (4, 48, 192), (4, 12, 48)])
+                                        (4, 48, 192), (4, 12, 48), (16, 12, 128),
+                                        (16, 48, 300)])
 def test_fwd_dropout_bits_match_dropout_mask(cuda, heads, dh, n):
     """As for the exact-BN forward, with the head mix M = identity and c = 0:
     o_norm[..., m] Nk (1 - rate) is the keep bit of key m, and out[b, n, j]

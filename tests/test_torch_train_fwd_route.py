@@ -1,6 +1,6 @@
 """The frozen-BN forward's route choice, its CPU path, the port's frozen-BN
 forward at base's and lite's head counts against the JAX package, and CPU
-emulations of the rounding its tensor-core route does.
+emulations of the rounding its tensor-core route does (at 16 heads too).
 
 ``train_fwd_route`` picks the frozen-BN forward's kernels on the card by
 dtype and (heads, dh) alone; on the CPU ``train_fwd`` is the plain version
@@ -18,6 +18,7 @@ import torch
 
 from vit_unet_tpu_torch.models import get_config
 from tests.test_torch_model import one_torch_thread  # noqa: F401
+from tests.test_torch_train_route import _classifier_levels
 
 JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
@@ -25,18 +26,22 @@ TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train
 
 def _level_shapes():
     """(preset, level, heads, dh) of every re-attention level of lite, base
-    and large."""
+    and large, and of the classifier at the CLI's defaults."""
     out = []
     for preset in ("lite", "base", "large"):
         cfg = get_config(preset)
         for level in range(cfg.depth + 1):
             dh = cfg.level_geometry(level)["projection_dim"] // cfg.num_heads
             out.append((preset, level, cfg.num_heads, dh))
+    # sorted by dh: level 0 (N 196) has the wider heads
+    for level, (heads, dh) in enumerate(sorted(_classifier_levels(), key=lambda x: -x[1])):
+        out.append(("ViTClassifier", level, heads, dh))
     return out
 
 
-# lite's, base's and large's levels run on the tensor cores in bf16
-TENSOR_CORE = {(4, 12), (4, 48), (4, 192), (8, 24), (8, 96), (8, 384)}
+# lite's, base's and large's levels and the classifier's two levels run on
+# the tensor cores in bf16
+TENSOR_CORE = {(4, 12), (4, 48), (4, 192), (8, 24), (8, 96), (8, 384), (16, 12), (16, 48)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
@@ -190,3 +195,71 @@ def test_train_fwd_lite_rounding_stays_within_tolerance(dh, n, rate):
     assert _rel(onorm.bfloat16(), onorm_w) <= 2e-2
     assert _rel(out, out_w) <= 2e-2
     assert _rel(lse, lse_w) <= 1e-4
+
+
+@pytest.mark.parametrize("dh,n,rate", [(12, 130, 0.2), (12, 64, 0.0), (48, 100, 0.0),
+                                       (48, 300, 0.2)])
+def test_train_fwd16_mix_from_f32_stays_within_tolerance(dh, n, rate):
+    """The classifier's 16-head classes, emulated on the CPU with bf16
+    inputs.  At dh 12 the sweep takes the log-sum-exp itself: per 64-key
+    tile each row's running max m of the scores (log2 units) and normaliser
+    l, A relative to m rounded to bf16 unnormalised, the f32 o_norm
+    rescaled by 2^(m_old - m_new) when m moves and divided by l at the end.
+    At dh 48 the log-sum-exp pass comes first, A = P * mask is rounded to
+    bf16 once and o_norm is summed a 192-column chunk at a time (A of up to
+    256 keys kept, recomputed past them).  Each warp leaves its two heads'
+    f32 o_norm in the exchange, and the head mix over all 16 heads is taken
+    from it, as the TPU epilogue mixes its f32 o_norm, where
+    ``train_fwd_plain`` mixes the bf16-rounded o_norm; o_norm is written in
+    bf16 from the same f32.  out and o_norm stay within 2e-2 of the plain
+    version and lse within 1e-4 (the card holds them at 2e-2 and 1e-3), and
+    out from the f32 o_norm is closer to the unrounded mix than the plain
+    version's."""
+    heads, batch, seed = 16, 2, 17
+    g = torch.Generator().manual_seed(dh + n)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = (rnd(batch, heads, n, dh) * 3 * dh ** -0.5).bfloat16()
+    k = rnd(batch, heads, n, dh).bfloat16()
+    v = rnd(batch, n, heads * dh).bfloat16()
+    m, c = rnd(heads, heads) * heads ** -0.5, rnd(heads) * 0.1
+    vsum = v.float().sum(1)
+    out_w, lse_w, onorm_w = TT.train_fwd_plain(q, k, v, vsum, m, c, seed, rate)
+
+    log2e = 1.4426950408889634
+    x_all = (q.float() @ k.float().transpose(-1, -2)) * log2e
+    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0
+            else torch.ones(batch, heads, n, n))
+    proj = heads * dh
+    if dh == 12:
+        m_run = torch.full((batch, heads, n), -float("inf"))
+        l = torch.zeros(batch, heads, n)
+        acc = torch.zeros(batch, heads, n, proj)
+        for k0 in range(0, n, 64):
+            x = x_all[..., k0:k0 + 64]
+            m_new = torch.maximum(m_run, x.amax(-1))
+            alpha = torch.exp2(m_run - m_new)
+            m_run = m_new
+            p = torch.exp2(x - m_run[..., None])
+            a = (p * mask[..., k0:k0 + 64]).bfloat16().float()
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhnm,bmj->bhnj", a,
+                                                        v[:, k0:k0 + 64].float())
+        onorm = acc / l[..., None]
+        lse = (m_run + torch.log2(l)) / log2e
+    else:
+        lse = torch.logsumexp(x_all / log2e, -1)
+        a = (torch.exp2(x_all - (lse * log2e)[..., None]) * mask).bfloat16().float()
+        chunks = []
+        for c0 in range(0, proj, 192):
+            acc = torch.zeros(batch, heads, n, 192)
+            for k0 in range(0, n, 64):
+                acc = acc + torch.einsum("bhnm,bmj->bhnj", a[..., k0:k0 + 64],
+                                         v[:, k0:k0 + 64, c0:c0 + 192].float())
+            chunks.append(acc)
+        onorm = torch.cat(chunks, -1)
+    out = TT._mix(onorm, m, c, vsum, dh)
+    assert _rel(onorm.bfloat16(), onorm_w) <= 2e-2
+    assert _rel(out.bfloat16(), out_w) <= 2e-2
+    assert _rel(lse, lse_w) <= 1e-4
+    exact = TT._mix(onorm.double(), m.double(), c.double(), vsum.double(), dh)
+    assert _rel(out, exact) < _rel(out_w, exact)

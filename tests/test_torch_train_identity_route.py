@@ -38,7 +38,8 @@ TOL = 1e-4
     (torch.bfloat16, 8, 96, True, "tensor_core"),      # other classes keep theirs
     (torch.bfloat16, 8, 24, True, "tensor_core"),
     (torch.bfloat16, 2, 192, True, "cuda_core"),
-    (torch.bfloat16, 16, 12, True, "cuda_core"),
+    (torch.bfloat16, 16, 12, True, "tensor_core"),     # the classifier's level class
+    (torch.bfloat16, 16, 192, True, "cuda_core"),
 ])
 def test_train_fwd_route_names_the_identity_route_only_with_the_flag(dtype, heads, dh, flag,
                                                                     want):

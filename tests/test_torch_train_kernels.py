@@ -48,8 +48,10 @@ def _cotangent_loss(out):
 
 
 # (4, 12) and (4, 48): lite's two deeper levels (kernels 3 and 4 take the
-# tensor cores there in bf16), at a small N
-@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48)])
+# tensor cores there in bf16), at a small N; (16, 48): the classifier's
+# N = 196 level (kernels 2 and 4 take the tensor cores there in bf16)
+@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48),
+                                        (64, 16, 48)])
 def test_frozen_function_matches_jax(n, heads, dh):
     args = _frozen_inputs(n, heads, dh, seed=1)
     jargs = [jnp.asarray(a) for a in args]
@@ -72,7 +74,8 @@ def test_frozen_function_matches_jax(n, heads, dh):
                                    atol=5e-4, err_msg=f"grad d{name}")
 
 
-@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48)])
+@pytest.mark.parametrize("n,heads,dh", [(128, 4, 8), (200, 4, 16), (96, 4, 12), (64, 4, 48),
+                                        (64, 16, 48)])
 def test_bn_function_and_moments_match_jax(n, heads, dh):
     args = _bn_inputs(n, heads, dh)
     jargs = [jnp.asarray(a) for a in args]

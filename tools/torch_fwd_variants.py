@@ -3,13 +3,15 @@
 one NVIDIA GPU.
 
     python3 tools/torch_fwd_variants.py [--parent DIR] [--only NAME,...] [--lite]
-                                        [--routes 1,0]
+                                        [--head16] [--twin NAME] [--routes 1,0]
 
 Builds ``flash_reattention_train.cu`` once per variant, all in parallel, into
 ``build/fwd_variants/`` (ignored by git), each with an edited copy of
 ``reattention_bnfwd_tc.cuh``, and times the exact-BN forward (``vit_bn_fwd``)
 and the frozen-BN forward (``vit_train_fwd``) on their tensor-core routes at
-base's three level shapes (``--lite``: at lite's, 4 heads), batch 64, bf16,
+base's three level shapes (``--lite``: at lite's, 4 heads; ``--head16``: at
+the classifier's two, 16 heads, with ``reattention_bnfwd16_tc.cuh`` edited
+instead), batch 64, bf16,
 dropout rate 0 and 0.2 (CUDA events, 20 calls after 3).  ``--routes``: the
 C routes timed, 1 the tensor cores (the default), 0 the CUDA cores (the
 variants share it; timed once, as ``cuda_core``).  The variants:
@@ -28,11 +30,19 @@ variants share it; timed once, as ``cuda_core``).  The variants:
 * ``pc64``: lite's (4, 192) class in 64-column chunks (the source: 128),
   so that the frozen forward's exchange fits the score region.
 
+With ``--head16`` the variants are the 16-head header's:
+
+* ``base``: the source as it is;
+* ``twopass16``: the (16, 12) class with kernel 1's log-sum-exp pass first
+  and the sweep reading it (the source takes it in the sweep).
+
 With ``--parent DIR`` (a copy of an earlier ``kernels/csrc``), that source
-is built too as ``parent`` and its exact-BN forward timed beside the others
-in the same process, and held bit for bit against ``base``'s outputs.  Only
-``base`` and ``parent`` compute the functions; the others exist to be
-timed.  Prints the card's name and power limit first.
+is built too as ``parent`` and its exact-BN forward (with ``--head16`` both
+forwards) timed beside the others in the same process, and held bit for bit
+against the outputs of the variant ``--twin`` names (``base`` unless
+given).  Only ``base``, ``twopass16`` and ``parent`` compute the functions;
+the others exist to be timed.  Prints the card's name and power limit
+first.
 """
 from __future__ import annotations
 
@@ -68,31 +78,52 @@ TWOPASS12 = ("{ rc = VIT_BNFWD_LSE(4, 12, 32, 64, 4, 2, 2); "
 LITE192 = "VIT_BNFWD(4, 192, 256, 128, MIX, 32, 1)"
 SHAPES = [(8, 24, 784), (8, 96, 196), (8, 384, 49)]   # (heads, dh, N) of base
 LITE_SHAPES = [(4, 12, 3136), (4, 48, 784), (4, 192, 196)]
+HEADER16 = "reattention_bnfwd16_tc.cuh"
+ONLINE16 = """  if (dh == 12)
+    return launch<Cfg<12, MIX, true>>(q, k, v, seed, thr, scale, lse, onorm, srow, crow, vsum,
+                                      m_eff, c_eff, out, batch, nq, nk, stream);
+"""
+TWOPASS16 = """  if (dh == 12) {
+    rc = vit_tc::launch_lse<vit_tc::Cfg<16, 12, 32, 32, 8, 2, 1>>(q, k, lse, batch, nq, nk,
+                                                                   stream);
+    return rc ? rc : launch<Cfg<12, MIX>>(q, k, v, seed, thr, scale, lse, onorm, srow, crow,
+                                          vsum, m_eff, c_eff, out, batch, nq, nk, stream);
+  }
+"""
+HEAD16_SHAPES = [(16, 12, 784), (16, 48, 196)]
 BATCH = 64
 
 
-def variants() -> dict[str, str]:
+def variants16() -> dict[str, tuple[str, str]]:
+    src = (_build.CSRC / HEADER16).read_text()
+    if ONLINE16 not in src:
+        raise SystemExit(f"{HEADER16} no longer holds the piece a variant edits:\n{ONLINE16}")
+    return {"base": (HEADER16, src), "twopass16": (HEADER16, src.replace(ONLINE16, TWOPASS16))}
+
+
+def variants() -> dict[str, tuple[str, str]]:
     src = (_build.CSRC / HEADER).read_text()
     for piece in (PRODUCT, C_PRODUCTS, SWEEP, OWN_LSE, MIX_BODY, LITE12, LITE192):
         if piece not in src:
             raise SystemExit(f"{HEADER} no longer holds the piece a variant edits:\n{piece}")
-    return {"base": src, "noprod": src.replace(PRODUCT, ""),
-            "noC": src.replace(C_PRODUCTS, ";"),
-            "lseonly": src.replace(SWEEP, "  0"),
-            "passlse": src.replace(OWN_LSE, "{ return false; }"),
-            "nomix": src.replace(MIX_BODY, "  return;\n" + MIX_BODY),
-            "minb1": src.replace(LITE12, LITE12.replace("16, 2,", "16, 1,")),
-            "minb3": src.replace(LITE12, LITE12.replace("16, 2,", "16, 3,")),
-            "twopass": src.replace("return " + LITE12 + ";", TWOPASS12),
-            "pc64": src.replace(LITE192, LITE192.replace("128", "64"))}
+    edited = {"base": src, "noprod": src.replace(PRODUCT, ""),
+              "noC": src.replace(C_PRODUCTS, ";"),
+              "lseonly": src.replace(SWEEP, "  0"),
+              "passlse": src.replace(OWN_LSE, "{ return false; }"),
+              "nomix": src.replace(MIX_BODY, "  return;\n" + MIX_BODY),
+              "minb1": src.replace(LITE12, LITE12.replace("16, 2,", "16, 1,")),
+              "minb3": src.replace(LITE12, LITE12.replace("16, 2,", "16, 3,")),
+              "twopass": src.replace("return " + LITE12 + ";", TWOPASS12),
+              "pc64": src.replace(LITE192, LITE192.replace("128", "64"))}
+    return {name: (HEADER, text) for name, text in edited.items()}
 
 
-def build(name: str, csrc: Path, header: str | None) -> Path:
+def build(name: str, csrc: Path, header: tuple[str, str] | None) -> Path:
     d = OUT / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(csrc, d)
     if header is not None:
-        (d / HEADER).write_text(header)
+        (d / header[0]).write_text(header[1])
     lib = d / "lib.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
                            str(d / "flash_reattention_train.cu")], capture_output=True, text=True)
@@ -119,6 +150,10 @@ def main() -> int:
     parser.add_argument("--parent", type=Path, help="an earlier kernels/csrc to build beside")
     parser.add_argument("--only", help="comma-separated variants to build (default: all)")
     parser.add_argument("--lite", action="store_true", help="lite's shapes (4 heads)")
+    parser.add_argument("--head16", action="store_true",
+                        help="the classifier's shapes (16 heads) and the 16-head header")
+    parser.add_argument("--twin", default="base",
+                        help="the variant whose outputs the parent's must equal")
     parser.add_argument("--routes", default="1",
                         help="comma-separated C routes to time: 1 tensor cores, 0 CUDA cores")
     args = parser.parse_args()
@@ -127,7 +162,8 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    jobs = {name: (_build.CSRC, src) for name, src in variants().items()}
+    table = variants16() if args.head16 else variants()
+    jobs = {name: (_build.CSRC, src) for name, src in table.items()}
     if args.only:
         jobs = {name: jobs[name] for name in args.only.split(",")}
     if args.parent:
@@ -147,7 +183,8 @@ def main() -> int:
     runs = [(name, lib, 1) for name, lib in libs.items() if 1 in routes]
     if 0 in routes:
         runs.append(("cuda_core", next(iter(libs.values())), 0))
-    for heads, dh, n in LITE_SHAPES if args.lite else SHAPES:
+    for heads, dh, n in (HEAD16_SHAPES if args.head16 else LITE_SHAPES if args.lite
+                         else SHAPES):
         g = torch.Generator().manual_seed(0)
         q = (torch.randn(BATCH, heads, n, dh, generator=g) * 3 * dh ** -0.5).cuda().bfloat16()
         k = torch.randn(BATCH, heads, n, dh, generator=g).cuda().bfloat16()
@@ -174,7 +211,7 @@ def main() -> int:
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), sd, thr, scale, ptr["lse"],
                     ptr["onorm"], ptr["srow"], ptr["crow"], BATCH, heads, n, n, dh, 1, route,
                     stream)}
-                if name != "parent":
+                if name != "parent" or args.head16:
                     calls["fwd"] = lambda: lib.vit_train_fwd(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), vsum.data_ptr(),
                         m_eff.data_ptr(), c_eff.data_ptr(), sd, thr, scale, ptr["lse"],
@@ -182,18 +219,22 @@ def main() -> int:
                 for kname, call in calls.items():
                     if call():
                         raise SystemExit(f"variant {name} {kname} failed to launch")
-                    if kname == "bn_fwd" and name in ("base", "parent"):
+                    if name in (args.twin, "parent"):
                         torch.cuda.synchronize()
-                        outs[name, rate] = [bufs[key].clone()
-                                            for key in ("srow", "crow", "lse", "onorm")]
+                        keys = (("srow", "crow", "lse", "onorm") if kname == "bn_fwd"
+                                else ("out", "lse", "onorm"))
+                        outs[name, kname, rate] = [bufs[key].clone() for key in keys]
                     print(f"N{n} dh{dh} {name:8s} {kname:6s} rate {rate}: "
                           f"{time_ms(call):.4f} ms", flush=True)
         for rate in (0.0, 0.2):
-            if ("parent", rate) in outs:
-                same = all(torch.equal(a, b) for a, b in zip(outs["base", rate],
-                                                             outs["parent", rate]))
-                print(f"N{n} dh{dh} rate {rate}: exact-BN S, C, lse, o_norm of base and "
-                      f"parent {'bit-identical' if same else 'DIFFER'}")
+            for kname, what in (("bn_fwd", "exact-BN S, C, lse, o_norm"),
+                                ("fwd", "frozen-BN out, lse, o_norm")):
+                if ("parent", kname, rate) not in outs:
+                    continue
+                same = all(torch.equal(a, b) for a, b in zip(outs[args.twin, kname, rate],
+                                                             outs["parent", kname, rate]))
+                print(f"N{n} dh{dh} rate {rate}: {what} of {args.twin} and parent "
+                      f"{'bit-identical' if same else 'DIFFER'}")
                 if not same:
                     return 1
     return 0

@@ -58,11 +58,11 @@
 //
 // Each function has a second route, chosen by the caller (train_fwd_route,
 // bn_fwd_route, train_bwd_route in kernels/flash_reattention_train.py): bf16
-// on the tensor cores at base's, large's and lite's level shapes (and
-// further classes for the backward and the exact-BN forward), each piece computed
-// once (reattention_bnfwd_tc.cuh for both forwards, reattention_bnfwd16_tc.cuh
-// for the exact-BN forward at 16 heads, reattention_bwd_tc.cuh).  The frozen
-// forward has two more for the keras attention's identity mix (M = I, c = 0)
+// on the tensor cores at base's, large's and lite's level shapes and the
+// classifier's (16, 12) and (16, 48), each piece computed once
+// (reattention_bnfwd_tc.cuh for both forwards at 4 and 8 heads,
+// reattention_bnfwd16_tc.cuh for both at 16, reattention_bwd_tc.cuh).  The
+// frozen forward has two more for the keras attention's identity mix (M = I, c = 0)
 // at (8, 192) and (4, 192), one pass with the dropout writing out and lse and
 // no o_norm: attention_identity_tc.cuh in bf16, attention_identity_f32.cuh in
 // f32 (split precision); and so has the backward, with no head-mix or BN
@@ -711,9 +711,10 @@ extern "C" {
 // (0 on success), or cudaErrorInvalidValue for shapes it does not take.
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh only), 2 and 3 the identity mix at (8, 192) and
-// (4, 192) only, 2 in bf16, 3 in f32 (vsum, m_eff, c_eff and onorm are not
-// touched and may be null, the mix is M = I, c = 0).
+// reattention_bnfwd_tc.cuh and, at 16 heads, reattention_bnfwd16_tc.cuh
+// only), 2 and 3 the identity mix at (8, 192) and (4, 192) only, 2 in bf16,
+// 3 in f32 (vsum, m_eff, c_eff and onorm are not touched and may be null,
+// the mix is M = I, c = 0).
 int vit_train_fwd(const void* q, const void* k, const void* v,
                   const float* vsum, const float* m_eff, const float* c_eff,
                   const int64_t* seed, int thr, float scale, float* lse,
@@ -730,10 +731,13 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
                                            nq, nk, dh, s);
   if (route == 3)
     return vit_idf::launch_train(q, k, v, seed, thr, scale, lse, out, batch, heads, nq, nk, dh, s);
+  if (route == 1 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 && heads == 16)
+    return vit_bnfwd16::train_fwd16_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale, lse, onorm,
+                                       out, batch, heads, nq, nk, dh, s);
   if (route == 1)
-    return dtype == 1 ? vit_bnfwd::train_fwd_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale,
-                                                lse, onorm, out, batch, heads, nq, nk, dh, s)
-                      : static_cast<int>(cudaErrorInvalidValue);
+    return vit_bnfwd::train_fwd_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale, lse, onorm, out,
+                                   batch, heads, nq, nk, dh, s);
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool thin = dh <= 16;
   if (dtype == 0)
@@ -746,7 +750,7 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
 }
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh and, at (16, 12), reattention_bnfwd16_tc.cuh).
+// reattention_bnfwd_tc.cuh and, at 16 heads, reattention_bnfwd16_tc.cuh).
 int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
                int thr, float scale, float* lse, void* onorm, float* srow,
                float* crow, int batch, int heads, int nq, int nk, int dh,

@@ -22,7 +22,9 @@ beside it and a launch counter:
   (``csrc/reattention_bnfwd_tc.cuh``, the exact-BN sweep below without S
   and C, with the head mix as its epilogue, taken from the f32 o_norm as
   the TPU epilogue takes it; at lite's 4-head levels with two warps a head,
-  at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep) for
+  at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep; at the
+  classifier's (16, 12) and (16, 48), ``csrc/reattention_bnfwd16_tc.cuh``'s
+  frozen mode, at (16, 12) with the log-sum-exp taken in the sweep) for
   bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
   ``cuda_core`` (f32 FMAs, the mix from the stored o_norm) for float32 and
   every other shape;
@@ -32,8 +34,9 @@ beside it and a launch counter:
   ``bn_fwd_route`` from the input dtype and (heads, dh): ``tensor_core``
   (``csrc/reattention_bnfwd_tc.cuh``, at lite's 4-head levels with two warps
   a head, at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep
-  rather than by a pass before it; at the classifier's (16, 12),
-  ``csrc/reattention_bnfwd16_tc.cuh``) for bfloat16 at ``BN_FWD_TC_SHAPES``,
+  rather than by a pass before it; at the classifier's (16, 12) and
+  (16, 48), ``csrc/reattention_bnfwd16_tc.cuh``, at (16, 12) with the
+  log-sum-exp in the sweep too) for bfloat16 at ``BN_FWD_TC_SHAPES``,
   the scores and A @ V_cat as bf16 MMAs, S and C from the f32
   probabilities (at 16 heads C as an MMA of A carried as bf16 pairs
   hi + lo), A rounded to bf16 once for the product; ``cuda_core`` (f32
@@ -106,14 +109,12 @@ IDENTITY_ROUTES = ("identity_tc", "identity_f32")
 FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
-#: level shapes of base and large and lite's (4, 12), (4, 48), (4, 192), for
-#: the exact-BN forward and the backward also the classifier's (16, 12)
-#: level, and for the backward its (16, 48) level too
+#: level shapes of base and large, lite's (4, 12), (4, 48), (4, 192) and the
+#: classifier's (16, 12), (16, 48)
 LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
-TRAIN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES
-BN_FWD_TC_SHAPES = frozenset({(8, 24), (8, 96), (8, 384), (16, 12)}) | LITE_TC_SHAPES
-TRAIN_BWD_TC_SHAPES = (frozenset({(8, 24), (8, 96), (8, 384), (16, 12), (16, 48)})
-                       | LITE_TC_SHAPES)
+HEAD16_TC_SHAPES = frozenset({(16, 12), (16, 48)})
+TRAIN_FWD_TC_SHAPES = BN_FWD_TC_SHAPES = TRAIN_BWD_TC_SHAPES = (
+    frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES | HEAD16_TC_SHAPES)
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
