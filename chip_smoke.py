@@ -57,7 +57,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    smaller levels at b64 too), and at b64 at lite's three level
    shapes through the counted wrappers against the plain version (built 8
    images at a time), two calls bit for bit where no atomics sum, per call
-   on both routes in turns beside the plain's time and the bound; the
+   on both routes in turns beside the plain's time and the bound; kernel
+   3 in float32 at lite's classes on its split-precision tensor-core route
+   (``LITE_CASES``, rates 0 and 0.2, BN term off and on, against plain and
+   the CUDA-core route at f32's tolerance; at b64 against plain, two calls,
+   and timed in turns against the CUDA-core route on the same f32 inputs,
+   the bound counting three bf16 MMAs a product); the
    backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
@@ -95,6 +100,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    kernels 3 and 4 held on the CUDA-core routes and as named, in turns;
    then its frozen-BN steps the same way (kernels 2 and 3 on the tensor
    cores), with kernel 2 held on its CUDA-core route and as named, in turns;
+   then lite in float32 (the CLI's default dtype) the same way, both steps,
+   kernels 2 and 4 on the CUDA cores and kernel 3 on its f32 tensor-core
+   route, held on the CUDA cores and as named in turns in both; and lite's
+   f32 batch-4 steps of the kernel path against the plain path as base's;
 5. the trainer: synthetic uint8 pairs written as TFRecord shards, the base
    preset (224², bf16, batch 64, dropout 0.2) trained through ``Fitter``
    for 2 epochs of 24 steps fed by ``TFRecordStream`` ->
@@ -956,6 +965,11 @@ def train_bounds(batch, heads, dh, n_q, n_k, dtype):
         # the f32 identity routes: the bf16 MMAs they issue, three a product
         for key in ("fwd_identity", "bwd_identity"):
             bounds[key] = (bounds[key][0], 3 * parts[key][1] / PEAK_FLOPS[torch.bfloat16] * 1e3)
+        # kernel 3's f32 tensor-core route: its five products as three bf16
+        # MMAs each, the mixes and the BN term counted as the bf16 route's
+        mixes = parts["bwd"][1] - 10.0 * area * dh
+        bounds["bwd_tc_f32"] = (bounds["bwd"][0], (3 * 10.0 * area * dh + mixes)
+                                / PEAK_FLOPS[torch.bfloat16] * 1e3)
     return bounds
 
 
@@ -1034,23 +1048,24 @@ def bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate, bn):
     return q, k, v, lse, g_out, m_eff, d, seed, rate, extra
 
 
-def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
-    """bf16 backward on the route ``train_bwd_route`` names against its
-    plain version, and the two routes against each other, on the same
-    inputs; f32 gradients, so both at F32_OUT_TOL."""
+def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn, dtype=torch.bfloat16):
+    """The backward (bf16, or f32 at lite's classes) on the route
+    ``train_bwd_route`` names against its plain version, and against the
+    CUDA-core route on the same inputs; f32 gradients, so both at
+    F32_OUT_TOL of the input type."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    args = bwd_inputs(batch, heads, dh, n_q, n_k, torch.bfloat16, rate, bn)
-    route = T.train_bwd_route(torch.bfloat16, heads, dh)
+    args = bwd_inputs(batch, heads, dh, n_q, n_k, dtype, rate, bn)
+    route = T.train_bwd_route(dtype, heads, dh)
     before = dict(T.train_bwd.route_launches)
     got = T.train_bwd(*args)
     if T.train_bwd.route_launches[route] != before[route] + 1:
         raise AssertionError(f"the call did not take the {route} route")
     want = T.train_bwd_plain(*args)
-    other = T.launch_bwd(*args, route="cuda_core") if route == "tensor_core" else None
+    other = T.launch_bwd(*args, route="cuda_core") if route != "cuda_core" else None
     repeat = (T.launch_bwd(*args, route=route)
               if route == "tensor_core" and (heads, dh) in ATOMIC_FREE_BWD else None)
     torch.cuda.synchronize()
-    tol = F32_OUT_TOL[torch.bfloat16]
+    tol = F32_OUT_TOL[dtype]
     rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
     for r in rels:
         require(f"bwd [{route}] B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k}", r, tol)
@@ -1064,32 +1079,32 @@ def check_bwd_routes(batch, heads, dh, n_q, n_k, rate, bn):
     if other is not None:
         routes = [rel_err(a, b)[1] for a, b in zip(got, other)]
         for r in routes:
-            require("bwd tensor_core vs cuda_core", r, tol)
+            require(f"bwd {route} vs cuda_core", r, tol)
         msg += " | vs cuda_core " + " ".join(f"{r:.2e}" for r in routes)
     print(msg)
     return max(rel_err(a, b)[0] for a, b in zip(got, want))
 
 
-def lite_b64(heads, dh, n):
-    """Kernels 2, 4 and 3 at one of lite's level shapes at b64 (rate 0.2,
-    the backward with the BN term), each through its counted wrapper, whose
-    route count must rise by one, against its plain version on the same
-    inputs: out, lse and o_norm at FWD_TOLS, S, C, lse and o_norm at
-    BN_FWD_TOLS, dq, dk and dv at F32_OUT_TOL.  The plain versions are
-    built LITE_SLICE images at a time (each image group draws the call's
-    own dropout bits) and timed so.  A second call on the launch function
-    must give the outputs no atomics sum (the forwards' every output; the
-    backward's dk and dv) bit for bit, and dq within F32_OUT_TOL.  Returns
-    {kernel: (max_abs_err, plain_ms)}."""
+def lite_b64(heads, dh, n, keys, dtype=torch.bfloat16):
+    """Kernels ``keys`` of 2 ("fwd"), 4 ("bn_fwd") and 3 ("bwd") at one of
+    lite's level shapes at b64 (rate 0.2, the backward with the BN term),
+    each through its counted wrapper, whose route count must rise by one,
+    against its plain version on the same inputs: out, lse and o_norm at
+    FWD_TOLS, S, C, lse and o_norm at BN_FWD_TOLS, dq, dk and dv at
+    F32_OUT_TOL.  The plain versions are built LITE_SLICE images at a time
+    (each image group draws the call's own dropout bits) and timed so.  A
+    second call on the launch function must give the outputs no atomics
+    sum (the forwards' every output; the backward's dk and dv) bit for bit,
+    and dq within F32_OUT_TOL.  Returns {kernel: (max_abs_err, plain_ms)}."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    args = bwd_inputs(BATCH, heads, dh, n, n, torch.bfloat16, RATE, True)
+    args = bwd_inputs(BATCH, heads, dh, n, n, dtype, RATE, True)
     q, k, v, lse, g, m_eff, d, seed, _, extra = args
     vsum = v.float().sum(1)
     c_eff = torch.randn(heads, generator=torch.Generator(device="cuda").manual_seed(5),
                         device="cuda") * 0.1
-    fwd2_route = T.train_fwd_route(torch.bfloat16, heads, dh)
-    fwd_route = T.bn_fwd_route(torch.bfloat16, heads, dh)
-    bwd_route = T.train_bwd_route(torch.bfloat16, heads, dh)
+    fwd2_route = T.train_fwd_route(dtype, heads, dh)
+    fwd_route = T.bn_fwd_route(dtype, heads, dh)
+    bwd_route = T.train_bwd_route(dtype, heads, dh)
     kernels = {
         "fwd": (T.train_fwd, fwd2_route,
                 lambda: T.train_fwd(q, k, v, vsum, m_eff, c_eff, seed, RATE),
@@ -1097,19 +1112,20 @@ def lite_b64(heads, dh, n):
                                            route=fwd2_route),
                 lambda s, i: T.train_fwd_plain(q[s], k[s], v[s], vsum[s], m_eff, c_eff, seed,
                                                RATE, batch_base=i),
-                [t[torch.bfloat16] for t in FWD_TOLS], (0, 1, 2)),
+                [t[dtype] for t in FWD_TOLS], (0, 1, 2)),
         "bn_fwd": (T.bn_fwd, fwd_route, lambda: T.bn_fwd(q, k, v, seed, RATE),
                    lambda: T.launch_bn_fwd(q, k, v, seed, RATE, route=fwd_route),
                    lambda s, i: T.bn_fwd_plain(q[s], k[s], v[s], seed, RATE, batch_base=i),
-                   [t[torch.bfloat16] for t in BN_FWD_TOLS], (0, 1, 2, 3)),
+                   [t[dtype] for t in BN_FWD_TOLS], (0, 1, 2, 3)),
         "bwd": (T.train_bwd, bwd_route, lambda: T.train_bwd(*args),
                 lambda: T.launch_bwd(*args, route=bwd_route),
                 lambda s, i: T.train_bwd_plain(q[s], k[s], v[s], lse[s], g[s], m_eff, d[s],
                                                seed, RATE, extra, batch_base=i),
-                [F32_OUT_TOL[torch.bfloat16]] * 3, (1, 2)),
+                [F32_OUT_TOL[dtype]] * 3, (1, 2)),
     }
     res = {}
-    for key, (wrapper, route, counted, launch, plain, tols, exact) in kernels.items():
+    for key in keys:
+        wrapper, route, counted, launch, plain, tols, exact = kernels[key]
         before = wrapper.route_launches[route]
         got = counted()
         if wrapper.route_launches[route] != before + 1:
@@ -1133,41 +1149,45 @@ def lite_b64(heads, dh, n):
             raise AssertionError(f"lite {key} H{heads} dh{dh}: two b64 calls differ where "
                                  f"no atomics sum")
         for r in rest:
-            require(f"lite {key} dq of two calls", r, F32_OUT_TOL[torch.bfloat16])
+            require(f"lite {key} dq of two calls", r, F32_OUT_TOL[dtype])
         del got, again, want
         res[key] = (max(e for e, _ in errs), time_ms(sliced, 2, warmup=0))
     return res
 
 
-def lite_kernels(cases_err):
-    """Kernels 2, 4 and 3 at lite's three level shapes, bf16, rate 0.2 (the
-    backward with the BN term), at b64: each held against its plain version
-    (``lite_b64``), then per call on the CUDA-core route and on the route
-    its route function names, in turns, beside the plain version's time and
-    the bound.  ``cases_err``: the worst max_abs_err of each kernel over
-    LITE_CASES.  Returns {class: {kernel: row}}, the row's ``err`` the b64
-    call's."""
+def lite_kernels(cases_err, dtype=torch.bfloat16):
+    """Kernels 2, 4 and 3 at lite's three level shapes at b64, rate 0.2 (the
+    backward with the BN term), bf16; in float32 kernel 3 alone, on its
+    split-precision route (kernels 2 and 4 take the CUDA cores in f32):
+    each held against its plain version (``lite_b64``), then per call on
+    the CUDA-core route and on the route its route function names, in
+    turns on the same inputs, beside the plain version's time and the bound
+    (f32: three bf16 MMAs a product).  ``cases_err``: the worst max_abs_err
+    of each kernel over LITE_CASES.  Returns {class: {kernel: row}}, the
+    row's ``err`` the b64 call's."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
+    keys = ("bwd",) if dtype == torch.float32 else ("fwd", "bn_fwd", "bwd")
+    name = str(dtype)[6:]
     res = {}
     card = card_line()
     for heads, dh, n, calls in LITE_LEVELS:
         shape = f"H{heads} dh{dh} N{n}"
-        bounds = train_bounds(BATCH, heads, dh, n, n, torch.bfloat16)
-        held = lite_b64(heads, dh, n)
+        bounds = train_bounds(BATCH, heads, dh, n, n, dtype)
+        held = lite_b64(heads, dh, n, keys, dtype)
         torch.cuda.empty_cache()
-        old_b, new_b = time_bwd_routes(BATCH, heads, dh, n, reps=5)
-        old_f, new_f = time_fwd_routes("bn_fwd", BATCH, heads, dh, n, reps=5)
-        old_2, new_2 = time_fwd_routes("fwd", BATCH, heads, dh, n, reps=5)
+        turns = {key: (time_bwd_routes(BATCH, heads, dh, n, reps=5, dtype=dtype) if key == "bwd"
+                       else time_fwd_routes(key, BATCH, heads, dh, n, reps=5))
+                 for key in reversed(keys)}
         res[shape] = {}
-        for key, old, new, pick in (("fwd", old_2, new_2, T.train_fwd_route),
-                                    ("bn_fwd", old_f, new_f, T.bn_fwd_route),
-                                    ("bwd", old_b, new_b, T.train_bwd_route)):
-            err, plain_ms = held[key]
-            row = dict(route=pick(torch.bfloat16, heads, dh), ms=new, cuda_core_ms=old,
-                       plain_ms=plain_ms, bound=bound_of(*bounds[key]), err=err,
-                       cases_err=cases_err[key], calls_per_step=calls)
+        for key in keys:
+            (old, new), (err, plain_ms) = turns[key], held[key]
+            route = getattr(T, TRAIN_ROUTE_PICKS[key][0])(dtype, heads, dh)
+            bound = bounds["bwd_tc_f32" if route == T.F32_TC_ROUTE else key]
+            row = dict(route=route, ms=new, cuda_core_ms=old, plain_ms=plain_ms,
+                       bound=bound_of(*bound), err=err, cases_err=cases_err[key],
+                       calls_per_step=calls)
             res[shape][key] = row
-            print(f"    lite {shape} B{BATCH} bf16 {key} [{row['route']}]: {new:.4f} ms a call "
+            print(f"    lite {shape} B{BATCH} {name} {key} [{route}]: {new:.4f} ms a call "
                   f"(cuda_core {old:.4f} ms in turns, {old / new:.2f}x), plain "
                   f"{plain_ms:.4f} ms (by {LITE_SLICE} images), bound {row['bound'][0]:.4f} ms "
                   f"({row['bound'][1]}), max_abs_err {err:.3e} at B{BATCH} "
@@ -1175,17 +1195,20 @@ def lite_kernels(cases_err):
     return res
 
 
-def time_bwd_routes(batch, heads, dh, n, reps=10):
-    """At one main-path shape, bf16, rate 0.2, BN term on: the backward on
-    the CUDA-core and the tensor-core route in turns (old, new, new, old)."""
+def time_bwd_routes(batch, heads, dh, n, reps=10, dtype=torch.bfloat16):
+    """At one main-path shape, rate 0.2, BN term on: the backward on the
+    CUDA-core route and on the tensor-core route ``train_bwd_route`` names
+    for ``dtype`` in turns (old, new, new, old), on the same inputs."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    args = bwd_inputs(batch, heads, dh, n, n, torch.bfloat16, RATE, True)
+    args = bwd_inputs(batch, heads, dh, n, n, dtype, RATE, True)
+    route = T.train_bwd_route(dtype, heads, dh)
     turns = [(r, time_ms(lambda: T.launch_bwd(*args, route=r), reps))
-             for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
+             for r in ("cuda_core", route, route, "cuda_core")]
     old = min(t for r, t in turns if r == "cuda_core")
-    new = min(t for r, t in turns if r == "tensor_core")
-    print(f"    N{n} dh{dh} bwd in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
-          + f"; cuda_core / tensor_core {old / new:.2f}x")
+    new = min(t for r, t in turns if r == route)
+    print(f"    N{n} dh{dh} {str(dtype)[6:]} bwd in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; cuda_core / {route} {old / new:.2f}x")
     return old, new
 
 
@@ -1608,7 +1631,8 @@ def phase_train_kernels():
     # both Functions at lite's tensor-core classes (N 1,024 at dh 12: the
     # float64 reference's N x N maps stay near a gigabyte)
     for heads, dh, n, _ in LITE_LEVELS:
-        check_functions(2, heads, dh, min(n, 1024), torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_functions(2, heads, dh, min(n, 1024), dtype)
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     print("  the backward in bf16 on the route train_bwd_route names:")
     tc_err = 0.0
@@ -1621,6 +1645,14 @@ def phase_train_kernels():
                 tc_err = max(tc_err, err)
                 if shape in LITE_CASES:
                     lite_err["bwd"] = max(lite_err["bwd"], err)
+    print("  the backward in f32 at lite's classes on the route train_bwd_route names "
+          "(split precision), against plain and the CUDA-core route:")
+    lite_f32_err = 0.0
+    for shape in LITE_CASES:
+        for rate in (0.0, RATE):
+            for bn in (False, True):
+                lite_f32_err = max(lite_f32_err,
+                                   check_bwd_routes(*shape, rate, bn, torch.float32))
     fwd_err = {}
     for key, classes in (("fwd", T.TRAIN_FWD_TC_SHAPES), ("bn_fwd", T.BN_FWD_TC_SHAPES)):
         print(f"  the {'frozen' if key == 'fwd' else 'exact'}-BN forward in bf16 on the "
@@ -1693,6 +1725,9 @@ def phase_train_kernels():
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
     print(f"  lite's level shapes (B{BATCH}, bf16, rate {RATE}), kernels 2, 4 and 3 a call:")
     total["lite"] = lite_kernels(lite_err)
+    print(f"  lite's level shapes (B{BATCH}, f32, rate {RATE}), kernel 3 on its f32 route a "
+          "call:")
+    total["lite_f32"] = lite_kernels({"bwd": lite_f32_err}, torch.float32)
     print("  the frozen-BN forward's identity route (KerasMHA's bf16 calls):")
     ident_err = 0.0
     for shape in IDENTITY_FWD_CASES:
@@ -1898,7 +1933,11 @@ def phase_train():
     del model, opt, state, exact, frozen, params0
     torch.cuda.empty_cache()
     lite = lite_step()
+    lite["f32"] = lite_step("float32")
+    lite["launches"] = dict(collections.Counter(lite["launches"])
+                            + collections.Counter(lite["f32"]["launches"]))
     compare_train_paths()
+    compare_train_paths("lite")
     check_shape_gate()
     print(f"  phase 4: {time.perf_counter() - t_phase:.1f} s")
     return launches, step_ms, lite
@@ -1910,14 +1949,14 @@ TRAIN_ROUTE_PICKS = {"fwd": ("train_fwd_route", "2"), "bn_fwd": ("bn_fwd_route",
                      "bwd": ("train_bwd_route", "3")}
 
 
-def lite_steps(label, steps, state, batch, kernels, held, card):
+def lite_steps(label, steps, state, batch, routes, held, card, dtype="bf16"):
     """Lite's ``steps`` (2 warm-up, then 5 with the launches counted from 0:
-    each of its 8 re-attention calls a step through ``kernels`` on the
-    tensor cores, and no other kernel), their median time and
-    peak memory; then the step with the kernels ``held`` held on the CUDA
-    cores (their route functions patched) and as named, in turns (old, new,
-    new, old, each the median of 3), faster as named.  Returns (state,
-    dict(launches, ms, peak_gib, turns))."""
+    each of its 8 re-attention calls a step through the kernels of
+    ``routes`` ({key: the route every launch of it takes}), and no other
+    kernel), their median time and peak memory; then the step with the
+    kernels ``held`` held on the CUDA cores (their route functions patched)
+    and as named, in turns (old, new, new, old, each the median of 3),
+    faster as named.  Returns (state, dict(launches, ms, peak_gib, turns))."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     calls = sum(c for *_, c in LITE_LEVELS)
     state, _, _ = timed_steps(steps, state, batch, 2)
@@ -1928,17 +1967,18 @@ def lite_steps(label, steps, state, batch, kernels, held, card):
     launches = train_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = dict.fromkeys(launches, 0)
-    for key in kernels:
-        want[key] = want[f"{key}_tensor_core"] = 5 * calls
-    print(f"  lite b{BATCH} bf16 {label} step (224², {calls} re-attention calls): median "
+    for key, route in routes.items():
+        want[key] = want[f"{key}_{route}"] = 5 * calls
+    print(f"  lite b{BATCH} {dtype} {label} step (224², {calls} re-attention calls): median "
           f"{ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB, losses "
           f"{losses[0]:.5f} .. {losses[-1]:.5f}; launches {launches} [{card}]")
     if launches != want:
         raise AssertionError(f"lite {label} step: launches {launches}, expected {want}")
     patches = [mock.patch.object(T, TRAIN_ROUTE_PICKS[key][0], lambda *a, **k: "cuda_core")
                for key in held]
+    named = "/".join(sorted({routes[key] for key in held}))
     turns = []
-    for route in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+    for route in ("cuda_core", named, named, "cuda_core"):
         with contextlib.ExitStack() as stack:
             if route == "cuda_core":
                 for patch in patches:
@@ -1948,24 +1988,27 @@ def lite_steps(label, steps, state, batch, kernels, held, card):
             turns.append((route, t, torch.cuda.max_memory_allocated() / 2 ** 30))
     names = ("kernels " if len(held) > 1 else "kernel ") + " and ".join(
         TRAIN_ROUTE_PICKS[key][1] for key in held)
-    print(f"  lite b{BATCH} bf16 {label} step, {names} on each route in turns "
+    print(f"  lite b{BATCH} {dtype} {label} step, {names} on each route in turns "
           "(median of 3; peak): " + ", ".join(f"{r} {t:.3f} ms ({g:.2f} GiB)"
                                               for r, t, g in turns) + f" [{card}]")
-    if not min(t for r, t, _ in turns if r == "tensor_core") < min(
+    if not min(t for r, t, _ in turns if r == named) < min(
             t for r, t, _ in turns if r == "cuda_core"):
-        raise AssertionError(f"lite's {label} step is not faster with {names} on the "
-                             "tensor cores")
-    device_breakdown(lambda: steps.train_step(state, batch), ms, f"lite {label} step",
-                     reps=1)
+        raise AssertionError(f"lite's {dtype} {label} step is not faster with {names} on "
+                             f"the {named} route")
+    device_breakdown(lambda: steps.train_step(state, batch), ms,
+                     f"lite {dtype} {label} step", reps=1)
     return state, dict(launches=launches, ms=ms, peak_gib=peak, turns=turns)
 
 
-def lite_step():
-    """Lite (the CLI's default model) at 224², bf16, b64, dropout 0.2, AdamW
-    1e-4: its exact-BN step (kernels 4 and 3, both held in the turns) and
-    then its frozen-BN step (kernels 2 and 3, kernel 2 held alone), each
-    through ``lite_steps``.  Returns dict(launches: both steps' counted
-    launches summed, exact, frozen)."""
+def lite_step(dtype="bfloat16"):
+    """Lite (the CLI's default model) at 224², b64, dropout 0.2, AdamW
+    1e-4, in ``dtype``: its exact-BN step (kernels 4 and 3) and then its
+    frozen-BN step (kernels 2 and 3), each through ``lite_steps``.  bf16:
+    every call on the tensor cores, kernels 4 and 3 held in the exact
+    step's turns, kernel 2 in the frozen one's; float32 (the CLI's
+    default): kernels 2 and 4 on the CUDA cores, kernel 3 on its f32
+    tensor-core route and held in both steps' turns.  Returns
+    dict(launches: both steps' counted launches summed, exact, frozen)."""
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     from vit_unet_tpu_torch.parallel.train_step import (
@@ -1973,12 +2016,15 @@ def lite_step():
     from vit_unet_tpu_torch.train.losses import mse
 
     card = card_line()
-    named = {key: {getattr(T, pick)(torch.bfloat16, h, d) for h, d, _, _ in LITE_LEVELS}
+    f32 = dtype == "float32"
+    routes = ({"fwd": "cuda_core", "bn_fwd": "cuda_core", "bwd": T.F32_TC_ROUTE} if f32
+              else dict.fromkeys(TRAIN_ROUTE_PICKS, "tensor_core"))
+    named = {key: {getattr(T, pick)(getattr(torch, dtype), h, d) for h, d, _, _ in LITE_LEVELS}
              for key, (pick, _) in TRAIN_ROUTE_PICKS.items()}
-    if named != dict.fromkeys(TRAIN_ROUTE_PICKS, {"tensor_core"}):
-        raise AssertionError(f"lite's levels: routes named {named}, expected the tensor cores")
-    model = get_vit_unet("lite", dtype="bfloat16", param_dtype="bfloat16", seed=0,
-                         device="cuda")
+    if named != {key: {r} for key, r in routes.items()}:
+        raise AssertionError(f"lite's levels in {dtype}: routes named {named}, expected "
+                             f"{routes}")
+    model = get_vit_unet("lite", dtype=dtype, param_dtype=dtype, seed=0, device="cuda")
     model.train()
     opt = adamw(model, 1e-4)
     state = TrainState.create(model=model, optimizer=opt, seed=1)
@@ -1986,11 +2032,14 @@ def lite_step():
     x = torch.randn(BATCH, 3, 224, 224, generator=gen, device="cuda")
     batch = {"x": x, "y": 0.9 * x}
     res = {}
+    tag = "f32" if f32 else "bf16"
+    pick = lambda *keys: {key: routes[key] for key in keys}
     state, res["exact"] = lite_steps("exact-BN", build_step_functions(model, opt, mse), state,
-                                     batch, ("bn_fwd", "bwd"), ("bn_fwd", "bwd"), card)
+                                     batch, pick("bn_fwd", "bwd"),
+                                     ("bwd",) if f32 else ("bn_fwd", "bwd"), card, tag)
     state, res["frozen"] = lite_steps(
         "frozen-BN", build_step_functions(model, opt, mse, bn_frozen=True), state, batch,
-        ("fwd", "bwd"), ("fwd",), card)
+        pick("fwd", "bwd"), ("bwd",) if f32 else ("fwd",), card, tag)
     res["launches"] = dict(collections.Counter(res["exact"]["launches"])
                            + collections.Counter(res["frozen"]["launches"]))
     del model, opt, state
@@ -2020,14 +2069,14 @@ EXACT_TOL = 1e-2
 EXACT_GRAD_RATIO = 3.0
 
 
-def train_step_result(flash, bn_frozen, batch, dtype="float32", **overrides):
+def train_step_result(flash, bn_frozen, batch, dtype="float32", preset="base", **overrides):
     """(loss, grads, running statistics) of one train step, in float64."""
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
     from vit_unet_tpu_torch.train.losses import mse
 
-    model = get_vit_unet("base", seed=0, flash_train=flash, device="cuda",
+    model = get_vit_unet(preset, seed=0, flash_train=flash, device="cuda",
                          dtype=dtype, param_dtype=dtype, **overrides).train()
     opt = adamw(model, 1e-4)
     steps = build_step_functions(model, opt, mse, bn_frozen=bn_frozen)
@@ -2039,30 +2088,34 @@ def train_step_result(flash, bn_frozen, batch, dtype="float32", **overrides):
     return m["loss"].item(), grads, stats
 
 
-def compare_train_paths():
+def compare_train_paths(preset="base"):
+    """The f32 batch-4 train steps of ``preset`` on the kernel path against
+    the plain path (frozen BN) and against the plain path in float64
+    (exact BN), as the comment above says.  Lite's f32 steps run kernel 3
+    on its f32 tensor-core route, kernels 2 and 4 on the CUDA cores."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(4, 3, 224, 224, generator=gen, device="cuda")
     batch = {"x": x, "y": 0.9 * x}
     rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()
+    step = lambda *a, **k: train_step_result(*a, preset=preset, **k)
 
     def diffs(a, b):
         return (abs(a[0] - b[0]) / abs(b[0]), rel(a[1], b[1]), rel(a[2], b[2]))
 
-    kern, plain = (train_step_result(f, True, batch) for f in (True, False))
+    kern, plain = (step(f, True, batch) for f in (True, False))
     l, g, st = diffs(kern, plain)
-    print(f"  f32 batch-4 frozen-BN train step, kernel path vs plain path: loss "
+    print(f"  {preset} f32 batch-4 frozen-BN train step, kernel path vs plain path: loss "
           f"rel {l:.2e}, grads rel {g:.2e} of the largest, running stats rel "
           f"{st:.2e} (tol {TRAIN_PATH_TOL:.0e})")
     if not max(l, g, st) <= TRAIN_PATH_TOL:
-        raise AssertionError("the frozen-BN kernel train step disagrees with "
-                             "the plain path")
+        raise AssertionError(f"the {preset} frozen-BN kernel train step disagrees "
+                             "with the plain path")
     for eps in (1e-5, EXACT_EPS):
-        ref = train_step_result(False, False, batch, "float64", attn_bn_eps=eps)
-        kern, plain = (train_step_result(f, False, batch, attn_bn_eps=eps)
-                       for f in (True, False))
+        ref = step(False, False, batch, "float64", attn_bn_eps=eps)
+        kern, plain = (step(f, False, batch, attn_bn_eps=eps) for f in (True, False))
         (kl, kg, ks), (pl, pg, ps) = diffs(kern, ref), diffs(plain, ref)
         held = eps == EXACT_EPS
-        print(f"  batch-4 exact-BN (eps {eps:.0e}) train step against the plain "
+        print(f"  {preset} batch-4 exact-BN (eps {eps:.0e}) train step against the plain "
               f"path in float64: kernel path (f32) loss rel {kl:.2e}, running "
               f"stats rel {ks:.2e}, grads rel {kg:.2e} of the largest; plain path "
               f"(f32) {pl:.2e}, {ps:.2e}, {pg:.2e}; kernel vs plain (f32) grads "
@@ -2072,8 +2125,8 @@ def compare_train_paths():
                  else "(printed, not held)"))
         if held and not (max(kl, ks, pl, ps) <= EXACT_TOL
                          and kg <= EXACT_GRAD_RATIO * pg):
-            raise AssertionError("the exact-BN train step disagrees with the "
-                                 "float64 plain path")
+            raise AssertionError(f"the {preset} exact-BN train step disagrees with "
+                                 "the float64 plain path")
 
 
 # A configuration whose level 0 is wider than the kernels take: at
@@ -5652,6 +5705,24 @@ def main(argv=None) -> int:
             "library_ms": None,
             # the CUDA-core route on the same inputs, in turns
             "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
+    # kernel 3's f32 tensor-core route (split precision) at lite's classes:
+    # phase 4's lite f32 steps (exact and frozen BN, the CLI's default dtype)
+    # are its main path; the numbers are (4, 12)'s at b64 f32 (phase 2b),
+    # the other classes beside; the bound counts three bf16 MMAs a product
+    rows = {shape: r["bwd"] for shape, r in tk["lite_f32"].items()}
+    r12 = rows["H4 dh12 N3136"]
+    f32_launches = lite["launches"]["bwd_tensor_core_f32"]
+    kernels.append({
+        "name": "flash_reattention_train_bwd_lite_f32", "route": "cuda",
+        "source": TC_SOURCES["bwd"],
+        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:451",
+        "launches": f32_launches, "launches_by_path": {"lite_step": f32_launches},
+        "max_abs_err": r12["err"], "ms": r12["ms"], "plain_ms": r12["plain_ms"],
+        "bound_ms": r12["bound"][0], "bound_by": r12["bound"][1],
+        # no single PyTorch call computes re-attention with a head mix
+        "library_ms": None,
+        # the CUDA-core route on the same f32 inputs, in turns
+        "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
     # kernels 4 and 2 at 16 heads, reattention_bnfwd16_tc.cuh's exact and
     # frozen modes at (16, 12) and (16, 48): the classifier's steps and
     # CLI (phase 8) are the only paths at 16 heads, and every bf16 call

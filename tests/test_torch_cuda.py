@@ -501,7 +501,8 @@ def test_bwd_lite_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k)
 
 @pytest.mark.parametrize("dh", [12, 48, 192])
 def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
-    """Lite's classes in float32: kernels 2, 3 and 4 on the CUDA cores."""
+    """Lite's classes in float32: kernels 2 and 4 on the CUDA cores, kernel
+    3 on its f32 tensor-core route."""
     args = _bwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2, True)
     before = (dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches),
               dict(TT.train_fwd.route_launches))
@@ -511,10 +512,63 @@ def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
     torch.cuda.synchronize()
     assert TT.train_fwd_route(torch.float32, 4, dh) == "cuda_core"
     assert TT.train_bwd.route_launches == {
-        **before[0], "cuda_core": before[0]["cuda_core"] + 1}
+        **before[0], "tensor_core_f32": before[0]["tensor_core_f32"] + 1}
     assert TT.bn_fwd.route_launches == {**before[1], "cuda_core": before[1]["cuda_core"] + 1}
     assert TT.train_fwd.route_launches == {
         **before[2], "cuda_core": before[2]["cuda_core"] + 1}
+
+
+# lite's classes in f32 (kernel 3's split-precision route): LITE_CASES and
+# more queries than keys at dh 48 and 192
+LITE_F32_CASES = LITE_CASES + [(2, 4, 48, 200, 96), (2, 4, 192, 200, 96)]
+
+
+@pytest.mark.parametrize("bn", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_F32_CASES)
+def test_bwd_f32_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate, bn):
+    """Kernel 3's f32 route at lite's classes (every operand a bf16 pair,
+    three MMAs a product) against the plain version at f32's tolerance,
+    counted under its own key; a second call gives dk and dv bit for bit
+    (written once) and dq within the tolerance (atomics)."""
+    assert TT.train_bwd_route(torch.float32, heads, dh) == "tensor_core_f32"
+    args = _bwd_args(cuda, torch.float32, batch, heads, dh, n_q, n_k, rate, bn)
+    before = dict(TT.train_bwd.route_launches)
+    got = TT.train_bwd(*args)
+    again = TT.launch_bwd(*args, route="tensor_core_f32")
+    torch.cuda.synchronize()
+    assert TT.train_bwd.route_launches == {
+        **before, "tensor_core_f32": before["tensor_core_f32"] + 1}
+    for a, b in zip(got, TT.train_bwd_plain(*args)):
+        assert _rel(a, b) <= F32_TOL[torch.float32]
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert _rel(got[0], again[0]) <= F32_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_F32_CASES[::4])
+def test_bwd_f32_routes_agree_on_the_same_inputs(cuda, batch, heads, dh, n_q, n_k):
+    args = _bwd_args(cuda, torch.float32, batch, heads, dh, n_q, n_k, 0.2, True)
+    tc = TT.launch_bwd(*args, route="tensor_core_f32")
+    cc = TT.launch_bwd(*args, route="cuda_core")
+    torch.cuda.synchronize()
+    for a, b in zip(tc, cc):
+        assert _rel(a, b) <= F32_TOL[torch.float32]
+
+
+def test_bwd_f32_tensor_core_route_takes_only_its_classes(cuda):
+    """The f32 route has no class but lite's and takes no bf16; the bf16
+    route takes no f32; no identity route through ``launch_bwd``."""
+    args = _bwd_args(cuda, torch.float32, 2, 8, 24, 100, 100, 0.2, True)
+    with pytest.raises(RuntimeError):
+        TT.launch_bwd(*args, route="tensor_core_f32")
+    lite32 = _bwd_args(cuda, torch.float32, 2, 4, 48, 100, 100, 0.2, True)
+    with pytest.raises(RuntimeError):
+        TT.launch_bwd(*lite32, route="tensor_core")
+    lite16 = _bwd_args(cuda, torch.bfloat16, 2, 4, 48, 100, 100, 0.2, True)
+    with pytest.raises(RuntimeError):
+        TT.launch_bwd(*lite16, route="tensor_core_f32")
+    with pytest.raises(ValueError):
+        TT.launch_bwd(*lite32, route="identity_f32")
 
 
 def test_bwd_float32_takes_the_cuda_core_route(cuda):
@@ -1363,32 +1417,76 @@ def test_exported_hvit_unet_tf_takes_the_identity_route(cuda, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
+class _BackwardReplay:
+    """Stands in for ``launch_bwd``, the kernel backward's one launch.  The
+    first run keeps each launch's inputs and outputs; the second runs each
+    launch too, and where its inputs equal an unused kept launch's bit for
+    bit returns that launch's outputs (``unmatched`` counts the others).
+    Only the dq atomics' summation order, which varies from run to run, is
+    taken out of the backward so."""
+
+    def __init__(self):
+        self.launch, self.kept, self.replaying = TT.launch_bwd, [], False
+        self.used, self.unmatched = set(), 0
+
+    def __call__(self, *args, **kwargs):
+        out = self.launch(*args, **kwargs)
+        flat = [a for x in list(args) + sorted(kwargs.items())
+                for a in (x if isinstance(x, tuple) else (x,))]
+        inputs = [a.detach().clone() if torch.is_tensor(a) else a for a in flat]
+        if not self.replaying:
+            self.kept.append((inputs, tuple(t.clone() for t in out)))
+            return out
+        same = lambda a, b: len(a) == len(b) and all(
+            torch.equal(x, y) if torch.is_tensor(x) and torch.is_tensor(y)
+            else (not torch.is_tensor(x) and not torch.is_tensor(y) and x == y)
+            for x, y in zip(a, b))
+        for i, (kept_in, kept_out) in enumerate(self.kept):
+            if i not in self.used and same(kept_in, inputs):
+                self.used.add(i)
+                return tuple(t.clone() for t in kept_out)
+        self.unmatched += 1
+        return out
+
+
 def test_remat_step_matches_no_remat_on_the_card(cuda):
     """A lite ViTUNet at 64² in f32 with dropout, one exact-BN step: remat
-    leaves the loss, running statistics and generator state as they were,
-    and the gradients within 1e-4 of the largest: the backward sums dq by
-    f32 atomics, whose order varies, and a fresh model's exact-BN step
-    amplifies that (2.2e-5 of the largest, measured on an H100); a
-    different mask or seed would move them by the order of the gradients."""
+    leaves the loss, running statistics, generator state and gradients as
+    they were, bit for bit.  Two things vary from run to run in f32 and a
+    fresh model's exact-BN step magnifies them (to 1.4e-4 of the largest
+    gradient between remat and no remat on the f32 tensor-core route at
+    lite's classes, measured on an H100): the backward's dq, summed by f32
+    atomics, and cuDNN's choice of f32 convolution algorithms.  So both
+    steps run with cuDNN's deterministic algorithms, and the backward is
+    made repeatable: the remat step's backward launches, whose inputs (the
+    recomputed q, k, v_cat, lse and seed among them) must each equal a
+    launch of the no-remat step bit for bit, return that launch's
+    outputs."""
+    from unittest import mock
+
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.parallel.train_step import (
         TrainState, adamw, build_step_functions)
     from vit_unet_tpu_torch.train.losses import mse
     x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0)).to(cuda)
+    replay = _BackwardReplay()
     res = []
-    for remat in (False, True):
-        model = get_vit_unet("lite", device=cuda, seed=0, im_size=64, remat=remat)
-        opt = adamw(model)
-        steps = build_step_functions(model, opt, mse)
-        state, m = steps.train_step(TrainState.create(model=model, optimizer=opt,
-                                                      seed=1), {"x": x, "y": 0.9 * x})
-        res.append((m["loss"].item(), [p.grad.clone() for p in model.parameters()],
-                    [b.clone() for b in model.buffers()], state.generator.get_state()))
+    with mock.patch.object(TT, "launch_bwd", replay), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for remat in (False, True):
+            replay.replaying = remat
+            model = get_vit_unet("lite", device=cuda, seed=0, im_size=64, remat=remat)
+            opt = adamw(model)
+            steps = build_step_functions(model, opt, mse)
+            state, m = steps.train_step(TrainState.create(model=model, optimizer=opt,
+                                                          seed=1), {"x": x, "y": 0.9 * x})
+            res.append((m["loss"].item(), [p.grad.clone() for p in model.parameters()],
+                        [b.clone() for b in model.buffers()], state.generator.get_state()))
     (l0, g0, b0, s0), (l1, g1, b1, s1) = res
     assert l1 == l0 and torch.equal(s1, s0)
     assert all(torch.equal(a, b) for a, b in zip(b1, b0))
-    gmax = max(g.abs().max().item() for g in g0)
-    assert max((a - b).abs().max().item() for a, b in zip(g1, g0)) <= 1e-4 * gmax
+    assert replay.kept and replay.unmatched == 0 and len(replay.used) == len(replay.kept)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g0))
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 2e-2)])

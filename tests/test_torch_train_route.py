@@ -66,16 +66,34 @@ def _level_shapes():
 
 # base's, large's and lite's levels and the classifier's two levels run on
 # the tensor cores in bf16; a general-mix call at HViTUNetTF's level 0 stays
-# on the CUDA cores (its keras attention takes the identity route)
+# on the CUDA cores (its keras attention takes the identity route).  In f32
+# lite's levels alone run on the tensor cores (split precision)
 TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12), (16, 48)}
+TENSOR_CORE_F32 = {(4, 12), (4, 48), (4, 192)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
 def test_train_bwd_route_by_dtype_and_shape(preset, level, heads, dh):
-    assert TT.train_bwd_route(torch.float32, heads, dh) == "cuda_core"
+    want32 = "tensor_core_f32" if (heads, dh) in TENSOR_CORE_F32 else "cuda_core"
+    assert TT.train_bwd_route(torch.float32, heads, dh) == want32
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
     assert TT.train_bwd_route(torch.bfloat16, heads, dh) == want
     assert TT.TRAIN_BWD_TC_SHAPES == TENSOR_CORE
+    assert TT.TRAIN_BWD_F32_SHAPES == TENSOR_CORE_F32
+
+
+@pytest.mark.parametrize("heads,dh", sorted(TENSOR_CORE | {(8, 192), (4, 24), (4, 96), (2, 48)}))
+def test_only_lites_f32_backward_takes_the_tensor_cores(heads, dh):
+    """Float32: the backward's own route at lite's three classes, counted
+    under its own key; every other f32 class on the CUDA cores, and both
+    forwards on the CUDA cores in f32 everywhere."""
+    want = "tensor_core_f32" if (heads, dh) in TENSOR_CORE_F32 else "cuda_core"
+    assert TT.train_bwd_route(torch.float32, heads, dh) == want
+    assert TT.train_fwd_route(torch.float32, heads, dh) == "cuda_core"
+    assert TT.bn_fwd_route(torch.float32, heads, dh) == "cuda_core"
+    assert "tensor_core_f32" in TT.train_bwd.route_launches
+    assert "tensor_core_f32" not in TT.train_fwd.route_launches
+    assert TT.BWD_ROUTES.index("tensor_core_f32") == 4   # the C interface's route 4
 
 
 def test_classifier_levels_at_the_cli_defaults():
@@ -201,3 +219,106 @@ def test_bf16_pairs_keep_the_backward_within_its_tolerance(heads, dh, n):
         worst[pairs] = max(((x - y).abs().max() / y.abs().max()).item()
                            for x, y in zip(got, want))
     assert worst[False] > 1e-3 and worst[True] < 1e-4, worst
+
+
+def _split(x, parts=2):
+    """x as the bf16 pair (hi, lo) the f32 tensor-core route keeps, or as the
+    triple (hi, mid, lo) with mid = bf16(x - hi), lo = bf16(x - hi - mid)."""
+    out, rest = [], x
+    for _ in range(parts):
+        out.append(rest.bfloat16().float())
+        rest = rest - out[-1]
+    return out
+
+
+def _prod3(a, b, eq):
+    """einsum ``eq`` of a and b as three bf16 MMAs of their pairs with f32
+    sums: lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b left out)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _prod6(a, b, eq):
+    """The same as six bf16 MMAs of their triples: the 2^-16 terms lo hi,
+    hi lo, mid mid, then mid hi, hi mid, hi hi."""
+    (ah, am, al), (bh, bm, bl) = _split(a, 3), _split(b, 3)
+    e = lambda x, y: torch.einsum(eq, x, y)
+    return e(al, bh) + e(ah, bl) + e(am, bm) + e(am, bh) + e(ah, bm) + e(ah, bh)
+
+
+def _f32_route_grads(q, k, v, gout, lse, m, d, g_mat, kappa, mask, score_prod, prod):
+    """dq, dk, dv as the f32 tensor-core route forms them, with the scores
+    q k^T by ``score_prod``, g v^T and the three products by ``prod``, dS
+    and B as pairs."""
+    _, heads, n, dh = q.shape
+    gh, vh = gout.reshape(1, n, heads, dh), v.reshape(1, n, heads, dh)
+    p = torch.exp(score_prod(q, k, "bhnd,bhmd->bhnm") - lse[..., None])
+    a = p if mask is None else p * mask
+    da = (torch.einsum("ph,bpnm->bhnm", m, prod(gh, vh, "bnpd,bmpd->bpnm"))
+          + kappa[None, :, None, None] + torch.einsum("fh,bfnm->bhnm", g_mat, a))
+    ds = _round(p * ((da if mask is None else da * mask) - d[..., None]), True)
+    bmix = _round(torch.einsum("ph,bhnm->bpnm", m, a), True)
+    return (prod(ds, k, "bhnm,bhmd->bhnd"), prod(ds, q, "bhnm,bhnd->bhmd"),
+            prod(bmix, gh, "bpnm,bnpd->bmpd").reshape(1, n, heads * dh))
+
+
+def _f32_inputs(seed, heads, dh, n):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = rnd(1, heads, n, dh) * 3 * dh ** -0.5
+    k, v, gout = rnd(1, heads, n, dh), rnd(1, n, heads * dh), rnd(1, n, heads * dh)
+    m, d = rnd(heads, heads) * heads ** -0.5, rnd(1, heads, n)
+    g_mat, kappa = rnd(heads, heads) * 0.1, rnd(heads) * 0.1
+    lse = torch.logsumexp(q @ k.transpose(-1, -2), -1)
+    return q, k, v, gout, lse, m, d, g_mat, kappa
+
+
+# the f32 route's classes whose scores take q and K as triples (Cfg::TRIPLE
+# in csrc/reattention_bwd_tc.cuh); (4, 192)'s tiles have no room for them
+F32_TRIPLES = {(4, 12), (4, 48)}
+
+
+@pytest.mark.parametrize("heads,dh,n", [(4, 12, 256), (4, 48, 128), (4, 192, 100)],
+                         ids=["12-256", "48-128", "192-100"])
+def test_split_precision_keeps_the_f32_backward_within_its_tolerance(heads, dh, n):
+    """Why the f32 tensor-core route at lite's classes carries every f32
+    operand as bf16 parts and takes each product as several bf16 MMAs:
+    emulated on the CPU with f32 inputs, rate 0.2 and the BN term, the
+    scores q k^T (six MMAs of triples where the class has them, else
+    three of pairs) and g v^T, and dq = dS K, dk = dS^T q, dv = B^T g
+    from dS and B as pairs (three MMAs), keep dq, dk and dv within 1e-4
+    (max|err| / max|plain|, the card's tolerance for f32 gradients) of the
+    plain version; the same steps on inputs rounded to bf16 once (one MMA
+    a product) put them more than 1e-4 off."""
+    rate = 0.2
+    q, k, v, gout, lse, m, d, g_mat, kappa = _f32_inputs(100 + dh, heads, dh, n)
+    want = TT.train_bwd_plain(q, k, v, lse, gout, m, d, 7, rate, (g_mat, kappa))
+    mask = TT.dropout_mask(7, rate, 1, heads, n, n)
+    once = lambda a, b, eq: torch.einsum(eq, _round(a, False), _round(b, False))
+    scores = _prod6 if (heads, dh) in F32_TRIPLES else _prod3
+    worst = {}
+    for split in (False, True):
+        got = _f32_route_grads(q, k, v, gout, lse, m, d, g_mat, kappa, mask,
+                               scores if split else once, _prod3 if split else once)
+        worst[split] = max(((x - y).abs().max() / y.abs().max()).item()
+                           for x, y in zip(got, want))
+    assert worst[False] > 1e-4 and worst[True] < 1e-4, worst
+
+
+def test_scores_take_triples_at_lites_long_rows():
+    """Why the scores take six MMAs of triples at (4, 12): the pairs'
+    16 significant bits leave an error in S that reaches dS through
+    P = exp(S - lse) times dA - D, and it grows with the row's keys.  At
+    2,048 keys (lite's level has 3,136, where the card's b64 call with
+    pairs put dq at 1.0e-4 of max|plain|, on the tolerance), rate 0, the
+    BN term on: with the scores from pairs dq is more than half the f32
+    tolerance off the plain version; from triples less than a quarter."""
+    heads, dh, n = 4, 12, 2048
+    q, k, v, gout, lse, m, d, g_mat, kappa = _f32_inputs(0, heads, dh, n)
+    want = TT.train_bwd_plain(q, k, v, lse, gout, m, d, None, 0.0, (g_mat, kappa))[0]
+    rel = {}
+    for name, scores in (("pairs", _prod3), ("triples", _prod6)):
+        dq = _f32_route_grads(q, k, v, gout, lse, m, d, g_mat, kappa, None, scores, _prod3)[0]
+        rel[name] = ((dq - want).abs().max() / want.abs().max()).item()
+    assert rel["pairs"] > 5e-5 and rel["triples"] < 2.5e-5, rel

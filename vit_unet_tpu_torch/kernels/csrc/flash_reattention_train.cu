@@ -66,8 +66,10 @@
 // at (8, 192) and (4, 192), one pass with the dropout writing out and lse and
 // no o_norm: attention_identity_tc.cuh in bf16, attention_identity_f32.cuh in
 // f32 (split precision); and so has the backward, with no head-mix or BN
-// term and no workspace: attention_identity_bwd.cuh in both.  The kernels
-// here are the CUDA-core route, for f32 and every other shape.
+// term and no workspace: attention_identity_bwd.cuh in both.  The backward
+// has one more at lite's classes in f32, reattention_bwd_tc.cuh's fused
+// kernel in split precision.  The kernels here are the CUDA-core route, for
+// f32 and every other shape.
 
 #include "attention_identity_bwd.cuh"
 #include "attention_identity_f32.cuh"
@@ -782,7 +784,9 @@ int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
 // be zeroed, else every output is written once), 2 and 3 the identity mix at
 // (8, 192) and (4, 192) only, 2 in bf16, 3 in f32 (attention_identity_bwd.cuh:
 // m_eff is not read, gmat and kappa must be null, every output is written
-// once).
+// once), 4 the tensor cores in f32, split precision, at lite's classes (4,
+// 12), (4, 48), (4, 192) only (reattention_bwd_tc.cuh's train_bwd_tc_f32;
+// dq must be zeroed, dk and dv are written).
 int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* dvec, const float* m_eff,
                   const float* gmat, const float* kappa, const int64_t* seed,
@@ -801,6 +805,11 @@ int vit_train_bwd(const void* q, const void* k, const void* v, const void* g,
     return dtype == 1 ? vit_bwd::train_bwd_tc(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed,
                                               thr, scale, dq, dk, dv, work, batch, heads, nq,
                                               nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (route == 4)
+    return dtype == 0 ? vit_bwd::train_bwd_tc_f32(q, k, v, g, lse, dvec, m_eff, gmat, kappa,
+                                                  seed, thr, scale, dq, dk, dv, batch, heads,
+                                                  nq, nk, dh, s)
                       : static_cast<int>(cudaErrorInvalidValue);
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)

@@ -1,8 +1,9 @@
 // Training backward of flash re-attention on the tensor cores: the bfloat16
-// route of vit_train_bwd (flash_reattention_train.cu) at the (heads, dh)
-// classes train_bwd_tc instantiates: the levels of base and large (8 heads,
-// dh 24, 96, 384), lite's (4 heads, dh 12, 48, 192) and the classifier's
-// 16-head levels (16, 12) and (16, 48).
+// route of vit_train_bwd (flash_reattention_train.cu, route 1) at the
+// (heads, dh) classes train_bwd_tc instantiates: the levels of base and
+// large (8 heads, dh 24, 96, 384), lite's (4 heads, dh 12, 48, 192) and the
+// classifier's 16-head levels (16, 12) and (16, 48); and its float32 route
+// (route 4) at lite's classes, train_bwd_tc_f32 (below).
 // The keras attention's identity-mix calls at (8, 192) take
 // attention_identity_bwd.cuh.
 //
@@ -66,6 +67,28 @@
 // holds a whole row of dh 192.  dh 12 is copied in 8-byte pieces and
 // zero-padded to one k16 step; the padding columns of dq, dk, dv are not
 // written.
+//
+// Float32 at lite's classes (route 4 of vit_train_bwd, Cfg::F32): the same
+// kernel in split precision, as attention_identity_bwd.cuh's f32 route.
+// Every f32 operand (q, K, V_cat, g) is carried as the bf16 pair hi =
+// bf16(x), lo = bf16(x - hi) in shared memory, split once as it is read
+// from device memory (K and V once a block, q and g once a q tile; no f32
+// stage), and the products take three MMAs with f32 accumulators: T =
+// g V^T (lo hi, hi lo, hi hi), and dq = dS K, dk = dS^T q, dv = B^T g
+// from the pairs of dS and B (dS_hi K_hi + dS_lo K_hi + dS_hi K_lo; lo lo
+// is left out).  No operand goes through TF32.  A pair holds 16 significant
+// bits; the error it leaves in the scores S = q K^T reaches dS through
+// P = exp(S - lse) times dA - D, and at (4, 12)'s rows of 3,136 keys it put
+// dq at 1.0e-4 of max|plain| on the card, on f32's tolerance of 1e-4.  So
+// where shared memory allows (Cfg::TRIPLE: (4, 12) and (4, 48)) q and K
+// are carried as triples hi, mid = bf16(x - hi), lo = bf16(x - hi - mid),
+// f32's 24 bits, and S takes six MMAs (lo hi, hi lo, mid mid, mid hi, hi
+// mid, hi hi), which leaves about 1e-5 (tests/test_torch_train_route.py
+// emulates both on the CPU); (hi, mid) is the pair the other products
+// take.  At (4, 192) (rows of 196 keys) S takes the pairs' three MMAs.
+// That is 15 MMAs a 16 x 8 x 16 unit of work (18 with triples) against
+// the bf16 route's 8.  The tiles hold every part, so the f32 classes take
+// other tiles than the bf16 ones (train_bwd_tc_f32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,12 +96,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_identity_f32.cuh"
 #include "reattention_common.cuh"
 #include "reattention_mma.cuh"
 #include "reattention_tiles.cuh"
 
 namespace vit_bwd {
 
+using vit_idf::split_store;
 using vit_mma::ldsm_x2;
 using vit_mma::ldsm_x2_trans;
 using vit_mma::ldsm_x4;
@@ -94,10 +121,16 @@ using vit_tile::LOG2E;
 constexpr int NW = vit_tile::NW;   // warps per block
 constexpr int NT = vit_tile::NT;   // threads per block
 
-// MINB_: blocks an SM.
-template <int H_, int DH_, int BKEY_, int BQ_, int MINB_ = 1>
+// MINB_: blocks an SM.  F32_: float32 inputs in split precision; TRIPLE_:
+// q and K as triples for the scores (above).
+template <int H_, int DH_, int BKEY_, int BQ_, int MINB_ = 1, bool F32_ = false,
+          bool TRIPLE_ = false>
 struct Cfg {
   static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_, MINB = MINB_;
+  static constexpr bool F32 = F32_, TRIPLE = TRIPLE_;
+  using T = typename std::conditional<F32, float, bf16>::type;   // the input type
+  static constexpr int HALVES = F32 ? 2 : 1;      // bf16 tiles of V and g: hi (and lo)
+  static constexpr int PARTS = TRIPLE ? 3 : HALVES;   // bf16 tiles of q and K
   static constexpr int WPH = NW / H;              // warps a head in step 3: 1 or 2
   static constexpr int DP = (DH + 15) / 16 * 16;  // depth padded for the MMA
   static constexpr int KS = DP / 16;              // k16 steps over the head dim
@@ -109,26 +142,95 @@ struct Cfg {
   static constexpr int CPR = DH / CH;             // copies per row
   static constexpr int MK = BKEY / 16;            // 16-key row tiles of dk, dv
   static constexpr int NSUB = (BQ / 16) * (BKEY / 8);  // sub-tiles of step 2
-  static constexpr int KV_ELEMS = H * BKEY * LD;
-  static constexpr int QG_ELEMS = H * BQ * LD;
+  static constexpr int KV_ELEMS = H * BKEY * LD;  // one half (hi or lo) of the K or V tile
+  static constexpr int QG_ELEMS = H * BQ * LD;    // one half of the q or g tile
   static constexpr int DS_ELEMS = H * BQ * LDS;
-  static constexpr size_t BF16_BYTES =
-      sizeof(bf16) * (2 * KV_ELEMS + 2 * QG_ELEMS + 4 * DS_ELEMS);
+  static constexpr int TILE_ELEMS = (PARTS + HALVES) * (KV_ELEMS + QG_ELEMS);
+  static constexpr size_t BF16_BYTES = sizeof(bf16) * (TILE_ELEMS + 4 * DS_ELEMS);
   static constexpr size_t SMEM =
       BF16_BYTES + sizeof(float) * (2 * H * BQ + 2 * H * H + H) + H * BQ * 16;
   static_assert(WPH * H == NW && (WPH == 1 || (WPH == 2 && NV % 2 == 0)),
                 "step 3: warp w owns head w, or warps 2h, 2h + 1 head h");
+  static_assert(!F32 || WPH == 2, "the f32 classes are lite's: two warps a head");
+  static_assert(F32 || !TRIPLE, "triples carry f32 operands");
   static_assert(4 * H <= 32, "a thread's keep bits of a sub-tile fit one word");
   static_assert(DH % 4 == 0 && (WPH == 2 || DH % 8 == 0) && BKEY % 16 == 0 && BQ % 16 == 0 &&
                     64 % BKEY == 0, "shape");
   static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
+// Four f32 values as triples: hi, mid = bf16(x - hi), lo = bf16(x - hi -
+// mid) at the same offset of three tiles, 8 bytes each.
+__device__ __forceinline__ void split3_store(float4 x, bf16* hi, bf16* mid, bf16* lo) {
+  uint2 h, m, l;
+  float r[4] = {x.x, x.y, x.z, x.w};
+  uint32_t* hw = &h.x;
+  uint32_t* mw = &m.x;
+  uint32_t* lw = &l.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    uint32_t rest;
+    vit_idf::split2(r[2 * i], r[2 * i + 1], hw[i], rest);   // rest: bf16(x - hi), the mid
+    const __nv_bfloat162 hh = *reinterpret_cast<const __nv_bfloat162*>(&hw[i]);
+    const __nv_bfloat162 mm = *reinterpret_cast<const __nv_bfloat162*>(&rest);
+    const float2 hf = __bfloat1622float2(hh), mf = __bfloat1622float2(mm);
+    const __nv_bfloat162 ll = __floats2bfloat162_rn((r[2 * i] - hf.x) - mf.x,
+                                                    (r[2 * i + 1] - hf.y) - mf.y);
+    mw[i] = rest;
+    lw[i] = *reinterpret_cast<const uint32_t*>(&ll);
+  }
+  *reinterpret_cast<uint2*>(hi) = h;
+  *reinterpret_cast<uint2*>(mid) = m;
+  *reinterpret_cast<uint2*>(lo) = l;
+}
+
+// F32: rows row0 + r (r < ROWS) of heads hl < NHEADS of f32 src (element
+// hl * head_stride + row * row_stride + col) split into PARTS (2: hi, lo;
+// 3: hi, mid, lo) tiles dst + i * part, [NHEADS][ROWS][C::LD], columns
+// [0, dh); rows at or past n zero.  Plain 16-byte loads, a thread's issued
+// GROUP at a time before their stores (more in flight would spill beside
+// dh 192's dk / dv).
+template <typename C, int ROWS, int NHEADS, int PARTS = 2>
+__device__ __forceinline__ void split_rows(bf16* dst, int part, const float* src,
+                                           int64_t head_stride, int64_t row_stride, int row0,
+                                           int n, int tid) {
+  constexpr int CPR = C::DH / 4, TOTAL = NHEADS * ROWS * CPR;
+  constexpr int ITERS = (TOTAL + NT - 1) / NT, GROUP = ITERS < 4 ? ITERS : 4;
+#pragma unroll
+  for (int i0 = 0; i0 < ITERS; i0 += GROUP) {
+    float4 x[GROUP];
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      const int c = tid + NT * (i0 + u);
+      const int j = c % CPR, r = (c / CPR) % ROWS, hl = c / (CPR * ROWS);
+      x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i0 + u < ITERS && c < TOTAL && row0 + r < n)
+        x[u] = __ldg(reinterpret_cast<const float4*>(src + hl * head_stride +
+                                                     (row0 + r) * row_stride) + j);
+    }
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      const int c = tid + NT * (i0 + u);
+      if (i0 + u >= ITERS || c >= TOTAL) break;
+      const int j = c % CPR, r = (c / CPR) % ROWS, hl = c / (CPR * ROWS);
+      bf16* d = dst + (hl * ROWS + r) * C::LD + 4 * j;
+      if constexpr (PARTS == 3)
+        split3_store(x[u], d, d + part, d + 2 * part);
+      else
+        split_store(x[u], d, d + part);
+    }
+  }
+}
+
 // s (16 x 8, f32) = rows r0.. of a [H][ROWS][LD] tile times rows c0.. of a
 // [H][BKEY][LD] tile, transposed, over the whole head dim, for head h.
-template <typename C, int ROWS>
+// PARTS 2: of the pairs, their lo tiles a_lo and b_lo after the hi ones,
+// three MMAs a k16 step; 3: of the triples, mid at a_lo / b_lo and lo at
+// twice that, six MMAs a k16 step.
+template <typename C, int ROWS, int PARTS = C::HALVES>
 __device__ __forceinline__ void prod_16x8(const bf16* a, const bf16* bt, int h, int r0,
-                                          int c0, int lane, float (&s)[4]) {
+                                          int c0, int lane, float (&s)[4], int a_lo = 0,
+                                          int b_lo = 0) {
   const bf16* arow = a + (h * ROWS + r0 + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LD +
                      8 * (lane / 16);
   const bf16* brow = bt + (h * C::BKEY + c0 + (lane % 8)) * C::LD + 8 * ((lane / 8) % 2);
@@ -139,7 +241,24 @@ __device__ __forceinline__ void prod_16x8(const bf16* a, const bf16* bt, int h, 
     uint32_t af[4], bf[2];
     ldsm_x4(af, arow + 16 * ks);
     ldsm_x2(bf, brow + 16 * ks);
-    mma_bf16(s, af, bf[0], bf[1]);
+    if constexpr (PARTS == 3) {   // the 2^-16 terms first, then mid hi, hi mid, hi hi
+      uint32_t am[4], bm[2], x4[4], x2[2];
+      ldsm_x4(x4, arow + 2 * a_lo + 16 * ks);
+      ldsm_x2(x2, brow + 2 * b_lo + 16 * ks);
+      ldsm_x4(am, arow + a_lo + 16 * ks);
+      ldsm_x2(bm, brow + b_lo + 16 * ks);
+      mma_bf16(s, x4, bf[0], bf[1]);
+      mma_bf16(s, af, x2[0], x2[1]);
+      mma_bf16(s, am, bm[0], bm[1]);
+      vit_idf::mma3(s, af, am, bf[0], bf[1], bm[0], bm[1]);
+    } else if constexpr (PARTS == 2) {
+      uint32_t al[4], bl[2];
+      ldsm_x4(al, arow + a_lo + 16 * ks);
+      ldsm_x2(bl, brow + b_lo + 16 * ks);
+      vit_idf::mma3(s, af, al, bf[0], bf[1], bl[0], bl[1]);
+    } else {
+      mma_bf16(s, af, bf[0], bf[1]);
+    }
   }
 }
 
@@ -164,11 +283,12 @@ __device__ __forceinline__ void store_split(bf16* hi, bf16* lo, int off, float x
 // acc (16 rows x 8 n tiles col0 / 8 ..) += a_hi b + a_lo b for the A
 // fragments ah, al and B = 16 rows of a tile of pitch C::LD from `rows`
 // (row lane-addressed as ldsm_b_trans takes it), columns col0 .., N tiles,
-// fetched a pair of tiles at a time.
+// fetched a pair of tiles at a time; F32: B a pair too, its lo tile `lo`
+// after `rows`, and a_hi b_lo added as the third MMA.
 template <typename C, int N>
 __device__ __forceinline__ void mma_pair_cols(float (*acc)[4], const uint32_t (&ah)[4],
                                               const uint32_t (&al)[4], const bf16* rows,
-                                              int col0, int lane) {
+                                              int col0, int lane, int lo = 0) {
   const bf16* p = rows + ((lane % 8) + 8 * ((lane / 8) % 2)) * C::LD + col0;
 #pragma unroll
   for (int nv = 0; nv + 2 <= N; nv += 2) {
@@ -178,12 +298,21 @@ __device__ __forceinline__ void mma_pair_cols(float (*acc)[4], const uint32_t (&
     mma_bf16(acc[nv], al, f[0], f[1]);
     mma_bf16(acc[nv + 1], ah, f[2], f[3]);
     mma_bf16(acc[nv + 1], al, f[2], f[3]);
+    if constexpr (C::F32) {
+      ldsm_x4_trans(f, p + lo + 8 * nv + 8 * (lane / 16));
+      mma_bf16(acc[nv], ah, f[0], f[1]);
+      mma_bf16(acc[nv + 1], ah, f[2], f[3]);
+    }
   }
   if constexpr (N % 2 == 1) {   // the last tile alone (lanes 0-15 address it)
     uint32_t f[2];
     ldsm_x2_trans(f, p + 8 * (N - 1));
     mma_bf16(acc[N - 1], ah, f[0], f[1]);
     mma_bf16(acc[N - 1], al, f[0], f[1]);
+    if constexpr (C::F32) {
+      ldsm_x2_trans(f, p + lo + 8 * (N - 1));
+      mma_bf16(acc[N - 1], ah, f[0], f[1]);
+    }
   }
 }
 
@@ -191,6 +320,8 @@ __device__ __forceinline__ void mma_pair_cols(float (*acc)[4], const uint32_t (&
 // B_h^T g_h into acc (its dv), warp 2h + 1 dS_h^T q_h (its dk); then dq_h =
 // dS_h K_h over the block's keys for this warp's half of dh's column tiles,
 // added into dq by atomics (the padding columns of dh 12 are skipped).
+// F32: q, g and K as pairs, their lo tiles C::QG_ELEMS and C::KV_ELEMS
+// after the hi ones.
 template <typename C>
 __device__ __forceinline__ void step3_pair(const bf16* qs, const bf16* gs, const bf16* ks,
                                            const bf16* ds_hi, const bf16* ds_lo,
@@ -215,7 +346,8 @@ __device__ __forceinline__ void step3_pair(const bf16* qs, const bf16* gs, const
       uint32_t ah[4], al[4];
       ldsm_x4_trans(ah, mhi + off);
       ldsm_x4_trans(al, mlo + off);
-      mma_pair_cols<C, NV>(acc[mt], ah, al, rows + (h * BQ + kq) * LD, 0, lane);
+      mma_pair_cols<C, NV>(acc[mt], ah, al, rows + (h * BQ + kq) * LD, 0, lane,
+                           C::QG_ELEMS);
     }
   }
   // dq_h (queries mq.., column tiles half NVH ..) = dS_h K_h over the block's keys
@@ -232,7 +364,8 @@ __device__ __forceinline__ void step3_pair(const bf16* qs, const bf16* gs, const
                       8 * (lane / 16);
       ldsm_x4(ah, ds_hi + off);
       ldsm_x4(al, ds_lo + off);
-      mma_pair_cols<C, NVH>(dacc, ah, al, ks + (h * BKEY + kc) * LD, 8 * NVH * half, lane);
+      mma_pair_cols<C, NVH>(dacc, ah, al, ks + (h * BKEY + kc) * LD, 8 * NVH * half, lane,
+                            C::KV_ELEMS);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -250,10 +383,12 @@ __device__ __forceinline__ void step3_pair(const bf16* qs, const bf16* gs, const
 }
 
 // Grid (key tiles of BKEY, B).  dq must be zeroed; dk and dv are written.
+// q, k, v, g in C::T (F32: float32, split into pairs as they are read).
 template <typename C>
 __global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dvec,
+    const typename C::T* __restrict__ q, const typename C::T* __restrict__ k,
+    const typename C::T* __restrict__ v, const typename C::T* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
     const float* __restrict__ m_eff, const float* __restrict__ gmat,
     const float* __restrict__ kappa, const int64_t* __restrict__ seed, int thr, float scale,
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int nq, int nk) {
@@ -261,11 +396,13 @@ __global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
   constexpr int NV = C::NV, MK = C::MK, PROJ = H * DH;
   constexpr bool PAIR = C::WPH == 2;   // step 3: two warps a head
   extern __shared__ __align__(128) unsigned char bwd_smem[];
+  // F32: each of K, V, q, g a hi tile and its lo tile right after it
+  // (TRIPLE: K and q hi, mid, lo; (hi, mid) the pair of step 3)
   bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [H][BKEY][LD]
-  bf16* vs = ks + C::KV_ELEMS;                    // [H][BKEY][LD]
-  bf16* qs = vs + C::KV_ELEMS;                    // [H][BQ][LD]
-  bf16* gs = qs + C::QG_ELEMS;                    // [H][BQ][LD]
-  bf16* ds_hi = gs + C::QG_ELEMS;                 // [H][BQ][LDS], and the three below
+  bf16* vs = ks + C::PARTS * C::KV_ELEMS;         // [H][BKEY][LD]
+  bf16* qs = vs + C::HALVES * C::KV_ELEMS;        // [H][BQ][LD]
+  bf16* gs = qs + C::PARTS * C::QG_ELEMS;         // [H][BQ][LD]
+  bf16* ds_hi = gs + C::HALVES * C::QG_ELEMS;     // [H][BQ][LDS], and the three below
   bf16* ds_lo = ds_hi + C::DS_ELEMS;
   bf16* b_hi = ds_lo + C::DS_ELEMS;
   bf16* b_lo = b_hi + C::DS_ELEMS;
@@ -282,16 +419,22 @@ __global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
   const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
 
   // the copies never write the padding columns [dh, DP), which the MMAs read
-  vit_tile::zero_bf16<2 * C::KV_ELEMS + 2 * C::QG_ELEMS>(ks, tid);
+  vit_tile::zero_bf16<C::TILE_ELEMS>(ks, tid);
   for (int e = tid; e < H * H; e += NT) {
     m_s[e] = m_eff[e];
     g_s[e] = bn ? gmat[e] : 0.f;
   }
   if (tid < H) kap_s[tid] = bn ? kappa[tid] : 0.f;
   __syncthreads();
-  load_rows<C, BKEY, H>(ks, k + (int64_t)b * H * nk * DH, (int64_t)nk * DH, DH, k0, nk, tid);
-  load_rows<C, BKEY, H>(vs, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
-  cp_async_commit();
+  if constexpr (C::F32) {   // read once a block: split straight from device memory
+    split_rows<C, BKEY, H, C::PARTS>(ks, C::KV_ELEMS, k + (int64_t)b * H * nk * DH,
+                                     (int64_t)nk * DH, DH, k0, nk, tid);
+    split_rows<C, BKEY, H>(vs, C::KV_ELEMS, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
+  } else {
+    load_rows<C, BKEY, H>(ks, k + (int64_t)b * H * nk * DH, (int64_t)nk * DH, DH, k0, nk, tid);
+    load_rows<C, BKEY, H>(vs, v + (int64_t)b * nk * PROJ, DH, PROJ, k0, nk, tid);
+    cp_async_commit();
+  }
 
   // PAIR: dk_acc holds this warp's dv (even warp) or dk (odd warp)
   float dk_acc[MK][NV][4], dv_acc[PAIR ? 1 : MK][NV][4];
@@ -313,9 +456,15 @@ __global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
   for (int q0 = 0; q0 < nq; q0 += BQ) {
     // ---- 1. the q tile's rows, lse, D and dropout bits
     __syncthreads();   // step 3 of the previous tile is done with q, g, dS, B
-    load_rows<C, BQ, H>(qs, q + (int64_t)b * H * nq * DH, (int64_t)nq * DH, DH, q0, nq, tid);
-    load_rows<C, BQ, H>(gs, g + (int64_t)b * nq * PROJ, DH, PROJ, q0, nq, tid);
-    cp_async_commit();
+    if constexpr (C::F32) {
+      split_rows<C, BQ, H, C::PARTS>(qs, C::QG_ELEMS, q + (int64_t)b * H * nq * DH,
+                                     (int64_t)nq * DH, DH, q0, nq, tid);
+      split_rows<C, BQ, H>(gs, C::QG_ELEMS, g + (int64_t)b * nq * PROJ, DH, PROJ, q0, nq, tid);
+    } else {
+      load_rows<C, BQ, H>(qs, q + (int64_t)b * H * nq * DH, (int64_t)nq * DH, DH, q0, nq, tid);
+      load_rows<C, BQ, H>(gs, g + (int64_t)b * nq * PROJ, DH, PROJ, q0, nq, tid);
+      cp_async_commit();
+    }
     for (int e = tid; e < H * BQ; e += NT) {
       const int h = e / BQ, row = q0 + e % BQ;
       const int64_t i = ((int64_t)b * H + h) * nq + row;
@@ -343,8 +492,8 @@ __global__ void __launch_bounds__(NT, C::MINB) bwd_kernel(
       float p[H][4], tt[H][4];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        prod_16x8<C, BQ>(qs, ks, h, r0, c0, lane, p[h]);
-        prod_16x8<C, BQ>(gs, vs, h, r0, c0, lane, tt[h]);
+        prod_16x8<C, BQ, C::PARTS>(qs, ks, h, r0, c0, lane, p[h], C::QG_ELEMS, C::KV_ELEMS);
+        prod_16x8<C, BQ>(gs, vs, h, r0, c0, lane, tt[h], C::QG_ELEMS, C::KV_ELEMS);
       }
       // this thread's entries: rows ra (e < 2), ra + 8; keys kk + (e & 1)
       const int ra = r0 + gq, kk = c0 + 2 * t4;
@@ -551,9 +700,10 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
   cudaError_t err = cudaFuncSetAttribute(
       bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
+  using T = typename C::T;
   bwd_kernel<C><<<dim3((nk + C::BKEY - 1) / C::BKEY, batch), NT, C::SMEM, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, dv,
       nq, nk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -590,6 +740,8 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
 template <int H_, int DH_, int BKEY_, int BQ_>
 struct StagedCfg {
   static constexpr int H = H_, DH = DH_, BKEY = BKEY_, BQ = BQ_;
+  static constexpr bool F32 = false;              // bf16 inputs only
+  static constexpr int HALVES = 1;
   static constexpr int DP = (DH + 15) / 16 * 16;  // depth padded for the MMA
   static constexpr int KS = DP / 16;              // k16 steps over the head dim
   static constexpr int NV = (DH + 7) / 8;         // 8-column tiles of dq, dk, dv (dh 12: 2)
@@ -1328,6 +1480,40 @@ inline int train_bwd_tc(const void* q, const void* k, const void* v, const void*
                              dk, dv, work, batch, nq, nk, stream)
   if (heads == 8 && dh == 384) return VIT_BWD_MAPS(384);
 #undef VIT_BWD_MAPS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 route's classes, lite's, in split precision (bwd_kernel with
+// Cfg::F32; q, k, v, g float32).  Shared memory a block, V and g as hi +
+// lo, K and q as triples at (4, 12) and (4, 48), as pairs at (4, 192):
+//   (4, 12): BKEY 64, BQ 16: K 36,864, V 24,576, q 9,216, g 6,144 + dS, B
+//            (hi, lo) 36,864 + lse, D, M, G, kappa 656 + keep bits 1,024 =
+//            115,344 B, two blocks an SM as the bf16 class (232,736 of the
+//            SM's 233,472 B with the 1,024 B each block reserves); 3,136
+//            blocks at lite b64, 196 q tiles each;
+//   (4, 48): BKEY 64, BQ 16: K 86,016, V 57,344, q 21,504, g 14,336 +
+//            36,864 + 656 + 1,024 = 217,744 B; 832 blocks at b64 N 784 (13
+//            key tiles x 64), 49 q tiles each; a warp's dk or dv 96
+//            registers, 252 in all, no spill (BKEY 32, BQ 32: 3.08 against
+//            2.47 ms a call, tools/torch_bwd_f32_tiling.py);
+//   (4, 192): BKEY 16, BQ 16: K, V 102,400 + q, g 102,400 + 12,288 + 656 +
+//            1,024 = 218,768 B (triples would need 51,200 B more); 832
+//            blocks at b64 N 196, 13 q tiles each; step 2 has 2 sub-tiles a
+//            q tile (6 warps wait there).
+// cudaErrorInvalidValue for any other shape.
+inline int train_bwd_tc_f32(const void* q, const void* k, const void* v, const void* g,
+                            const float* lse, const float* dvec, const float* m_eff,
+                            const float* gmat, const float* kappa, const int64_t* seed, int thr,
+                            float scale, float* dq, float* dk, float* dv, int batch, int heads,
+                            int nq, int nk, int dh, cudaStream_t stream) {
+#define VIT_BWD_F32(DH, BKEY, BQ, MINB, TRIPLE)                                       \
+  launch<Cfg<4, DH, BKEY, BQ, MINB, true, TRIPLE>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, \
+                                                   seed, thr, scale, dq, dk, dv, batch, nq, nk, \
+                                                   stream)
+  if (heads == 4 && dh == 12) return VIT_BWD_F32(12, 64, 16, 2, true);
+  if (heads == 4 && dh == 48) return VIT_BWD_F32(48, 64, 16, 1, true);
+  if (heads == 4 && dh == 192) return VIT_BWD_F32(192, 16, 16, 1, false);
+#undef VIT_BWD_F32
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -59,9 +59,11 @@ beside it and a launch counter:
   warps a head, one keeping dk, one dv), the same steps with the
   probabilities and g.v staged through shared memory at 16 heads, and at
   dh 384 a kernel that writes dS and B to a bf16 workspace and one that
-  forms dq, dk and dv from it; ``cuda_core``
-  (f32 FMAs) for float32 and every other shape (a general-mix call at
-  (8, 192) too).
+  forms dq, dk and dv from it; ``tensor_core_f32`` for float32 at lite's
+  classes (``TRAIN_BWD_F32_SHAPES``): the same fused kernel with every f32
+  operand carried as a bf16 pair hi + lo and every product as three bf16
+  MMAs; ``cuda_core`` (f32 FMAs) for float32 and every other shape (a
+  general-mix call at (8, 192) too).
 
 A_h = softmax(q_h k_h^T) * mask, where the dropout mask keeps an entry iff
 the top 24 of its Philox bits reach ceil(f32(rate) * 2^24) and scales it by
@@ -106,7 +108,12 @@ ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
 #: the identity mix's routes (bf16, f32): routes 2 and 3 of the frozen-BN
 #: forward and of the backward
 IDENTITY_ROUTES = ("identity_tc", "identity_f32")
-FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES
+FWD_ROUTES = ROUTES + IDENTITY_ROUTES
+#: the backward's f32 route at lite's classes: route 4 of the backward
+F32_TC_ROUTE = "tensor_core_f32"
+BWD_ROUTES = FWD_ROUTES + (F32_TC_ROUTE,)
+#: the backward's routes for a general head mix (``launch_bwd``'s)
+GENERAL_BWD_ROUTES = ROUTES + (F32_TC_ROUTE,)
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
 #: level shapes of base and large, lite's (4, 12), (4, 48), (4, 192) and the
@@ -115,6 +122,8 @@ LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
 HEAD16_TC_SHAPES = frozenset({(16, 12), (16, 48)})
 TRAIN_FWD_TC_SHAPES = BN_FWD_TC_SHAPES = TRAIN_BWD_TC_SHAPES = (
     frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES | HEAD16_TC_SHAPES)
+#: (heads, dh) classes of the backward's f32 tensor-core route: lite's
+TRAIN_BWD_F32_SHAPES = LITE_TC_SHAPES
 
 
 def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
@@ -146,9 +155,14 @@ def train_bwd_route(dtype: torch.dtype, heads: int, dh: int,
                     identity_mix: bool = False) -> str:
     """The route a CUDA backward with these inputs takes: the only place it
     is chosen, by dtype, shape and the caller's ``identity_mix`` flag alone
-    (``train_bwd_identity`` passes it; ``train_bwd`` never does)."""
+    (``train_bwd_identity`` passes it; ``train_bwd`` never does).  The flag
+    matters only at ``IDENTITY_TC_SHAPES``; elsewhere a call takes its
+    class's general route, float32 at ``TRAIN_BWD_F32_SHAPES`` the f32
+    tensor-core route."""
     if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
         return _identity_route(dtype)
+    if dtype == torch.float32 and (heads, dh) in TRAIN_BWD_F32_SHAPES:
+        return F32_TC_ROUTE
     return _route(TRAIN_BWD_TC_SHAPES, dtype, heads, dh)
 
 
@@ -671,14 +685,17 @@ def launch_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     g_mat = kappa = None
     if bn_extra is not None:
         g_mat, kappa = (_f32(t, dev) for t in bn_extra)
+    if route not in GENERAL_BWD_ROUTES:
+        raise ValueError(f"launch_bwd takes a general-mix route "
+                         f"{GENERAL_BWD_ROUTES}, got {route!r}")
     lib = _library()
-    r = ROUTES.index(route)
+    r = BWD_ROUTES.index(route)
     nbytes = lib.vit_train_bwd_workspace(batch, heads, n_q, n_k, dh, r)
     work = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
-    # the fused tensor-core form adds each key tile's dq into a zeroed dq, the
-    # CUDA-core route dk by atomics; the form with a workspace (maps, then
-    # products) writes every output once
-    dq = (torch.zeros if route == "tensor_core" and not nbytes else torch.empty)(
+    # the fused tensor-core forms (bf16 and f32) add each key tile's dq into
+    # a zeroed dq, the CUDA-core route dk by atomics; the form with a
+    # workspace (maps, then products) writes every output once
+    dq = (torch.zeros if route != "cuda_core" and not nbytes else torch.empty)(
         (batch, heads, n_q, dh), dtype=torch.float32, device=dev)
     dk = (torch.empty if nbytes else torch.zeros)(
         (batch, heads, n_k, dh), dtype=torch.float32, device=dev)
@@ -702,8 +719,8 @@ def train_bwd(q, k, v_cat, lse, g, m_eff, d, seed, rate: float = 0.0,
     dot term, ``bn_extra`` the exact-BN (G (H, H), kappa (H,)) or None.
     CUDA tensors take the route ``train_bwd_route`` names.  One gradient is
     summed with f32 atomics (dk on the CUDA-core route, dq on the tensor-
-    core route at dh 12, 24, 48, 96 and lite's 192), so its last bits vary
-    from run to run; the tensor-core class at dh 384 uses no atomics and
+    core routes at dh 12, 24, 48, 96 and lite's 192, bf16 and f32), so its
+    last bits vary from run to run; the tensor-core class at dh 384 uses no atomics and
     repeats bit for bit, and so do the identity routes
     (``train_bwd_identity``)."""
     _check(q, k, v_cat)
