@@ -19,7 +19,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    cores; at the main path's shapes both routes in turns, each pass alone,
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost; and at lite's three level shapes at b64 against the plain version
-   built 8 images at a time, beside its time, the bound and SDPA's), and the
+   built 8 images at a time, beside its time, the bound and SDPA's, in
+   bfloat16 and, on its CUDA-core route, in float32), and the
    three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
    N x N forward with the same dropout mask; every kernel and Function also
@@ -57,12 +58,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    smaller levels at b64 too), and at b64 at lite's three level
    shapes through the counted wrappers against the plain version (built 8
    images at a time), two calls bit for bit where no atomics sum, per call
-   on both routes in turns beside the plain's time and the bound; kernel
-   3 in float32 at lite's classes on its split-precision tensor-core route
-   (``LITE_CASES``, rates 0 and 0.2, BN term off and on, against plain and
-   the CUDA-core route at f32's tolerance; at b64 against plain, two calls,
-   and timed in turns against the CUDA-core route on the same f32 inputs,
-   the bound counting three bf16 MMAs a product); the
+   on both routes in turns beside the plain's time and the bound; kernels
+   2, 4 and 3 in float32 at lite's classes on their split-precision
+   tensor-core routes (``LITE_CASES``, rates 0 and 0.2, the backward's BN
+   term off and on, against plain and the CUDA-core route at f32's
+   tolerance, the forwards' dropout bits read back; at b64 against plain,
+   two calls, and timed in turns against the CUDA-core route on the same
+   f32 inputs, the bound counting three bf16 MMAs a product); the
    backward and both forwards
    on the routes ``train_bwd_route``, ``train_fwd_route`` and
    ``bn_fwd_route`` name (bfloat16 at base's level shapes on the tensor
@@ -101,9 +103,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    then its frozen-BN steps the same way (kernels 2 and 3 on the tensor
    cores), with kernel 2 held on its CUDA-core route and as named, in turns;
    then lite in float32 (the CLI's default dtype) the same way, both steps,
-   kernels 2 and 4 on the CUDA cores and kernel 3 on its f32 tensor-core
-   route, held on the CUDA cores and as named in turns in both; and lite's
-   f32 batch-4 steps of the kernel path against the plain path as base's;
+   kernels 2, 4 and 3 on their f32 tensor-core routes, the step's forward
+   (kernel 4, kernel 2) held on the CUDA cores and as named in turns; and
+   lite's f32 batch-4 steps of the kernel path against the plain path as
+   base's;
 5. the trainer: synthetic uint8 pairs written as TFRecord shards, the base
    preset (224², bf16, batch 64, dropout 0.2) trained through ``Fitter``
    for 2 epochs of 24 steps fed by ``TFRecordStream`` ->
@@ -520,18 +523,18 @@ def phase_environment(sources):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def lite_eval():
-    """Kernel 1 at lite's three level shapes at b64, bf16, through its
-    counted wrapper on the route ``kernel_route`` names, against its plain
-    version built LITE_SLICE images at a time (eval draws no dropout, so a
-    slice is the call's own), per call beside the plain version's time, the
-    bound and ``scaled_dot_product_attention``'s (not the same function:
-    what the two products alone cost).  Returns {class: row}."""
+def lite_eval(dtype=torch.bfloat16):
+    """Kernel 1 at lite's three level shapes at b64 in ``dtype`` (bf16: the
+    tensor cores; float32: the CUDA cores), through its counted wrapper on
+    the route ``kernel_route`` names, against its plain version built
+    LITE_SLICE images at a time (eval draws no dropout, so a slice is the
+    call's own), per call beside the plain version's time, the bound and
+    ``scaled_dot_product_attention``'s (not the same function: what the two
+    products alone cost).  Returns {class: row}."""
     from vit_unet_tpu_torch.kernels.flash_reattention import (
         flash_reattention, flash_reattention_plain, kernel_route)
     res = {}
     card = card_line()
-    dtype = torch.bfloat16
     for heads, dh, n, calls in LITE_LEVELS:
         q, k, v, w, b = reattention_inputs(BATCH, heads, dh, n, n, dtype, 0)
         route = kernel_route(dtype, heads, dh)
@@ -556,7 +559,8 @@ def lite_eval():
                    bound=bound_of(*bound_parts(BATCH, heads, dh, n, n, dtype)),
                    calls_per_forward=calls)
         res[f"H{heads} dh{dh} N{n}"] = row
-        print(f"    lite H{heads} dh{dh} N{n} B{BATCH} bf16 eval [{route}]: {row['ms']:.4f} ms "
+        print(f"    lite H{heads} dh{dh} N{n} B{BATCH} {str(dtype)[6:]} eval [{route}]: "
+              f"{row['ms']:.4f} ms "
               f"a call, plain {row['plain_ms']:.4f} ms (by {LITE_SLICE} images), bound "
               f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), sdpa {row['sdpa_ms']:.4f} ms; "
               f"max_abs_err {err:.3e} rel {rel:.3e} [{card}]")
@@ -587,6 +591,8 @@ def phase_kernels():
                                                     total["t_ops"])
     print(f"  lite's level shapes (B{BATCH}, bf16), a call:")
     total["lite"] = lite_eval()
+    print(f"  lite's level shapes (B{BATCH}, f32, the CUDA-core route), a call:")
+    total["lite_f32"] = lite_eval(torch.float32)
     print("  the identity-mix route (KerasMHA's calls), bf16:")
     ident = [check_kernel(*shape, torch.bfloat16, identity_mix=True, label="identity")
              for shape in IDENTITY_CASES]
@@ -970,6 +976,12 @@ def train_bounds(batch, heads, dh, n_q, n_k, dtype):
         mixes = parts["bwd"][1] - 10.0 * area * dh
         bounds["bwd_tc_f32"] = (bounds["bwd"][0], (3 * 10.0 * area * dh + mixes)
                                 / PEAK_FLOPS[torch.bfloat16] * 1e3)
+        # the forwards' f32 tensor-core routes: the scores and A @ V_cat as
+        # three bf16 MMAs each (the least a split-precision product takes;
+        # the routes' triples issue six), S and C counted as the bf16 route's
+        for key in ("fwd", "bn_fwd"):
+            bounds[f"{key}_tc_f32"] = (bounds[key][0], (3 * fwd_ops + parts[key][1] - fwd_ops)
+                                       / PEAK_FLOPS[torch.bfloat16] * 1e3)
     return bounds
 
 
@@ -1157,16 +1169,15 @@ def lite_b64(heads, dh, n, keys, dtype=torch.bfloat16):
 
 def lite_kernels(cases_err, dtype=torch.bfloat16):
     """Kernels 2, 4 and 3 at lite's three level shapes at b64, rate 0.2 (the
-    backward with the BN term), bf16; in float32 kernel 3 alone, on its
-    split-precision route (kernels 2 and 4 take the CUDA cores in f32):
-    each held against its plain version (``lite_b64``), then per call on
-    the CUDA-core route and on the route its route function names, in
-    turns on the same inputs, beside the plain version's time and the bound
-    (f32: three bf16 MMAs a product).  ``cases_err``: the worst max_abs_err
-    of each kernel over LITE_CASES.  Returns {class: {kernel: row}}, the
-    row's ``err`` the b64 call's."""
+    backward with the BN term), in ``dtype`` (float32: their split-precision
+    routes): each held against its plain version (``lite_b64``), then per
+    call on the CUDA-core route and on the route its route function names,
+    in turns on the same inputs, beside the plain version's time and the
+    bound (f32: three bf16 MMAs a product).  ``cases_err``: the worst
+    max_abs_err of each kernel over LITE_CASES.  Returns {class: {kernel:
+    row}}, the row's ``err`` the b64 call's."""
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
-    keys = ("bwd",) if dtype == torch.float32 else ("fwd", "bn_fwd", "bwd")
+    keys = ("fwd", "bn_fwd", "bwd")
     name = str(dtype)[6:]
     res = {}
     card = card_line()
@@ -1176,13 +1187,13 @@ def lite_kernels(cases_err, dtype=torch.bfloat16):
         held = lite_b64(heads, dh, n, keys, dtype)
         torch.cuda.empty_cache()
         turns = {key: (time_bwd_routes(BATCH, heads, dh, n, reps=5, dtype=dtype) if key == "bwd"
-                       else time_fwd_routes(key, BATCH, heads, dh, n, reps=5))
+                       else time_fwd_routes(key, BATCH, heads, dh, n, reps=5, dtype=dtype))
                  for key in reversed(keys)}
         res[shape] = {}
         for key in keys:
             (old, new), (err, plain_ms) = turns[key], held[key]
             route = getattr(T, TRAIN_ROUTE_PICKS[key][0])(dtype, heads, dh)
-            bound = bounds["bwd_tc_f32" if route == T.F32_TC_ROUTE else key]
+            bound = bounds[f"{key}_tc_f32" if route == T.F32_TC_ROUTE else key]
             row = dict(route=route, ms=new, cuda_core_ms=old, plain_ms=plain_ms,
                        bound=bound_of(*bound), err=err, cases_err=cases_err[key],
                        calls_per_step=calls)
@@ -1234,13 +1245,13 @@ def forward(key) -> Forward:
                    BN_FWD_TOLS, lambda q, k, v, m, c, sd, rate: (q, k, v, sd, rate))
 
 
-def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
-    """bf16 forward ``key`` on the route its route choice names against its
-    plain version and against the CUDA-core route, on the same inputs, each
-    output at its tolerance, and a second call on its route for the same
-    bits.  Returns the worst max_abs_err against the plain version."""
+def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0, dtype=torch.bfloat16):
+    """Forward ``key`` on the route its route choice names for ``dtype``
+    against its plain version and against the CUDA-core route, on the same
+    inputs, each output at its tolerance, and a second call on its route
+    for the same bits.  Returns the worst max_abs_err against the plain
+    version."""
     f = forward(key)
-    dtype = torch.bfloat16
     q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n_q, n_k, dtype, seed)
     args = f.args(q, k, v, m_eff, c_eff, sd, rate)
     route = f.route(dtype, heads, dh)
@@ -1265,8 +1276,8 @@ def fwd_turns(key, batch, heads, dh, n_q, n_k, rate, seed=0):
     return max(e for e, _ in errs)
 
 
-def check_fwd_bits(key, batch, heads, dh, n):
-    """The dropout bits of forward ``key``'s route, read back exactly: with
+def check_fwd_bits(key, batch, heads, dh, n, dtype=torch.bfloat16):
+    """The dropout bits of forward ``key``'s route for ``dtype``, read back exactly: with
     q = 0 every probability is 1/Nk, and with V_cat[m, j] = 1 where m = j mod
     P, o_norm[b, h, n, j] Nk / scale counts the kept keys m = j mod P of row
     n, which must equal the count from ``dropout_mask`` (every bit itself
@@ -1275,14 +1286,18 @@ def check_fwd_bits(key, batch, heads, dh, n):
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     f = forward(key)
     proj = heads * dh
-    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn(batch, heads, n, dh, device="cuda").bfloat16()
+    q = torch.zeros(batch, heads, n, dh, device="cuda", dtype=dtype)
+    k = torch.randn(batch, heads, n, dh, device="cuda").to(dtype)
     v = (torch.arange(n, device="cuda")[:, None] % proj
-         == torch.arange(proj, device="cuda")[None, :]).to(torch.bfloat16)
+         == torch.arange(proj, device="cuda")[None, :]).to(dtype)
     v = v.expand(batch, n, proj).contiguous()
     sd = torch.tensor([77], dtype=torch.int64, device="cuda")
     eye = torch.eye(heads, device="cuda")
+    route = f.route(dtype, heads, dh)
+    before = f.kernel.route_launches[route]
     got_all = f.kernel(*f.args(q, k, v, eye, torch.zeros(heads, device="cuda"), sd, RATE))
+    if f.kernel.route_launches[route] != before + 1:
+        raise AssertionError(f"{key}'s dropout-bit call did not take the {route} route")
     onorm = got_all[-1]
     mask = T.dropout_mask(77, RATE, batch, heads, n, n, "cuda") > 0
     want = torch.einsum("bhnm,mj->bhnj", mask.float(), v[0].float())
@@ -1295,25 +1310,30 @@ def check_fwd_bits(key, batch, heads, dh, n):
         if not torch.equal(got_all[0], own.permute(0, 1, 3, 2).flatten(-2)):
             raise AssertionError(f"fwd's out with M = I, c = 0 is not its own head's "
                                  f"o_norm (H{heads} dh{dh} N{n})")
-    print(f"  {key} dropout bits H{heads} dh{dh} N{n} B{batch}: all "
+    print(f"  {key} [{route}] dropout bits H{heads} dh{dh} N{n} B{batch}: all "
           f"{mask.numel()} identical to dropout_mask "
           f"({'each bit' if proj >= n else 'counts of keys m = j mod P'})"
           + ("; out with M = I, c = 0 is each column's own head" if key == "fwd" else ""))
 
 
-def time_fwd_routes(key, batch, heads, dh, n, reps=10):
-    """At one main-path shape, bf16, rate 0.2: forward ``key`` on the
-    CUDA-core and the tensor-core route in turns (old, new, new, old)."""
+def time_fwd_routes(key, batch, heads, dh, n, reps=10, dtype=torch.bfloat16):
+    """At one main-path shape, rate 0.2: forward ``key`` on the CUDA-core
+    route and on the tensor-core route its route choice names for
+    ``dtype``, in turns (old, new, new, old), on the same inputs."""
+    from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     f = forward(key)
-    q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n, n, torch.bfloat16)
+    q, k, v, m_eff, c_eff, _, sd = train_inputs(batch, heads, dh, n, n, dtype)
     args = f.args(q, k, v, m_eff, c_eff, sd, RATE)
+    route = f.route(dtype, heads, dh)
     turns = [(r, time_ms(lambda: f.launch(*args, route=r), reps))
-             for r in ("cuda_core", "tensor_core", "tensor_core", "cuda_core")]
+             for r in ("cuda_core", route, route, "cuda_core")]
     old = min(t for r, t in turns if r == "cuda_core")
-    new = min(t for r, t in turns if r == "tensor_core")
-    bound, by = bound_of(*train_bounds(batch, heads, dh, n, n, torch.bfloat16)[key])
-    print(f"    N{n} dh{dh} {key} in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
-          + f"; cuda_core / tensor_core {old / new:.2f}x; bound {bound:.4f} ms ({by})")
+    new = min(t for r, t in turns if r == route)
+    bounds = train_bounds(batch, heads, dh, n, n, dtype)
+    bound, by = bound_of(*bounds[f"{key}_tc_f32" if route == T.F32_TC_ROUTE else key])
+    print(f"    N{n} dh{dh} {str(dtype)[6:]} {key} in turns: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+          + f"; cuda_core / {route} {old / new:.2f}x; bound {bound:.4f} ms ({by})")
     return old, new
 
 
@@ -1647,12 +1667,22 @@ def phase_train_kernels():
                     lite_err["bwd"] = max(lite_err["bwd"], err)
     print("  the backward in f32 at lite's classes on the route train_bwd_route names "
           "(split precision), against plain and the CUDA-core route:")
-    lite_f32_err = 0.0
+    lite_f32_err = dict.fromkeys(("bwd", "fwd", "bn_fwd"), 0.0)
     for shape in LITE_CASES:
         for rate in (0.0, RATE):
             for bn in (False, True):
-                lite_f32_err = max(lite_f32_err,
-                                   check_bwd_routes(*shape, rate, bn, torch.float32))
+                lite_f32_err["bwd"] = max(lite_f32_err["bwd"],
+                                          check_bwd_routes(*shape, rate, bn, torch.float32))
+    for key in ("fwd", "bn_fwd"):
+        print(f"  the {'frozen' if key == 'fwd' else 'exact'}-BN forward in f32 at lite's "
+              f"classes on the route its route choice names (split precision), against plain "
+              f"and the CUDA-core route:")
+        for shape in LITE_CASES:
+            for rate in (0.0, RATE):
+                lite_f32_err[key] = max(lite_f32_err[key],
+                                        fwd_turns(key, *shape, rate, dtype=torch.float32))
+        for batch, heads, dh, n in LITE_BITS:
+            check_fwd_bits(key, batch, heads, dh, n, torch.float32)
     fwd_err = {}
     for key, classes in (("fwd", T.TRAIN_FWD_TC_SHAPES), ("bn_fwd", T.BN_FWD_TC_SHAPES)):
         print(f"  the {'frozen' if key == 'fwd' else 'exact'}-BN forward in bf16 on the "
@@ -1725,9 +1755,9 @@ def phase_train_kernels():
               f"{total[kname]['old_ms']:.4f} ms; routes {total[kname]['routes']}")
     print(f"  lite's level shapes (B{BATCH}, bf16, rate {RATE}), kernels 2, 4 and 3 a call:")
     total["lite"] = lite_kernels(lite_err)
-    print(f"  lite's level shapes (B{BATCH}, f32, rate {RATE}), kernel 3 on its f32 route a "
-          "call:")
-    total["lite_f32"] = lite_kernels({"bwd": lite_f32_err}, torch.float32)
+    print(f"  lite's level shapes (B{BATCH}, f32, rate {RATE}), kernels 2, 4 and 3 on their "
+          "f32 routes a call:")
+    total["lite_f32"] = lite_kernels(lite_f32_err, torch.float32)
     print("  the frozen-BN forward's identity route (KerasMHA's bf16 calls):")
     ident_err = 0.0
     for shape in IDENTITY_FWD_CASES:
@@ -2006,9 +2036,10 @@ def lite_step(dtype="bfloat16"):
     frozen-BN step (kernels 2 and 3), each through ``lite_steps``.  bf16:
     every call on the tensor cores, kernels 4 and 3 held in the exact
     step's turns, kernel 2 in the frozen one's; float32 (the CLI's
-    default): kernels 2 and 4 on the CUDA cores, kernel 3 on its f32
-    tensor-core route and held in both steps' turns.  Returns
-    dict(launches: both steps' counted launches summed, exact, frozen)."""
+    default): every call on the f32 tensor-core routes, kernel 4 held in
+    the exact step's turns, kernel 2 in the frozen one's (kernel 3 stays on
+    its f32 route in both).  Returns dict(launches: both steps' counted
+    launches summed, exact, frozen)."""
     from vit_unet_tpu_torch import get_vit_unet
     from vit_unet_tpu_torch.kernels import flash_reattention_train as T
     from vit_unet_tpu_torch.parallel.train_step import (
@@ -2017,8 +2048,7 @@ def lite_step(dtype="bfloat16"):
 
     card = card_line()
     f32 = dtype == "float32"
-    routes = ({"fwd": "cuda_core", "bn_fwd": "cuda_core", "bwd": T.F32_TC_ROUTE} if f32
-              else dict.fromkeys(TRAIN_ROUTE_PICKS, "tensor_core"))
+    routes = dict.fromkeys(TRAIN_ROUTE_PICKS, T.F32_TC_ROUTE if f32 else "tensor_core")
     named = {key: {getattr(T, pick)(getattr(torch, dtype), h, d) for h, d, _, _ in LITE_LEVELS}
              for key, (pick, _) in TRAIN_ROUTE_PICKS.items()}
     if named != {key: {r} for key, r in routes.items()}:
@@ -2036,10 +2066,10 @@ def lite_step(dtype="bfloat16"):
     pick = lambda *keys: {key: routes[key] for key in keys}
     state, res["exact"] = lite_steps("exact-BN", build_step_functions(model, opt, mse), state,
                                      batch, pick("bn_fwd", "bwd"),
-                                     ("bwd",) if f32 else ("bn_fwd", "bwd"), card, tag)
+                                     ("bn_fwd",) if f32 else ("bn_fwd", "bwd"), card, tag)
     state, res["frozen"] = lite_steps(
         "frozen-BN", build_step_functions(model, opt, mse, bn_frozen=True), state, batch,
-        pick("fwd", "bwd"), ("bwd",) if f32 else ("fwd",), card, tag)
+        pick("fwd", "bwd"), ("fwd",), card, tag)
     res["launches"] = dict(collections.Counter(res["exact"]["launches"])
                            + collections.Counter(res["frozen"]["launches"]))
     del model, opt, state
@@ -2091,8 +2121,8 @@ def train_step_result(flash, bn_frozen, batch, dtype="float32", preset="base", *
 def compare_train_paths(preset="base"):
     """The f32 batch-4 train steps of ``preset`` on the kernel path against
     the plain path (frozen BN) and against the plain path in float64
-    (exact BN), as the comment above says.  Lite's f32 steps run kernel 3
-    on its f32 tensor-core route, kernels 2 and 4 on the CUDA cores."""
+    (exact BN), as the comment above says.  Lite's f32 steps run kernels
+    2, 4 and 3 on their f32 tensor-core routes."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(4, 3, 224, 224, generator=gen, device="cuda")
     batch = {"x": x, "y": 0.9 * x}
@@ -5527,8 +5557,8 @@ def main(argv=None) -> int:
         # a rank's keras heads at model 2 (phase 10a), bf16 and f32
         "tp_heads": {tp_shape: {dt: r["flash_reattention"]
                                 for dt, r in tp["kernels"].items()}},
-        # lite's level shapes at b64, bf16 (phase 2a)
-        "lite": k["lite"],
+        # lite's level shapes at b64, bf16 and (on the CUDA cores) f32 (phase 2a)
+        "lite": k["lite"], "lite_f32": k["lite_f32"],
     }]
     # kernel 1's identity route: KerasMHA's bf16 eval calls (phases 7, 11)
     ident = k["identity"]
@@ -5705,24 +5735,30 @@ def main(argv=None) -> int:
             "library_ms": None,
             # the CUDA-core route on the same inputs, in turns
             "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
-    # kernel 3's f32 tensor-core route (split precision) at lite's classes:
-    # phase 4's lite f32 steps (exact and frozen BN, the CLI's default dtype)
-    # are its main path; the numbers are (4, 12)'s at b64 f32 (phase 2b),
-    # the other classes beside; the bound counts three bf16 MMAs a product
-    rows = {shape: r["bwd"] for shape, r in tk["lite_f32"].items()}
-    r12 = rows["H4 dh12 N3136"]
-    f32_launches = lite["launches"]["bwd_tensor_core_f32"]
-    kernels.append({
-        "name": "flash_reattention_train_bwd_lite_f32", "route": "cuda",
-        "source": TC_SOURCES["bwd"],
-        "replaces": "vit_unet_tpu/kernels/flash_reattention_train.py:451",
-        "launches": f32_launches, "launches_by_path": {"lite_step": f32_launches},
-        "max_abs_err": r12["err"], "ms": r12["ms"], "plain_ms": r12["plain_ms"],
-        "bound_ms": r12["bound"][0], "bound_by": r12["bound"][1],
-        # no single PyTorch call computes re-attention with a head mix
-        "library_ms": None,
-        # the CUDA-core route on the same f32 inputs, in turns
-        "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
+    # kernels 3, 4 and 2 on their f32 tensor-core routes (split precision)
+    # at lite's classes: phase 4's lite f32 steps (exact and frozen BN, the
+    # CLI's default dtype) are their main path; the numbers are (4, 12)'s at
+    # b64 f32 (phase 2b), the other classes beside; the bound counts three
+    # bf16 MMAs a product
+    for key, name, replaces in (
+            ("bwd", "flash_reattention_train_bwd_lite_f32",
+             "vit_unet_tpu/kernels/flash_reattention_train.py:451"),
+            ("bn_fwd", "flash_reattention_bn_fwd_lite_f32",
+             "vit_unet_tpu/kernels/flash_reattention_train.py:741"),
+            ("fwd", "flash_reattention_train_fwd_lite_f32",
+             "vit_unet_tpu/kernels/flash_reattention_train.py:363")):
+        rows = {shape: r[key] for shape, r in tk["lite_f32"].items()}
+        r12 = rows["H4 dh12 N3136"]
+        f32_launches = lite["launches"][f"{key}_tensor_core_f32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": TC_SOURCES[key], "replaces": replaces,
+            "launches": f32_launches, "launches_by_path": {"lite_step": f32_launches},
+            "max_abs_err": r12["err"], "ms": r12["ms"], "plain_ms": r12["plain_ms"],
+            "bound_ms": r12["bound"][0], "bound_by": r12["bound"][1],
+            # no single PyTorch call computes re-attention with a head mix
+            "library_ms": None,
+            # the CUDA-core route on the same f32 inputs, in turns
+            "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
     # kernels 4 and 2 at 16 heads, reattention_bnfwd16_tc.cuh's exact and
     # frozen modes at (16, 12) and (16, 48): the classifier's steps and
     # CLI (phase 8) are the only paths at 16 heads, and every bf16 call

@@ -85,18 +85,21 @@ def test_attend_routes_wide_heads_to_the_plain_path(dh):
 
 
 # base's, large's and lite's levels and the classifier's two levels run the
-# exact-BN forward on the tensor cores in bf16; every float32 call stays on
-# the CUDA cores
+# exact-BN forward on the tensor cores in bf16; in float32 lite's levels
+# alone do (split precision), every other f32 call stays on the CUDA cores
 TENSOR_CORE = {(8, 24), (8, 96), (8, 384), (4, 12), (4, 48), (4, 192), (16, 12), (16, 48)}
+TENSOR_CORE_F32 = {(4, 12), (4, 48), (4, 192)}
 
 
 @pytest.mark.parametrize("heads,dh", [(8, 24), (8, 96), (8, 384), (4, 12), (4, 48),
                                       (4, 192), (16, 48), (8, 48), (16, 12)])
 def test_bn_fwd_route_by_dtype_and_shape(heads, dh):
-    assert TT.bn_fwd_route(torch.float32, heads, dh) == "cuda_core"
+    want32 = "tensor_core_f32" if (heads, dh) in TENSOR_CORE_F32 else "cuda_core"
+    assert TT.bn_fwd_route(torch.float32, heads, dh) == want32
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
     assert TT.bn_fwd_route(torch.bfloat16, heads, dh) == want
     assert TT.BN_FWD_TC_SHAPES == TENSOR_CORE
+    assert TT.BN_FWD_F32_SHAPES == TENSOR_CORE_F32
 
 
 def test_bn_fwd_on_cpu_is_the_plain_version():

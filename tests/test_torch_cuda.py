@@ -501,8 +501,8 @@ def test_bwd_lite_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k)
 
 @pytest.mark.parametrize("dh", [12, 48, 192])
 def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
-    """Lite's classes in float32: kernels 2 and 4 on the CUDA cores, kernel
-    3 on its f32 tensor-core route."""
+    """Lite's classes in float32: kernels 2, 4 and 3 each on its f32
+    tensor-core route, none on the CUDA cores."""
     args = _bwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2, True)
     before = (dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches),
               dict(TT.train_fwd.route_launches))
@@ -510,12 +510,10 @@ def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
     TT.bn_fwd(args[0], args[1], args[2], args[7], 0.2)
     TT.train_fwd(*_fwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2))
     torch.cuda.synchronize()
-    assert TT.train_fwd_route(torch.float32, 4, dh) == "cuda_core"
-    assert TT.train_bwd.route_launches == {
-        **before[0], "tensor_core_f32": before[0]["tensor_core_f32"] + 1}
-    assert TT.bn_fwd.route_launches == {**before[1], "cuda_core": before[1]["cuda_core"] + 1}
-    assert TT.train_fwd.route_launches == {
-        **before[2], "cuda_core": before[2]["cuda_core"] + 1}
+    assert TT.train_fwd_route(torch.float32, 4, dh) == "tensor_core_f32"
+    for counter, was in zip((TT.train_bwd, TT.bn_fwd, TT.train_fwd), before):
+        assert counter.route_launches == {
+            **was, "tensor_core_f32": was["tensor_core_f32"] + 1}
 
 
 # lite's classes in f32 (kernel 3's split-precision route): LITE_CASES and
@@ -611,8 +609,7 @@ def test_bn_fwd_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k
     before = dict(TT.bn_fwd.route_launches)
     got = TT.bn_fwd(q, k, v, seed, rate)
     torch.cuda.synchronize()
-    assert TT.bn_fwd.route_launches == {
-        "cuda_core": before["cuda_core"], "tensor_core": before["tensor_core"] + 1}
+    assert TT.bn_fwd.route_launches == {**before, "tensor_core": before["tensor_core"] + 1}
     for a, b, tol in zip(got, TT.bn_fwd_plain(q, k, v, seed, rate), BN_FWD_TOLS):
         assert _rel(a, b) <= tol[torch.bfloat16]
 
@@ -647,8 +644,7 @@ def test_bn_fwd_float32_takes_the_cuda_core_route(cuda):
     before = dict(TT.bn_fwd.route_launches)
     TT.bn_fwd(q, k, v, seed, 0.2)
     torch.cuda.synchronize()
-    assert TT.bn_fwd.route_launches == {
-        "cuda_core": before["cuda_core"] + 1, "tensor_core": before["tensor_core"]}
+    assert TT.bn_fwd.route_launches == {**before, "cuda_core": before["cuda_core"] + 1}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core")
 
@@ -814,6 +810,74 @@ def test_fwd_float32_takes_the_cuda_core_route(cuda):
     assert TT.train_fwd.route_launches == {**before, "cuda_core": before["cuda_core"] + 1}
     with pytest.raises(RuntimeError):     # the tensor-core kernels take bfloat16 only
         TT.launch_train_fwd(*args, route="tensor_core")
+
+
+# --- both forwards' f32 tensor-core route at lite's classes (split precision) -----
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_F32_CASES)
+def test_bn_fwd_f32_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate):
+    """Kernel 4's f32 route at lite's classes (q and K split into bf16
+    triples or pairs, A and V_cat into pairs, three MMAs a product) against
+    the plain version at f32's tolerance for S, C, lse and o_norm (f32),
+    counted under its own key; a second call gives the same bits (no
+    atomics)."""
+    assert TT.bn_fwd_route(torch.float32, heads, dh) == "tensor_core_f32"
+    q, k, v, _, _, _, seed = _train_inputs(cuda, torch.float32, batch, heads, dh, n_q, n_k)
+    before = dict(TT.bn_fwd.route_launches)
+    got = TT.bn_fwd(q, k, v, seed, rate)
+    again = TT.launch_bn_fwd(q, k, v, seed, rate, route="tensor_core_f32")
+    torch.cuda.synchronize()
+    assert TT.bn_fwd.route_launches == {
+        **before, "tensor_core_f32": before["tensor_core_f32"] + 1}
+    for a, b, tol in zip(got, TT.bn_fwd_plain(q, k, v, seed, rate), BN_FWD_TOLS):
+        assert a.dtype == torch.float32 and _rel(a, b) <= tol[torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_F32_CASES)
+def test_train_fwd_f32_tensor_core_route_matches_plain(cuda, batch, heads, dh, n_q, n_k, rate):
+    """Kernel 2's f32 route at lite's classes (the same sweep, the head mix
+    from its f32 accumulators) against the plain version at f32's tolerance
+    for out, lse and o_norm (f32), counted under its own key; a second call
+    gives the same bits."""
+    assert TT.train_fwd_route(torch.float32, heads, dh) == "tensor_core_f32"
+    args = _fwd_args(cuda, torch.float32, batch, heads, dh, n_q, n_k, rate)
+    before = dict(TT.train_fwd.route_launches)
+    got = TT.train_fwd(*args)
+    again = TT.launch_train_fwd(*args, route="tensor_core_f32")
+    torch.cuda.synchronize()
+    assert TT.train_fwd.route_launches == {
+        **before, "tensor_core_f32": before["tensor_core_f32"] + 1}
+    for a, b, tol in zip(got, TT.train_fwd_plain(*args), FWD_TOLS):
+        assert a.dtype == torch.float32 and _rel(a, b) <= tol[torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_F32_CASES[::4])
+def test_fwd_f32_routes_agree_on_the_same_inputs(cuda, batch, heads, dh, n_q, n_k):
+    """Both forwards on the f32 tensor-core route and on the CUDA cores, on
+    the same f32 inputs."""
+    q, k, v, m, c, _, seed = _train_inputs(cuda, torch.float32, batch, heads, dh, n_q, n_k)
+    for launch, args, tols in (
+            (TT.launch_bn_fwd, (q, k, v, seed, 0.2), BN_FWD_TOLS),
+            (TT.launch_train_fwd, (q, k, v, v.sum(1), m, c, seed, 0.2), FWD_TOLS)):
+        tc = launch(*args, route="tensor_core_f32")
+        cc = launch(*args, route="cuda_core")
+        for a, b, tol in zip(tc, cc, tols):
+            assert _rel(a, b) <= tol[torch.float32]
+
+
+def test_fwd_f32_tensor_core_routes_take_only_their_classes(cuda):
+    """The forwards' f32 route has no class but lite's and takes no bf16."""
+    for dtype, heads, dh in ((torch.float32, 8, 24), (torch.bfloat16, 4, 48)):
+        q, k, v, m, c, _, seed = _train_inputs(cuda, dtype, 2, heads, dh, 100, 100)
+        with pytest.raises(RuntimeError):
+            TT.launch_bn_fwd(q, k, v, seed, 0.2, route="tensor_core_f32")
+        with pytest.raises(RuntimeError):
+            TT.launch_train_fwd(q, k, v, v.float().sum(1), m, c, seed, 0.2,
+                                route="tensor_core_f32")
 
 
 # --- the frozen-BN forward's identity route (KerasMHA's training calls) -----------

@@ -1,6 +1,7 @@
 """The frozen-BN forward's route choice, its CPU path, the port's frozen-BN
 forward at base's and lite's head counts against the JAX package, and CPU
-emulations of the rounding its tensor-core route does (at 16 heads too).
+emulations of the rounding its tensor-core route does (at 16 heads too),
+and of both forwards' float32 route at lite's classes (split precision).
 
 ``train_fwd_route`` picks the frozen-BN forward's kernels on the card by
 dtype and (heads, dh) alone; on the CPU ``train_fwd`` is the plain version
@@ -18,7 +19,7 @@ import torch
 
 from vit_unet_tpu_torch.models import get_config
 from tests.test_torch_model import one_torch_thread  # noqa: F401
-from tests.test_torch_train_route import _classifier_levels
+from tests.test_torch_train_route import _classifier_levels, _prod3, _prod6
 
 JT = importlib.import_module("vit_unet_tpu.kernels.flash_reattention_train")
 TT = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention_train")
@@ -40,16 +41,19 @@ def _level_shapes():
 
 
 # lite's, base's and large's levels and the classifier's two levels run on
-# the tensor cores in bf16
+# the tensor cores in bf16; in float32 lite's levels alone (split precision)
 TENSOR_CORE = {(4, 12), (4, 48), (4, 192), (8, 24), (8, 96), (8, 384), (16, 12), (16, 48)}
+TENSOR_CORE_F32 = {(4, 12), (4, 48), (4, 192)}
 
 
 @pytest.mark.parametrize("preset,level,heads,dh", _level_shapes())
 def test_train_fwd_route_by_dtype_and_shape(preset, level, heads, dh):
-    assert TT.train_fwd_route(torch.float32, heads, dh) == "cuda_core"
+    want32 = "tensor_core_f32" if (heads, dh) in TENSOR_CORE_F32 else "cuda_core"
+    assert TT.train_fwd_route(torch.float32, heads, dh) == want32
     want = "tensor_core" if (heads, dh) in TENSOR_CORE else "cuda_core"
     assert TT.train_fwd_route(torch.bfloat16, heads, dh) == want
     assert TT.TRAIN_FWD_TC_SHAPES == TENSOR_CORE
+    assert TT.TRAIN_FWD_F32_SHAPES == TENSOR_CORE_F32
 
 
 def test_train_fwd_on_cpu_is_the_plain_version():
@@ -263,3 +267,161 @@ def test_train_fwd16_mix_from_f32_stays_within_tolerance(dh, n, rate):
     assert _rel(lse, lse_w) <= 1e-4
     exact = TT._mix(onorm.double(), m.double(), c.double(), vsum.double(), dh)
     assert _rel(out, exact) < _rel(out_w, exact)
+
+
+@pytest.mark.parametrize("dtype,heads,dh,flag,want", [
+    (torch.float32, 4, 12, False, "tensor_core_f32"),   # lite's levels
+    (torch.float32, 4, 48, False, "tensor_core_f32"),
+    (torch.float32, 4, 192, False, "tensor_core_f32"),
+    (torch.float32, 4, 12, True, "tensor_core_f32"),    # no identity class there
+    (torch.float32, 4, 192, True, "identity_f32"),      # the identity flag still wins
+    (torch.float32, 8, 192, True, "identity_f32"),
+    (torch.float32, 8, 24, False, "cuda_core"),         # base's, the classifier's, other
+    (torch.float32, 16, 12, False, "cuda_core"),
+    (torch.float32, 4, 24, False, "cuda_core"),
+    (torch.float32, 8, 48, False, "cuda_core"),
+    (torch.bfloat16, 4, 12, False, "tensor_core"),      # bf16 keeps its routes
+    (torch.bfloat16, 4, 192, True, "identity_tc"),
+])
+def test_only_lites_f32_forwards_take_the_f32_tensor_core_route(dtype, heads, dh, flag, want):
+    """Float32 calls of both forwards take the f32 tensor-core route (C
+    route 4, counted under its own key) at lite's three classes alone, the
+    classes of the backward's f32 route; with the identity flag the
+    frozen-BN forward's identity route still wins at (4, 192)."""
+    assert TT.train_fwd_route(dtype, heads, dh, identity_mix=flag) == want
+    assert (TT.bn_fwd_route(dtype, heads, dh) == TT.train_fwd_route(dtype, heads, dh)
+            == TT.train_bwd_route(dtype, heads, dh))
+    for wrapper, routes in ((TT.train_fwd, TT.FWD_ROUTES), (TT.bn_fwd, TT.BN_FWD_ROUTES)):
+        assert tuple(wrapper.route_launches) == routes
+        assert routes.index("cuda_core") == 0 and routes[1] == "tensor_core"
+    assert TT.FWD_ROUTES.index(TT.F32_TC_ROUTE) == 4   # the C interface's route 4
+
+
+LOG2E = 1.4426950408889634
+
+
+def _f32_inputs(seed, batch, heads, dh, n):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q = rnd(batch, heads, n, dh) * 3 * dh ** -0.5
+    k, v = rnd(batch, heads, n, dh), rnd(batch, n, heads * dh)
+    m, c = rnd(heads, heads) * heads ** -0.5, rnd(heads) * 0.1
+    return q, k, v, m, c
+
+
+def _f32_route_forward(q, k, v, m, c, seed, rate, scores, prod, online):
+    """(S, C, lse, o_norm, out) as the f32 tensor-core route forms them: the
+    scores q k^T by ``scores``, A = P * mask in f32 and A @ V_cat by
+    ``prod``, S and C from the f32 A, and out mixed from the f32 o_norm.
+    ``online`` (lite's (4, 12) and (4, 48)): per 64-key tile each row's
+    running max m (log2 units) and normaliser l, A, S, C and o_norm taken
+    relative to m and rescaled by 2^(m_old - m_new) when it moves, divided
+    by l at the end; else (4, 192): the log-sum-exp of the row first, from
+    the same scores."""
+    batch, heads, n, dh = q.shape
+    x_all = scores(q, k, "bhnd,bhmd->bhnm") * LOG2E
+    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0
+            else torch.ones(batch, heads, n, n))
+    av = lambda a, v_: prod(a, v_, "bhnm,bmj->bhnj")
+    if online:
+        m_run = torch.full((batch, heads, n), -float("inf"))
+        l, s_acc = torch.zeros(batch, heads, n), torch.zeros(batch, heads, n)
+        c_acc = torch.zeros(batch, heads, heads, n)
+        acc = torch.zeros(batch, heads, n, heads * dh)
+        for k0 in range(0, n, 64):
+            x = x_all[..., k0:k0 + 64]
+            m_new = torch.maximum(m_run, x.amax(-1))
+            alpha = torch.exp2(m_run - m_new)
+            m_run = m_new
+            p = torch.exp2(x - m_run[..., None])
+            a = p * mask[..., k0:k0 + 64]
+            l = l * alpha + p.sum(-1)
+            s_acc = s_acc * alpha + a.sum(-1)
+            c_acc = (c_acc * alpha[:, :, None] * alpha[:, None]
+                     + torch.einsum("bgnm,bhnm->bghn", a, a))
+            acc = acc * alpha[..., None] + av(a, v[:, k0:k0 + 64])
+        s_rows, c_rows = s_acc / l, c_acc / (l[:, :, None] * l[:, None])
+        onorm, lse2 = acc / l[..., None], m_run + torch.log2(l)
+    else:
+        lse2 = torch.logsumexp(x_all / LOG2E, -1) * LOG2E
+        a = torch.exp2(x_all - lse2[..., None]) * mask
+        s_rows, c_rows = a.sum(-1), torch.einsum("bgnm,bhnm->bghn", a, a)
+        onorm = av(a, v)
+    out = TT._mix(onorm, m, c, v.sum(1), dh)
+    return s_rows, c_rows, lse2 / LOG2E, onorm, out
+
+
+def _once(a, b, eq):
+    """einsum ``eq`` of a and b rounded to bf16 once: one bf16 MMA."""
+    return torch.einsum(eq, a.bfloat16().float(), b.bfloat16().float())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh,n", [(12, 130), (48, 100), (192, 70)],
+                         ids=["12-130", "48-100", "192-70"])
+def test_split_precision_keeps_both_f32_forwards_within_their_tolerance(dh, n, rate):
+    """Both forwards' f32 tensor-core route at lite's classes, emulated on
+    the CPU with f32 inputs over partial key tiles: q, K, V_cat and A (after
+    the exp) carried as bf16 triples and both products, q k^T and A @
+    V_cat, as six MMAs (csrc/reattention_bnfwd_tc.cuh, Cfg::F32), the
+    log-sum-exp in the sweep at dh 12 and 48 and before it at dh 192.  S,
+    C, lse, o_norm and out stay within 1e-4 (max|err| / max|plain|, the
+    card's f32 tolerance) of ``bn_fwd_plain`` and ``train_fwd_plain``; the
+    same steps on inputs rounded to bf16 once (one MMA a product) put them
+    more than 1e-4 off."""
+    heads, batch, seed = 4, 2, 9
+    q, k, v, m, c = _f32_inputs(dh + n, batch, heads, dh, n)
+    s_w, c_w, lse_w, onorm_w = TT.bn_fwd_plain(q, k, v, seed, rate)
+    out_w, lse_f, onorm_f = TT.train_fwd_plain(q, k, v, v.sum(1), m, c, seed, rate)
+    assert torch.equal(lse_f, lse_w) and torch.equal(onorm_f, onorm_w)
+    want = (s_w, c_w, lse_w, onorm_w, out_w)
+    worst = {}
+    for split in (False, True):
+        prod = _prod6 if split else _once
+        got = _f32_route_forward(q, k, v, m, c, seed, rate, prod, prod, online=dh < 192)
+        worst[split] = max(_rel(a, b) for a, b in zip(got, want))
+    assert worst[False] > 1e-4 and worst[True] < 1e-4, worst
+
+
+def test_f32_forward_scores_take_triples_at_lites_long_rows():
+    """Why the forwards' scores take q and K as triples: a score's error
+    moves lse, A, and through A S and C directly, and its bound grows with
+    the row's keys.  At 2,048 keys (lite's level has
+    3,136; the card holds 64 images), rate 0, the log-sum-exp in the sweep:
+    from q and K rounded to bf16 once, S, C and lse are more than ten times
+    the f32 tolerance off ``bn_fwd_plain``; from pairs within it, but C by
+    more than a fifth of it; from triples by less than a twentieth."""
+    heads, dh, n = 4, 12, 2048
+    q, k, v, _, _ = _f32_inputs(0, 1, heads, dh, n)
+    # one column of V_cat: o_norm is not held here
+    s_w, c_w, lse_w, _ = TT.bn_fwd_plain(q, k, v[..., :1], None, 0.0)
+    rel = {}
+    for name, scores in (("once", _once), ("pairs", _prod3), ("triples", _prod6)):
+        x = scores(q, k, "bhnd,bhmd->bhnm")
+        lse = torch.logsumexp(x, -1)
+        a = torch.exp(x - lse[..., None])
+        got = (a.sum(-1), torch.einsum("bgnm,bhnm->bghn", a, a), lse)
+        rel[name] = max(_rel(g, w) for g, w in zip(got, (s_w, c_w, lse_w)))
+    assert rel["once"] > 1e-3 and 2e-5 < rel["pairs"] < 1e-4 and rel["triples"] < 5e-6, rel
+
+
+@pytest.mark.parametrize("dh,n", [(48, 256), (192, 196)], ids=["48-256", "192-196"])
+def test_f32_forward_carries_a_and_v_cat_as_triples(dh, n):
+    """Why the f32 route carries A and V_cat as triples too (six MMAs for
+    A @ V_cat, not three of pairs): emulated on the CPU at rate 0.2, o_norm
+    from pairs is more than five times as far from float64 as the plain f32
+    path's own o_norm, from triples less than twice.  The exact-BN step
+    centres o_norm's head mix by the map's batch mean, which nearly cancels
+    it where the maps are nearly uniform, as at initialisation: with A and
+    V_cat as pairs at (4, 192) the gradients of lite's f32 batch-4 exact-BN
+    step were 0.85-2.6 of the largest off float64, against the plain f32
+    path's 0.17 (tools/torch_lite_f32_bn_probe.py, H100 80GB HBM3, 700 W)."""
+    q, k, v, _, _ = _f32_inputs(dh, 2, 4, dh, n)
+    want = TT.bn_fwd_plain(q.double(), k.double(), v.double(), 7, 0.2)[3]
+    plain = _rel(TT.bn_fwd_plain(q, k, v, 7, 0.2)[3], want)
+    x = _prod6(q, k, "bhnd,bhmd->bhnm")
+    a = torch.exp(x - torch.logsumexp(x, -1)[..., None]) * TT.dropout_mask(7, 0.2, 2, 4, n, n)
+    pairs = _rel(_prod3(a, v, "bhnm,bmj->bhnj"), want)
+    triples = _rel(_prod6(a, v, "bhnm,bmj->bhnj"), want)
+    assert pairs > 5 * plain and triples < 2 * plain, (plain, pairs, triples)
+

@@ -85,14 +85,16 @@ def test_train_bwd_route_by_dtype_and_shape(preset, level, heads, dh):
 @pytest.mark.parametrize("heads,dh", sorted(TENSOR_CORE | {(8, 192), (4, 24), (4, 96), (2, 48)}))
 def test_only_lites_f32_backward_takes_the_tensor_cores(heads, dh):
     """Float32: the backward's own route at lite's three classes, counted
-    under its own key; every other f32 class on the CUDA cores, and both
-    forwards on the CUDA cores in f32 everywhere."""
+    under its own key; every other f32 class on the CUDA cores.  Both
+    forwards take their f32 route at the same classes, one set for all
+    three kernels."""
     want = "tensor_core_f32" if (heads, dh) in TENSOR_CORE_F32 else "cuda_core"
     assert TT.train_bwd_route(torch.float32, heads, dh) == want
-    assert TT.train_fwd_route(torch.float32, heads, dh) == "cuda_core"
-    assert TT.bn_fwd_route(torch.float32, heads, dh) == "cuda_core"
-    assert "tensor_core_f32" in TT.train_bwd.route_launches
-    assert "tensor_core_f32" not in TT.train_fwd.route_launches
+    assert TT.train_fwd_route(torch.float32, heads, dh) == want
+    assert TT.bn_fwd_route(torch.float32, heads, dh) == want
+    for wrapper in (TT.train_bwd, TT.train_fwd, TT.bn_fwd):
+        assert "tensor_core_f32" in wrapper.route_launches
+    assert TT.TRAIN_FWD_F32_SHAPES is TT.BN_FWD_F32_SHAPES is TT.TRAIN_BWD_F32_SHAPES
     assert TT.BWD_ROUTES.index("tensor_core_f32") == 4   # the C interface's route 4
 
 

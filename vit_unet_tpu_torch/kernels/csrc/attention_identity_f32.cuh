@@ -128,6 +128,19 @@ __device__ __forceinline__ void mma3(float* c, const uint32_t* a_hi, const uint3
   mma_bf16(c, a_hi, bh0, bh1);
 }
 
+// c += a b in f32 from operands split into triples hi, mid, lo (16 x 16 A
+// fragments, the B fragment pairs of one 8-column tile): the 2^-16 terms
+// lo hi, hi lo, mid mid first, then mid hi, hi mid, hi hi (lo mid, mid lo
+// and lo lo, about 2^-24 of the product, are left out).
+__device__ __forceinline__ void mma6(float* c, const uint32_t* a_hi, const uint32_t* a_mid,
+                                     const uint32_t* a_lo, const uint32_t* b_hi,
+                                     const uint32_t* b_mid, const uint32_t* b_lo) {
+  mma_bf16(c, a_lo, b_hi[0], b_hi[1]);
+  mma_bf16(c, a_hi, b_lo[0], b_lo[1]);
+  mma_bf16(c, a_mid, b_mid[0], b_mid[1]);
+  mma3(c, a_hi, a_mid, b_hi[0], b_hi[1], b_mid[0], b_mid[1]);
+}
+
 // Grid (q tiles, H, B).  q (B, H, Nq, dh) pre-scaled, k (B, H, Nk, dh),
 // v (B, Nk, H dh), all f32; out (B, Nq, H dh) f32, lse (B, H, Nq) f32.
 // DROP: the dropout of seed[0], keep iff bits >> 8 >= thr, kept entries

@@ -66,10 +66,11 @@
 // at (8, 192) and (4, 192), one pass with the dropout writing out and lse and
 // no o_norm: attention_identity_tc.cuh in bf16, attention_identity_f32.cuh in
 // f32 (split precision); and so has the backward, with no head-mix or BN
-// term and no workspace: attention_identity_bwd.cuh in both.  The backward
-// has one more at lite's classes in f32, reattention_bwd_tc.cuh's fused
-// kernel in split precision.  The kernels here are the CUDA-core route, for
-// f32 and every other shape.
+// term and no workspace: attention_identity_bwd.cuh in both.  Each of the
+// three has one more at lite's classes in f32, in split precision (route 4):
+// reattention_bnfwd_tc.cuh's sweep for both forwards, reattention_bwd_tc.cuh's
+// fused kernel for the backward.  The kernels here are the CUDA-core route,
+// for f32 and every other shape.
 
 #include "attention_identity_bwd.cuh"
 #include "attention_identity_f32.cuh"
@@ -716,7 +717,9 @@ extern "C" {
 // reattention_bnfwd_tc.cuh and, at 16 heads, reattention_bnfwd16_tc.cuh
 // only), 2 and 3 the identity mix at (8, 192) and (4, 192) only, 2 in bf16,
 // 3 in f32 (vsum, m_eff, c_eff and onorm are not touched and may be null,
-// the mix is M = I, c = 0).
+// the mix is M = I, c = 0), 4 the tensor cores in f32, split precision, at
+// lite's classes (4, 12), (4, 48), (4, 192) only (reattention_bnfwd_tc.cuh's
+// train_fwd_tc_f32; o_norm and out f32).
 int vit_train_fwd(const void* q, const void* k, const void* v,
                   const float* vsum, const float* m_eff, const float* c_eff,
                   const int64_t* seed, int thr, float scale, float* lse,
@@ -733,6 +736,10 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
                                            nq, nk, dh, s);
   if (route == 3)
     return vit_idf::launch_train(q, k, v, seed, thr, scale, lse, out, batch, heads, nq, nk, dh, s);
+  if (route == 4)
+    return dtype == 0 ? vit_bnfwd::train_fwd_tc_f32(q, k, v, vsum, m_eff, c_eff, seed, thr, scale,
+                                                    lse, onorm, out, batch, heads, nq, nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 && heads == 16)
     return vit_bnfwd16::train_fwd16_tc(q, k, v, vsum, m_eff, c_eff, seed, thr, scale, lse, onorm,
@@ -752,13 +759,20 @@ int vit_train_fwd(const void* q, const void* k, const void* v,
 }
 
 // route: 0 the CUDA cores, 1 the tensor cores (bf16 at the classes of
-// reattention_bnfwd_tc.cuh and, at 16 heads, reattention_bnfwd16_tc.cuh).
+// reattention_bnfwd_tc.cuh and, at 16 heads, reattention_bnfwd16_tc.cuh),
+// 4 the tensor cores in f32, split precision, at lite's classes (4, 12),
+// (4, 48), (4, 192) only (reattention_bnfwd_tc.cuh's bn_fwd_tc_f32; o_norm
+// f32).
 int vit_bn_fwd(const void* q, const void* k, const void* v, const int64_t* seed,
                int thr, float scale, float* lse, void* onorm, float* srow,
                float* crow, int batch, int heads, int nq, int nk, int dh,
                int dtype, int route, void* stream) {
   if (bad_shape(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 4)
+    return dtype == 0 ? vit_bnfwd::bn_fwd_tc_f32(q, k, v, seed, thr, scale, lse, onorm, srow, crow,
+                                                 batch, heads, nq, nk, dh, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 && heads == 16)
     return vit_bnfwd16::bn_fwd16_tc(q, k, v, seed, thr, scale, lse, onorm, srow, crow, batch,

@@ -2,7 +2,8 @@
 // routes of vit_bn_fwd (exact BN) and vit_train_fwd (frozen BN) in
 // flash_reattention_train.cu, at the (heads, dh) classes bn_fwd_tc and
 // train_fwd_tc instantiate: the levels of base and large, and lite's (4
-// heads: dh 12, 48, 192).
+// heads: dh 12, 48, 192); and their float32 routes (route 4) at lite's
+// classes, bn_fwd_tc_f32 and train_fwd_tc_f32 (below).
 //
 // Replaces the Pallas TPU kernels of vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bn_fwd (pallas_call body _bn_fwd_kernel) and ::_fwd (body _fwd_kernel)
@@ -121,6 +122,36 @@
 // The log-sum-exp pass comes first, and is kernel 1's tensor-core pass
 // (reattention_tc.cuh::lse_kernel) at the same classes.
 //
+// Float32 at lite's classes (route 4, Cfg::F32): the same sweep in split
+// precision.  No operand goes through TF32 and no f32 input is rounded to
+// bf16 once: the block reads q, K and V_cat in f32 and splits each element
+// into the bf16 triple hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid), f32's 24 bits, as it stores them (reattention_bwd_tc.cuh's
+// split_rows); A is formed in f32 registers as before and split the same
+// way (put_a).  Both products, the scores and A @ V_cat, take six bf16 MMAs
+// a tile with f32 accumulators (lo hi, hi lo, mid mid, mid hi, hi mid, hi
+// hi: mma6), about f32's own rounding.  S and C still come from the f32 A;
+// o_norm and out are written in f32.  Why triples and not pairs (16 bits,
+// three MMAs): a score's error moves lse, A, S and C directly and grows
+// with the row's keys (at (4, 12)'s 2,048-key rows, emulated in
+// tests/test_torch_train_fwd_route.py, pairs leave C at 2.9e-5 of
+// max|plain|, triples at 2.8e-6); and the exact-BN step centres the head
+// mix of o_norm by the map's batch mean, which nearly cancels it where the
+// maps are nearly uniform, as at initialisation: with A and V_cat as pairs
+// at (4, 192), lite's b64 f32 batch-4 step's gradients were 0.85-2.6 of
+// the largest off float64 against the plain f32 path's 0.17
+// (tools/torch_lite_f32_bn_probe.py, H100 80GB HBM3, 700 W).  The parts do
+// not fit the warps' double buffers, so the block stages each depth chunk
+// of q and K as tiles of all heads ([PARTS][H][rows][LDC]), split by every
+// thread, one barrier before the warps' MMAs (and, with more than one
+// depth chunk, one after); q once a sweep when one chunk holds the depth.
+// The register form keeps the online log-sum-exp; the chunked form (4, 192)
+// has no pass before it in f32: a first sweep of step 1 takes each row's
+// log-sum-exp (lse_tile), then the sweeps run as with the pass's lse.  Its
+// V_cat chunks are one buffer of 64 columns, so the frozen forward's
+// exchange fits the score region.  Shared memory per class is in
+// forward_tc_f32.
+//
 // What bounds it now (H100 80GB HBM3, 700 W, base b64; variants of this
 // source timed in one process by tools/torch_bn_fwd_variants.py).  At
 // N = 784 a call takes ~2.0 ms against a 0.14 ms bound: the LSE pass
@@ -137,6 +168,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "reattention_bwd_tc.cuh"
 #include "reattention_common.cuh"
 #include "reattention_mma.cuh"
 #include "reattention_tc.cuh"
@@ -144,6 +178,9 @@
 
 namespace vit_bnfwd {
 
+using vit_bwd::prod_16x8;
+using vit_bwd::split_rows;
+using vit_idf::mma6;
 using vit_mma::ldsm_x2;
 using vit_mma::ldsm_x2_trans;
 using vit_mma::ldsm_x4;
@@ -161,7 +198,6 @@ constexpr int NW = vit_tile::NW;   // warps per block
 constexpr int NT = vit_tile::NT;   // threads per block
 constexpr int BQ = 16;             // query rows per block
 constexpr int KT = 64;             // keys of a score tile: one Philox window
-constexpr int LDSF = KT + 16;      // f32 pitch of the score tiles
 
 // The frozen forward takes the log-sum-exp itself where all keys fit one
 // key tile (tile_lse); otherwise the log-sum-exp pass runs first.
@@ -170,12 +206,19 @@ __host__ __device__ constexpr bool own_lse(bool mix, int nk) { return mix && nk 
 // MIX_: the frozen forward (head mix into out, no S and C); else exact BN.
 // DC_: the depth chunk of the score product; MINB_: blocks an SM; ONLINE_:
 // exact BN in the register form with the log-sum-exp taken in the sweep
-// (no log-sum-exp pass; probs_tile_online).
+// (no log-sum-exp pass; probs_tile_online).  F32_: float32 inputs and
+// outputs in split precision (see the float32 route above).
 template <int H_, int DH_, int KC_, int PC_, bool MIX_ = false, int DC_ = 32, int MINB_ = 1,
-          bool ONLINE_ = false>
+          bool ONLINE_ = false, bool F32_ = false>
 struct Cfg {
   static constexpr int H = H_, DH = DH_, KC = KC_, PC = PC_, DC = DC_, MINB = MINB_;
-  static constexpr bool MIX = MIX_, ONLINE = ONLINE_;
+  static constexpr bool MIX = MIX_, ONLINE = ONLINE_, F32 = F32_;
+  using T = typename std::conditional<F32, float, bf16>::type;   // inputs, o_norm and out
+  // bf16 tiles of each of q, K, A and V_cat: the value, or F32's triple
+  static constexpr int PARTS = F32 ? 3 : 1;
+  // f32 pitch of the score tiles (F32: 8 columns less, so that lite's (4, 12)
+  // keeps two blocks an SM)
+  static constexpr int LDSF = F32 ? KT + 8 : KT + 16;
   static constexpr int P = H * DH;
   static constexpr int WPH = NW / H;              // warps a head: 1 (8 heads) or 2 (4)
   static constexpr int KTW = KT / WPH;            // keys of a warp's score tile
@@ -183,7 +226,7 @@ struct Cfg {
   static constexpr int NVTW = PCW / 8;            // 8-column tiles of a warp's output
   static constexpr bool RES = PC == P;            // o_norm stays in registers
   static constexpr int NDC = (DH + DC - 1) / DC;  // depth chunks
-  static constexpr int LDC = DC + 8;              // bf16 pitch of a warp's staged q / K rows
+  static constexpr int LDC = DC + 8;              // bf16 pitch of the staged q / K rows
   static constexpr int CH = DH % 8 == 0 ? 8 : 4;  // bf16 a copy (16 or 8 bytes)
   static constexpr int CPR = (DH < DC ? DH : DC) / CH;  // copies a row and chunk
   static constexpr int WARP_ELEMS = (BQ + KTW) * LDC;   // one of a warp's two buffers
@@ -192,14 +235,19 @@ struct Cfg {
   static constexpr int LDV = PC + 8;              // bf16 pitch of a V_cat buffer
   static constexpr int NVT = PC / 8;              // 8-column tiles of a column chunk
   static constexpr int VROWS = RES ? KT : KC;     // keys of a V_cat buffer
-  static constexpr int NVBUF = RES ? 1 : 2;
-  static constexpr int V_ELEMS = VROWS * LDV;
+  static constexpr int NVBUF = RES || F32 ? 1 : 2;
+  static constexpr int V_ELEMS = VROWS * LDV;     // one buffer (F32: one part of it)
+  static constexpr int A_ELEMS = H * BQ * LDA;    // the A tiles (F32: one part of them)
+  // F32: the block's q and K tiles of a depth chunk, [PARTS][H][BQ or KT][LDC]
+  static constexpr int Q_ELEMS = H * BQ * LDC, K_ELEMS = H * KT * LDC;
   static constexpr size_t S_BYTES = sizeof(float) * H * BQ * LDSF;
-  static constexpr size_t A_BYTES = sizeof(bf16) * H * BQ * LDA;
-  static constexpr size_t W_BYTES = sizeof(bf16) * NW * 2 * WARP_ELEMS;
-  static constexpr size_t V_BYTES = sizeof(bf16) * NVBUF * V_ELEMS;
-  // the warps' q / K buffers and the V_cat chunks share a region where
-  // steps 1-2 and step 3 do not overlap
+  static constexpr size_t A_BYTES = sizeof(bf16) * PARTS * A_ELEMS;
+  // the q / K stage: bf16, the warps' own double buffers; F32, the block's tiles
+  static constexpr size_t W_BYTES =
+      F32 ? sizeof(bf16) * PARTS * (Q_ELEMS + K_ELEMS) : sizeof(bf16) * NW * 2 * WARP_ELEMS;
+  static constexpr size_t V_BYTES = sizeof(bf16) * PARTS * NVBUF * V_ELEMS;
+  // the q / K stage and the V_cat chunks share a region where steps 1-2 and
+  // step 3 do not overlap
   static constexpr size_t BODY =
       S_BYTES + A_BYTES + (RES ? W_BYTES + V_BYTES : (W_BYTES > V_BYTES ? W_BYTES : V_BYTES));
   // the frozen forward stages M (H x H) and c (H) once, after the body; the
@@ -210,21 +258,32 @@ struct Cfg {
   static_assert(!ONLINE || RES, "the online log-sum-exp: the register form");
   static_assert(WPH * H == NW && (WPH == 1 || WPH == 2), "a head's warps");
   static_assert(DH % 4 == 0 && DC % 16 == 0 && (DH < DC || DH % DC == 0), "depth chunks");
-  static_assert(DH >= DC || RES, "zero padding of the warp buffers is never overwritten");
+  static_assert(DH >= DC || RES, "zero padding of the q / K stage is never overwritten");
   static_assert(KC % KT == 0 && P % PC == 0 && PCW % 8 == 0, "tiles");
   static_assert(!RES || KC == KT, "the register form keeps one key tile of A");
+  static_assert(!F32 || (WPH == 2 && (ONLINE || !RES)),
+                "the f32 classes are lite's; the register form takes the online log-sum-exp");
   static_assert(SMEM <= 232448, "shared memory of a block");
   // the mix's exchange of the f32 accumulators, [H][BQ][LDX]; a thread mixes
   // up to NMIX column quads of the block's 16 x PC tile.  The register form
   // lays it over the body; the chunked form over the score region where it
-  // fits (8 heads: 64-column chunks), else over the V_cat buffer that step 3
-  // of the chunk has just read (4 heads: 128-column chunks)
+  // fits (8 heads: 64-column chunks; F32 always), else over the V_cat buffer
+  // that step 3 of the chunk has just read (4 heads: 128-column chunks)
   static constexpr int LDX = PC + 8;
   static constexpr size_t X_BYTES = sizeof(float) * H * BQ * LDX;
   static constexpr int NMIX = (BQ * PC / 4 + NT - 1) / NT;
   static constexpr bool X_IN_S = X_BYTES <= S_BYTES;
   static_assert(!MIX || X_BYTES <= (RES ? BODY : X_IN_S ? S_BYTES : sizeof(bf16) * V_ELEMS),
                 "the mix's exchange region");
+  static_assert(!MIX || !F32 || RES || X_IN_S, "the f32 chunked form mixes in the score region");
+  // F32: the tile shapes the split-precision helpers of reattention_bwd_tc.cuh
+  // take: a depth chunk of q (BQ rows) and K (KT rows), and V_cat's columns
+  struct QK {
+    static constexpr int DH = DH_ < DC_ ? DH_ : DC_, LD = DC_ + 8, BKEY = KT, KS = DC_ / 16;
+  };
+  struct VT {
+    static constexpr int DH = PC_, LD = PC_ + 8;
+  };
 };
 
 // The keep bits of thread (row, c) of step 2 for the key tile at k0: bit
@@ -247,6 +306,21 @@ __device__ __forceinline__ uint32_t keep_bits(uint64_t sd, int thr, int b, int r
   return keep;
 }
 
+// A[i] <- x rounded to bf16 (the TPU kernel's p.astype(v.dtype)); F32: the
+// triple hi = bf16(x) at A[i], mid = bf16(x - hi) and lo = bf16(x - hi -
+// mid) C::A_ELEMS and twice that further on.
+template <typename C>
+__device__ __forceinline__ void put_a(bf16* as, int i, float x) {
+  const bf16 hi = __float2bfloat16_rn(x);
+  as[i] = hi;
+  if constexpr (C::F32) {
+    const float r = x - __bfloat162float(hi);
+    const bf16 mid = __float2bfloat16_rn(r);
+    as[C::A_ELEMS + i] = mid;
+    as[2 * C::A_ELEMS + i] = __float2bfloat16_rn(r - __bfloat162float(mid));
+  }
+}
+
 // Step 2 for key tile t (keys k0 .. k0 + 63): thread (r, c) of the block.
 template <typename C>
 __device__ __forceinline__ void probs_tile(const float* ss, bf16* as, int aoff, int k0, int nk,
@@ -262,9 +336,9 @@ __device__ __forceinline__ void probs_tile(const float* ss, bf16* as, int aoff, 
   for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float x = fast_exp2(fmaf(ss[(h * BQ + r) * LDSF + c + 16 * j], LOG2E, -lse2[h]));
+      const float x = fast_exp2(fmaf(ss[(h * BQ + r) * C::LDSF + c + 16 * j], LOG2E, -lse2[h]));
       a[h][j] = (k0 + c + 16 * j < nk && ((keep >> (4 * h + j)) & 1u)) ? x * ks : 0.f;
-      as[(h * BQ + r) * C::LDA + aoff + c + 16 * j] = __float2bfloat16_rn(a[h][j]);
+      put_a<C>(as, (h * BQ + r) * C::LDA + aoff + c + 16 * j, a[h][j]);
     }
   if (C::MIX || !acc_sc) return;
 #pragma unroll
@@ -302,7 +376,7 @@ __device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int
     float x[4], mt = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      x[j] = k0 + c + 16 * j < nk ? ss[(h * BQ + r) * LDSF + c + 16 * j] * LOG2E : -INFINITY;
+      x[j] = k0 + c + 16 * j < nk ? ss[(h * BQ + r) * C::LDSF + c + 16 * j] * LOG2E : -INFINITY;
       mt = fmaxf(mt, x[j]);
     }
 #pragma unroll
@@ -316,7 +390,7 @@ __device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int
       const float pj = fast_exp2(x[j] - mn);   // 0 past Nk
       ps += pj;
       a[h][j] = (keep >> (4 * h + j)) & 1u ? pj * ks : 0.f;
-      as[(h * BQ + r) * C::LDA + c + 16 * j] = __float2bfloat16_rn(a[h][j]);
+      put_a<C>(as, (h * BQ + r) * C::LDA + c + 16 * j, a[h][j]);
     }
     lsum[h] = fmaf(lsum[h], al[h], ps);
     if constexpr (!C::MIX)
@@ -336,6 +410,32 @@ __device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int
     }
 }
 
+// The float32 route's log-sum-exp sweep at the chunked form (no pass
+// before it): for key tile k0, thread (r, c) keeps per head the row's
+// running max m2 of the scores in log2 units (a half-warp's max) and its sum
+// lsum of exp2(s - m2) over its valid keys, as probs_tile_online does.
+template <typename C>
+__device__ __forceinline__ void lse_tile(const float* ss, int k0, int nk, int r, int c,
+                                         float (&m2)[C::H], float (&lsum)[C::H]) {
+#pragma unroll
+  for (int h = 0; h < C::H; ++h) {
+    float x[4], mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[j] = k0 + c + 16 * j < nk ? ss[(h * BQ + r) * C::LDSF + c + 16 * j] * LOG2E : -INFINITY;
+      mt = fmaxf(mt, x[j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    const float mn = fmaxf(m2[h], mt);   // finite: key k0 of the tile is valid
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ps += fast_exp2(x[j] - mn);
+    lsum[h] = fmaf(lsum[h], fast_exp2(m2[h] - mn), ps);
+    m2[h] = mn;
+  }
+}
+
 // acc (16 rows of head h: gq, gq + 8 of this lane) *= f[h][row]
 template <typename C>
 __device__ __forceinline__ void scale_rows(float (&acc)[C::NVTW][4], const float* f, int h,
@@ -352,14 +452,40 @@ __device__ __forceinline__ void scale_rows(float (&acc)[C::NVTW][4], const float
 
 // Step 3, one 16-key step kk: acc (16 rows x PCW columns col0.. of head h)
 // += A (keys 16 kk .. 16 kk + 15 of the A tiles) @ vb (those keys' rows of a
-// V_cat buffer).
+// V_cat buffer).  F32: A and V_cat as triples, their mid and lo parts
+// C::A_ELEMS and C::V_ELEMS apart, six MMAs a tile (mma6).
 template <typename C>
 __device__ __forceinline__ void product_step(const bf16* as, const bf16* vb, int kk, int h,
                                              int col0, int lane, float (&acc)[C::NVTW][4]) {
   uint32_t af[4];
-  ldsm_x4(af, as + (h * BQ + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDA + 8 * (lane / 16) +
-                  16 * kk);
+  const bf16* arow =
+      as + (h * BQ + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDA + 8 * (lane / 16) + 16 * kk;
+  ldsm_x4(af, arow);
   const bf16* vrow = vb + (16 * kk + (lane % 8) + 8 * ((lane / 8) % 2)) * C::LDV + col0;
+  if constexpr (C::F32) {
+    uint32_t am[4], al[4];
+    ldsm_x4(am, arow + C::A_ELEMS);
+    ldsm_x4(al, arow + 2 * C::A_ELEMS);
+#pragma unroll
+    for (int nv = 0; nv + 2 <= C::NVTW; nv += 2) {
+      uint32_t vh[4], vm[4], vl[4];   // b0, b1 of column tile nv, then of nv + 1
+      const bf16* p = vrow + 8 * nv + 8 * (lane / 16);
+      ldsm_x4_trans(vh, p);
+      ldsm_x4_trans(vm, p + C::V_ELEMS);
+      ldsm_x4_trans(vl, p + 2 * C::V_ELEMS);
+      mma6(acc[nv], af, am, al, vh, vm, vl);
+      mma6(acc[nv + 1], af, am, al, vh + 2, vm + 2, vl + 2);
+    }
+    if constexpr (C::NVTW % 2 == 1) {   // the last tile alone (lanes 0-15 address it)
+      uint32_t vh[2], vm[2], vl[2];
+      const bf16* p = vrow + 8 * (C::NVTW - 1);
+      ldsm_x2_trans(vh, p);
+      ldsm_x2_trans(vm, p + C::V_ELEMS);
+      ldsm_x2_trans(vl, p + 2 * C::V_ELEMS);
+      mma6(acc[C::NVTW - 1], af, am, al, vh, vm, vl);
+    }
+    return;
+  }
 #pragma unroll
   for (int nv = 0; nv + 2 <= C::NVTW; nv += 2) {
     uint32_t vf[4];   // b0, b1 of column tile nv, then of nv + 1
@@ -397,18 +523,24 @@ __device__ __forceinline__ void zero_acc(float (&acc)[C::NVTW][4]) {
 }
 
 // acc (rows q0 + 16 rows, columns c0 .. c0 + PCW of head h) -> o_norm, bf16
+// (F32: float32)
 template <typename C>
-__device__ __forceinline__ void store_acc(const float (&acc)[C::NVTW][4], bf16* onorm, int b,
-                                          int q0, int c0, int nq, int h, int lane) {
+__device__ __forceinline__ void store_acc(const float (&acc)[C::NVTW][4], typename C::T* onorm,
+                                          int b, int q0, int c0, int nq, int h, int lane) {
   const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + gq + 8 * r;
     if (row >= nq) continue;
-    bf16* dst = onorm + (((int64_t)b * C::H + h) * nq + row) * C::P + c0 + 2 * t4;
+    typename C::T* dst = onorm + (((int64_t)b * C::H + h) * nq + row) * C::P + c0 + 2 * t4;
 #pragma unroll
-    for (int nv = 0; nv < C::NVTW; ++nv)
-      *reinterpret_cast<uint32_t*>(dst + 8 * nv) = pack_bf16(acc[nv][2 * r], acc[nv][2 * r + 1]);
+    for (int nv = 0; nv < C::NVTW; ++nv) {
+      if constexpr (C::F32)
+        *reinterpret_cast<float2*>(dst + 8 * nv) = make_float2(acc[nv][2 * r], acc[nv][2 * r + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst + 8 * nv) =
+            pack_bf16(acc[nv][2 * r], acc[nv][2 * r + 1]);
+    }
   }
 }
 
@@ -435,7 +567,8 @@ __device__ __forceinline__ void load_vsum(float (&vq)[C::NMIX][4], const float* 
 // it is read until the call returns.
 template <typename C>
 __device__ __forceinline__ void mix_out(const float (&acc)[C::NVTW][4], float* xs, const float* mc,
-                                        const float (&vq)[C::NMIX][4], bf16* out, int b, int q0,
+                                        const float (&vq)[C::NMIX][4], typename C::T* out,
+                                        int b, int q0,
                                         int c0, int nq, int wh, int wcol, int lane, int tid) {
   constexpr int H = C::H, LDX = C::LDX, NQD = C::PC / 4;   // column quads of a row
   const int gq = lane / 4, t4 = lane % 4;
@@ -462,8 +595,11 @@ __device__ __forceinline__ void mix_out(const float (&acc)[C::NVTW][4], float* x
       x[2] = fmaf(w, o.z, x[2]);
       x[3] = fmaf(w, o.w, x[3]);
     }
-    *reinterpret_cast<uint2*>(out + ((int64_t)b * nq + row) * C::P + col) =
-        make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+    typename C::T* dst = out + ((int64_t)b * nq + row) * C::P + col;
+    if constexpr (C::F32)
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
   }
 }
 
@@ -480,7 +616,7 @@ __device__ __forceinline__ void tile_lse(const float* ss, float* lse, int b, int
     float x[4], m = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      x[j] = c + 16 * j < nk ? ss[(h * BQ + r) * LDSF + c + 16 * j] : -INFINITY;
+      x[j] = c + 16 * j < nk ? ss[(h * BQ + r) * C::LDSF + c + 16 * j] : -INFINITY;
       m = fmaxf(m, x[j]);
     }
 #pragma unroll
@@ -498,22 +634,29 @@ __device__ __forceinline__ void tile_lse(const float* ss, float* lse, int b, int
 }
 
 // Grid (q tiles of 16, B).  lse comes from the log-sum-exp pass, except in
-// the frozen forward where all keys fit one key tile: it writes lse itself.
-// Exact BN writes srow and crow; frozen BN (C::MIX) reads vsum, m_eff, c_eff
-// and writes out.  The other mode's pointers are not read.
+// the frozen forward where all keys fit one key tile: it writes lse itself;
+// the online form and the float32 route's chunked form (lse_tile, a sweep of
+// step 1 before the others) take it themselves.  Exact BN writes srow and
+// crow; frozen BN (C::MIX) reads vsum, m_eff, c_eff and writes out.  The
+// other mode's pointers are not read.
 template <typename C>
 __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    float* __restrict__ lse, const int64_t* __restrict__ seed, int thr, float scale,
-    bf16* __restrict__ onorm, float* __restrict__ srow, float* __restrict__ crow,
-    const float* __restrict__ vsum, const float* __restrict__ m_eff,
-    const float* __restrict__ c_eff, bf16* __restrict__ out, int nq, int nk) {
+    const typename C::T* __restrict__ q, const typename C::T* __restrict__ k,
+    const typename C::T* __restrict__ v, float* __restrict__ lse,
+    const int64_t* __restrict__ seed, int thr, float scale, typename C::T* __restrict__ onorm,
+    float* __restrict__ srow, float* __restrict__ crow, const float* __restrict__ vsum,
+    const float* __restrict__ m_eff, const float* __restrict__ c_eff,
+    typename C::T* __restrict__ out, int nq, int nk) {
+  using T = typename C::T;
   constexpr int H = C::H, DH = C::DH, DC = C::DC, LDC = C::LDC, WARP_ELEMS = C::WARP_ELEMS;
   extern __shared__ __align__(128) unsigned char bn_smem[];
   float* ss = reinterpret_cast<float*>(bn_smem);                    // [H][BQ][LDSF] scores
-  bf16* as = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES);         // [H][BQ][LDA] bf16 A
-  bf16* wbuf = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES + C::A_BYTES);  // [NW][2][WARP_ELEMS]
-  bf16* vbuf = C::RES ? wbuf + NW * 2 * WARP_ELEMS : wbuf;          // [NVBUF][VROWS][LDV]
+  bf16* as = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES);         // [PARTS][H][BQ][LDA] A
+  // bf16: [NW][2][WARP_ELEMS], the warps' q / K buffers; F32: the block's q
+  // tile [PARTS][H][BQ][LDC], then its K tile [PARTS][H][KT][LDC]
+  bf16* wbuf = reinterpret_cast<bf16*>(bn_smem + C::S_BYTES + C::A_BYTES);
+  bf16* vbuf = C::RES ? wbuf + C::W_BYTES / sizeof(bf16) : wbuf;   // [PARTS][NVBUF][VROWS][LDV]
+  [[maybe_unused]] bf16* ks = wbuf + C::PARTS * C::Q_ELEMS;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // this warp's head; its key part (step 1) and column part (step 3)
   const int wh = warp / C::WPH, wpart = warp % C::WPH;
@@ -524,24 +667,29 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
   const int er = tid / 16, ec = tid % 16, erow = q0 + er;
   const bool rvalid = erow < nq;
   const bool lse_here = !C::ONLINE && own_lse(C::MIX, nk);
-  // lse2: lse * log2(e) of the row, or with C::ONLINE its running max m2
+  // the float32 chunked form takes the log-sum-exp in a sweep of its own
+  const bool lse_sweep = C::F32 && !C::ONLINE && !lse_here;
+  // lse2: lse * log2(e) of the row, or with C::ONLINE (and in lse_sweep) its
+  // running max m2
   float lse2[H], sacc[H], cacc[C::NPAIR];
   [[maybe_unused]] float lsum[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     if constexpr (C::ONLINE)
       lse2[h] = -INFINITY;
+    else if constexpr (C::F32)
+      lse2[h] = lse_here ? INFINITY : -INFINITY;
     else
       lse2[h] = rvalid && !lse_here ? lse[((int64_t)b * H + h) * nq + erow] * LOG2E : INFINITY;
     sacc[h] = 0.f;
-    if constexpr (C::ONLINE) lsum[h] = 0.f;
+    if constexpr (C::ONLINE || C::F32) lsum[h] = 0.f;
   }
 #pragma unroll
   for (int p = 0; p < C::NPAIR; ++p) cacc[p] = 0.f;
 
   // at dh < 32 the copies never write a row's padding columns, which the
   // MMAs read
-  if constexpr (DH < DC) vit_tile::zero_bf16<NW * 2 * WARP_ELEMS>(wbuf, tid);
+  if constexpr (DH < DC) vit_tile::zero_bf16<C::W_BYTES / sizeof(bf16)>(wbuf, tid);
   [[maybe_unused]] float* mc = reinterpret_cast<float*>(bn_smem + C::BODY);   // frozen BN: M, c
   // C::ONLINE: [H][BQ] alpha of the tile, then [H][BQ] 1 / l
   [[maybe_unused]] float* alpha_s = mc + (C::MIX ? H * H + H : 0);
@@ -550,74 +698,115 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
     if (tid < H * H + H) mc[tid] = tid < H * H ? m_eff[tid] : c_eff[tid - H * H];
   __syncthreads();
 
-  const bf16* qh = q + ((int64_t)b * H + wh) * nq * DH;
-  const bf16* kh = k + ((int64_t)b * H + wh) * nk * DH;
+  const T* qh = q + ((int64_t)b * H + wh) * nq * DH;
+  const T* kh = k + ((int64_t)b * H + wh) * nk * DH;
   bf16* wb = wbuf + warp * 2 * WARP_ELEMS;
   // this warp's stage (key tile t, depth chunk d): q_h rows, then its KTW K_h rows
-  auto load_qk = [&](int t, int d, bf16* dst) {
-    for (int e = lane; e < (BQ + C::KTW) * C::CPR; e += 32) {
-      const int j = e % C::CPR, r = e / C::CPR;
-      const bool isq = r < BQ;
-      const int row = isq ? q0 + r : t * KT + wpart * C::KTW + r - BQ;
-      const bool valid = row < (isq ? nq : nk);
-      const bf16* src = (isq ? qh : kh) + (int64_t)row * DH + d * DC + C::CH * j;
-      cp_async<2 * C::CH>(dst + r * LDC + C::CH * j, valid ? src : q, valid);
+  [[maybe_unused]] auto load_qk = [&](int t, int d, bf16* dst) {
+    if constexpr (!C::F32) {
+      for (int e = lane; e < (BQ + C::KTW) * C::CPR; e += 32) {
+        const int j = e % C::CPR, r = e / C::CPR;
+        const bool isq = r < BQ;
+        const int row = isq ? q0 + r : t * KT + wpart * C::KTW + r - BQ;
+        const bool valid = row < (isq ? nq : nk);
+        const bf16* src = (isq ? qh : kh) + (int64_t)row * DH + d * DC + C::CH * j;
+        cp_async<2 * C::CH>(dst + r * LDC + C::CH * j, valid ? src : q, valid);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
   };
 
   float acc[C::NVTW][4];
   zero_acc<C>(acc);
 
   // Steps 1-2 over key tiles [t0, t1); A of tile t at column (t - t0) KT of
-  // the A tiles; with RES, step 3 after each tile.
-  auto sweep = [&](int t0, int t1, bool acc_sc) {
+  // the A tiles; with RES, step 3 after each tile.  only_lse: step 1 and
+  // lse_tile alone (the float32 chunked form's first sweep).
+  auto sweep = [&](int t0, int t1, bool acc_sc, bool only_lse) {
     const int total = (t1 - t0) * C::NDC;
-    load_qk(t0, 0, wb);
+    if constexpr (!C::F32) load_qk(t0, 0, wb);
     float st[C::KTW / 8][4];
     for (int s = 0; s < total; ++s) {
       const int t = t0 + s / C::NDC, d = s % C::NDC;
-      if (s + 1 < total) {
-        load_qk(t0 + (s + 1) / C::NDC, (s + 1) % C::NDC, wb + ((s + 1) & 1) * WARP_ELEMS);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncwarp();
       if (d == 0) {
 #pragma unroll
         for (int nt = 0; nt < C::KTW / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) st[nt][e] = 0.f;
       }
-      const bf16* buf = wb + (s & 1) * WARP_ELEMS;
-#pragma unroll
-      for (int kq = 0; kq < DC / 16; ++kq) {
-        uint32_t af[4];
-        ldsm_x4(af, buf + ((lane % 8) + 8 * ((lane / 8) % 2)) * LDC + 8 * (lane / 16) + 16 * kq);
+      if constexpr (C::F32) {
+        // the block splits this stage's f32 rows into bf16 parts (q once a
+        // sweep when one chunk holds the depth); the last stage's readers
+        // have passed a barrier since
+        if (C::NDC > 1 || s == 0)
+          split_rows<typename C::QK, BQ, H, C::PARTS>(wbuf, C::Q_ELEMS,
+                                                      q + (int64_t)b * H * nq * DH + d * DC,
+                                                      (int64_t)nq * DH, DH, q0, nq, tid);
+        split_rows<typename C::QK, KT, H, C::PARTS>(ks, C::K_ELEMS,
+                                                    k + (int64_t)b * H * nk * DH + d * DC,
+                                                    (int64_t)nk * DH, DH, t * KT, nk, tid);
+        __syncthreads();   // the stage is in (and, with RES, step 3 of tile t - 1 is done)
 #pragma unroll
         for (int nt = 0; nt < C::KTW / 8; ++nt) {
-          uint32_t bf[2];
-          ldsm_x2(bf, buf + (BQ + 8 * nt + (lane % 8)) * LDC + 8 * ((lane / 8) % 2) + 16 * kq);
-          mma_bf16(st[nt], af, bf[0], bf[1]);
+          float sc[4];
+          prod_16x8<typename C::QK, BQ, C::PARTS>(wbuf, ks, wh, 0, wpart * C::KTW + 8 * nt, lane,
+                                                  sc, C::Q_ELEMS, C::K_ELEMS);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] += sc[e];
         }
+        if (d != C::NDC - 1) {
+          __syncthreads();   // before the next stage's split
+          continue;
+        }
+      } else {
+        if (s + 1 < total) {
+          load_qk(t0 + (s + 1) / C::NDC, (s + 1) % C::NDC, wb + ((s + 1) & 1) * WARP_ELEMS);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+        const bf16* buf = wb + (s & 1) * WARP_ELEMS;
+#pragma unroll
+        for (int kq = 0; kq < DC / 16; ++kq) {
+          uint32_t af[4];
+          ldsm_x4(af, buf + ((lane % 8) + 8 * ((lane / 8) % 2)) * LDC + 8 * (lane / 16) + 16 * kq);
+#pragma unroll
+          for (int nt = 0; nt < C::KTW / 8; ++nt) {
+            uint32_t bf[2];
+            ldsm_x2(bf, buf + (BQ + 8 * nt + (lane % 8)) * LDC + 8 * ((lane / 8) % 2) + 16 * kq);
+            mma_bf16(st[nt], af, bf[0], bf[1]);
+          }
+        }
+        __syncwarp();   // this buffer is refilled two stages on
+        if (d != C::NDC - 1) continue;
       }
-      __syncwarp();   // this buffer is refilled two stages on
-      if (d != C::NDC - 1) continue;
       {
         const int gq = lane / 4, t4 = lane % 4;
 #pragma unroll
         for (int nt = 0; nt < C::KTW / 8; ++nt)
 #pragma unroll
           for (int r = 0; r < 2; ++r)
-            *reinterpret_cast<float2*>(ss + (wh * BQ + gq + 8 * r) * LDSF + wpart * C::KTW +
+            *reinterpret_cast<float2*>(ss + (wh * BQ + gq + 8 * r) * C::LDSF + wpart * C::KTW +
                                        8 * nt + 2 * t4) =
                 make_float2(st[nt][2 * r], st[nt][2 * r + 1]);
       }
       // every head's scores of tile t are stored; everyone is done with the
       // previous tile's A (and, with RES, its V_cat tile)
       __syncthreads();
-      if constexpr (C::RES) load_v<C>(vbuf, v, b, t * KT, KT, 0, nk, tid);
+      if (only_lse) {
+        if constexpr (C::F32) lse_tile<C>(ss, t * KT, nk, er, ec, lse2, lsum);
+        __syncthreads();   // the scores are read
+        continue;
+      }
+      if constexpr (C::RES) {
+        if constexpr (C::F32)
+          split_rows<typename C::VT, KT, 1, C::PARTS>(vbuf, C::V_ELEMS,
+                                                      v + (int64_t)b * nk * C::P, 0, C::P,
+                                                      t * KT, nk, tid);
+        else
+          load_v<C>(vbuf, v, b, t * KT, KT, 0, nk, tid);
+      }
       if (lse_here) tile_lse<C>(ss, lse, b, erow, rvalid, er, ec, nq, nk, lse2);
       // RES keeps one key tile of A; otherwise A of all the sweep's keys
       if constexpr (C::ONLINE)
@@ -626,7 +815,7 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
       else
         probs_tile<C>(ss, as, C::RES ? 0 : (t - t0) * KT, t * KT, nk, b, erow, rvalid, er, ec,
                       sd, thr, scale, lse2, acc_sc, sacc, cacc);
-      if constexpr (C::RES) cp_async_wait<0>();
+      if constexpr (C::RES && !C::F32) cp_async_wait<0>();
       __syncthreads();   // A of tile t is stored (and its V_cat tile has landed)
       if constexpr (C::RES) {
         if constexpr (C::ONLINE) scale_rows<C>(acc, alpha_s, wh, lane);
@@ -638,7 +827,7 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
 
   const int n_tiles = (nk + KT - 1) / KT;
   if constexpr (C::RES) {
-    sweep(0, n_tiles, true);
+    sweep(0, n_tiles, true, false);
     [[maybe_unused]] float vq[C::NMIX][4];
     if constexpr (C::MIX) load_vsum<C>(vq, vsum, b, 0, tid);
     if constexpr (C::ONLINE) {
@@ -663,6 +852,19 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
                  lane, tid);
     }
   } else {
+    if (lse_sweep) {
+      // the log-sum-exp of every row over all keys, before A is formed
+      sweep(0, n_tiles, false, true);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], off);
+        const float v2 = lse2[h] + log2f(lsum[h]);
+        if (rvalid && ec == h) lse[((int64_t)b * H + h) * nq + erow] = v2 / LOG2E;
+        lse2[h] = rvalid ? v2 : INFINITY;
+      }
+    }
     const int n_kc = (nk + C::KC - 1) / C::KC;
     for (int c0 = 0, ci = 0; c0 < C::P; c0 += C::PC, ++ci) {
       [[maybe_unused]] float vq[C::NMIX][4];
@@ -673,21 +875,35 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
         // one key chunk: A once, and the next column chunk's V_cat rows load
         // during this chunk's products
         const bool once = n_kc == 1;
-        if (ci == 0 || !once) sweep(key0 / KT, key0 / KT + (nkeys + KT - 1) / KT, ci == 0);
-        const int buf = once ? ci & 1 : 0;
-        if (ci == 0 || !once) load_v<C>(vbuf + buf * C::V_ELEMS, v, b, key0, 16 * nks, c0, nk, tid);
-        cp_async_wait<0>();
-        __syncthreads();   // this chunk's V_cat rows are in
-        if (once && c0 + C::PC < C::P)
-          load_v<C>(vbuf + (buf ^ 1) * C::V_ELEMS, v, b, key0, 16 * nks, c0 + C::PC, nk, tid);
-        for (int kk = 0; kk < nks; ++kk)
-          product_step<C>(as, vbuf + buf * C::V_ELEMS, kk, wh, wcol, lane, acc);
-        // the V_cat buffer (and the region it shares) is free; with one key
-        // chunk the frozen forward needs no barrier here when the mix's
-        // exchange below uses the score region, which step 3 leaves alone:
-        // the next copy into this buffer starts after the next chunk's first
-        // barrier
-        if (!(C::MIX && once && C::X_IN_S)) __syncthreads();
+        if (ci == 0 || !once)
+          sweep(key0 / KT, key0 / KT + (nkeys + KT - 1) / KT, ci == 0, false);
+        if constexpr (C::F32) {
+          // the one V_cat buffer: this chunk's rows split into hi and lo, then
+          // the products; the region is free since the sweep's last barrier
+          // or the previous chunk's
+          split_rows<typename C::VT, C::KC, 1, C::PARTS>(vbuf, C::V_ELEMS,
+                                                         v + (int64_t)b * nk * C::P + c0, 0,
+                                                         C::P, key0, nk, tid);
+          __syncthreads();   // this chunk's V_cat rows are in
+          for (int kk = 0; kk < nks; ++kk) product_step<C>(as, vbuf, kk, wh, wcol, lane, acc);
+          __syncthreads();   // the V_cat buffer (and the region it shares) is free
+        } else {
+          const int buf = once ? ci & 1 : 0;
+          if (ci == 0 || !once)
+            load_v<C>(vbuf + buf * C::V_ELEMS, v, b, key0, 16 * nks, c0, nk, tid);
+          cp_async_wait<0>();
+          __syncthreads();   // this chunk's V_cat rows are in
+          if (once && c0 + C::PC < C::P)
+            load_v<C>(vbuf + (buf ^ 1) * C::V_ELEMS, v, b, key0, 16 * nks, c0 + C::PC, nk, tid);
+          for (int kk = 0; kk < nks; ++kk)
+            product_step<C>(as, vbuf + buf * C::V_ELEMS, kk, wh, wcol, lane, acc);
+          // the V_cat buffer (and the region it shares) is free; with one key
+          // chunk the frozen forward needs no barrier here when the mix's
+          // exchange below uses the score region, which step 3 leaves alone:
+          // the next copy into this buffer starts after the next chunk's first
+          // barrier
+          if (!(C::MIX && once && C::X_IN_S)) __syncthreads();
+        }
       }
       store_acc<C>(acc, onorm, b, q0, c0 + wcol, nq, wh, lane);
       if constexpr (C::MIX) {
@@ -757,13 +973,14 @@ template <typename C>
 int launch(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
            float scale, float* lse, void* onorm, const Outs& o, int batch, int nq, int nk,
            cudaStream_t stream) {
+  using T = typename C::T;
   cudaError_t err = cudaFuncSetAttribute(
       bnfwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   bnfwd_kernel<C><<<dim3((nq + BQ - 1) / BQ, batch), NT, C::SMEM, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), lse,
-      seed, thr, scale, static_cast<bf16*>(onorm), o.srow, o.crow, o.vsum, o.m_eff, o.c_eff,
-      static_cast<bf16*>(o.out), nq, nk);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lse, seed,
+      thr, scale, static_cast<T*>(onorm), o.srow, o.crow, o.vsum, o.m_eff, o.c_eff,
+      static_cast<T*>(o.out), nq, nk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -818,6 +1035,33 @@ int forward_tc(const void* q, const void* k, const void* v, const int64_t* seed,
 #undef VIT_BNFWD
 }
 
+// The float32 route's classes, lite's, in split precision (bnfwd_kernel
+// with Cfg::F32; q, k, v, o_norm and out float32; no log-sum-exp pass).
+// Shared memory a block, either mode, every part a triple, the scores at a
+// pitch of 72 floats:
+//   (4, 12):  scores 18,432 + A 27,648 + q 9,216 + K 36,864 + V_cat tile
+//             21,504 + rescale factors 512 = 114,176 B, two blocks an SM;
+//   (4, 48):  one depth chunk of 48: 18,432 + 27,648 + q 21,504 + K 86,016 +
+//             V_cat 76,800 + 512 = 230,912 B, one block an SM;
+//   (4, 192): A of up to 256 keys 101,376, depth chunks of 48, 64-column
+//             chunks: 18,432 + 101,376 + max(q 21,504 + K 86,016, V_cat
+//             chunk 110,592) = 230,400 B, one block an SM (the frozen
+//             forward's exchange in the score region).
+// The frozen forward adds M and c (80 B).  cudaErrorInvalidValue for any
+// other shape.
+template <bool MIX>
+int forward_tc_f32(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+                   float scale, float* lse, void* onorm, const Outs& o, int batch, int heads,
+                   int nq, int nk, int dh, cudaStream_t stream) {
+#define VIT_BNFWD_F32(...) \
+  launch<Cfg<__VA_ARGS__>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, stream)
+  if (heads == 4 && dh == 12) return VIT_BNFWD_F32(4, 12, 64, 48, MIX, 16, 2, true, true);
+  if (heads == 4 && dh == 48) return VIT_BNFWD_F32(4, 48, 64, 192, MIX, 48, 1, true, true);
+  if (heads == 4 && dh == 192) return VIT_BNFWD_F32(4, 192, 256, 64, MIX, 48, 1, false, true);
+  return static_cast<int>(cudaErrorInvalidValue);
+#undef VIT_BNFWD_F32
+}
+
 // Exact BN: lse, o_norm, S and C.
 inline int bn_fwd_tc(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
                      float scale, float* lse, void* onorm, float* srow, float* crow, int batch,
@@ -835,6 +1079,25 @@ inline int train_fwd_tc(const void* q, const void* k, const void* v, const float
   return forward_tc<true>(q, k, v, seed, thr, scale, lse, onorm,
                           Outs{nullptr, nullptr, vsum, m_eff, c_eff, out}, batch, heads, nq,
                           nk, dh, stream);
+}
+
+// The float32 route (route 4 of vit_bn_fwd and vit_train_fwd): exact BN.
+inline int bn_fwd_tc_f32(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+                         float scale, float* lse, void* onorm, float* srow, float* crow,
+                         int batch, int heads, int nq, int nk, int dh, cudaStream_t stream) {
+  return forward_tc_f32<false>(q, k, v, seed, thr, scale, lse, onorm,
+                               Outs{srow, crow, nullptr, nullptr, nullptr, nullptr}, batch,
+                               heads, nq, nk, dh, stream);
+}
+
+// The float32 route: frozen BN.
+inline int train_fwd_tc_f32(const void* q, const void* k, const void* v, const float* vsum,
+                            const float* m_eff, const float* c_eff, const int64_t* seed, int thr,
+                            float scale, float* lse, void* onorm, void* out, int batch,
+                            int heads, int nq, int nk, int dh, cudaStream_t stream) {
+  return forward_tc_f32<true>(q, k, v, seed, thr, scale, lse, onorm,
+                              Outs{nullptr, nullptr, vsum, m_eff, c_eff, out}, batch, heads, nq,
+                              nk, dh, stream);
 }
 
 }  // namespace vit_bnfwd

@@ -247,10 +247,7 @@ __device__ __forceinline__ void prod_16x8(const bf16* a, const bf16* bt, int h, 
       ldsm_x2(x2, brow + 2 * b_lo + 16 * ks);
       ldsm_x4(am, arow + a_lo + 16 * ks);
       ldsm_x2(bm, brow + b_lo + 16 * ks);
-      mma_bf16(s, x4, bf[0], bf[1]);
-      mma_bf16(s, af, x2[0], x2[1]);
-      mma_bf16(s, am, bm[0], bm[1]);
-      vit_idf::mma3(s, af, am, bf[0], bf[1], bm[0], bm[1]);
+      vit_idf::mma6(s, af, am, x4, bf, bm, x2);
     } else if constexpr (PARTS == 2) {
       uint32_t al[4], bl[2];
       ldsm_x4(al, arow + a_lo + 16 * ks);

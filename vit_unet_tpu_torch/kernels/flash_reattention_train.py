@@ -10,7 +10,7 @@ beside it and a launch counter:
 
 * ``train_fwd``  <- ``_fwd`` (:363): frozen-BN forward, writes the mixed
   ``out``, the pre-dropout ``lse`` (B, H, Nq) f32 and ``o_norm``
-  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Four
+  (B, H, Nq, H*dh) = A_h @ V_cat per head, in the storage type.  Five
   routes, named by ``train_fwd_route``: for the identity head mix (M = I,
   c = 0, the keras attention's, where the caller says so with
   ``identity_mix=True``) at ``IDENTITY_TC_SHAPES``, ``identity_tc``
@@ -25,12 +25,13 @@ beside it and a launch counter:
   at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep; at the
   classifier's (16, 12) and (16, 48), ``csrc/reattention_bnfwd16_tc.cuh``'s
   frozen mode, at (16, 12) with the log-sum-exp taken in the sweep) for
-  bfloat16 at ``TRAIN_FWD_TC_SHAPES``;
-  ``cuda_core`` (f32 FMAs, the mix from the stored o_norm) for float32 and
-  every other shape;
+  bfloat16 at ``TRAIN_FWD_TC_SHAPES``; ``tensor_core_f32`` (the same sweep
+  in split precision, below) for float32 at ``TRAIN_FWD_F32_SHAPES``;
+  ``cuda_core`` (f32 FMAs, the mix from the stored o_norm) for every other
+  float32 call and every other shape;
 * ``bn_fwd``     <- ``_bn_fwd`` (:741): exact-BN sweep, writes ``lse``,
   ``o_norm`` and the rows S (B, H, Nq) = sum_m A_h, C (B, H, H, Nq) =
-  sum_m A_h2 A_h3, f32, with no head mix.  Two routes, named by
+  sum_m A_h2 A_h3, f32, with no head mix.  Three routes, named by
   ``bn_fwd_route`` from the input dtype and (heads, dh): ``tensor_core``
   (``csrc/reattention_bnfwd_tc.cuh``, at lite's 4-head levels with two warps
   a head, at (4, 12) and (4, 48) with the log-sum-exp taken in the sweep
@@ -39,8 +40,12 @@ beside it and a launch counter:
   log-sum-exp in the sweep too) for bfloat16 at ``BN_FWD_TC_SHAPES``,
   the scores and A @ V_cat as bf16 MMAs, S and C from the f32
   probabilities (at 16 heads C as an MMA of A carried as bf16 pairs
-  hi + lo), A rounded to bf16 once for the product; ``cuda_core`` (f32
-  FMAs) for float32 and every other shape;
+  hi + lo), A rounded to bf16 once for the product; ``tensor_core_f32``
+  for float32 at lite's (4, 12), (4, 48), (4, 192) (``BN_FWD_F32_SHAPES``,
+  C route 4: the same sweep with q, K, V_cat and A carried as bf16 triples
+  hi, mid, lo, every product as six bf16 MMAs, o_norm in f32; no TF32);
+  ``cuda_core`` (f32 FMAs) for every other float32 call and every other
+  shape;
 * ``train_bwd``  <- ``_bwd`` (:451): dq, dk, dv (f32) from the residuals,
   the softmax-dot term D and, for exact BN, the dA correction (G, kappa).
   ``train_bwd_route`` names the route a call takes from the input dtype,
@@ -108,12 +113,13 @@ ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
 #: the identity mix's routes (bf16, f32): routes 2 and 3 of the frozen-BN
 #: forward and of the backward
 IDENTITY_ROUTES = ("identity_tc", "identity_f32")
-FWD_ROUTES = ROUTES + IDENTITY_ROUTES
-#: the backward's f32 route at lite's classes: route 4 of the backward
+#: the f32 route at lite's classes: route 4 of each of the three kernels
 F32_TC_ROUTE = "tensor_core_f32"
-BWD_ROUTES = FWD_ROUTES + (F32_TC_ROUTE,)
-#: the backward's routes for a general head mix (``launch_bwd``'s)
-GENERAL_BWD_ROUTES = ROUTES + (F32_TC_ROUTE,)
+#: every route, at its index in the C interface
+FWD_ROUTES = BWD_ROUTES = ROUTES + IDENTITY_ROUTES + (F32_TC_ROUTE,)
+#: the routes for a general head mix (the exact-BN forward's, and
+#: ``launch_bwd``'s)
+BN_FWD_ROUTES = GENERAL_BWD_ROUTES = ROUTES + (F32_TC_ROUTE,)
 
 #: (heads, dh) classes of each training kernel's tensor-core route: the
 #: level shapes of base and large, lite's (4, 12), (4, 48), (4, 192) and the
@@ -122,11 +128,13 @@ LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
 HEAD16_TC_SHAPES = frozenset({(16, 12), (16, 48)})
 TRAIN_FWD_TC_SHAPES = BN_FWD_TC_SHAPES = TRAIN_BWD_TC_SHAPES = (
     frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES | HEAD16_TC_SHAPES)
-#: (heads, dh) classes of the backward's f32 tensor-core route: lite's
-TRAIN_BWD_F32_SHAPES = LITE_TC_SHAPES
+#: (heads, dh) classes of each training kernel's f32 tensor-core route: lite's
+TRAIN_FWD_F32_SHAPES = BN_FWD_F32_SHAPES = TRAIN_BWD_F32_SHAPES = LITE_TC_SHAPES
 
 
-def _route(shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
+def _route(shapes, f32_shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
+    if dtype == torch.float32 and (heads, dh) in f32_shapes:
+        return F32_TC_ROUTE
     return ("tensor_core" if dtype == torch.bfloat16 and (heads, dh) in shapes
             else "cuda_core")
 
@@ -139,16 +147,18 @@ def train_fwd_route(dtype: torch.dtype, heads: int, dh: int,
                     identity_mix: bool = False) -> str:
     """The route a CUDA frozen-BN forward with these inputs takes: the only
     place it is chosen, by dtype, shape and the caller's ``identity_mix``
-    flag alone (never by reading the head mix)."""
+    flag alone (never by reading the head mix).  The flag matters only at
+    ``IDENTITY_TC_SHAPES``; elsewhere float32 at ``TRAIN_FWD_F32_SHAPES``
+    takes the f32 tensor-core route."""
     if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
         return _identity_route(dtype)
-    return _route(TRAIN_FWD_TC_SHAPES, dtype, heads, dh)
+    return _route(TRAIN_FWD_TC_SHAPES, TRAIN_FWD_F32_SHAPES, dtype, heads, dh)
 
 
 def bn_fwd_route(dtype: torch.dtype, heads: int, dh: int) -> str:
     """The route a CUDA ``bn_fwd`` call with these inputs takes: the only
     place it is chosen, and by dtype and shape alone."""
-    return _route(BN_FWD_TC_SHAPES, dtype, heads, dh)
+    return _route(BN_FWD_TC_SHAPES, BN_FWD_F32_SHAPES, dtype, heads, dh)
 
 
 def train_bwd_route(dtype: torch.dtype, heads: int, dh: int,
@@ -161,9 +171,7 @@ def train_bwd_route(dtype: torch.dtype, heads: int, dh: int,
     tensor-core route."""
     if identity_mix and (heads, dh) in IDENTITY_TC_SHAPES:
         return _identity_route(dtype)
-    if dtype == torch.float32 and (heads, dh) in TRAIN_BWD_F32_SHAPES:
-        return F32_TC_ROUTE
-    return _route(TRAIN_BWD_TC_SHAPES, dtype, heads, dh)
+    return _route(TRAIN_BWD_TC_SHAPES, TRAIN_BWD_F32_SHAPES, dtype, heads, dh)
 
 
 # --- the dropout mask ---------------------------------------------------------
@@ -561,7 +569,7 @@ def launch_train_fwd(q, k, v_cat, vsum, m_eff, c_eff, seed, rate: float = 0.0,
                 k.data_ptr(), v_cat.data_ptr(), vsum.data_ptr(), m32.data_ptr(),
                 c32.data_ptr(), seed_ptr, thr, scale, lse.data_ptr(),
                 onorm.data_ptr(), out.data_ptr(), batch, heads, n_q,
-                k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], ROUTES.index(route),
+                k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], FWD_ROUTES.index(route),
                 _stream(dev))
     return out, lse, onorm
 
@@ -651,7 +659,7 @@ def launch_bn_fwd(q, k, v_cat, seed, rate: float = 0.0, *, route: str):
                 v_cat.data_ptr(), seed_ptr, thr, scale, lse.data_ptr(),
                 onorm.data_ptr(), s_rows.data_ptr(), c_rows.data_ptr(), batch,
                 heads, n_q, k.shape[2], dh, SUPPORTED_DTYPES[q.dtype],
-                ROUTES.index(route), _stream(dev))
+                FWD_ROUTES.index(route), _stream(dev))
     return s_rows, c_rows, lse, onorm
 
 
@@ -793,7 +801,7 @@ def train_bwd_identity(q, k, v_cat, lse, g, d, seed, rate: float = 0.0,
 train_fwd.launches = 0
 train_fwd.route_launches = dict.fromkeys(FWD_ROUTES, 0)
 bn_fwd.launches = 0
-bn_fwd.route_launches = dict.fromkeys(ROUTES, 0)
+bn_fwd.route_launches = dict.fromkeys(BN_FWD_ROUTES, 0)
 train_bwd.launches = 0
 train_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
