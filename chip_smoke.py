@@ -15,12 +15,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    bfloat16, with times and the least time the card could take (``bound``):
    the eval kernel (2a: also one rectangular case and 16-head cases, a
    peaked map, a handful of keys and a single query; each on the route
-   ``kernel_route`` names, float32 on the CUDA cores, bfloat16 on the tensor
+   ``kernel_route`` names, float32 on the CUDA cores but at lite's classes
+   (the split-precision tensor-core route), bfloat16 on the tensor
    cores; at the main path's shapes both routes in turns, each pass alone,
    and ``scaled_dot_product_attention`` as a reading of the two products'
    cost; and at lite's three level shapes at b64 against the plain version
    built 8 images at a time, beside its time, the bound and SDPA's, in
-   bfloat16 and, on its CUDA-core route, in float32), and the
+   bfloat16 and in float32, there also in turns against the CUDA-core
+   route on the same inputs, two calls bit for bit, and over
+   ``LITE_CASES``), and the
    three training kernels (2b) at dropout rate 0 and 0.2,
    plus the autograd Functions' gradients against torch autograd of the
    N x N forward with the same dropout mask; every kernel and Function also
@@ -53,9 +56,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    bits read back);
    kernels 2, 3 and 4 at lite's tensor-core classes (4, 12), (4, 48), (4, 192)
    (``LITE_CASES``: each level's N, N 3,136 at B2, ragged, more queries than
-   keys, a single query; rates 0 and 0.2, BN term off and on; against plain
-   and the CUDA-core route; both forwards' dropout bits read back, their two
-   smaller levels at b64 too), and at b64 at lite's three level
+   keys, a single query, at dh 192 more than 256 keys; rates 0 and 0.2, BN
+   term off and on; against plain and the CUDA-core route; both forwards'
+   dropout bits read back, their two smaller levels at b64 too), and at b64
+   at lite's three level
    shapes through the counted wrappers against the plain version (built 8
    images at a time), two calls bit for bit where no atomics sum, per call
    on both routes in turns beside the plain's time and the bound; kernels
@@ -83,6 +87,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``conv_token_matrix``) held against each other and timed per call in
    turns at base's three level widths in bf16 and f32, with the gate
    ``qkv_form`` chose, and the whole forward with each form held in turns;
+   then lite as the CLI builds it by default (224², float32) served through
+   ``Predictor``, every kernel-1 launch (8 a forward) on the f32
+   tensor-core route, the kernel path against the plain path at batch 8,
+   the b64 forward and ``Predictor`` timed in turns with kernel 1 held on
+   the CUDA-core route, and the forward's device time by kernel;
 4. training: the base preset at full width (224², bf16, batch 64, AdamW
    1e-4 with weight decay 1e-4, x ~ N(0, 1), y = 0.9 x): 2 + 10 exact-BN
    steps and 5 frozen-BN steps through ``build_step_functions`` with the
@@ -124,8 +133,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    exactly), ``run_denoising.main`` in this process for denoise (base,
    224², bf16, ``--flash``, batch 16, 2 epochs, the first frozen BN),
    deblur, derain and segment (1 epoch each) and the default lite model
-   (1 epoch, every launch of kernels 1, 4 and 3 on the tensor cores, and
-   kernel 2's route there named the tensor cores too), with
+   (1 epoch in bf16, every launch of kernels 1, 4 and 3 on the tensor cores,
+   and kernel 2's route there named the tensor cores too; 1 epoch in its
+   default dtype, float32, every launch of kernels 1, 4 and 3 on the
+   split-precision tensor-core routes), with
    each epoch's launches by route, img/s and idle share;
    then ``export_predictor`` / ``load_predictor`` of the trained model at
    b64 against ``Predictor`` (bit for bit, launches through the program),
@@ -365,9 +376,11 @@ def bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=True,
     once) over HBM bandwidth vs operations (scores, head mix, product with
     V) over the peak rate for the input type.  ``mix=False``: the identity
     mix, which the function does not need (no w, b, no mix operations).
-    ``split``: the f32 identity route, whose products are issued as three
-    bf16 MMAs each on the tensor cores: its operations are those it issues,
-    3 x 4 A dh, over the bf16 peak."""
+    ``split``: the f32 split-precision routes (the identity route and
+    ``tensor_core_f32``), whose products run as bf16 MMAs on the tensor
+    cores: the function's operations three times (three bf16 MMAs a
+    product, the least a split-precision product takes) over the bf16
+    peak."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (item * (batch * heads * (n_q + n_k) * dh + batch * n_k * heads * dh
                       + batch * n_q * heads * dh)
@@ -419,7 +432,7 @@ def check_kernel(batch, heads, dh, n_q, n_k, dtype, seed=0, reps=10,
                                            identity_mix=identity_mix), reps)
     plain = time_ms(lambda: flash_reattention_plain(*args, num_heads=heads), reps)
     t_bytes, t_ops = bound_parts(batch, heads, dh, n_q, n_k, dtype, mix=not identity_mix,
-                                 split=route == "identity_f32")
+                                 split=route in ("identity_f32", "tensor_core_f32"))
     bound, by = bound_of(t_bytes, t_ops)
     name = str(dtype).replace("torch.", "")
     print(f"  B{batch} H{heads} dh{dh} Nq{n_q} Nk{n_k} {name}"
@@ -485,7 +498,10 @@ def time_identity(batch, heads, dh, n, dtype=torch.bfloat16, reps=10):
     from vit_unet_tpu_torch.kernels.flash_reattention import (
         flash_reattention_plain, kernel_route, launch_passes)
     q, k, v, w, b = reattention_inputs(batch, heads, dh, n, n, dtype, 0, identity=True)
-    routes = (kernel_route(dtype, heads, dh), kernel_route(dtype, heads, dh, True))
+    # float32 at (4, 192) without the flag takes tensor_core_f32 since that
+    # route came; the identity route is held against the CUDA cores there too
+    routes = ("tensor_core" if dtype == torch.bfloat16 else "cuda_core",
+              kernel_route(dtype, heads, dh, True))
     outs = {r: torch.empty(batch, n, heads * dh, dtype=dtype, device="cuda") for r in routes}
     lses = {r: torch.empty(batch, heads, n, device="cuda") for r in routes}
     run = lambda r: launch_passes(q, k, v, w, b, lses[r], outs[r], route=r)
@@ -525,14 +541,20 @@ def phase_environment(sources):
 
 def lite_eval(dtype=torch.bfloat16):
     """Kernel 1 at lite's three level shapes at b64 in ``dtype`` (bf16: the
-    tensor cores; float32: the CUDA cores), through its counted wrapper on
-    the route ``kernel_route`` names, against its plain version built
-    LITE_SLICE images at a time (eval draws no dropout, so a slice is the
-    call's own), per call beside the plain version's time, the bound and
-    ``scaled_dot_product_attention``'s (not the same function: what the two
-    products alone cost).  Returns {class: row}."""
+    tensor cores; float32: the split-precision tensor-core route), through
+    its counted wrapper on the route ``kernel_route`` names, against its
+    plain version built LITE_SLICE images at a time (eval draws no dropout,
+    so a slice is the call's own), per call beside the plain version's time,
+    the bound and ``scaled_dot_product_attention``'s (not the same function:
+    what the two products alone cost).  Float32 also: a second call bit for
+    bit, the route and the CUDA-core route on the same inputs in turns (old,
+    new, new, old), held against each other; its bound counts the
+    function's work as three bf16 MMAs a product (the least a
+    split-precision product takes; the route's triples take six), as the
+    f32 identity route's bound does, and the same work at the f32 peak is
+    printed beside it.  Returns {class: row}."""
     from vit_unet_tpu_torch.kernels.flash_reattention import (
-        flash_reattention, flash_reattention_plain, kernel_route)
+        flash_reattention, flash_reattention_plain, kernel_route, launch_passes)
     res = {}
     card = card_line()
     for heads, dh, n, calls in LITE_LEVELS:
@@ -550,20 +572,42 @@ def lite_eval(dtype=torch.bfloat16):
             for i in range(0, BATCH, LITE_SLICE)])
         err, rel = rel_err(got, sliced())
         require(f"lite eval [{route}] B{BATCH} H{heads} dh{dh} N{n}", rel, TOL[dtype])
+        turns = []
+        if dtype == torch.float32:
+            if not torch.equal(run(), got):
+                raise AssertionError(f"lite eval [{route}] H{heads} dh{dh}: two b64 calls "
+                                     "differ")
+            outs = {r: torch.empty_like(got) for r in ("cuda_core", route)}
+            lses = {r: torch.empty(BATCH, heads, n, device="cuda") for r in outs}
+            call = lambda r: launch_passes(q, k, v, w, b, lses[r], outs[r], route=r)
+            turns = [(r, time_ms(lambda: call(r), 5)) for r in ("cuda_core", route, route,
+                                                                   "cuda_core")]
+            require(f"lite eval [{route}] vs cuda_core H{heads} dh{dh}",
+                    rel_err(outs[route], outs["cuda_core"])[1], TOL[dtype])
+            del outs, lses
         del got
         vh = v.view(BATCH, n, heads, dh).transpose(1, 2)
         row = dict(route=route, err=err, ms=time_ms(run, 10),
                    plain_ms=time_ms(sliced, 2, warmup=0),
                    sdpa_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                        q, k, vh, scale=1.0), 10),
-                   bound=bound_of(*bound_parts(BATCH, heads, dh, n, n, dtype)),
+                   bound=bound_of(*bound_parts(BATCH, heads, dh, n, n, dtype,
+                                               split=route == "tensor_core_f32")),
                    calls_per_forward=calls)
+        if turns:
+            row.update(turns=turns, cuda_core_ms=min(t for r, t in turns if r == "cuda_core"))
         res[f"H{heads} dh{dh} N{n}"] = row
         print(f"    lite H{heads} dh{dh} N{n} B{BATCH} {str(dtype)[6:]} eval [{route}]: "
               f"{row['ms']:.4f} ms "
               f"a call, plain {row['plain_ms']:.4f} ms (by {LITE_SLICE} images), bound "
               f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), sdpa {row['sdpa_ms']:.4f} ms; "
               f"max_abs_err {err:.3e} rel {rel:.3e} [{card}]")
+        if turns:
+            new = min(t for r, t in turns if r == route)
+            print("      in turns: " + ", ".join(f"{r} {t:.4f} ms" for r, t in turns)
+                  + f"; cuda_core / {route} {row['cuda_core_ms'] / new:.2f}x; the same "
+                  f"work at the f32 peak {bound_parts(BATCH, heads, dh, n, n, dtype)[1]:.4f} "
+                  f"ms; two calls bit for bit [{card}]")
     return res
 
 
@@ -591,8 +635,12 @@ def phase_kernels():
                                                     total["t_ops"])
     print(f"  lite's level shapes (B{BATCH}, bf16), a call:")
     total["lite"] = lite_eval()
-    print(f"  lite's level shapes (B{BATCH}, f32, the CUDA-core route), a call:")
+    print(f"  lite's level shapes (B{BATCH}, f32, the split-precision tensor-core route), "
+          "a call:")
     total["lite_f32"] = lite_eval(torch.float32)
+    print("  lite's classes in f32 at ragged and rectangular sizes (LITE_CASES):")
+    checks += [check_kernel(*shape, torch.float32, label="lite", reps=3)
+               for shape in LITE_CASES]
     print("  the identity-mix route (KerasMHA's calls), bf16:")
     ident = [check_kernel(*shape, torch.bfloat16, identity_mix=True, label="identity")
              for shape in IDENTITY_CASES]
@@ -790,8 +838,71 @@ def phase_slice():
     with torch.inference_mode():
         qkv_forms_in_turns(lambda: time_ms(lambda: model(xb), 20),
                            f"base b{BATCH} bf16 forward")
+    del model, pred
+    lite = lite_f32_serving(requests)
     print(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, lite
+
+
+def lite_f32_serving(requests):
+    """Lite as the CLI builds it by default (float32, 224²), served through
+    Predictor: every kernel-1 launch on the f32 tensor-core route (8 a
+    forward), outputs finite, the kernel path against the plain path at
+    batch 8 (MODEL_TOL), the b64 forward and Predictor in turns with kernel
+    1 held on the CUDA-core route, and the forward's device time by kernel.
+    Returns the serving requests' launches."""
+    import importlib
+    from vit_unet_tpu_torch import Predictor, get_vit_unet
+    TK = importlib.import_module("vit_unet_tpu_torch.kernels.flash_reattention")
+    card = card_line()
+    model = get_vit_unet("lite", seed=0)
+    pred = Predictor(model, batch_size=BATCH)
+    forwards = sum(-(-len(x) // BATCH) for x in requests)
+    counts, outs = path_launches(lambda: [pred(x) for x in requests])
+    require_launches(f"lite f32 served, requests {SERVE_SIZES} ({forwards} forwards)",
+                     counts, {"eval": LITE_CALLS * forwards,
+                              "eval_tensor_core_f32": LITE_CALLS * forwards})
+    for x, y in zip(requests, outs):
+        if y.shape != x.shape or not np.isfinite(y).all():
+            raise AssertionError(f"lite f32: bad output for a request of {len(x)}")
+    plain = get_vit_unet("lite", seed=0, use_flash=False)
+    x8 = torch.from_numpy(requests[2][:8]).cuda()
+    with torch.inference_mode():
+        got, want = model(x8), plain(x8)
+    err, rel = rel_err(got, want)
+    print(f"  lite f32 kernel path vs plain path, batch 8: max_abs_err {err:.3e} rel "
+          f"{rel:.3e} (tol {MODEL_TOL:.0e})")
+    require("lite f32 kernel path vs plain path", rel, MODEL_TOL)
+    del plain, got, want
+
+    xb = torch.from_numpy(requests[2]).cuda()
+
+    def rates(label):
+        with torch.inference_mode():
+            ms = time_ms(lambda: model(xb), reps=10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pred(requests[2])
+        serve_ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"  lite b{BATCH} f32 forward [{label}]: {ms:.3f} ms/batch, "
+              f"{BATCH / ms * 1e3:.1f} img/s (device-resident input); Predictor "
+              f"(numpy in/out): {serve_ms:.3f} ms/batch [{card}]")
+        return ms
+
+    held = mock.patch.object(TK, "kernel_route", lambda *a: "cuda_core")
+    turns = []
+    for label in ("cuda_core", "tensor_core_f32", "tensor_core_f32", "cuda_core"):
+        with held if label == "cuda_core" else contextlib.nullcontext():
+            turns.append((label, rates(f"kernel 1 on {label}")))
+    new = min(t for r, t in turns if r == "tensor_core_f32")
+    old = min(t for r, t in turns if r == "cuda_core")
+    print(f"  lite b{BATCH} f32 forward in turns: "
+          + ", ".join(f"{r} {t:.3f} ms" for r, t in turns)
+          + f"; kernel 1 on cuda_core / tensor_core_f32 {old / new:.2f}x [{card}]")
+    device_breakdown(lambda: model(xb), new, "lite f32 forward", inference=True, top=10)
+    del model, pred
+    torch.cuda.empty_cache()
+    return counts
 
 
 def device_rows(run, reps=3, inference=False) -> dict:
@@ -899,7 +1010,7 @@ ATOMIC_FREE_BWD = {(8, 384)}
 LITE_CASES = [(2, 4, 12, 3136, 3136), (2, 4, 12, 100, 130), (2, 4, 12, 200, 96),
               (2, 4, 12, 1, 49), (4, 4, 48, 784, 784), (2, 4, 48, 100, 130),
               (2, 4, 48, 1, 49), (4, 4, 192, 196, 196), (2, 4, 192, 70, 130),
-              (2, 4, 192, 1, 49)]
+              (2, 4, 192, 1, 49), (2, 4, 192, 100, 300), (2, 4, 192, 300, 520)]
 # the forwards at b64 against their plain versions: lite's two smaller levels
 LITE_B64_FWD = [(BATCH, 4, 48, 784, 784), (BATCH, 4, 192, 196, 196)]
 # (batch, heads, dh, N) of the exact-BN forward's dropout-bit read-back at
@@ -907,6 +1018,7 @@ LITE_B64_FWD = [(BATCH, 4, 48, 784, 784), (BATCH, 4, 192, 196, 196)]
 LITE_BITS = [(2, 4, 12, 300), (2, 4, 48, 192), (2, 4, 192, 196)]
 # lite's levels at 224²: (heads, dh, N, calls a train step or forward)
 LITE_LEVELS = [(4, 192, 196, 2), (4, 48, 784, 3), (4, 12, 3136, 3)]
+LITE_CALLS = sum(calls for _, _, _, calls in LITE_LEVELS)   # 8
 # images a plain version holds at a time at b64: at N 3,136 one f32 N x N
 # map of 8 images is 1.3 GB
 LITE_SLICE = 8
@@ -2890,13 +3002,13 @@ def run_cli(task, root, extra, probe, name=None):
     return result, fitted[-1].model, seconds
 
 
-def cli_expected(kernel_routes: dict, steps: int, val_batches: int) -> dict:
+def cli_expected(kernel_routes: dict, steps: int, val_batches: int, calls: int = 12) -> dict:
     """Launches of one CLI epoch: ``steps`` train steps through the named
     training kernels and ``val_batches`` validation forwards through kernel
-    1, each on the route given, 12 a forward (base's calls)."""
+    1, each on the route given, ``calls`` a forward (base's 12, lite's 8)."""
     want = dict.fromkeys(all_launches(), 0)
     for key, route in kernel_routes.items():
-        n = 12 * (val_batches if key == "eval" else steps)
+        n = calls * (val_batches if key == "eval" else steps)
         want[key] = want[f"{key}_{route}"] = n
     return want
 
@@ -2995,6 +3107,28 @@ def phase_entry():
             raise AssertionError(f"lite: launches {got} are not all on {routes}")
         counts.update(got)
         counts.update(all_launches())
+
+        # lite as the CLI runs it by default, float32 (no --dtype): every
+        # launch of kernels 1, 4 and 3 on the split-precision tensor-core
+        # route, in the epoch (validation included) and the final evaluation
+        f32 = "tensor_core_f32"
+        named = {"eval": {TK.kernel_route(torch.float32, h, d) for h, d in lite_levels},
+                 "bn_fwd": {T.bn_fwd_route(torch.float32, h, d) for h, d in lite_levels},
+                 "bwd": {T.train_bwd_route(torch.float32, h, d) for h, d in lite_levels}}
+        if named != {k: {f32} for k in named}:
+            raise AssertionError(f"lite's levels in f32: routes named {named}")
+        p = CliProbe(steps, profiled=False)
+        result, _, secs = run_cli("denoise", root, ["--flash", "--n_epochs", "1"], p,
+                                  name="lite_f32")
+        final = all_launches()
+        print(f"  lite, the CLI's default dtype (f32): {result} in {secs:.1f} s, epoch "
+              f"{p.rates[0]:.1f} img/s over steps 2-{steps} [{card}]")
+        require_launches("lite f32 epoch", p.launches[0], cli_expected(
+            dict.fromkeys(named, f32), steps, val_batches, LITE_CALLS))
+        require_launches("lite f32 final evaluation", final,
+                         cli_expected({"eval": f32}, 0, val_batches, LITE_CALLS))
+        counts.update(p.launches[0])
+        counts.update(final)
 
         # export: the trained base model (f32 parameters, bf16 compute) at b64
         rng = np.random.default_rng(1)
@@ -5474,7 +5608,7 @@ def main(argv=None) -> int:
     if "2b" in phases:
         tk = phase_train_kernels()
     if "3" in phases:
-        launches = phase_slice()
+        launches, lite_serving = phase_slice()
     if "4" in phases:
         train_launches_, _, lite = phase_train()
     if "5" in phases:
@@ -5506,6 +5640,7 @@ def main(argv=None) -> int:
     # TF-flavour model (phase 7: serving, the keras-attention steps and the
     # re-attention variant's steps) and the classifier (phase 8)
     model_paths = {"lite_step": lite["launches"],   # phase 4's lite b64 steps
+                   "lite_f32_serving": lite_serving,   # phase 3's lite served in f32
                    "tf_serving": tf["serving"], "tf_f32_serving": tf["f32_serving"],
                    "tf_train": tf["train"], "tf_f32_train": tf["f32_train"],
                    "tf_variant": tf["variant"],
@@ -5557,8 +5692,8 @@ def main(argv=None) -> int:
         # a rank's keras heads at model 2 (phase 10a), bf16 and f32
         "tp_heads": {tp_shape: {dt: r["flash_reattention"]
                                 for dt, r in tp["kernels"].items()}},
-        # lite's level shapes at b64, bf16 and (on the CUDA cores) f32 (phase 2a)
-        "lite": k["lite"], "lite_f32": k["lite_f32"],
+        # lite's level shapes at b64, bf16 (phase 2a); f32: the next row
+        "lite": k["lite"],
     }]
     # kernel 1's identity route: KerasMHA's bf16 eval calls (phases 7, 11)
     ident = k["identity"]
@@ -5711,6 +5846,25 @@ def main(argv=None) -> int:
                                 + sum(c.get(f"{key}_{r}", 0) for c in model_paths.values())
                                 for r in [c[len(key) + 1:] for c in train_launches_
                                           if c.startswith(key + "_")]})
+    # kernel 1's f32 route at lite's classes: lite's f32 eval (phase 3's
+    # serving, phase 6's default-dtype CLI run, phase 11's serve_model); the
+    # numbers are (4, 12)'s at b64 (phase 2a), the other classes beside; the
+    # bound counts the function's work as three bf16 MMAs a product
+    rows = k["lite_f32"]
+    r12 = rows["H4 dh12 N3136"]
+    by_path_f32 = {"entry": cli_launches["eval_tensor_core_f32"],
+                   **{p: c.get("eval_tensor_core_f32", 0) for p, c in model_paths.items()}}
+    kernels.append({
+        "name": "flash_reattention_lite_f32", "route": "cuda",
+        "source": "vit_unet_tpu_torch/kernels/csrc/reattention_bnfwd_tc.cuh",
+        "replaces": "vit_unet_tpu/kernels/flash_reattention.py:111",
+        "launches": sum(by_path_f32.values()), "launches_by_path": by_path_f32,
+        "max_abs_err": r12["err"], "ms": r12["ms"], "plain_ms": r12["plain_ms"],
+        "bound_ms": r12["bound"][0], "bound_by": r12["bound"][1],
+        # no single PyTorch call mixes attention maps across heads
+        "library_ms": None,
+        # the CUDA-core route on the same f32 inputs, in turns
+        "cuda_core_ms": r12["cuda_core_ms"], "classes": rows})
     # kernels 2, 4 and 3 at lite's classes: phase 4's lite steps (exact and
     # frozen BN), whose every launch is a lite call on the tensor cores; the
     # numbers are (4, 12)'s at b64 (phase 2b), where lite spends most, the

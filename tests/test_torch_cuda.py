@@ -131,6 +131,10 @@ def test_no_keys_gives_zeros_and_infinite_lse(cuda, heads, dh):
 
 
 def test_float32_takes_the_cuda_core_route(cuda):
+    """Float32 at a class other than lite's (here base's (8, 24)) takes the
+    CUDA cores; lite's f32 classes take ``tensor_core_f32``
+    (``test_eval_f32_route_*``)."""
+    assert TK.kernel_route(torch.float32, 8, 24) == "cuda_core"
     args = _eval_inputs(cuda, torch.float32, 2, 8, 24, 100, 100)
     before = dict(TK.flash_reattention.route_launches)
     TK.flash_reattention(*args, num_heads=8)
@@ -417,13 +421,14 @@ HEAD16_BWD_CASES = [
     (2, 16, 48, 196, 196), (2, 16, 12, 784, 784), (2, 16, 48, 100, 130),
     (2, 16, 12, 200, 96), (2, 16, 12, 1, 49),
 ]
-# lite's 4-head classes (kernels 2, 3 and 4 on the tensor cores) at a level N
-# (dh 12 at 1,024 of its 3,136), ragged over partial key tiles and dropout
-# windows, more queries than keys, a single query
+# lite's 4-head classes (kernels 2, 3 and 4 on the tensor cores, kernel 1 in
+# f32 too) at a level N (dh 12 at 1,024 of its 3,136), ragged over partial key
+# tiles and dropout windows, more queries than keys, a single query, and at
+# dh 192 more than one key chunk of 256 (with more than 256 queries too)
 LITE_CASES = [
     (2, 4, 12, 1024, 1024), (2, 4, 12, 100, 130), (2, 4, 12, 200, 96), (2, 4, 12, 1, 49),
     (2, 4, 48, 784, 784), (2, 4, 48, 100, 130), (2, 4, 192, 196, 196), (2, 4, 192, 70, 130),
-    (2, 4, 192, 1, 49),
+    (2, 4, 192, 1, 49), (2, 4, 192, 100, 300), (2, 4, 192, 300, 520),
 ]
 
 
@@ -501,19 +506,86 @@ def test_bwd_lite_classes_write_dk_and_dv_once(cuda, batch, heads, dh, n_q, n_k)
 
 @pytest.mark.parametrize("dh", [12, 48, 192])
 def test_lite_float32_takes_the_cuda_core_routes(cuda, dh):
-    """Lite's classes in float32: kernels 2, 4 and 3 each on its f32
+    """Lite's classes in float32: kernels 1, 2, 4 and 3 each on its f32
     tensor-core route, none on the CUDA cores."""
     args = _bwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2, True)
     before = (dict(TT.train_bwd.route_launches), dict(TT.bn_fwd.route_launches),
-              dict(TT.train_fwd.route_launches))
+              dict(TT.train_fwd.route_launches), dict(TK.flash_reattention.route_launches))
     TT.train_bwd(*args)
     TT.bn_fwd(args[0], args[1], args[2], args[7], 0.2)
     TT.train_fwd(*_fwd_args(cuda, torch.float32, 2, 4, dh, 100, 100, 0.2))
+    TK.flash_reattention(*_eval_inputs(cuda, torch.float32, 2, 4, dh, 100, 100), num_heads=4)
     torch.cuda.synchronize()
     assert TT.train_fwd_route(torch.float32, 4, dh) == "tensor_core_f32"
-    for counter, was in zip((TT.train_bwd, TT.bn_fwd, TT.train_fwd), before):
+    assert TK.kernel_route(torch.float32, 4, dh) == "tensor_core_f32"
+    counters = (TT.train_bwd, TT.bn_fwd, TT.train_fwd, TK.flash_reattention)
+    for counter, was in zip(counters, before):
         assert counter.route_launches == {
             **was, "tensor_core_f32": was["tensor_core_f32"] + 1}
+
+
+@pytest.mark.parametrize("batch,heads,dh,n_q,n_k", LITE_CASES)
+def test_eval_f32_route_matches_plain_and_the_cuda_core_route(cuda, batch, heads, dh, n_q,
+                                                              n_k):
+    """Kernel 1's f32 route at lite's classes (the frozen forward's f32
+    sweep at rate 0, every operand a bf16 triple) against the plain version
+    and route 0 on the same inputs at f32's tolerance, its lse against the
+    scores' log-sum-exp, counted under its own key; a second call gives the
+    same bits (no atomics)."""
+    assert TK.kernel_route(torch.float32, heads, dh) == "tensor_core_f32"
+    q, k, v, w, b = _eval_inputs(cuda, torch.float32, batch, heads, dh, n_q, n_k, 3.0)
+    before = dict(TK.flash_reattention.route_launches)
+    got = TK.flash_reattention(q, k, v, w, b, num_heads=heads)
+    torch.cuda.synchronize()
+    assert TK.flash_reattention.route_launches == {
+        **before, "tensor_core_f32": before["tensor_core_f32"] + 1}
+    assert got.dtype == torch.float32
+    assert _rel(got, TK.flash_reattention_plain(q, k, v, w, b, num_heads=heads)) <= TOL[
+        torch.float32]
+    res = {}
+    for route in ("cuda_core", "tensor_core_f32"):
+        out = torch.empty_like(got)
+        lse = torch.empty(batch, heads, n_q, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        res[route] = (lse, out)
+    torch.cuda.synchronize()
+    ref = torch.logsumexp(q @ k.transpose(-1, -2), dim=-1)
+    assert (res["tensor_core_f32"][0] - ref).abs().max().item() <= 1e-5 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(res["tensor_core_f32"][1], got)
+    assert _rel(res["tensor_core_f32"][1], res["cuda_core"][1]) <= TOL[torch.float32]
+
+
+def test_eval_f32_route_takes_only_its_classes(cuda):
+    """Route 4 takes float32 at lite's three classes, in one pass, and
+    nothing else: no fallback."""
+    def run(dtype, heads, dh, passes=3):
+        q, k, v, w, b = _eval_inputs(cuda, dtype, 2, heads, dh, 64, 64)
+        TK.launch_passes(q, k, v, w, b, torch.empty(2, heads, 64, device=cuda),
+                         torch.empty(2, 64, heads * dh, dtype=dtype, device=cuda),
+                         route="tensor_core_f32", passes=passes)
+    for heads, dh in ((8, 24), (16, 12), (4, 24), (8, 192)):   # f32, not lite's
+        with pytest.raises(RuntimeError):
+            run(torch.float32, heads, dh)
+    with pytest.raises(RuntimeError):     # float32 only
+        run(torch.bfloat16, 4, 12)
+    with pytest.raises(ValueError, match="one pass"):
+        run(torch.float32, 4, 48, passes=1)
+    run(torch.float32, 4, 48)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dh", [12, 48, 192])
+def test_eval_f32_route_no_keys_gives_zeros_and_infinite_lse(cuda, dh):
+    """N_k = 0 on the f32 route and route 0: lse +inf, out all zeros."""
+    q, k, v, w, b = _eval_inputs(cuda, torch.float32, 2, 4, dh, 40, 0)
+    for route in ("cuda_core", "tensor_core_f32"):
+        out = torch.full((2, 40, 4 * dh), 7.0, device=cuda)
+        lse = torch.zeros(2, 4, 40, device=cuda)
+        TK.launch_passes(q, k, v, w, b, lse, out, route=route)
+        torch.cuda.synchronize()
+        assert torch.isinf(lse).all() and (lse > 0).all()
+        assert (out == 0).all()
 
 
 # lite's classes in f32 (kernel 3's split-precision route): LITE_CASES and
@@ -1367,6 +1439,33 @@ def test_exported_program_matches_predictor_on_the_card(cuda, tmp_path):
     after = _launches()["eval"]
     assert after["tensor_core"] - before["tensor_core"] == 2 * FIT_CALLS
     assert after["cuda_core"] == before["cuda_core"]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_exported_lite_f32_program_takes_the_f32_route(cuda, tmp_path):
+    """Lite in float32 (its defaults, im_size 64: (4, 192), (4, 48), (4, 12)
+    at N 16, 64, 256) exported and loaded onto the card: the program records
+    kernel 1 as the operator, every launch takes ``tensor_core_f32``, and
+    its output is Predictor's bit for bit."""
+    import numpy as np
+
+    from vit_unet_tpu_torch import Predictor, get_vit_unet
+    from vit_unet_tpu_torch.serving import PROGRAM, export_predictor, load_predictor
+    model = get_vit_unet("lite", seed=0, device=cuda, im_size=64)
+    x = np.random.default_rng(0).random((5, 3, 64, 64), dtype=np.float32)
+    want = Predictor(model, batch_size=4)(x)
+    export_predictor(model, str(tmp_path), batch_size=4)
+    program = torch.export.load(str(tmp_path / PROGRAM))
+    ops = [n.target for n in program.graph.nodes
+           if n.op == "call_function" and "flash_reattention" in str(n.target)]
+    assert len(ops) == 8 and TK.flash_reattention_op._opoverload in ops
+    loaded = load_predictor(str(tmp_path))
+    before = _launches()["eval"]
+    got = loaded(x)
+    torch.cuda.synchronize()
+    after = _launches()["eval"]
+    assert {r: after[r] - before[r] for r in after} == {
+        **dict.fromkeys(TK.ROUTES, 0), "tensor_core_f32": 2 * 8}   # 2 batches, 8 calls
     np.testing.assert_array_equal(got, want)
 
 

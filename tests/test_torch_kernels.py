@@ -107,7 +107,11 @@ def _level_shapes():
 
 @pytest.mark.parametrize("preset,heads,dh", _level_shapes())
 def test_kernel_route_by_dtype_and_shape(preset, heads, dh):
-    assert TK.kernel_route(torch.float32, heads, dh) == "cuda_core"
+    # float32: lite's levels on the split-precision tensor-core route, every
+    # other level on the CUDA cores
+    want32 = "tensor_core_f32" if preset == "lite" else "cuda_core"
+    assert TK.kernel_route(torch.float32, heads, dh) == want32
+    assert ((heads, dh) in TK.TENSOR_CORE_F32_SHAPES) == (preset == "lite")
     route = TK.kernel_route(torch.bfloat16, heads, dh)
     assert route in TK.ROUTES
     # every level shape of the presets has a tensor-core kernel
@@ -160,10 +164,12 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
 def test_each_library_hashes_its_own_headers():
     from vit_unet_tpu_torch.kernels import _build
     names = lambda src: [p.name for p in _build.source_closure(src)]
+    # the eval source includes the training forward's header for kernel 1's
+    # f32 route at lite's classes, and through it the backward's helpers
     assert names("flash_reattention.cu") == [
         "flash_reattention.cu", "attention_identity_f32.cuh", "attention_identity_tc.cuh",
-        "reattention_common.cuh", "reattention_mma.cuh", "reattention_tc.cuh",
-        "reattention_tiles.cuh"]
+        "reattention_bnfwd_tc.cuh", "reattention_bwd_tc.cuh", "reattention_common.cuh",
+        "reattention_mma.cuh", "reattention_tc.cuh", "reattention_tiles.cuh"]
     assert names("flash_reattention_train.cu") == [
         "flash_reattention_train.cu", "attention_identity_bwd.cuh",
         "attention_identity_f32.cuh", "attention_identity_tc.cuh",

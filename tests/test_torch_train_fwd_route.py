@@ -317,18 +317,19 @@ def _f32_route_forward(q, k, v, m, c, seed, rate, scores, prod, online):
     running max m (log2 units) and normaliser l, A, S, C and o_norm taken
     relative to m and rescaled by 2^(m_old - m_new) when it moves, divided
     by l at the end; else (4, 192): the log-sum-exp of the row first, from
-    the same scores."""
+    the same scores.  N_q (q's) may differ from N_k (k's and v's)."""
     batch, heads, n, dh = q.shape
+    n_k = k.shape[2]
     x_all = scores(q, k, "bhnd,bhmd->bhnm") * LOG2E
-    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n) if rate > 0
-            else torch.ones(batch, heads, n, n))
+    mask = (TT.dropout_mask(seed, rate, batch, heads, n, n_k) if rate > 0
+            else torch.ones(batch, heads, n, n_k))
     av = lambda a, v_: prod(a, v_, "bhnm,bmj->bhnj")
     if online:
         m_run = torch.full((batch, heads, n), -float("inf"))
         l, s_acc = torch.zeros(batch, heads, n), torch.zeros(batch, heads, n)
         c_acc = torch.zeros(batch, heads, heads, n)
         acc = torch.zeros(batch, heads, n, heads * dh)
-        for k0 in range(0, n, 64):
+        for k0 in range(0, n_k, 64):
             x = x_all[..., k0:k0 + 64]
             m_new = torch.maximum(m_run, x.amax(-1))
             alpha = torch.exp2(m_run - m_new)

@@ -95,7 +95,7 @@ def build(name: str) -> ctypes.CDLL:
     if name.startswith("train"):
         lib.vit_train_fwd.argtypes = [p] * 7 + [i, f] + [p] * 3 + [i] * 7 + [p]
     else:
-        lib.vit_flash_reattention.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.vit_flash_reattention.argtypes = [p] * 10 + [i] * 8 + [p]
     return lib
 
 
@@ -138,8 +138,8 @@ def train_call(lib, q, k, v, seed, out, lse):
 def eval_call(lib, q, k, v, out, lse):
     heads = q.shape[1]
     rc = lib.vit_flash_reattention(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
-                                   lse.data_ptr(), out.data_ptr(), BATCH, heads, N, N, 192, 0,
-                                   K1.ROUTES.index("identity_f32"), 3,
+                                   None, None, None, lse.data_ptr(), out.data_ptr(), BATCH,
+                                   heads, N, N, 192, 0, K1.ROUTES.index("identity_f32"), 3,
                                    torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"vit_flash_reattention failed: {rc}")

@@ -113,7 +113,7 @@ def main() -> int:
         print(f"{name}: {'built; ' + info if path else 'did not build: ' + info}")
         if path:
             lib = ctypes.CDLL(str(path))
-            lib.vit_flash_reattention.argtypes = [p] * 7 + [i] * 8 + [p]
+            lib.vit_flash_reattention.argtypes = [p] * 10 + [i] * 8 + [p]
             libs[name] = lib
     if not libs:
         return 1
@@ -132,8 +132,8 @@ def main() -> int:
 
     def call(lib, route, passes):
         return lambda: lib.vit_flash_reattention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), b.data_ptr(),
-            lse.data_ptr(), out.data_ptr(), batch, heads, n, n, dh, 1, route, passes, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), b.data_ptr(), None, None,
+            None, lse.data_ptr(), out.data_ptr(), batch, heads, n, n, dh, 1, route, passes, stream)
 
     ok = {}
     for name, lib in libs.items():

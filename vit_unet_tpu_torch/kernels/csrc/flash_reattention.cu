@@ -12,10 +12,17 @@
 // M and c are read from the expanded epilogue form the public function
 // takes: M[h, h2] = w[h2, h*dh], c[h] = b[h*dh].
 //
-// Four routes, named by the caller (the Python wrapper's kernel_route picks
+// Five routes, named by the caller (the Python wrapper's kernel_route picks
 // one from dtype, shape and whether the caller's head mix is the identity;
 // nothing here falls back):
 //
+//   route 4, tensor cores in split precision, general mix: float32 at lite's
+//     classes (4, 12), (4, 48), (4, 192); one pass, the TPU kernel's form
+//     (online softmax, all heads' f32 accumulators, the mix at the end from
+//     M, c and vsum = sum_m v[m] given compact by the caller), as the frozen
+//     training forward's f32 sweep at rate 0 (reattention_bnfwd_tc.cuh's
+//     eval_fwd_tc_f32: q, K, A, V_cat as bf16 triples, six MMAs a product,
+//     no dropout, no o_norm).
 //   route 3, tensor cores in split precision, identity mix: float32 at
 //     (8, 192) and (4, 192); one pass, each f32 product as three bf16 MMAs of
 //     hi + lo pairs, w and b not read (attention_identity_f32.cuh).
@@ -52,7 +59,8 @@
 // shared-memory loads (8 scalar loads per 16 FMAs in the score
 // tile) and by the synchronous global load and two barriers of each 32-deep
 // chunk at 8 warps per SM, far above the f32 operation count.  Route 1 is
-// the answer to that for bfloat16; route 0 stays as the float32 path.
+// the answer to that for bfloat16, route 4 for float32 at lite's classes;
+// route 0 stays as the float32 path at every other class.
 //
 // Shapes: any Nq, Nk >= 0 with the ragged edges masked in the kernel (no
 // padding copies), Nq != Nk.  All tensors are contiguous; the caller
@@ -60,6 +68,7 @@
 
 #include "attention_identity_f32.cuh"
 #include "attention_identity_tc.cuh"
+#include "reattention_bnfwd_tc.cuh"
 #include "reattention_common.cuh"
 #include "reattention_tc.cuh"
 
@@ -281,12 +290,17 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores, 1 = tensor cores
 // (bfloat16 at the shape classes of reattention_tc.cuh), 2 = tensor cores
 // with the identity mix (bfloat16 at (8, 192) and (4, 192); w and b are not
-// read, passes must be 3), 3 = the same in float32 (split precision).  passes: bit 0 the log-sum-exp pass (writes lse),
-// bit 1 the output pass (reads lse); 3 is the function.  Returns the first
-// CUDA error of the launches (0 on success), or cudaErrorInvalidValue for
-// what the route does not take.
+// read, passes must be 3), 3 = the same in float32 (split precision), 4 =
+// tensor cores in split precision, float32 at (4, 12), (4, 48), (4, 192)
+// (passes must be 3; it reads vsum (B, H*dh) = sum over keys of v, m_eff
+// (H, H) and c_eff (H), the compact head mix, and not w and b; the other
+// routes do not read those three, which may be null).  passes: bit 0 the
+// log-sum-exp pass (writes lse), bit 1 the output pass (reads lse); 3 is
+// the function.  Returns the first CUDA error of the launches (0 on
+// success), or cudaErrorInvalidValue for what the route does not take.
 int vit_flash_reattention(const void* q, const void* k, const void* v,
-                          const float* w, const float* b, float* lse, void* out,
+                          const float* w, const float* b, const float* vsum,
+                          const float* m_eff, const float* c_eff, float* lse, void* out,
                           int batch, int heads, int nq, int nk, int dh,
                           int dtype, int route, int passes, void* stream) {
   if (batch <= 0 || nq <= 0 || nk < 0 || heads <= 0 || heads > MAX_HEADS ||
@@ -294,6 +308,9 @@ int vit_flash_reattention(const void* q, const void* k, const void* v,
       passes > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 4 && dtype == 0 && passes == 3)
+    return vit_bnfwd::eval_fwd_tc_f32(q, k, v, vsum, m_eff, c_eff, lse, out, batch, heads, nq,
+                                      nk, dh, s);
   if (route == 3 && dtype == 0 && passes == 3)
     return vit_idf::launch_eval(q, k, v, lse, out, batch, heads, nq, nk, dh, s);
   if (route == 2 && dtype == 1 && passes == 3)

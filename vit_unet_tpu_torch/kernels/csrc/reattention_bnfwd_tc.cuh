@@ -3,7 +3,9 @@
 // flash_reattention_train.cu, at the (heads, dh) classes bn_fwd_tc and
 // train_fwd_tc instantiate: the levels of base and large, and lite's (4
 // heads: dh 12, 48, 192); and their float32 routes (route 4) at lite's
-// classes, bn_fwd_tc_f32 and train_fwd_tc_f32 (below).
+// classes, bn_fwd_tc_f32 and train_fwd_tc_f32 (below); and kernel 1's float32
+// route at lite's classes, eval_fwd_tc_f32 (route 4 of vit_flash_reattention in
+// flash_reattention.cu), the frozen mode without dropout and o_norm (below).
 //
 // Replaces the Pallas TPU kernels of vit_unet_tpu/kernels/flash_reattention_train.py
 // ::_bn_fwd (pallas_call body _bn_fwd_kernel) and ::_fwd (body _fwd_kernel)
@@ -152,6 +154,16 @@
 // exchange fits the score region.  Shared memory per class is in
 // forward_tc_f32.
 //
+// Eval (Cfg::EVAL, kernel 1's float32 route at lite's classes): kernel 1 is
+// the frozen forward's function at rate 0, out = sum_h2 M o_norm_h2 + c vsum
+// with M, c the eval BatchNorm folded into the head mix, so it runs the
+// frozen mode of the f32 sweep (one pass, the TPU kernel's own form: online
+// softmax, the f32 accumulators of all heads' columns, the mix at the end,
+// vsum summed outside) with the Philox draw compiled out and no o_norm
+// stores (154 MB of f32 a call at (4, 12) b64 that eval never reads); lse is
+// written as every kernel 1 route writes it.  With no keys (nk = 0) it
+// writes out 0 and lse +inf, as kernel 1's other routes do.
+//
 // What bounds it now (H100 80GB HBM3, 700 W, base b64; variants of this
 // source timed in one process by tools/torch_bn_fwd_variants.py).  At
 // N = 784 a call takes ~2.0 ms against a 0.14 ms bound: the LSE pass
@@ -207,12 +219,13 @@ __host__ __device__ constexpr bool own_lse(bool mix, int nk) { return mix && nk 
 // DC_: the depth chunk of the score product; MINB_: blocks an SM; ONLINE_:
 // exact BN in the register form with the log-sum-exp taken in the sweep
 // (no log-sum-exp pass; probs_tile_online).  F32_: float32 inputs and
-// outputs in split precision (see the float32 route above).
+// outputs in split precision (see the float32 route above).  EVAL_: kernel
+// 1's eval form of the frozen forward (no dropout, no o_norm).
 template <int H_, int DH_, int KC_, int PC_, bool MIX_ = false, int DC_ = 32, int MINB_ = 1,
-          bool ONLINE_ = false, bool F32_ = false>
+          bool ONLINE_ = false, bool F32_ = false, bool EVAL_ = false>
 struct Cfg {
   static constexpr int H = H_, DH = DH_, KC = KC_, PC = PC_, DC = DC_, MINB = MINB_;
-  static constexpr bool MIX = MIX_, ONLINE = ONLINE_, F32 = F32_;
+  static constexpr bool MIX = MIX_, ONLINE = ONLINE_, F32 = F32_, EVAL = EVAL_;
   using T = typename std::conditional<F32, float, bf16>::type;   // inputs, o_norm and out
   // bf16 tiles of each of q, K, A and V_cat: the value, or F32's triple
   static constexpr int PARTS = F32 ? 3 : 1;
@@ -264,6 +277,7 @@ struct Cfg {
   static_assert(!F32 || (WPH == 2 && (ONLINE || !RES)),
                 "the f32 classes are lite's; the register form takes the online log-sum-exp");
   static_assert(SMEM <= 232448, "shared memory of a block");
+  static_assert(!EVAL || MIX, "eval is the frozen forward's function at rate 0");
   // the mix's exchange of the f32 accumulators, [H][BQ][LDX]; a thread mixes
   // up to NMIX column quads of the block's 16 x PC tile.  The register form
   // lays it over the body; the chunked form over the score region where it
@@ -288,19 +302,21 @@ struct Cfg {
 
 // The keep bits of thread (row, c) of step 2 for the key tile at k0: bit
 // 4 h + j for key c + 16 j of head h, all four words of one Philox call a
-// head; all kept without dropout or past Nq.
+// head; all kept without dropout or past Nq, and in eval (no draw compiled).
 template <typename C>
 __device__ __forceinline__ uint32_t keep_bits(uint64_t sd, int thr, int b, int row, bool rvalid,
                                               int k0, int c) {
   uint32_t keep = 0xFFFFFFFFu;
-  if (thr > 0 && rvalid) {
-    keep = 0;
-    const uint32_t t = static_cast<uint32_t>(thr);
+  if constexpr (!C::EVAL) {
+    if (thr > 0 && rvalid) {
+      keep = 0;
+      const uint32_t t = static_cast<uint32_t>(thr);
 #pragma unroll
-    for (int h = 0; h < C::H; ++h) {
-      const uint4 w = vit::philox4(sd, b, h, row, (k0 >> 2) + c);
-      keep |= (((w.x >> 8) >= t ? 1u : 0u) | ((w.y >> 8) >= t ? 2u : 0u) |
-               ((w.z >> 8) >= t ? 4u : 0u) | ((w.w >> 8) >= t ? 8u : 0u)) << (4 * h);
+      for (int h = 0; h < C::H; ++h) {
+        const uint4 w = vit::philox4(sd, b, h, row, (k0 >> 2) + c);
+        keep |= (((w.x >> 8) >= t ? 1u : 0u) | ((w.y >> 8) >= t ? 2u : 0u) |
+                 ((w.z >> 8) >= t ? 4u : 0u) | ((w.w >> 8) >= t ? 8u : 0u)) << (4 * h);
+      }
     }
   }
   return keep;
@@ -330,7 +346,7 @@ __device__ __forceinline__ void probs_tile(const float* ss, bf16* as, int aoff, 
                                            float (&sacc)[C::H], float (&cacc)[C::NPAIR]) {
   constexpr int H = C::H;
   const uint32_t keep = keep_bits<C>(sd, thr, b, row, rvalid, k0, c);
-  const float ks = thr > 0 ? scale : 1.f;
+  const float ks = !C::EVAL && thr > 0 ? scale : 1.f;
   float a[H][4];
 #pragma unroll
   for (int h = 0; h < H; ++h)
@@ -369,7 +385,7 @@ __device__ __forceinline__ void probs_tile_online(const float* ss, bf16* as, int
                                                   float* alpha_s) {
   constexpr int H = C::H;
   const uint32_t keep = keep_bits<C>(sd, thr, b, row, rvalid, k0, c);
-  const float ks = thr > 0 ? scale : 1.f;
+  const float ks = !C::EVAL && thr > 0 ? scale : 1.f;
   float a[H][4], al[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
@@ -662,10 +678,19 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
   const int wh = warp / C::WPH, wpart = warp % C::WPH;
   const int wcol = wpart * C::PCW;
   const int q0 = blockIdx.x * BQ, b = blockIdx.y;
-  const uint64_t sd = thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
+  const uint64_t sd = !C::EVAL && thr > 0 ? static_cast<uint64_t>(seed[0]) : 0;
   // step 2's thread: row er, Philox group ec; a row's 16 threads share a half-warp
   const int er = tid / 16, ec = tid % 16, erow = q0 + er;
   const bool rvalid = erow < nq;
+  if constexpr (C::EVAL) {
+    if (nk == 0) {   // no keys: out 0 and lse +inf (the training routes take nk >= 1)
+      for (int e = tid; e < BQ * C::P; e += NT)
+        if (q0 + e / C::P < nq) out[((int64_t)b * nq + q0) * C::P + e] = static_cast<T>(0.f);
+      for (int e = tid; e < H * BQ; e += NT)
+        if (q0 + e % BQ < nq) lse[((int64_t)b * H + e / BQ) * nq + q0 + e % BQ] = INFINITY;
+      return;
+    }
+  }
   const bool lse_here = !C::ONLINE && own_lse(C::MIX, nk);
   // the float32 chunked form takes the log-sum-exp in a sweep of its own
   const bool lse_sweep = C::F32 && !C::ONLINE && !lse_here;
@@ -845,7 +870,7 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
       __syncthreads();
       scale_rows<C>(acc, linv_s, wh, lane);
     }
-    store_acc<C>(acc, onorm, b, q0, wcol, nq, wh, lane);
+    if constexpr (!C::EVAL) store_acc<C>(acc, onorm, b, q0, wcol, nq, wh, lane);
     if constexpr (C::MIX) {
       __syncthreads();   // every warp is done with the A tile and V_cat tile
       mix_out<C>(acc, reinterpret_cast<float*>(bn_smem), mc, vq, out, b, q0, 0, nq, wh, wcol,
@@ -905,7 +930,7 @@ __global__ void __launch_bounds__(NT, C::MINB) bnfwd_kernel(
           if (!(C::MIX && once && C::X_IN_S)) __syncthreads();
         }
       }
-      store_acc<C>(acc, onorm, b, q0, c0 + wcol, nq, wh, lane);
+      if constexpr (!C::EVAL) store_acc<C>(acc, onorm, b, q0, c0 + wcol, nq, wh, lane);
       if constexpr (C::MIX) {
         // the score region is free since this chunk's sweep, and the V_cat
         // buffer step 3 has just read since the barrier above (with one key
@@ -1047,14 +1072,14 @@ int forward_tc(const void* q, const void* k, const void* v, const int64_t* seed,
 //             chunks: 18,432 + 101,376 + max(q 21,504 + K 86,016, V_cat
 //             chunk 110,592) = 230,400 B, one block an SM (the frozen
 //             forward's exchange in the score region).
-// The frozen forward adds M and c (80 B).  cudaErrorInvalidValue for any
-// other shape.
-template <bool MIX>
+// The frozen forward and eval add M and c (80 B).  cudaErrorInvalidValue for
+// any other shape.
+template <bool MIX, bool EVAL = false>
 int forward_tc_f32(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
                    float scale, float* lse, void* onorm, const Outs& o, int batch, int heads,
                    int nq, int nk, int dh, cudaStream_t stream) {
 #define VIT_BNFWD_F32(...) \
-  launch<Cfg<__VA_ARGS__>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, stream)
+  launch<Cfg<__VA_ARGS__, EVAL>>(q, k, v, seed, thr, scale, lse, onorm, o, batch, nq, nk, stream)
   if (heads == 4 && dh == 12) return VIT_BNFWD_F32(4, 12, 64, 48, MIX, 16, 2, true, true);
   if (heads == 4 && dh == 48) return VIT_BNFWD_F32(4, 48, 64, 192, MIX, 48, 1, true, true);
   if (heads == 4 && dh == 192) return VIT_BNFWD_F32(4, 192, 256, 64, MIX, 48, 1, false, true);
@@ -1062,42 +1087,61 @@ int forward_tc_f32(const void* q, const void* k, const void* v, const int64_t* s
 #undef VIT_BNFWD_F32
 }
 
+// The entries are templates only so that a source that includes this header
+// compiles the kernels of the entries it calls and no others (the eval
+// source calls eval_fwd_tc_f32, the training source the other four).
+
 // Exact BN: lse, o_norm, S and C.
-inline int bn_fwd_tc(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
-                     float scale, float* lse, void* onorm, float* srow, float* crow, int batch,
-                     int heads, int nq, int nk, int dh, cudaStream_t stream) {
+template <int = 0>
+int bn_fwd_tc(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+              float scale, float* lse, void* onorm, float* srow, float* crow, int batch,
+              int heads, int nq, int nk, int dh, cudaStream_t stream) {
   return forward_tc<false>(q, k, v, seed, thr, scale, lse, onorm,
                            Outs{srow, crow, nullptr, nullptr, nullptr, nullptr}, batch, heads,
                            nq, nk, dh, stream);
 }
 
 // Frozen BN: lse, o_norm and the mixed out.
-inline int train_fwd_tc(const void* q, const void* k, const void* v, const float* vsum,
-                        const float* m_eff, const float* c_eff, const int64_t* seed, int thr,
-                        float scale, float* lse, void* onorm, void* out, int batch, int heads,
-                        int nq, int nk, int dh, cudaStream_t stream) {
+template <int = 0>
+int train_fwd_tc(const void* q, const void* k, const void* v, const float* vsum,
+                 const float* m_eff, const float* c_eff, const int64_t* seed, int thr,
+                 float scale, float* lse, void* onorm, void* out, int batch, int heads,
+                 int nq, int nk, int dh, cudaStream_t stream) {
   return forward_tc<true>(q, k, v, seed, thr, scale, lse, onorm,
                           Outs{nullptr, nullptr, vsum, m_eff, c_eff, out}, batch, heads, nq,
                           nk, dh, stream);
 }
 
 // The float32 route (route 4 of vit_bn_fwd and vit_train_fwd): exact BN.
-inline int bn_fwd_tc_f32(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
-                         float scale, float* lse, void* onorm, float* srow, float* crow,
-                         int batch, int heads, int nq, int nk, int dh, cudaStream_t stream) {
+template <int = 0>
+int bn_fwd_tc_f32(const void* q, const void* k, const void* v, const int64_t* seed, int thr,
+                  float scale, float* lse, void* onorm, float* srow, float* crow,
+                  int batch, int heads, int nq, int nk, int dh, cudaStream_t stream) {
   return forward_tc_f32<false>(q, k, v, seed, thr, scale, lse, onorm,
                                Outs{srow, crow, nullptr, nullptr, nullptr, nullptr}, batch,
                                heads, nq, nk, dh, stream);
 }
 
 // The float32 route: frozen BN.
-inline int train_fwd_tc_f32(const void* q, const void* k, const void* v, const float* vsum,
-                            const float* m_eff, const float* c_eff, const int64_t* seed, int thr,
-                            float scale, float* lse, void* onorm, void* out, int batch,
-                            int heads, int nq, int nk, int dh, cudaStream_t stream) {
+template <int = 0>
+int train_fwd_tc_f32(const void* q, const void* k, const void* v, const float* vsum,
+                     const float* m_eff, const float* c_eff, const int64_t* seed, int thr,
+                     float scale, float* lse, void* onorm, void* out, int batch,
+                     int heads, int nq, int nk, int dh, cudaStream_t stream) {
   return forward_tc_f32<true>(q, k, v, seed, thr, scale, lse, onorm,
                               Outs{nullptr, nullptr, vsum, m_eff, c_eff, out}, batch, heads, nq,
                               nk, dh, stream);
+}
+
+// Kernel 1's float32 route (route 4 of vit_flash_reattention): lse and the
+// mixed out, no dropout, no o_norm; nk may be 0.
+template <int = 0>
+int eval_fwd_tc_f32(const void* q, const void* k, const void* v, const float* vsum,
+                    const float* m_eff, const float* c_eff, float* lse, void* out, int batch,
+                    int heads, int nq, int nk, int dh, cudaStream_t stream) {
+  return forward_tc_f32<true, true>(q, k, v, nullptr, 0, 1.f, lse, nullptr,
+                                    Outs{nullptr, nullptr, vsum, m_eff, c_eff, out}, batch,
+                                    heads, nq, nk, dh, stream);
 }
 
 }  // namespace vit_bnfwd

@@ -1451,12 +1451,16 @@ int launch_maps(const void* q, const void* k, const void* v, const void* g, cons
 //            2,048 = 181,392 B; 832 blocks at b64 N 196, 7 q tiles each; a
 //            warp's dk or dv 96 registers (step 2 has 4 sub-tiles a q tile:
 //            half the warps wait there).
-// cudaErrorInvalidValue for any other shape.
-inline int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
-                        const float* lse, const float* dvec, const float* m_eff,
-                        const float* gmat, const float* kappa, const int64_t* seed, int thr,
-                        float scale, float* dq, float* dk, float* dv, void* work, int batch,
-                        int heads, int nq, int nk, int dh, cudaStream_t stream) {
+// cudaErrorInvalidValue for any other shape.  A template only so that a
+// source that includes this header for its helpers (the eval source, through
+// reattention_bnfwd_tc.cuh) compiles none of these kernels; so is
+// train_bwd_tc_f32.
+template <int = 0>
+int train_bwd_tc(const void* q, const void* k, const void* v, const void* g,
+                 const float* lse, const float* dvec, const float* m_eff,
+                 const float* gmat, const float* kappa, const int64_t* seed, int thr,
+                 float scale, float* dq, float* dk, float* dv, void* work, int batch,
+                 int heads, int nq, int nk, int dh, cudaStream_t stream) {
 #define VIT_BWD_TC(...)                                                                    \
   launch<Cfg<__VA_ARGS__>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, seed, thr, scale, dq, dk, \
                            dv, batch, nq, nk, stream)
@@ -1498,11 +1502,12 @@ inline int train_bwd_tc(const void* q, const void* k, const void* v, const void*
 //            blocks at b64 N 196, 13 q tiles each; step 2 has 2 sub-tiles a
 //            q tile (6 warps wait there).
 // cudaErrorInvalidValue for any other shape.
-inline int train_bwd_tc_f32(const void* q, const void* k, const void* v, const void* g,
-                            const float* lse, const float* dvec, const float* m_eff,
-                            const float* gmat, const float* kappa, const int64_t* seed, int thr,
-                            float scale, float* dq, float* dk, float* dv, int batch, int heads,
-                            int nq, int nk, int dh, cudaStream_t stream) {
+template <int = 0>
+int train_bwd_tc_f32(const void* q, const void* k, const void* v, const void* g,
+                     const float* lse, const float* dvec, const float* m_eff,
+                     const float* gmat, const float* kappa, const int64_t* seed, int thr,
+                     float scale, float* dq, float* dk, float* dv, int batch, int heads,
+                     int nq, int nk, int dh, cudaStream_t stream) {
 #define VIT_BWD_F32(DH, BKEY, BQ, MINB, TRIPLE)                                       \
   launch<Cfg<4, DH, BKEY, BQ, MINB, true, TRIPLE>>(q, k, v, g, lse, dvec, m_eff, gmat, kappa, \
                                                    seed, thr, scale, dq, dk, dv, batch, nq, nk, \

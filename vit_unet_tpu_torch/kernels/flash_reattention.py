@@ -13,7 +13,8 @@ The kernel (``csrc/flash_reattention.cu``) replaces the Pallas TPU kernel
 ``flash_reattention`` (body ``_kernel``).  With a head mix it runs in two
 passes (per-row log-sum-exp, then the head-mixed probabilities @ V), which
 keeps a block's state to (rows x dh) accumulators instead of the TPU form's
-(H, bq, H*dh) one.  It has four routes, and ``kernel_route`` names the one a call takes
+(H, bq, H*dh) one, but at lite's float32 classes in the TPU form's one
+pass.  It has five routes, and ``kernel_route`` names the one a call takes
 from the input dtype, (heads, dh) and the caller's ``identity_mix`` flag,
 nothing else:
 
@@ -41,10 +42,22 @@ nothing else:
   TPU kernel rounds them.  What bounds it on the H100 is the per-entry work
   between the products (exp, the H x H mix, shared-memory trips), not the
   MMAs or the bytes; the header of the source has the budget per class.
+* ``tensor_core_f32`` (``csrc/reattention_bnfwd_tc.cuh``'s
+  ``eval_fwd_tc_f32``): float32 inputs at ``TENSOR_CORE_F32_SHAPES``, lite's
+  levels (4, 12), (4, 48), (4, 192), without the identity flag (with it
+  (4, 192) takes ``identity_f32``).  Kernel 1 is the frozen-BN training
+  forward's function at dropout rate 0, ``out = sum_h2 M o_norm_h2 + c
+  vsum``, so the route runs that forward's f32 sweep in one pass, as the
+  TPU kernel does (online softmax, f32 accumulators of all heads' columns,
+  the mix at the end, ``vsum`` summed outside), with no dropout draw and no
+  o_norm stores: q, K, A and V_cat carried as bf16 triples hi, mid, lo,
+  every product as six bf16 MMAs, about f32's own rounding.  The wrapper
+  passes ``vsum`` and the compact M and c; ``w`` and ``b`` are not read.
 * ``cuda_core`` (``csrc/flash_reattention.cu``): float32 inputs without
-  the identity flag or at other shapes, and bfloat16 at any other shape.  Every product is an f32 FMA, so float32 is
-  computed in full float32; shared-memory loads and barrier
-  round trips bound it, far above its operation count.
+  the identity flag at other shapes, and bfloat16 at any other shape.
+  Every product is an f32 FMA, so float32 is computed in full float32;
+  shared-memory loads and barrier round trips bound it, far above its
+  operation count.
 
 On a CPU tensor ``flash_reattention`` runs ``flash_reattention_plain``; on a
 CUDA tensor it launches the kernel or raises.  An exported program
@@ -62,8 +75,10 @@ import torch
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 16
 MAX_HEAD_DIM = 384
-# the C interface's route 0, 1, 2, 3
-ROUTES = ("cuda_core", "tensor_core", "identity_tc", "identity_f32")
+# the C interface's route 0, 1, 2, 3, 4
+ROUTES = ("cuda_core", "tensor_core", "identity_tc", "identity_f32", "tensor_core_f32")
+#: routes that run the function in one pass: ``launch_passes`` takes passes=3 only
+ONE_PASS_ROUTES = frozenset({"identity_tc", "identity_f32", "tensor_core_f32"})
 #: (heads, dh) classes the tensor-core kernels are built for: the level
 #: shapes of the lite, base, large and notebook512 presets, the classifier's
 #: two 16-head levels and HViTUNetTF's level-0 keras attention, (8, 192)
@@ -73,6 +88,9 @@ TENSOR_CORE_SHAPES = frozenset({
 #: (heads, dh) classes of the identity-mix routes (bfloat16 and float32):
 #: HViTUNetTF's level-0 keras attention and a rank's heads of it at model 2
 IDENTITY_TC_SHAPES = frozenset({(8, 192), (4, 192)})
+#: (heads, dh) classes of the float32 tensor-core routes, lite's levels: kernel
+#: 1's here, and the one set of the three training kernels' f32 routes
+TENSOR_CORE_F32_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
 
 
 def kernel_takes(heads: int, dh: int) -> bool:
@@ -98,6 +116,8 @@ def kernel_route(dtype: torch.dtype, heads: int, dh: int,
             return "identity_f32"
     if dtype == torch.bfloat16 and (heads, dh) in TENSOR_CORE_SHAPES:
         return "tensor_core"
+    if dtype == torch.float32 and (heads, dh) in TENSOR_CORE_F32_SHAPES:
+        return "tensor_core_f32"
     return "cuda_core"
 
 
@@ -184,8 +204,7 @@ def _library():
     lib = _build.load("flash_reattention.cu")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vit_flash_reattention.argtypes = [p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, p]
+        lib.vit_flash_reattention.argtypes = [p] * 10 + [i] * 8 + [p]
         lib.vit_flash_reattention.restype = i
         lib.vit_cuda_error_string.argtypes = [i]
         lib.vit_cuda_error_string.restype = ctypes.c_char_p
@@ -197,23 +216,30 @@ def launch_passes(q, k, v_cat, w, b, lse, out, *, route: str, passes: int = 3):
     """Launch the kernels of ``route`` on checked CUDA inputs, into the
     caller's ``lse`` (B, H, N_q) f32 and ``out``.  ``passes``: bit 0 the
     log-sum-exp pass, bit 1 the output pass, which reads ``lse``; the
-    identity routes are one pass and take 3 only, and do not read ``w`` and
-    ``b``.  Only the measurements and the route-against-route tests name a
-    route or a pass themselves; it counts no launch."""
+    one-pass routes (``ONE_PASS_ROUTES``) take 3 only and do not read ``w``
+    and ``b``: the identity routes' mix is the identity, and
+    ``tensor_core_f32`` takes ``vsum`` (sum over the keys of ``v_cat``) and
+    the compact M and c, formed here.  Only the measurements and the
+    route-against-route tests name a route or a pass themselves; it counts
+    no launch."""
     batch, heads, n_q, dh = q.shape
-    if route.startswith("identity") and passes != 3:
-        raise ValueError("the identity routes run in one pass: passes=3")
+    if route in ONE_PASS_ROUTES and passes != 3:
+        raise ValueError(f"the {route} route runs in one pass: passes=3")
     if route != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v_cat, out)):
         raise ValueError("the tensor-core routes copy 16 bytes at a time: q, "
                          "k, v_cat and out must start at 16-byte aligned addresses")
+    mix = (None, None, None)
+    if route == "tensor_core_f32":
+        m_eff, c_eff = _compact_from_expanded(w, b, dh)
+        mix = (v_cat.float().sum(1), m_eff.contiguous(), c_eff.contiguous())
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vit_flash_reattention(
             q.data_ptr(), k.data_ptr(), v_cat.data_ptr(), w.data_ptr(),
-            b.data_ptr(), lse.data_ptr(), out.data_ptr(), batch, heads, n_q,
-            k.shape[2], dh, SUPPORTED_DTYPES[q.dtype], ROUTES.index(route),
-            passes, stream)
+            b.data_ptr(), *(t if t is None else t.data_ptr() for t in mix),
+            lse.data_ptr(), out.data_ptr(), batch, heads, n_q, k.shape[2], dh,
+            SUPPORTED_DTYPES[q.dtype], ROUTES.index(route), passes, stream)
     if rc:
         raise RuntimeError(f"flash_reattention kernel launch failed ({route}): "
                            + lib.vit_cuda_error_string(rc).decode())

@@ -106,7 +106,7 @@ import torch
 
 from vit_unet_tpu_torch.kernels.flash_reattention import (
     IDENTITY_TC_SHAPES, MAX_HEAD_DIM, MAX_HEADS, SUPPORTED_DTYPES,
-    fold_reattention_compact,
+    TENSOR_CORE_F32_SHAPES, fold_reattention_compact,
 )
 
 ROUTES = ("cuda_core", "tensor_core")      # the C interface's route 0 and 1
@@ -128,8 +128,9 @@ LITE_TC_SHAPES = frozenset({(4, 12), (4, 48), (4, 192)})
 HEAD16_TC_SHAPES = frozenset({(16, 12), (16, 48)})
 TRAIN_FWD_TC_SHAPES = BN_FWD_TC_SHAPES = TRAIN_BWD_TC_SHAPES = (
     frozenset({(8, 24), (8, 96), (8, 384)}) | LITE_TC_SHAPES | HEAD16_TC_SHAPES)
-#: (heads, dh) classes of each training kernel's f32 tensor-core route: lite's
-TRAIN_FWD_F32_SHAPES = BN_FWD_F32_SHAPES = TRAIN_BWD_F32_SHAPES = LITE_TC_SHAPES
+#: (heads, dh) classes of each training kernel's f32 tensor-core route: lite's,
+#: the set of kernel 1's
+TRAIN_FWD_F32_SHAPES = BN_FWD_F32_SHAPES = TRAIN_BWD_F32_SHAPES = TENSOR_CORE_F32_SHAPES
 
 
 def _route(shapes, f32_shapes, dtype: torch.dtype, heads: int, dh: int) -> str:
